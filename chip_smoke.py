@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Phases, each printing one line; any failure exits non-zero before the
-last line:
+last line.  The simulator's path:
   1. the card's name and power limit (nvidia-smi) and the build of the
-     port's CUDA kernel (sm_issue) from the sources in this checkout;
+     port's CUDA kernels (sm_issue and wkv6, one nvcc each, started
+     together) from the sources in this checkout;
   2. the kernel against its plain PyTorch version on the card, exact
      equality on seeded cases at the TINY and RTX 3080 Ti shapes, and the
      time per launch of both;
@@ -17,6 +18,29 @@ last line:
      quanta/s, simulated cycles/s and kernel launches;
   5. a profile of the first 16 quanta of syrk@0.16: device busy and
      idle share, kernel launches and device-to-host reads per quantum;
+The RWKV-6 serving path (f32 products in full f32: TF32 is off):
+  a. the wkv6 build's ptxas registers;
+  b. wkv6 against its plain PyTorch version (wkv6_plain) on seeded cases,
+     hs in {16, 32, 64} x S in {1, 64, 512}, zero and random initial
+     state, and the full-width shape (8, 512, 32, 64) that the main path
+     launches it at, rtol = atol = 1e-4; there, both against the
+     recurrence in f64 (wkv6 held to 1e-4), the time per launch of both,
+     and the bound;
+  c. the reduced rwkv6-1.6b with seeded weights against
+     tests/golden/torch_port_rwkv6_reduced.json (the JAX package's
+     prefill and decode logits, 1e-4, and greedy tokens);
+  d. rwkv6-1.6b at full width (24 layers, d_model 2048): generate for
+     batch 8, prompt 512, 32 new tokens, wkv6 launched once per layer of
+     the prefill; cache consistency (prefill against a shorter prefill
+     plus decode steps): 448 + 64 and 63 + 1 steps within 1e-3 of the
+     largest logit, 64 + 64 within 2e-3 (MODEL_F32_TOL), and witnesses
+     of that case, held to the same: the same with every prefill through
+     wkv6_plain, the kernel against wkv6_plain in the model, and the
+     drift of the same steps from a state moved by one f32 rounding;
+     medians and ranges over three windows of prefill, decode and
+     generate wall, tokens/s, peak device memory, and profiles of a
+     prefill and of four decode steps.
+Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
 
@@ -27,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,6 +65,20 @@ ALU_OPS_PER_S = 67e12
 # integer operations per warp slot: the candidate mask, the key, the
 # argmin (counted generously)
 OPS_PER_SLOT = 24
+# wkv: per token and state element, the k (x) v product (1), the decay-and-
+# add (2) and the read-out (2)
+WKV_OPS_PER_ELEMENT = 5
+WKV_TOL = 1e-4                   # tests/test_kernels.py's wkv6 tolerance
+WKV_FULL_SHAPE = (8, 512, 32, 64)        # (B, S, H, hs) of phase d's prefill
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 32
+CONSISTENCY_TOL = 1e-3           # of the largest logit
+# of the largest logit, for two f32 runs of the full-width model that
+# round differently and that CONSISTENCY_TOL cannot hold: 128 tokens
+# against 64 plus 64 decode steps, and the kernel against wkv6_plain in
+# the prefill.  Set from their readings, 6.2e-4 to 1.1e-3 (PERF.md, PR 12)
+MODEL_F32_TOL = 2e-3
+RWKV_REPEATS = 3                 # timing windows of phase d
 
 
 def check(cond, msg):
@@ -183,6 +222,294 @@ def phase_kernel(torch, K):
             "bytes": n_bytes}
 
 
+def wkv_case(rng, torch, b, s, h, hs, zero_state):
+    """Seeded wkv6 inputs on the card, tests/test_kernels.py's
+    distributions: r, k, v ~ 0.5 N, log decay -exp(N - 1), u ~ 0.3 N;
+    the initial state ~ 0.5 N, or zero (the TPU kernel's contract)."""
+    f = np.float32
+    shp = (b, s, h, hs)
+    host = [(0.5 * rng.standard_normal(shp)).astype(f) for _ in range(3)]
+    host.append((-np.exp(rng.standard_normal(shp) - 1)).astype(f))
+    host.append((0.3 * rng.standard_normal((h, hs))).astype(f))
+    host.append(np.zeros((b, h, hs, hs), f) if zero_state else
+                (0.5 * rng.standard_normal((b, h, hs, hs))).astype(f))
+    return [torch.as_tensor(x, device="cuda") for x in host]
+
+
+def wkv_bound(b, s, h, hs):
+    """(bound_ms, bound_by, bytes, operations) of one wkv over (b, s, h,
+    hs): r, k, v, w, u and the initial state read once, o and the final
+    state written once, against WKV_OPS_PER_ELEMENT f32 operations per
+    token and state element at the card's f32 rate."""
+    n_bytes = 4 * (5 * b * s * h * hs + h * hs + 2 * b * h * hs * hs)
+    n_ops = WKV_OPS_PER_ELEMENT * b * s * h * hs * hs
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def phase_wkv6(torch, W):
+    """wkv6 against wkv6_plain on seeded cases, then timed at the
+    full-width shape."""
+    from repro_torch.kernels.wkv6.ref import wkv_ref_stepwise
+    rng = np.random.default_rng(20261017)
+    n_cases, max_err, worst = 0, 0.0, 0.0
+    cases = [((2, s, 4, hs), zero_state) for hs in (16, 32, 64)
+             for s in (1, 64, 512) for zero_state in (True, False)]
+    # last, the shape the main path launches it at, which is also timed
+    cases.append((WKV_FULL_SHAPE, True))
+    for shape, zero_state in cases:
+        args = wkv_case(rng, torch, *shape, zero_state)
+        got = W.wkv6(*args)
+        want = W.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            err = (g - r).abs()
+            max_err = max(max_err, float(err.max()))
+            # allclose's measure: |g - r| <= atol + rtol |r|
+            worst = max(worst, float(
+                (err / (WKV_TOL + WKV_TOL * r.abs())).max()))
+        n_cases += 1
+    check(worst <= 1.0, f"wkv6 disagrees with wkv6_plain beyond "
+          f"rtol = atol = {WKV_TOL} (max abs err {max_err}, worst "
+          f"err/tol {worst})")
+    # at the full-width shape, both f32 forms against the recurrence in f64
+    truth = wkv_ref_stepwise(*(a.double() for a in args))
+    vs_f64 = {name: max(float((o.double() - t).abs().max())
+                        for o, t in zip(out, truth))
+              for name, out in (("wkv6", got), ("wkv6_plain", want))}
+    check(all(torch.allclose(o.double(), t, rtol=WKV_TOL, atol=WKV_TOL)
+              for o, t in zip(got, truth)),
+          f"wkv6 disagrees with the f64 recurrence beyond rtol = atol = "
+          f"{WKV_TOL} (max abs err {vs_f64['wkv6']})")
+    wrapper_ms = time_per_call(torch, lambda: W.wkv6(*args), 20)
+    plain_ms = time_per_call(torch, lambda: W.wkv6_plain(*args), 5)
+
+    def launches():
+        for _ in range(10):
+            W.wkv6(*args)
+    events, _ = profiled(torch, launches)
+    kern = [us for name, us in events if "wkv6_kernel" in name]
+    ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
+    bound_ms, bound_by, n_bytes, n_ops = wkv_bound(*WKV_FULL_SHAPE)
+    return {"cases": n_cases, "max_abs_err": max_err, "worst": worst,
+            "vs_f64": vs_f64, "ms": ms, "wrapper_ms": wrapper_ms, "device_timed": bool(kern),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def phase_rwkv_reduced(torch, W):
+    """The reduced rwkv6-1.6b on the card against the JAX package's
+    golden result for the same seeded weights and prompt."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import (lm_params_to_torch, params_fingerprint,
+                                     seeded_lm_params)
+    from repro_torch.models import factory
+    from repro_torch.models.lm import LM
+
+    with open(os.path.join(GOLDEN, "torch_port_rwkv6_reduced.json")) as f:
+        golden = json.load(f)
+    cfg = get_reduced(golden["arch"])
+    tree = seeded_lm_params(cfg, golden["weight_seed"])
+    fp = params_fingerprint(tree)
+    check(abs(fp - golden["weights_sum"]) <= 1e-9 * golden["weights_sum"],
+          f"seeded weights differ from the golden's (sum |w| {fp} vs "
+          f"{golden['weights_sum']}): numpy's random stream changed")
+    model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, "cuda"))
+    prompts = torch.tensor(golden["prompt"], dtype=torch.int32,
+                           device="cuda")
+    W.wkv6.launches = 0
+    logits, cache = _prefill(model, prompts, cfg)
+    launches = W.wkv6.launches
+    check(launches == cfg.n_layers, f"reduced prefill launched wkv6 "
+          f"{launches} times for {cfg.n_layers} layers")
+    tok = torch.tensor(golden["tokens"], dtype=torch.int32,
+                       device="cuda")[:, :1]
+    dec, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+    errs = {}
+    for key, got in (("prefill_logits", logits), ("decode_logits", dec)):
+        want = torch.tensor(golden[key], device="cuda")
+        err = (got - want).abs()
+        errs[key] = float(err.max())
+        check(bool((err <= WKV_TOL + WKV_TOL * want.abs()).all()),
+              f"reduced {key} differ from the golden by up to "
+              f"{errs[key]} (rtol = atol = {WKV_TOL})")
+    toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
+    check(toks.cpu().tolist() == golden["tokens"],
+          f"reduced greedy tokens {toks.cpu().tolist()} differ from the "
+          f"golden {golden['tokens']}")
+    return {"errs": errs, "launches": launches, "cfg": cfg,
+            "shape": tuple(prompts.shape), "new": golden["max_new"]}
+
+
+def _prefill(model, tokens, cfg):
+    from repro_torch.models import factory
+    return factory.prefill(model, {"tokens": tokens}, cfg=cfg)
+
+
+def _decode_after(torch, model, cfg, prompts, s, steps, noise=None):
+    """Logits for prompts[:, :s] as a prefill of s - steps tokens followed
+    by `steps` decode steps.  noise: a generator that scales every wkv
+    state of the prefill's cache by (1 + 2^-23 N(0, 1)), one f32 rounding
+    of the state, before the steps."""
+    from repro_torch.models import factory
+    dec, cache = _prefill(model, prompts[:, :s - steps], cfg)
+    if noise is not None:
+        for g in cache["groups"]:
+            g["S"] = g["S"] * (1 + 2.0 ** -23 * torch.randn(
+                g["S"].shape, generator=noise, device=g["S"].device))
+    for i in range(s - steps, s):
+        dec, cache = factory.decode(
+            model, cache, {"tokens": prompts[:, i:i + 1]}, cfg=cfg)
+    return dec
+
+
+def rwkv_config():
+    from repro_torch.configs import get_config
+    return get_config(RWKV_ARCH)
+
+
+def _spread(xs):
+    """(median, min, max) of a list of readings."""
+    return float(np.median(xs)), min(xs), max(xs)
+
+
+def phase_rwkv_full(torch, W, K):
+    """The RWKV-6 serving path at full width through factory.generate."""
+    from repro_torch.models import factory
+    from repro_torch.models.layers import rwkv6 as rwkv_layers
+
+    cfg = rwkv_config()
+    t0 = time.perf_counter()
+    model = factory.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    # warm-up: cuBLAS handles, the caching allocator
+    factory.generate(model, cfg, prompts, max_new=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0 just before, read just after
+    W.wkv6.launches = 0
+    K.issue_select.launches = 0
+    toks = factory.generate(model, cfg, prompts, max_new=RWKV_NEW)
+    torch.cuda.synchronize()
+    launches = W.wkv6.launches
+    check(K.issue_select.launches == 0, "generate launched sm_issue")
+    check(launches == cfg.n_layers, f"generate launched wkv6 {launches} "
+          f"times; the prefill has {cfg.n_layers} layers")
+    check(tuple(toks.shape) == (RWKV_BATCH, RWKV_NEW),
+          f"generate returned {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generate returned tokens outside the vocabulary")
+
+    # times: RWKV_REPEATS windows, each of a prefill, the decode steps that
+    # generate takes after it (timed alone), and a whole generate
+    times = {"prefill": [], "decode": [], "generate": []}
+    for _ in range(RWKV_REPEATS):
+        t0 = time.perf_counter()
+        logits, cache = _prefill(model, prompts, cfg)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        for _ in range(RWKV_NEW - 1):
+            step_logits, cache = factory.decode(model, cache,
+                                                {"tokens": tok}, cfg=cfg)
+            tok = torch.argmax(step_logits, -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        times["decode"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        again = factory.generate(model, cfg, prompts, max_new=RWKV_NEW)
+        torch.cuda.synchronize()
+        times["generate"].append(time.perf_counter() - t0)
+        check(torch.equal(again, toks), "generate is not deterministic")
+        check(torch.equal(toks[:, -1:], tok), "generate's last token "
+              "differs from the separately timed decode steps'")
+    # decode inside generate: its wall less the prefill of the same window
+    times["generate - prefill"] = [g - p for g, p in zip(
+        times["generate"], times["prefill"])]
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(torch.equal(toks[:, 0], torch.argmax(logits, -1).int()),
+          "generate's first token is not the prefill's argmax")
+
+    # cache consistency: the kernel's prefill state against the plain
+    # decode steps, within CONSISTENCY_TOL of the largest logit.  512 - 1
+    # tokens do not split into chunks of 64, so the full prompt is checked
+    # against 448 tokens plus 64 steps, and a one-chunk prompt of 64
+    # against 63 tokens plus one step.  A prompt of 128 against 64 plus 64
+    # steps is held to MODEL_F32_TOL, with its witnesses below.
+    cons = []
+    fulls = {}
+    for s, steps, tol in ((RWKV_PROMPT, 64, CONSISTENCY_TOL),
+                          (64, 1, CONSISTENCY_TOL),
+                          (128, 64, MODEL_F32_TOL)):
+        full = logits if s == RWKV_PROMPT else \
+            _prefill(model, prompts[:, :s], cfg)[0]
+        dec = _decode_after(torch, model, cfg, prompts, s, steps)
+        fulls[s] = (full, dec)
+        diff = float((full - dec).abs().max())
+        scale = float(full.abs().max())
+        cons.append((s, steps, diff, scale, tol))
+        check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    # witnesses of the 64 + 64 case: the same run with every prefill's
+    # recurrence routed through wkv6_plain in place of the kernel, and the
+    # kernel's run with its 64-token state moved by one f32 rounding
+    full_k, dec_k = fulls[128]
+    scale = float(full_k.abs().max())
+    rwkv_layers.wkv6 = W.wkv6_plain
+    try:
+        full_p = _prefill(model, prompts[:, :128], cfg)[0]
+        dec_p = _decode_after(torch, model, cfg, prompts, 128, 64)
+    finally:
+        rwkv_layers.wkv6 = W.wkv6
+    dec_n = _decode_after(torch, model, cfg, prompts, 128, 64,
+                          noise=torch.Generator(device="cuda").manual_seed(2))
+
+    def ratio(a, b):
+        return float((a - b).abs().max()) / scale
+
+    witness = {"plain prefill vs plain 64 + 64": ratio(full_p, dec_p),
+               "kernel vs plain prefill of 128": ratio(full_k, full_p),
+               "kernel vs plain 64-token prefill, then 64 steps":
+                   ratio(dec_k, dec_p),
+               "64 + 64 vs the same with its state moved by 2^-23":
+                   ratio(dec_k, dec_n)}
+
+    # where the time goes: a prefill, then four decode steps
+    windows = {}
+    state = {}
+
+    def prefill_window():
+        state["cache"] = _prefill(model, prompts, cfg)[1]
+
+    def decode_window():
+        cache, tok = state["cache"], toks[:, :1]
+        for _ in range(4):
+            _, cache = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+
+    for name, fn in (("prefill", prefill_window), ("4 decode steps",
+                                                    decode_window)):
+        events, wall = profiled(torch, fn)
+        by_name = {}
+        for ev, us in events:
+            by_name[ev] = by_name.get(ev, 0.0) + us
+        windows[name] = {
+            "wall": wall, "busy": sum(by_name.values()) / 1e6,
+            "n": len(events),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4]}
+    return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
+            "times": {k: _spread(v) for k, v in times.items()},
+            "launches": launches, "peak": peak, "cons": cons,
+            "witness": witness, "windows": windows,
+            "sample": toks[0, :8].tolist()}
+
+
 def run_case(torch, K, bench, scale, cfg, mode, max_cycles):
     from repro_torch.core import stats as S
     from repro_torch.core.engine import simulate
@@ -203,6 +530,7 @@ def run_case(torch, K, bench, scale, cfg, mode, max_cycles):
 
 
 def main():
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -210,6 +538,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.sm_issue import kernel as K
+    from repro_torch.kernels.wkv6 import kernel as W
     from repro_torch.sim.config import RTX3080TI, TINY
 
     with open(os.path.join(GOLDEN, "determinism_tiny.json")) as f:
@@ -217,12 +546,20 @@ def main():
     with open(os.path.join(GOLDEN, "torch_port_rtx3080ti.json")) as f:
         full_golden = json.load(f)
 
-    # 1. card and build
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card and build: one nvcc per kernel source, started together
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    info = K.build()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(mod.build)
+                  for name, mod in (("sm_issue", K), ("wkv6", W))}
+        info = builds["sm_issue"].result()
+        build_s = time.perf_counter() - t0
+        wkv_info = builds["wkv6"].result()
+        wkv_build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "Used" in ln]
     print(f"[1 build] card: {card}; torch {torch.__version__} cuda "
@@ -305,6 +642,90 @@ def main():
         print(f"[5 profile] the profiler saw no device activity: device "
               f"busy share not measured (wall {wall:.3f} s)", flush=True)
 
+    # a. the wkv6 build
+    ptxas = [ln.strip() for ln in wkv_info["log"].splitlines()
+             if "registers" in ln or "Used" in ln]
+    print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
+          f"sm_issue (both loaded {wkv_build_s:.2f} s after the start); "
+          f"ptxas: {' | '.join(ptxas)}", flush=True)
+
+    # b. wkv6 against its plain version, and its time
+    wr = phase_wkv6(torch, W)
+    print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases (hs 16/32/64"
+          f" x S 1/64/512 x zero/random state, and {WKV_FULL_SHAPE}; max "
+          f"abs err "
+          f"{wr['max_abs_err']:.3e}, worst err/tol {wr['worst']:.4f} at "
+          f"rtol = atol = {WKV_TOL}); at {WKV_FULL_SHAPE} against the "
+          f"recurrence in f64: wkv6 max abs err {wr['vs_f64']['wkv6']:.3e}, "
+          f"wkv6_plain {wr['vs_f64']['wkv6_plain']:.3e}; there: kernel "
+          f"{wr['ms'] * 1e3:.2f} us/launch on the device "
+          f"({'profiler' if wr['device_timed'] else 'not profiled: events'})"
+          f", wrapper {wr['wrapper_ms'] * 1e3:.2f} us/call, plain "
+          f"{wr['plain_ms'] * 1e3:.2f} us/call, bound "
+          f"{wr['bound_ms'] * 1e3:.2f} us ({wr['bound_by']}: "
+          f"{wr['bytes']} B, {wr['ops']} f32 ops)", flush=True)
+
+    # c. the reduced model against the JAX package's golden result
+    rr = phase_rwkv_reduced(torch, W)
+    print(f"[c rwkv reduced] {RWKV_ARCH} reduced ({rr['cfg'].n_layers} "
+          f"layers, d_model {rr['cfg'].d_model}, hs "
+          f"{rr['cfg'].rwkv.head_size}), prompt {rr['shape']}: golden OK "
+          f"(prefill logits max abs err {rr['errs']['prefill_logits']:.3e},"
+          f" decode {rr['errs']['decode_logits']:.3e}; {rr['new']} greedy "
+          f"tokens equal), {rr['launches']} wkv6 launches in the prefill",
+          flush=True)
+
+    # d. the serving path at full width
+    fr = phase_rwkv_full(torch, W, K)
+    cfg = fr["cfg"]
+    t = fr["times"]
+    n_pre, n_dec = RWKV_BATCH * RWKV_PROMPT, RWKV_BATCH * (RWKV_NEW - 1)
+
+    def spread(key, per=1.0, unit="s", f=".3f"):
+        med, lo, hi = (x * per for x in t[key])
+        return f"{med:{f}} {unit} (range {lo:{f}}-{hi:{f}})"
+
+    print(f"[d rwkv full] {RWKV_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.rwkv.head_size}, "
+          f"vocab {cfg.vocab_size}; {fr['n_params']} parameters f32, init "
+          f"{fr['init_s']:.2f} s) generate batch {RWKV_BATCH}, prompt "
+          f"{RWKV_PROMPT}, {RWKV_NEW} new, medians of {RWKV_REPEATS} "
+          f"windows: generate wall {spread('generate')}; prefill "
+          f"{spread('prefill')} = {n_pre / t['prefill'][0]:.1f} tok/s; "
+          f"decode inside generate (generate - prefill) "
+          f"{spread('generate - prefill')} = "
+          f"{n_dec / t['generate - prefill'][0]:.1f} tok/s, "
+          f"{spread('generate - prefill', 1e3 / (RWKV_NEW - 1), 'ms', '.2f')}"
+          f" per step; the {RWKV_NEW - 1} decode steps timed alone "
+          f"{spread('decode', 1e3 / (RWKV_NEW - 1), 'ms', '.2f')} per step; "
+          f"peak device memory {fr['peak'] / 2**30:.3f} GiB; "
+          f"{fr['launches']} wkv6 launches; sample {fr['sample']}",
+          flush=True)
+    for s_, steps, diff, scale, tol in fr["cons"]:
+        print(f"[d rwkv full] cache consistency: prefill of {s_} tokens vs "
+              f"{s_ - steps} + {steps} decode steps: max |diff| {diff:.3e},"
+              f" max |logit| {scale:.3f} (ratio {diff / scale:.3e}, limit "
+              f"{tol})", flush=True)
+    for name, r in fr["witness"].items():
+        print(f"[d rwkv full] witness of 128 = 64 + 64: {name}: max |diff| "
+              f"/ max |logit| {r:.3e}", flush=True)
+    for name, w in fr["windows"].items():
+        print(f"[d rwkv full] profile of {name}: wall {w['wall']:.3f} s, "
+              f"device busy {w['busy']:.4f} s (idle share "
+              f"{1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
+              "activities; top: " + "; ".join(
+                  f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
+              flush=True)
+    for s_, steps, diff, scale, tol in fr["cons"]:
+        check(diff <= tol * scale, f"cache consistency at {s_} tokens "
+              f"({s_ - steps} + {steps} steps): max |diff| {diff} > {tol} "
+              f"x max |logit| {scale}")
+    for name, r in fr["witness"].items():
+        check(r <= MODEL_F32_TOL, f"witness {name}: {r} > {MODEL_F32_TOL} "
+              "of the largest logit")
+
+    print(f"[done] all phases passed in {time.perf_counter() - start:.1f} "
+          "s, the builds included", flush=True)
     # 6. per-kernel numbers
     print(json.dumps({"kernels": [{
         "name": "sm_issue", "route": "cuda",
@@ -316,6 +737,15 @@ def main():
         "library_ms": None, "wrapper_ms": kr["wrapper_ms"],
         "us_per_launch": kr["ms"] * 1e3,
         "plain_us": kr["plain_ms"] * 1e3, "bound_us": kr["bound_ms"] * 1e3,
+    }, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:65",
+        "launches": fr["launches"], "max_abs_err": wr["max_abs_err"],
+        "ms": wr["ms"], "plain_ms": wr["plain_ms"],
+        "bound_ms": wr["bound_ms"], "bound_by": wr["bound_by"],
+        "library_ms": None, "wrapper_ms": wr["wrapper_ms"],
+        "shape": list(WKV_FULL_SHAPE),
     }]}))
     # 7. the result
     print(json.dumps({"ok": True, "device": {

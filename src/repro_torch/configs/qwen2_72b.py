@@ -1,0 +1,21 @@
+"""qwen2-72b [dense] — GQA, QKV bias. [arXiv:2407.10671; hf]"""
+from repro_torch.configs.base import ArchConfig, register, shrink
+
+CONFIG = register(
+    ArchConfig(
+        name="qwen2-72b",
+        family="dense",
+        n_layers=80,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        d_ff=29568,
+        vocab_size=152064,
+        qkv_bias=True,
+        rope_theta=1_000_000.0,
+        source="arXiv:2407.10671",
+    ),
+    lambda: shrink(
+        CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=192, vocab_size=512),
+)

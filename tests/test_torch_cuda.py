@@ -1,6 +1,7 @@
-"""The port's CUDA path, on the card: the sm_issue kernel against its plain
-PyTorch version, the wrapper's input checks, and one simulation on the
-card against the same simulation on the CPU.
+"""The port's CUDA path, on the card: the sm_issue and wkv6 kernels
+against their plain PyTorch versions, the wrappers' input checks and
+launch counts, one simulation on the card against the same simulation on
+the CPU, and the reduced RWKV-6 model on the card against its golden file.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -8,14 +9,23 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
+from repro_torch.convert import (lm_params_to_torch, params_fingerprint,
+                                 seeded_lm_params)
 from repro_torch.core import stats as S
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
 from repro_torch.kernels.sm_issue import kernel as K
+from repro_torch.kernels.wkv6 import kernel as W
+from repro_torch.models import factory
+from repro_torch.models.lm import LM
 from repro_torch.sim.config import N_CLASSES, N_UNITS, RTX3080TI, TINY
 from repro_torch.sim.workloads import resolve_workload
 
@@ -25,10 +35,16 @@ pytestmark = pytest.mark.cuda
 SHAPES = ((8, 8, 2), (80, 48, 4), (4, 16, 4), (3, 96, 3))
 
 
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "torch_port_rwkv6_reduced.json")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the sm_issue kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU "
+                    "mode")
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 products stay f32
     return torch.device("cuda")
 
 
@@ -97,3 +113,96 @@ def test_simulate_on_card_equals_cpu(cuda, cfg, bench, scale):
                                  device="cpu"))
     assert S.comparable(on_card) == S.comparable(on_cpu)
     assert on_card["timeouts"] == on_cpu["timeouts"] == 0
+
+
+# ---------------------------------------------------------------------------
+# wkv6
+# ---------------------------------------------------------------------------
+
+# (B, S, H, hs): the reduced model's head size, test_kernels.py's, the
+# published one, and a ragged length
+WKV_SHAPES = ((2, 128, 4, 16), (2, 64, 2, 32), (2, 128, 2, 64),
+              (3, 37, 5, 64))
+
+
+def wkv_inputs(rng, b, s, h, hs, device, zero_state):
+    f = np.float32
+    shp = (b, s, h, hs)
+    host = [(0.5 * rng.standard_normal(shp)).astype(f) for _ in range(3)]
+    host.append((-np.exp(rng.standard_normal(shp) - 1)).astype(f))
+    host.append((0.3 * rng.standard_normal((h, hs))).astype(f))
+    host.append(np.zeros((b, h, hs, hs), f) if zero_state else
+                (0.5 * rng.standard_normal((b, h, hs, hs))).astype(f))
+    return [torch.as_tensor(x, device=device) for x in host]
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_wkv6_kernel_matches_plain(cuda, shape, zero_state):
+    args = wkv_inputs(np.random.default_rng(sum(shape)), *shape, cuda,
+                      zero_state)
+    before = W.wkv6.launches
+    got = W.wkv6(*args, chunk=shape[1])
+    assert W.wkv6.launches == before + 1
+    want = W.wkv6_plain(*args, chunk=shape[1])
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+def test_wkv6_wrapper_rejects_bad_inputs(cuda):
+    args = wkv_inputs(np.random.default_rng(0), 2, 8, 2, 16, cuda, False)
+    before = W.wkv6.launches
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(TypeError, match="r has dtype torch.float64"):
+        W.wkv6(*bad)
+    bad = list(args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError, match="state is on cpu"):
+        W.wkv6(*bad)
+    bad = list(args)
+    bad[4] = args[4][:1]
+    with pytest.raises(ValueError, match="u has shape"):
+        W.wkv6(*bad)
+    bad = list(args)
+    bad[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="v must be contiguous"):
+        W.wkv6(*bad)
+    odd = wkv_inputs(np.random.default_rng(1), 1, 8, 2, 48, cuda, False)
+    with pytest.raises(ValueError, match="head size 48"):
+        W.wkv6(*odd)
+    assert W.wkv6.launches == before
+
+
+def test_wkv6_counts_kernel_launches_only(cuda):
+    args = wkv_inputs(np.random.default_rng(2), 1, 16, 2, 32, cuda, True)
+    before = W.wkv6.launches
+    W.wkv6(*args)
+    W.wkv6(*args)
+    assert W.wkv6.launches == before + 2
+    W.wkv6(*(a.cpu() for a in args))
+    assert W.wkv6.launches == before + 2
+
+
+def test_rwkv6_reduced_golden_on_card(cuda):
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    cfg = get_reduced(golden["arch"])
+    tree = seeded_lm_params(cfg, golden["weight_seed"])
+    assert params_fingerprint(tree) == pytest.approx(golden["weights_sum"],
+                                                   rel=1e-9)
+    model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, cuda))
+    prompts = torch.tensor(golden["prompt"], dtype=torch.int32, device=cuda)
+    before = W.wkv6.launches
+    logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg)
+    assert W.wkv6.launches == before + cfg.n_layers
+    want = torch.tensor(golden["prefill_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    tok = torch.tensor(golden["tokens"], dtype=torch.int32,
+                       device=cuda)[:, :1]
+    logits, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+    want = torch.tensor(golden["decode_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
+    assert toks.cpu().tolist() == golden["tokens"]

@@ -18,7 +18,11 @@ import sys
 import pytest
 import torch
 
+import repro.configs as JCONFIGS
+from repro.configs import SHAPES as JSHAPES
 from repro.core import stats as JS
+from repro.workloads.lm_traces import arch_workload as jarch_workload
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.core import stats as S
 from repro_torch.core.batch import stack_kernels
 from repro_torch.core.engine import run_workload_stacked, simulate
@@ -27,6 +31,8 @@ from repro_torch.launch import simulate as cli
 from repro_torch.sim.config import RTX3080TI, TINY, split_config
 from repro_torch.sim.state import init_state
 from repro_torch.sim.workloads import resolve_workload
+from repro_torch.workloads import arch_workload
+from test_torch_trace import assert_packs_equal
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -147,9 +153,29 @@ def test_cli_prints_comparable_stats(capsys):
                                 "cycles, ipc=")
 
 
-def test_cli_refuses_arch():
-    with pytest.raises(SystemExit):
-        cli.main(["--arch", "qwen2-72b", "--device", "cpu"])
+@pytest.mark.parametrize("shape", sorted(JSHAPES))
+@pytest.mark.parametrize("arch", JCONFIGS.list_archs())
+def test_arch_workload_pack_equal(arch, shape):
+    """Every arch x shape cell's LM-derived workload packs as the JAX
+    package's does."""
+    assert_packs_equal(
+        jarch_workload(JCONFIGS.get_config(arch), JSHAPES[shape]),
+        arch_workload(get_config(arch), SHAPES[shape]))
+
+
+def test_cli_runs_arch(capsys):
+    cli.main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--max-cycles",
+              "32"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    printed = json.loads("\n".join(lines[:-1]))
+    w = arch_workload(get_config("rwkv6-1.6b"), SHAPES["train_4k"])
+    out = S.finalize(simulate(w, RTX3080TI, make_sm_runner(RTX3080TI, "vmap"),
+                              max_cycles=32, device="cpu"))
+    assert printed == S.comparable(out)
+    # five kernels, each cut at 32 cycles
+    assert out["timeouts"] == len(w.kernels) == 5
+    assert lines[-1].startswith("[simulate] rwkv6-1.6b__train_4k: "
+                                f"{printed['cycles']} GPU cycles, ipc=")
 
 
 def test_port_imports_neither_jax_nor_repro():
