@@ -40,6 +40,34 @@ The RWKV-6 serving path (f32 products in full f32: TF32 is off):
      medians and ranges over three windows of prefill, decode and
      generate wall, tokens/s, peak device memory, and profiles of a
      prefill and of four decode steps.
+The dense GQA serving path (f32, TF32 off):
+  e. the flash_attention build (in parallel with the two others): seconds,
+     and ptxas registers and spills per dtype and hd;
+  f. flash_attention against its plain PyTorch version (attention_plain)
+     on seeded cases: hd in {16, 32, 64, 128} x Sq = Sk in {1, 63, 64,
+     512} and Sq < Sk (100 over 300), causal and not, KV groups of 1 and
+     4 query heads, f32 within 2e-5 and bf16 within 2e-2
+     (tests/test_kernels.py's tolerances); then at the prefill's
+     full-width shape (8, 512, 32 query / 8 KV heads, 128), causal, f32:
+     both against the same attention in f64, the time per launch of the
+     kernel (profiler and CUDA events), of attention_plain and of
+     torch's scaled_dot_product_attention on the repeated KV heads (the
+     library yardstick; the port never calls it), and the bound;
+  g. the reduced minitron-8b and qwen2-72b with seeded weights against
+     tests/golden/torch_port_dense_reduced.json (the JAX package's
+     prefill and decode logits within 1e-4, greedy tokens, the weights'
+     fingerprint), flash_attention launched once per layer of the
+     prefill;
+  h. minitron-8b at full width (32 layers, d_model 4096, 32 query and 8
+     KV heads of 128, d_ff 16384, vocab 256,000; 7.7 B f32 parameters
+     drawn on the card), after the RWKV model is freed: generate for batch
+     8, prompt 512, 32 new tokens with flash_attention launched once per
+     layer of the prefill; cache consistency 448 + 64 and 63 + 1 steps
+     within 1e-3 of the largest logit; the kernel against attention_plain
+     inside the model on a 128-token prefill; medians and ranges over
+     three windows of prefill, decode and generate wall, tokens/s, peak
+     device memory, and profiles of a prefill and of four decode steps.
+     Every reading is printed before any is checked.
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -48,6 +76,7 @@ Imports nothing of JAX or of the JAX package.  Needs one CUDA card.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +108,13 @@ CONSISTENCY_TOL = 1e-3           # of the largest logit
 # the prefill.  Set from their readings, 6.2e-4 to 1.1e-3 (PERF.md, PR 12)
 MODEL_F32_TOL = 2e-3
 RWKV_REPEATS = 3                 # timing windows of phase d
+# flash attention: tests/test_kernels.py's tolerances by dtype
+FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+# (B, S, H, KV, hd) of phase h's prefill, where the main path launches it
+FLASH_FULL_SHAPE = (8, 512, 32, 8, 128)
+DENSE_ARCH = "minitron-8b"
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
+DENSE_REPEATS = 3                # timing windows of phase h
 
 
 def check(cond, msg):
@@ -343,18 +379,20 @@ def phase_rwkv_reduced(torch, W):
             "shape": tuple(prompts.shape), "new": golden["max_new"]}
 
 
-def _prefill(model, tokens, cfg):
+def _prefill(model, tokens, cfg, max_len=0):
     from repro_torch.models import factory
-    return factory.prefill(model, {"tokens": tokens}, cfg=cfg)
+    return factory.prefill(model, {"tokens": tokens}, cfg=cfg,
+                           max_len=max_len)
 
 
 def _decode_after(torch, model, cfg, prompts, s, steps, noise=None):
-    """Logits for prompts[:, :s] as a prefill of s - steps tokens followed
-    by `steps` decode steps.  noise: a generator that scales every wkv
-    state of the prefill's cache by (1 + 2^-23 N(0, 1)), one f32 rounding
-    of the state, before the steps."""
+    """Logits for prompts[:, :s] as a prefill of s - steps tokens (a KV
+    cache sized for s) followed by `steps` decode steps.  noise: a
+    generator that scales every wkv state of the prefill's cache by
+    (1 + 2^-23 N(0, 1)), one f32 rounding of the state, before the
+    steps."""
     from repro_torch.models import factory
-    dec, cache = _prefill(model, prompts[:, :s - steps], cfg)
+    dec, cache = _prefill(model, prompts[:, :s - steps], cfg, s)
     if noise is not None:
         for g in cache["groups"]:
             g["S"] = g["S"] * (1 + 2.0 ** -23 * torch.randn(
@@ -363,6 +401,37 @@ def _decode_after(torch, model, cfg, prompts, s, steps, noise=None):
         dec, cache = factory.decode(
             model, cache, {"tokens": prompts[:, i:i + 1]}, cfg=cfg)
     return dec
+
+
+def _windows(torch, model, cfg, prompts, toks, max_len):
+    """Device time by kernel over a prefill (its KV cache sized for
+    max_len), then over four decode steps."""
+    from repro_torch.models import factory
+    windows, state = {}, {}
+
+    def prefill_window():
+        state["cache"] = _prefill(model, prompts, cfg, max_len)[1]
+
+    def decode_window():
+        cache, tok = state["cache"], toks[:, :1]
+        for _ in range(4):
+            _, cache = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+
+    for name, fn in (("prefill", prefill_window), ("4 decode steps",
+                                                    decode_window)):
+        events, wall = profiled(torch, fn)
+        by_name = {}
+        for ev, us in events:
+            by_name[ev] = by_name.get(ev, 0.0) + us
+        windows[name] = {
+            "wall": wall, "busy": sum(by_name.values()) / 1e6,
+            "n": len(events),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
+            # the functional cache: index_put's clone and the layer stack
+            "copies": sum(us for ev, us in by_name.items()
+                          if "Memcpy DtoD" in ev
+                          or "CatArrayBatchedCopy" in ev) / 1e6}
+    return windows
 
 
 def rwkv_config():
@@ -482,31 +551,267 @@ def phase_rwkv_full(torch, W, K):
                    ratio(dec_k, dec_n)}
 
     # where the time goes: a prefill, then four decode steps
-    windows = {}
-    state = {}
-
-    def prefill_window():
-        state["cache"] = _prefill(model, prompts, cfg)[1]
-
-    def decode_window():
-        cache, tok = state["cache"], toks[:, :1]
-        for _ in range(4):
-            _, cache = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
-
-    for name, fn in (("prefill", prefill_window), ("4 decode steps",
-                                                    decode_window)):
-        events, wall = profiled(torch, fn)
-        by_name = {}
-        for ev, us in events:
-            by_name[ev] = by_name.get(ev, 0.0) + us
-        windows[name] = {
-            "wall": wall, "busy": sum(by_name.values()) / 1e6,
-            "n": len(events),
-            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4]}
+    windows = _windows(torch, model, cfg, prompts, toks, 0)
     return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
             "times": {k: _spread(v) for k, v in times.items()},
             "launches": launches, "peak": peak, "cons": cons,
             "witness": witness, "windows": windows,
+            "sample": toks[0, :8].tolist()}
+
+
+def flash_ptxas(log):
+    """'dtype/hd: N registers, S B spill stores, L B spill loads' for each
+    instance of the flash kernel in an ``nvcc -Xptxas -v`` log."""
+    out, inst = [], None
+    for ln in log.splitlines():
+        m = re.search(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E", ln)
+        if m:
+            inst = f"{'f32' if m.group(1) == 'f' else 'bf16'}/{m.group(2)}"
+            spills = ""
+        elif inst and "spill" in ln:
+            spills = ", ".join(x.strip() for x in ln.split(",")[1:])
+        elif inst and "registers" in ln:
+            regs = re.search(r"(\d+) registers", ln).group(1)
+            out.append(f"{inst}: {regs} registers, {spills}")
+            inst = None
+    return " | ".join(out)
+
+
+def flash_bound(b, sq, sk, h, kv, hd, causal, elem=4):
+    """(bound_ms, bound_by, bytes, operations) of one attention: q, k, v
+    read once and o written once, against the 4 hd f32 operations (two
+    FMAs) of each (query, key) pair it must score, those on or below the
+    right-aligned diagonal when causal, at the card's f32 rate."""
+    n_bytes = elem * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+    if causal:    # query i sees keys 0 .. Sk - Sq + i
+        pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
+    else:
+        pairs = sq * sk
+    n_ops = 4 * hd * b * h * pairs
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def flash_case(torch, gen, b, sq, sk, h, kv, hd, dtype):
+    """Seeded N(0, 1) q (B, Sq, H, hd) and k, v (B, Sk, KV, hd) on the
+    card, rounded to dtype."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return draw(b, sq, h, hd), draw(b, sk, kv, hd), draw(b, sk, kv, hd)
+
+
+def _err_over_tol(torch, got, want, tol):
+    """(max abs err, worst |g - r| / (tol + tol |r|)), allclose's measure."""
+    err = (got.double() - want.double()).abs()
+    return (float(err.max()),
+            float((err / (tol + tol * want.double().abs())).max()))
+
+
+def phase_flash(torch, FA):
+    """flash_attention against attention_plain on seeded cases, then timed
+    at the full-width shape beside the plain version and SDPA."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    n_cases, max_err, worst = 0, 0.0, 0.0
+    sizes = [(s, s) for s in (1, 63, 64, 512)] + [(100, 300)]
+    for dname, tol in FLASH_TOLS.items():
+        for hd in (16, 32, 64, 128):
+            for sq, sk in sizes:
+                for kv in (4, 1):          # groups of 1 and of 4 query heads
+                    q, k, v = flash_case(torch, gen, 2, sq, sk, 4, kv, hd,
+                                         getattr(torch, dname))
+                    for causal in (True, False):
+                        got = FA.flash_attention(q, k, v, causal=causal)
+                        want = attention_plain(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        e, w = _err_over_tol(torch, got, want, tol)
+                        max_err, worst = max(max_err, e), max(worst, w)
+                        n_cases += 1
+    # the shape the main path launches it at, which is also timed
+    b, s, h, kv, hd = FLASH_FULL_SHAPE
+    q, k, v = flash_case(torch, gen, b, s, s, h, kv, hd, torch.float32)
+    got = FA.flash_attention(q, k, v)
+    want = attention_plain(q, k, v)
+    truth = attention_plain(q.double(), k.double(), v.double())
+    torch.cuda.synchronize()
+    e, w = _err_over_tol(torch, got, want, FLASH_TOLS["float32"])
+    max_err, worst = max(max_err, e), max(worst, w)
+    n_cases += 1
+    vs_f64 = {name: _err_over_tol(torch, out, truth, FLASH_TOLS["float32"])
+              for name, out in (("flash_attention", got),
+                                ("attention_plain", want))}
+    del truth
+    wrapper_ms = time_per_call(torch, lambda: FA.flash_attention(q, k, v), 20)
+    plain_ms = time_per_call(torch, lambda: attention_plain(q, k, v), 5)
+    # the library yardstick: SDPA on (B, H, S, hd) with the KV heads repeated
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_per_call(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+                               20)
+    library_err = float((sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+                         - want).abs().max())
+
+    def launches():
+        for _ in range(10):
+            FA.flash_attention(q, k, v)
+    # a profiler window now and then reports no device activity: retry
+    for _ in range(3):
+        events, _ = profiled(torch, launches)
+        kern = [us for name, us in events if "flash_kernel" in name]
+        if kern:
+            break
+    ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
+    bound_ms, bound_by, n_bytes, n_ops = flash_bound(b, s, s, h, kv, hd, True)
+    return {"cases": n_cases, "max_abs_err": max_err, "worst": worst,
+            "vs_f64": vs_f64, "ms": ms, "wrapper_ms": wrapper_ms,
+            "device_timed": bool(kern), "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_err": library_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+            "ops": n_ops}
+
+
+def phase_dense_reduced(torch, FA):
+    """The reduced dense models on the card against the JAX package's
+    golden results for the same seeded weights and prompts."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import (jitter_constant_leaves,
+                                     lm_params_to_torch, params_fingerprint,
+                                     seeded_lm_params)
+    from repro_torch.models import factory
+    from repro_torch.models.lm import LM
+
+    with open(os.path.join(GOLDEN, "torch_port_dense_reduced.json")) as f:
+        golden = json.load(f)
+    out = {}
+    for arch, g in golden["archs"].items():
+        cfg = get_reduced(arch)
+        tree = jitter_constant_leaves(
+            seeded_lm_params(cfg, golden["weight_seed"]),
+            golden["jitter_seed"])
+        fp = params_fingerprint(tree)
+        check(abs(fp - g["weights_sum"]) <= 1e-9 * g["weights_sum"],
+              f"{arch}: seeded weights differ from the golden's (sum |w| "
+              f"{fp} vs {g['weights_sum']}): numpy's random stream changed")
+        model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, "cuda"))
+        prompts = torch.tensor(golden["prompt"][arch], dtype=torch.int32,
+                               device="cuda")
+        FA.flash_attention.launches = 0
+        logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
+                                        max_len=golden["max_len"])
+        launches = FA.flash_attention.launches
+        check(launches == cfg.n_layers, f"{arch} reduced prefill launched "
+              f"flash_attention {launches} times for {cfg.n_layers} layers")
+        tok = torch.tensor(g["tokens"], dtype=torch.int32,
+                           device="cuda")[:, :1]
+        dec, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+        errs = {}
+        for key, got in (("prefill_logits", logits), ("decode_logits", dec)):
+            want = torch.tensor(g[key], device="cuda")
+            err = (got - want).abs()
+            errs[key] = float(err.max())
+            check(bool((err <= WKV_TOL + WKV_TOL * want.abs()).all()),
+                  f"{arch} reduced {key} differ from the golden by up to "
+                  f"{errs[key]} (rtol = atol = {WKV_TOL})")
+        toks = factory.generate(model, cfg, prompts,
+                                max_new=golden["max_new"])
+        check(toks.cpu().tolist() == g["tokens"],
+              f"{arch} reduced greedy tokens {toks.cpu().tolist()} differ "
+              f"from the golden {g['tokens']}")
+        out[arch] = {"errs": errs, "launches": launches, "cfg": cfg,
+                     "shape": tuple(prompts.shape)}
+    return out, golden["max_new"]
+
+
+def dense_config():
+    from repro_torch.configs import get_config
+    return get_config(DENSE_ARCH)
+
+
+def phase_dense_full(torch, FA, W, K):
+    """The dense GQA serving path at full width through factory.generate."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models import factory
+    from repro_torch.models.layers import attention as attn_layers
+
+    cfg = dense_config()
+    t0 = time.perf_counter()
+    model = factory.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT),
+                            generator=gen, dtype=torch.int32, device="cuda")
+
+    # warm-up: cuBLAS handles, the caching allocator
+    factory.generate(model, cfg, prompts, max_new=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0 just before, read just after
+    FA.flash_attention.launches = 0
+    W.wkv6.launches = 0
+    K.issue_select.launches = 0
+    toks = factory.generate(model, cfg, prompts, max_new=DENSE_NEW)
+    torch.cuda.synchronize()
+    launches = FA.flash_attention.launches
+    others = (W.wkv6.launches, K.issue_select.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    times = {"prefill": [], "decode": [], "generate": []}
+    agree = []
+    for _ in range(DENSE_REPEATS):
+        t0 = time.perf_counter()
+        logits, cache = _prefill(model, prompts, cfg,
+                                 DENSE_PROMPT + DENSE_NEW)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        for _ in range(DENSE_NEW - 1):
+            step_logits, cache = factory.decode(model, cache,
+                                                {"tokens": tok}, cfg=cfg)
+            tok = torch.argmax(step_logits, -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        times["decode"].append(time.perf_counter() - t0)
+        del cache
+        t0 = time.perf_counter()
+        again = factory.generate(model, cfg, prompts, max_new=DENSE_NEW)
+        torch.cuda.synchronize()
+        times["generate"].append(time.perf_counter() - t0)
+        agree.append(torch.equal(again, toks) and torch.equal(toks[:, -1:],
+                                                              tok))
+    times["generate - prefill"] = [g - p for g, p in zip(
+        times["generate"], times["prefill"])]
+
+    # cache consistency: a prefill of s tokens against s - steps tokens and
+    # `steps` decode steps, within CONSISTENCY_TOL of the largest logit
+    cons = []
+    for s, steps in ((DENSE_PROMPT, 64), (64, 1)):
+        full = _prefill(model, prompts[:, :s], cfg)[0]
+        dec = _decode_after(torch, model, cfg, prompts, s, steps)
+        cons.append((s, steps, float((full - dec).abs().max()),
+                     float(full.abs().max()), bool(torch.isfinite(dec).all())))
+    # the kernel against attention_plain inside the model, 128 tokens
+    full_k = _prefill(model, prompts[:, :128], cfg)[0]
+    attn_layers.flash_attention = attention_plain
+    try:
+        full_p = _prefill(model, prompts[:, :128], cfg)[0]
+    finally:
+        attn_layers.flash_attention = FA.flash_attention
+    in_model = float((full_k - full_p).abs().max()) / float(
+        full_p.abs().max())
+
+    windows = _windows(torch, model, cfg, prompts, toks,
+                       DENSE_PROMPT + DENSE_NEW)
+    return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
+            "times": {k: _spread(v) for k, v in times.items()},
+            "launches": launches, "others": others, "peak": peak,
+            "cons": cons, "in_model": in_model, "windows": windows,
+            "agree": agree, "toks": toks, "logits": logits,
             "sample": toks[0, :8].tolist()}
 
 
@@ -537,6 +842,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.sm_issue import kernel as K
     from repro_torch.kernels.wkv6 import kernel as W
     from repro_torch.sim.config import RTX3080TI, TINY
@@ -553,13 +859,15 @@ def main():
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(mod.build)
-                  for name, mod in (("sm_issue", K), ("wkv6", W))}
+    with ThreadPoolExecutor(3) as pool:
+        builds = {name: pool.submit(mod.build) for name, mod in
+                  (("sm_issue", K), ("wkv6", W), ("flash_attention", FA))}
         info = builds["sm_issue"].result()
         build_s = time.perf_counter() - t0
         wkv_info = builds["wkv6"].result()
         wkv_build_s = time.perf_counter() - t0
+        fa_info = builds["flash_attention"].result()
+        fa_build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "Used" in ln]
     print(f"[1 build] card: {card}; torch {torch.__version__} cuda "
@@ -646,7 +954,7 @@ def main():
     ptxas = [ln.strip() for ln in wkv_info["log"].splitlines()
              if "registers" in ln or "Used" in ln]
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
-          f"sm_issue (both loaded {wkv_build_s:.2f} s after the start); "
+          f"sm_issue (loaded {wkv_build_s:.2f} s after the start); "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
     # b. wkv6 against its plain version, and its time
@@ -724,6 +1032,123 @@ def main():
         check(r <= MODEL_F32_TOL, f"witness {name}: {r} > {MODEL_F32_TOL} "
               "of the largest logit")
 
+    # the RWKV model is gone with phase d's frame: give its memory back
+    torch.cuda.empty_cache()
+
+    # e. the flash_attention build
+    print(f"[e build] flash_attention built in {fa_info['seconds']:.2f} s "
+          f"beside sm_issue and wkv6 (loaded {fa_build_s:.2f} s after the "
+          f"start); ptxas: {flash_ptxas(fa_info['log'])}", flush=True)
+
+    # f. flash_attention against its plain version, and its time
+    ar = phase_flash(torch, FA)
+    b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
+    print(f"[f flash] flash_attention == attention_plain on {ar['cases']} "
+          f"cases (hd 16/32/64/128 x Sq=Sk 1/63/64/512 and 100 over 300 x "
+          f"KV groups 1/4 x causal or not x f32 at "
+          f"{FLASH_TOLS['float32']} / bf16 at {FLASH_TOLS['bfloat16']}, "
+          f"and {FLASH_FULL_SHAPE} f32 causal; max abs err "
+          f"{ar['max_abs_err']:.3e}, worst err/tol {ar['worst']:.4f}); at "
+          f"(B {b_}, S {s_}, H {h_}, KV {kv_}, hd {hd_}) against the same "
+          f"attention in f64: flash_attention max abs err "
+          f"{ar['vs_f64']['flash_attention'][0]:.3e} (err/tol "
+          f"{ar['vs_f64']['flash_attention'][1]:.4f}), attention_plain "
+          f"{ar['vs_f64']['attention_plain'][0]:.3e}; there: kernel "
+          f"{ar['ms'] * 1e3:.2f} us/launch on the device "
+          f"({'profiler' if ar['device_timed'] else 'not profiled: events'})"
+          f", wrapper {ar['wrapper_ms'] * 1e3:.2f} us/call, plain "
+          f"{ar['plain_ms'] * 1e3:.2f} us/call, SDPA on the repeated KV "
+          f"{ar['library_ms'] * 1e3:.2f} us/call (max abs err "
+          f"{ar['library_err']:.3e} from plain), bound "
+          f"{ar['bound_ms'] * 1e3:.2f} us ({ar['bound_by']}: {ar['bytes']} "
+          f"B, {ar['ops']} f32 ops)", flush=True)
+    check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
+          f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
+          f"{ar['worst']})")
+    check(ar["vs_f64"]["flash_attention"][1] <= 1.0, "flash_attention "
+          f"disagrees with attention in f64 beyond {FLASH_TOLS['float32']} "
+          f"(max abs err {ar['vs_f64']['flash_attention'][0]})")
+
+    # g. the reduced dense models against the JAX package's golden results
+    dr, dr_new = phase_dense_reduced(torch, FA)
+    for arch, r in dr.items():
+        c = r["cfg"]
+        print(f"[g dense reduced] {arch} reduced ({c.n_layers} layers, "
+              f"d_model {c.d_model}, {c.n_heads} query / {c.n_kv_heads} KV "
+              f"heads of {c.resolved_head_dim}, {c.norm}, {c.act}"
+              f"{', QKV bias' if c.qkv_bias else ''}), prompt {r['shape']}: "
+              f"golden OK (prefill logits max abs err "
+              f"{r['errs']['prefill_logits']:.3e}, decode "
+              f"{r['errs']['decode_logits']:.3e}; {dr_new} greedy tokens "
+              f"equal), {r['launches']} flash_attention launches in the "
+              f"prefill", flush=True)
+
+    # h. the dense serving path at full width
+    hr = phase_dense_full(torch, FA, W, K)
+    cfg = hr["cfg"]
+    t = hr["times"]
+    n_pre, n_dec = DENSE_BATCH * DENSE_PROMPT, DENSE_BATCH * (DENSE_NEW - 1)
+    print(f"[h dense full] {DENSE_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {hr['n_params']} parameters f32, init "
+          f"{hr['init_s']:.2f} s) generate batch {DENSE_BATCH}, prompt "
+          f"{DENSE_PROMPT}, {DENSE_NEW} new, medians of {DENSE_REPEATS} "
+          f"windows: generate wall {spread('generate')}; prefill "
+          f"{spread('prefill')} = {n_pre / t['prefill'][0]:.1f} tok/s; "
+          f"decode inside generate (generate - prefill) "
+          f"{spread('generate - prefill')} = "
+          f"{n_dec / t['generate - prefill'][0]:.1f} tok/s, "
+          f"{spread('generate - prefill', 1e3 / (DENSE_NEW - 1), 'ms', '.2f')}"
+          f" per step; the {DENSE_NEW - 1} decode steps timed alone "
+          f"{spread('decode', 1e3 / (DENSE_NEW - 1), 'ms', '.2f')} per step;"
+          f" peak device memory {hr['peak'] / 2**30:.3f} GiB; "
+          f"{hr['launches']} flash_attention launches (wkv6, sm_issue: "
+          f"{hr['others']}); windows agree with generate: {hr['agree']}; "
+          f"sample {hr['sample']}", flush=True)
+    for s_, steps, diff, scale, finite in hr["cons"]:
+        print(f"[h dense full] cache consistency: prefill of {s_} tokens vs "
+              f"{s_ - steps} + {steps} decode steps: max |diff| {diff:.3e}, "
+              f"max |logit| {scale:.3f} (ratio {diff / scale:.3e}, limit "
+              f"{CONSISTENCY_TOL}), finite {finite}", flush=True)
+    print(f"[h dense full] flash_attention vs attention_plain inside the "
+          f"model, prefill of 128 tokens: max |diff| / max |logit| "
+          f"{hr['in_model']:.3e} (limit {CONSISTENCY_TOL})", flush=True)
+    for name, w in hr["windows"].items():
+        print(f"[h dense full] profile of {name}: wall {w['wall']:.3f} s, "
+              f"device busy {w['busy']:.4f} s (idle share "
+              f"{1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
+              f"activities, of which device-to-device copies and stacks "
+              f"(the functional KV cache) {w['copies'] * 1e3:.2f} ms; "
+              "top: " + "; ".join(
+                  f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
+              flush=True)
+    toks = hr["toks"]
+    check(hr["launches"] == cfg.n_layers, f"generate launched "
+          f"flash_attention {hr['launches']} times; the prefill has "
+          f"{cfg.n_layers} layers")
+    check(hr["others"] == (0, 0), f"generate launched wkv6 or sm_issue: "
+          f"{hr['others']}")
+    check(tuple(toks.shape) == (DENSE_BATCH, DENSE_NEW),
+          f"generate returned {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generate returned tokens outside the vocabulary")
+    check(bool(torch.isfinite(hr["logits"]).all()), "prefill logits not "
+          "finite")
+    check(torch.equal(toks[:, 0], torch.argmax(hr["logits"], -1).int()),
+          "generate's first token is not the prefill's argmax")
+    check(all(hr["agree"]), "generate is not deterministic, or its last "
+          "token differs from the separately timed decode steps'")
+    for s_, steps, diff, scale, finite in hr["cons"]:
+        check(finite, f"decode logits after {s_ - steps} + {steps} steps "
+              "not finite")
+        check(diff <= CONSISTENCY_TOL * scale, f"cache consistency at {s_} "
+              f"tokens ({s_ - steps} + {steps} steps): max |diff| {diff} > "
+              f"{CONSISTENCY_TOL} x max |logit| {scale}")
+    check(hr["in_model"] <= CONSISTENCY_TOL, "flash_attention vs "
+          f"attention_plain inside the model: {hr['in_model']} > "
+          f"{CONSISTENCY_TOL} of the largest logit")
+
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} "
           "s, the builds included", flush=True)
     # 6. per-kernel numbers
@@ -746,6 +1171,16 @@ def main():
         "bound_ms": wr["bound_ms"], "bound_by": wr["bound_by"],
         "library_ms": None, "wrapper_ms": wr["wrapper_ms"],
         "shape": list(WKV_FULL_SHAPE),
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
+        "launches": hr["launches"], "max_abs_err": ar["max_abs_err"],
+        "ms": ar["ms"], "plain_ms": ar["plain_ms"],
+        "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],
+        "library_ms": ar["library_ms"], "wrapper_ms": ar["wrapper_ms"],
+        "shape": list(FLASH_FULL_SHAPE),
     }]}))
     # 7. the result
     print(json.dumps({"ok": True, "device": {

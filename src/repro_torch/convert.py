@@ -114,6 +114,33 @@ def seeded_lm_params(cfg: ArchConfig, seed: int) -> dict:
     return out
 
 
+# leaves that the reference initialises to a constant: norm scales and
+# biases, and the QKV biases
+CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+
+
+def jitter_constant_leaves(tree, seed: int, std: float = 0.1):
+    """A copy of a parameter tree (nested dicts and lists of numpy f32
+    arrays, the JAX layout) with seeded N(0, std) noise added to every
+    ``CONSTANT_LEAVES`` leaf, so that a comparison of two models exercises
+    the paths that ones and zeros would hide.  Keys are visited in sorted
+    order, so the same tree and seed give the same noise."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name=""):
+        if isinstance(node, list):
+            return [walk(n) for n in node]
+        if isinstance(node, dict):
+            out = {k: walk(node[k], k) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if name not in CONSTANT_LEAVES:
+            return node
+        a = np.asarray(node, np.float32)
+        return (a + std * rng.standard_normal(a.shape, dtype=np.float32))
+
+    return walk(tree)
+
+
 def params_fingerprint(tree) -> float:
     """Sum of |w| over the leaves of a parameter tree (dicts and lists of
     arrays or tensors), in float64: tells a change of numpy's random

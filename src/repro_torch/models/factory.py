@@ -1,12 +1,12 @@
 """Model factory: the JAX package's ``models/factory.py`` API for the
-architectures the port runs (RWKV-6 so far).
+architectures the port runs (RWKV-6 and the dense GQA models so far).
 
   init_params(seed, cfg, dtype, device)           -> LM module
-  prefill(model, batch, cfg)                      -> (logits, cache)
+  prefill(model, batch, cfg, max_len)             -> (logits, cache)
   decode(model, cache, batch, cfg)                -> (logits, cache)
-  init_cache(cfg, batch, dtype, device)           -> zeroed cache
-  make_batch(seed, cfg, shape, device)            -> dummy token batch
-  make_decode_batch(seed, cfg, batch, device)     -> one token per row
+  init_cache(cfg, batch, max_len, dtype, device)  -> zeroed cache
+  make_batch(seed, cfg, shape, device)            -> dummy batch
+  make_decode_batch(seed, cfg, batch, device)     -> one step's input
   generate(model, cfg, prompts, max_new)          -> greedy tokens
 
 Entry points run on the CUDA card unless the caller names another device.
@@ -56,49 +56,70 @@ def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
     return lm.init_lm(draw, cfg, dtype, device)
 
 
-def prefill(model: lm.LM, batch: dict, *, cfg: ArchConfig):
-    return lm.lm_prefill(model, batch, cfg=cfg)
+def prefill(model: lm.LM, batch: dict, *, cfg: ArchConfig,
+            max_len: int = 0):
+    return lm.lm_prefill(model, batch, cfg=cfg, max_len=max_len)
 
 
 def decode(model: lm.LM, cache: dict, batch: dict, *, cfg: ArchConfig):
     return lm.lm_decode(model, cache, batch, cfg=cfg)
 
 
-def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, *,
-               device=None) -> dict:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, *, device=None) -> dict:
     _check_ported(cfg)
-    return lm.init_cache(cfg, batch, dtype, resolve_device(device))
+    return lm.init_cache(cfg, batch, max_len, dtype, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
 # batches
 # ---------------------------------------------------------------------------
 
-def _tokens(seed: int, cfg: ArchConfig, shape: tuple, device) -> torch.Tensor:
+def _draws(seed: int, cfg: ArchConfig, device):
+    """(generator, device) for a batch's random draws."""
     _check_ported(cfg)
     device = resolve_device(device)
-    return torch.randint(0, cfg.vocab_size, shape,
-                         generator=_generator(seed, device),
+    return _generator(seed, device), device
+
+
+def _tokens(gen, cfg: ArchConfig, shape: tuple, device) -> torch.Tensor:
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen,
                          dtype=torch.int32, device=device)
+
+
+def _embeds(gen, shape: tuple, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device)
 
 
 def make_batch(seed: int, cfg: ArchConfig, shape: ShapeSpec, *,
                device=None) -> dict:
-    """Random token ids and labels, each (global_batch, seq_len) int32."""
+    """Random token ids (or, for the vision frontend, f32 patch embeddings
+    (global_batch, seq_len, d_model)) and labels, each (global_batch,
+    seq_len) int32."""
+    gen, device = _draws(seed, cfg, device)
     b, s = shape.global_batch, shape.seq_len
-    toks = _tokens(seed, cfg, (2, b, s), device)
+    if cfg.frontend == "vision":
+        return {"embeds": _embeds(gen, (b, s, cfg.d_model), device),
+                "labels": _tokens(gen, cfg, (b, s), device)}
+    toks = _tokens(gen, cfg, (2, b, s), device)
     return {"tokens": toks[0], "labels": toks[1]}
 
 
 def make_decode_batch(seed: int, cfg: ArchConfig, batch: int, *,
                       device=None) -> dict:
-    return {"tokens": _tokens(seed, cfg, (batch, 1), device)}
+    gen, device = _draws(seed, cfg, device)
+    if cfg.frontend == "vision":
+        return {"embeds": _embeds(gen, (batch, 1, cfg.d_model), device)}
+    return {"tokens": _tokens(gen, cfg, (batch, 1), device)}
 
 
 def generate(model: lm.LM, cfg: ArchConfig, prompts, *, max_new: int = 16):
     """prompts: (B, S) int32. Greedy decode max_new tokens; argmax ties go
     to the first index, as ``jnp.argmax``'s do."""
-    logits, cache = prefill(model, {"tokens": prompts}, cfg=cfg)
+    b, s = prompts.shape
+    logits, cache = prefill(model, {"tokens": prompts}, cfg=cfg,
+                            max_len=s + max_new)
     toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
     for _ in range(max_new - 1):
         logits, cache = decode(model, cache, {"tokens": toks[-1]}, cfg=cfg)

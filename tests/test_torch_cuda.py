@@ -1,7 +1,8 @@
-"""The port's CUDA path, on the card: the sm_issue and wkv6 kernels
-against their plain PyTorch versions, the wrappers' input checks and
-launch counts, one simulation on the card against the same simulation on
-the CPU, and the reduced RWKV-6 model on the card against its golden file.
+"""The port's CUDA path, on the card: the sm_issue, wkv6 and
+flash_attention kernels against their plain PyTorch versions, the
+wrappers' input checks and launch counts, one simulation on the card
+against the same simulation on the CPU, and the reduced RWKV-6 and dense
+models on the card against their golden files.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -17,11 +18,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.convert import (lm_params_to_torch, params_fingerprint,
-                                 seeded_lm_params)
+from repro_torch.convert import (jitter_constant_leaves, lm_params_to_torch,
+                                 params_fingerprint, seeded_lm_params)
 from repro_torch.core import stats as S
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
 from repro_torch.kernels.wkv6 import kernel as W
 from repro_torch.models import factory
@@ -37,6 +40,8 @@ SHAPES = ((8, 8, 2), (80, 48, 4), (4, 16, 4), (3, 96, 3))
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "torch_port_rwkv6_reduced.json")
+DENSE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
+                            "torch_port_dense_reduced.json")
 
 
 @pytest.fixture
@@ -206,3 +211,94 @@ def test_rwkv6_reduced_golden_on_card(cuda):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
     assert toks.cpu().tolist() == golden["tokens"]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, hd): the reduced models' head size, the ragged
+# prompts of the cache checks (63 and 448 tokens), Sq < Sk, one query, MHA,
+# and test_kernels.py's head sizes
+FLASH_SHAPES = ((2, 24, 24, 4, 2, 16), (2, 63, 63, 4, 1, 32),
+                (1, 448, 448, 8, 2, 128), (2, 37, 100, 4, 4, 64),
+                (3, 1, 1, 4, 2, 128), (1, 1, 77, 6, 3, 64))
+FLASH_TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def flash_inputs(seed, b, sq, sk, h, kv, hd, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, shape, dtype, causal):
+    q, k, v = flash_inputs(sum(shape), *shape, dtype, cuda)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q, k, v = flash_inputs(0, 2, 8, 8, 4, 2, 32, torch.float32, cuda)
+    before = FA.flash_attention.launches
+    with pytest.raises(TypeError, match="k has dtype torch.float64"):
+        FA.flash_attention(q, k.double(), v)
+    with pytest.raises(TypeError, match="q has dtype torch.float16"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="v is on cpu"):
+        FA.flash_attention(q, k, v.cpu())
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="Sq = 8 > Sk = 4"):
+        FA.flash_attention(q, k[:, :4], v[:, :4])
+    odd = flash_inputs(1, 1, 8, 8, 2, 1, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head size 48"):
+        FA.flash_attention(*odd)
+    assert FA.flash_attention.launches == before
+
+
+def test_flash_counts_kernel_launches_only(cuda):
+    q, k, v = flash_inputs(2, 1, 16, 16, 2, 2, 16, torch.float32, cuda)
+    before = FA.flash_attention.launches
+    FA.flash_attention(q, k, v)
+    FA.flash_attention(q, k, v, causal=False)
+    assert FA.flash_attention.launches == before + 2
+    FA.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert FA.flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "qwen2-72b"])
+def test_dense_reduced_golden_on_card(cuda, arch):
+    with open(DENSE_GOLDEN) as f:
+        golden = json.load(f)
+    g = golden["archs"][arch]
+    cfg = get_reduced(arch)
+    tree = jitter_constant_leaves(
+        seeded_lm_params(cfg, golden["weight_seed"]), golden["jitter_seed"])
+    assert params_fingerprint(tree) == pytest.approx(g["weights_sum"],
+                                                   rel=1e-9)
+    model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, cuda))
+    prompts = torch.tensor(golden["prompt"][arch], dtype=torch.int32,
+                           device=cuda)
+    before = FA.flash_attention.launches
+    logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
+                                    max_len=golden["max_len"])
+    assert FA.flash_attention.launches == before + cfg.n_layers
+    want = torch.tensor(g["prefill_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    tok = torch.tensor(g["tokens"], dtype=torch.int32, device=cuda)[:, :1]
+    logits, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+    want = torch.tensor(g["decode_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
+    assert toks.cpu().tolist() == g["tokens"]

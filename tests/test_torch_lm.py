@@ -113,7 +113,7 @@ def test_init_cache_layout(arch, getter):
     jcfg = {"get_reduced": jget_reduced, "get_config": jget_config}[getter](
         arch)
     want = jax.eval_shape(lambda: JL.init_cache(jcfg, 3, 40))
-    got = PF.init_cache(cfg, 3, device="cpu")
+    got = PF.init_cache(cfg, 3, 40, device="cpu")
     flat_w = jax.tree_util.tree_leaves_with_path(want)
     flat_g = jax.tree_util.tree_leaves_with_path(lm_cache_to_numpy(got))
     assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
@@ -230,12 +230,12 @@ def test_cache_consistency(case, s, steps):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        PF.init_params(0, get_reduced("minitron-8b"), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 11d"):
-        PF.init_cache(get_reduced("jamba-v0.1-52b"), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        PF.make_batch(0, get_reduced("qwen2-72b"),
+        PF.init_params(0, get_reduced("deepseek-v3-671b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 11d"):
+        PF.init_cache(get_reduced("jamba-v0.1-52b"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 11d"):
+        PF.make_batch(0, get_reduced("arctic-480b"),
                       ShapeSpec("p", 8, 2, "prefill"), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 11d"):
         PF.init_params(0, get_reduced("whisper-base"), device="cpu")
