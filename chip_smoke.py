@@ -5,17 +5,28 @@
 Phases, each printing one line; any failure exits non-zero before the
 last line.  The simulator's path:
   1. the card's name and power limit (nvidia-smi) and the build of the
-     port's CUDA kernels (sm_issue and wkv6, one nvcc each, started
-     together) from the sources in this checkout;
-  2. the kernel against its plain PyTorch version on the card, exact
+     port's four CUDA kernels (sm_issue, sm_quantum, wkv6 and
+     flash_attention, one nvcc each, started together) from the sources in
+     this checkout, with sm_quantum's ptxas registers, shared memory and
+     spills;
+  2. sm_issue against its plain PyTorch version on the card, exact
      equality on seeded cases at the TINY and RTX 3080 Ti shapes, and the
      time per launch of both;
+  q. sm_quantum (one launch per quantum: one block per SM, the state in
+     shared memory) against the eager SM phase (its plain version, a cycle
+     loop around sm_issue) on seeded states at the TINY, four-sub-core and
+     RTX 3080 Ti widths, GTO and LRR, with and without an instr_base
+     offset, bit-exact on every leaf, the inputs left as they were; the
+     time of one quantum of both at full width, and the bound;
   3. myocyte@1.0 on TINY in vmap and seq modes against
-     tests/golden/determinism_tiny.json, with the kernel's launch count;
+     tests/golden/determinism_tiny.json: one sm_quantum launch per quantum
+     (per SM and quantum in seq), none of sm_issue;
   4. the main path at full width: nn@0.5 and syrk@0.16 on the RTX 3080 Ti
      config (80 SMs x 48 warps, vmap) against
      tests/golden/torch_port_rtx3080ti.json, with 0 timeouts, wall time,
-     quanta/s, simulated cycles/s and kernel launches;
+     quanta/s, simulated cycles/s and one sm_quantum launch per quantum;
+     then nn@0.5 once more through the eager per-cycle SM phase (sm_issue
+     once per cycle) as a witness, against the same stats, and its wall;
   5. a profile of the first 16 quanta of syrk@0.16: device busy and
      idle share, kernel launches and device-to-host reads per quantum;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
@@ -43,16 +54,19 @@ The RWKV-6 serving path (f32 products in full f32: TF32 is off):
 The dense GQA serving path (f32, TF32 off):
   e. the flash_attention build (in parallel with the two others): seconds,
      and ptxas registers and spills per dtype and hd;
-  f. flash_attention against its plain PyTorch version (attention_plain)
+  f. flash_attention (3xTF32 mma.sync on the tensor cores, cp.async ring)
+     against its plain PyTorch version (attention_plain)
      on seeded cases: hd in {16, 32, 64, 128} x Sq = Sk in {1, 63, 64,
      512} and Sq < Sk (100 over 300), causal and not, KV groups of 1 and
      4 query heads, f32 within 2e-5 and bf16 within 2e-2
      (tests/test_kernels.py's tolerances); then at the prefill's
      full-width shape (8, 512, 32 query / 8 KV heads, 128), causal, f32:
-     both against the same attention in f64, the time per launch of the
-     kernel (profiler and CUDA events), of attention_plain and of
-     torch's scaled_dot_product_attention on the repeated KV heads (the
-     library yardstick; the port never calls it), and the bound;
+     both against the same attention in f64 (the kernel within 5e-6), the
+     time per launch of the kernel (profiler, and CUDA events in turns
+     with torch's scaled_dot_product_attention on the repeated KV heads,
+     the library yardstick the port never calls), of attention_plain, and
+     both operation bounds: the CUDA cores' f32 rate and three TF32 passes
+     on the tensor cores;
   g. the reduced minitron-8b and qwen2-72b with seeded weights against
      tests/golden/torch_port_dense_reduced.json (the JAX package's
      prefill and decode logits within 1e-4, greedy tokens, the weights'
@@ -94,6 +108,13 @@ ALU_OPS_PER_S = 67e12
 # integer operations per warp slot: the candidate mask, the key, the
 # argmin (counted generously)
 OPS_PER_SLOT = 24
+# (name, config overrides of TINY or the RTX 3080 Ti) of phase q's states
+QUANTUM_CASES = (("tiny", {}), ("four_subcores", dict(
+    n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)),
+    ("rtx3080ti", None))
+TF32_OPS_PER_S = 495e12          # tensor cores, dense TF32
+TF32_PASSES = 3                  # the f32 split: three TF32 products
+FLASH_F64_TOL = 5e-6             # the kernel against f64 at full width
 # wkv: per token and state element, the k (x) v product (1), the decay-and-
 # add (2) and the read-out (2)
 WKV_OPS_PER_ELEMENT = 5
@@ -120,6 +141,13 @@ DENSE_REPEATS = 3                # timing windows of phase h
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_lines(log):
+    """The register, shared-memory and spill lines of ``-Xptxas -v``."""
+    return " | ".join(ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "Used" in ln
+                      or "spill" in ln)
 
 
 def card_line():
@@ -578,10 +606,13 @@ def flash_ptxas(log):
 
 
 def flash_bound(b, sq, sk, h, kv, hd, causal, elem=4):
-    """(bound_ms, bound_by, bytes, operations) of one attention: q, k, v
-    read once and o written once, against the 4 hd f32 operations (two
-    FMAs) of each (query, key) pair it must score, those on or below the
-    right-aligned diagonal when causal, at the card's f32 rate."""
+    """(bound_ms, bound_by, bytes, operations, cuda_core_ms) of one
+    attention: q, k, v read once and o written once, against the 4 hd
+    operations (two multiply-adds) of each (query, key) pair it must
+    score, those on or below the right-aligned diagonal when causal.  The
+    kernel runs them on the tensor cores as three TF32 passes, so its
+    operation bound is 3 x those at the TF32 rate; the same operations at
+    the CUDA cores' f32 rate, the first form's bound, come last."""
     n_bytes = elem * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
     if causal:    # query i sees keys 0 .. Sk - Sq + i
         pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
@@ -589,9 +620,10 @@ def flash_bound(b, sq, sk, h, kv, hd, causal, elem=4):
         pairs = sq * sk
     n_ops = 4 * hd * b * h * pairs
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops,
+            n_ops / ALU_OPS_PER_S * 1e3)
 
 
 def flash_case(torch, gen, b, sq, sk, h, kv, hd, dtype):
@@ -643,15 +675,20 @@ def phase_flash(torch, FA):
               for name, out in (("flash_attention", got),
                                 ("attention_plain", want))}
     del truth
-    wrapper_ms = time_per_call(torch, lambda: FA.flash_attention(q, k, v), 20)
     plain_ms = time_per_call(torch, lambda: attention_plain(q, k, v), 5)
-    # the library yardstick: SDPA on (B, H, S, hd) with the KV heads repeated
+    # the library yardstick: SDPA on (B, H, S, hd) with the KV heads
+    # repeated, timed in turns with the kernel: kernel, SDPA, SDPA, kernel
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
               for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_per_call(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
-                               20)
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        fn = ((lambda: FA.flash_attention(q, k, v)) if who == "kernel"
+              else (lambda: sdpa(qt, kt, vt, is_causal=True)))
+        turns[who].append(time_per_call(torch, fn, 20))
+    wrapper_ms = sum(turns["kernel"]) / 2
+    library_ms = sum(turns["sdpa"]) / 2
     library_err = float((sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
                          - want).abs().max())
 
@@ -665,9 +702,11 @@ def phase_flash(torch, FA):
         if kern:
             break
     ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
-    bound_ms, bound_by, n_bytes, n_ops = flash_bound(b, s, s, h, kv, hd, True)
+    bound_ms, bound_by, n_bytes, n_ops, cuda_core_ms = flash_bound(
+        b, s, s, h, kv, hd, True)
     return {"cases": n_cases, "max_abs_err": max_err, "worst": worst,
             "vs_f64": vs_f64, "ms": ms, "wrapper_ms": wrapper_ms,
+            "turns": turns, "cuda_core_ms": cuda_core_ms,
             "device_timed": bool(kern), "plain_ms": plain_ms,
             "library_ms": library_ms, "library_err": library_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
@@ -731,7 +770,7 @@ def dense_config():
     return get_config(DENSE_ARCH)
 
 
-def phase_dense_full(torch, FA, W, K):
+def phase_dense_full(torch, FA, W, K, Q):
     """The dense GQA serving path at full width through factory.generate."""
     from repro_torch.kernels.flash_attention.ref import attention_plain
     from repro_torch.models import factory
@@ -755,10 +794,12 @@ def phase_dense_full(torch, FA, W, K):
     FA.flash_attention.launches = 0
     W.wkv6.launches = 0
     K.issue_select.launches = 0
+    Q.sm_quantum.launches = 0
     toks = factory.generate(model, cfg, prompts, max_new=DENSE_NEW)
     torch.cuda.synchronize()
     launches = FA.flash_attention.launches
-    others = (W.wkv6.launches, K.issue_select.launches)
+    others = (W.wkv6.launches, K.issue_select.launches,
+              Q.sm_quantum.launches)
     peak = torch.cuda.max_memory_allocated()
 
     times = {"prefill": [], "decode": [], "generate": []}
@@ -815,23 +856,115 @@ def phase_dense_full(torch, FA, W, K):
             "sample": toks[0, :8].tolist()}
 
 
-def run_case(torch, K, bench, scale, cfg, mode, max_cycles):
+def phase_quantum(torch, Q):
+    """sm_quantum against the eager SM phase (its plain version, on the
+    card) on seeded states, every leaf exact; then one quantum of each
+    timed at the RTX 3080 Ti width."""
+    import dataclasses
+
+    from repro_torch.convert import (QUANTUM_T0, random_quantum_inputs,
+                                     to_torch)
+    from repro_torch.sim.config import (RTX3080TI, SCHEDULERS, TINY,
+                                        split_config, static_part)
+    from repro_torch.sim.smcore import sm_quantum_eager
+
+    rng = np.random.default_rng(20261017)
+    t0 = torch.tensor(QUANTUM_T0, dtype=torch.int32, device="cuda")
+    n_cases, n_leaves, bad, max_err = 0, 0, [], 0
+    for name, over in QUANTUM_CASES:
+        cfg = RTX3080TI if over is None else dataclasses.replace(TINY, **over)
+        scfg = static_part(cfg)
+        for sched in ("gto", "lrr"):
+            _, dyn = split_config(cfg, {"sched": SCHEDULERS[sched]},
+                                  device="cuda")
+            for ragged in (False, True, False, True):
+                host = random_quantum_inputs(rng, scfg, ragged=ragged)
+                args = [to_torch(x, "cuda") for x in host]
+                got = Q.sm_quantum(*args, t0, scfg, dyn)
+                want = sm_quantum_eager(*args, t0, scfg, dyn)
+                for g, w in zip(got, want):
+                    for k in w:
+                        n_leaves += 1
+                        err = int((g[k].long() - w[k].long()).abs().max())
+                        max_err = max(max_err, err)
+                        if g[k].dtype != w[k].dtype or err:
+                            bad.append(f"{name}/{sched}/{k}")
+                for x, a in zip(host, args):
+                    for k in x:
+                        if not np.array_equal(np.asarray(x[k]),
+                                              a[k].cpu().numpy()):
+                            bad.append(f"{name}/{sched}/input {k} changed")
+                n_cases += 1
+    torch.cuda.synchronize()
+    check(not bad, f"sm_quantum disagrees with the eager SM phase: "
+          f"{bad[:8]} (max abs err {max_err})")
+    # one quantum at the main path's width, both forms
+    scfg = static_part(RTX3080TI)
+    _, dyn = split_config(RTX3080TI, device="cuda")
+    host = random_quantum_inputs(rng, scfg)
+    args = [to_torch(x, "cuda") for x in host]
+    wrapper_ms = time_per_call(
+        torch, lambda: Q.sm_quantum(*args, t0, scfg, dyn), 500)
+    plain_ms = time_per_call(
+        torch, lambda: sm_quantum_eager(*args, t0, scfg, dyn), 20)
+
+    def launches():
+        for _ in range(100):
+            Q.sm_quantum(*args, t0, scfg, dyn)
+    for _ in range(3):
+        events, _ = profiled(torch, launches)
+        kern = [us for name, us in events if "sm_quantum_kernel" in name]
+        if kern:
+            break
+    ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
+    # each input read once, each output written once: the state twice,
+    # the trace and the scalars once
+    state = sum(x.numel() * x.element_size() for a in args[:4]
+                for x in a.values())
+    n_bytes = 2 * state + sum(x.numel() * x.element_size()
+                              for x in args[4].values()) \
+        + 4 * (2 * 7 + 4)
+    n_ops = scfg.quantum * scfg.n_sm * scfg.warps_per_sm * OPS_PER_SLOT
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    return {"cases": n_cases, "leaves": n_leaves, "max_abs_err": max_err,
+            "ms": ms, "wrapper_ms": wrapper_ms, "device_timed": bool(kern),
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def run_case(torch, K, Q, bench, scale, cfg, mode, max_cycles,
+             eager=False):
+    """One simulation on the card; ``eager`` runs the SM phase through
+    the eager per-cycle loop (sm_issue once per cycle) in place of the
+    fused kernel.  Returns (comparable stats, timeouts, wall s,
+    sm_quantum launches, sm_issue launches)."""
     from repro_torch.core import stats as S
     from repro_torch.core.engine import simulate
     from repro_torch.core.parallel import make_sm_runner
+    from repro_torch.sim.config import static_part
+    from repro_torch.sim.smcore import sm_quantum_eager
     from repro_torch.sim.workloads import resolve_workload
 
     w = resolve_workload(bench, scale)
     runner = make_sm_runner(cfg, mode)
+    if eager:
+        scfg = static_part(cfg)
+
+        def runner(warp, sm, req, stats_sm, trace, t0, dyn):
+            return sm_quantum_eager(warp, sm, req, stats_sm, trace, t0,
+                                    scfg, dyn)
     torch.cuda.synchronize()
     K.issue_select.launches = 0
+    Q.sm_quantum.launches = 0
     t0 = time.perf_counter()
     st = simulate(w, cfg, runner, max_cycles=max_cycles, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.issue_select.launches
+    fused, issue = Q.sm_quantum.launches, K.issue_select.launches
     out = S.finalize(st)
-    return S.comparable(out), out["timeouts"], wall, launches
+    return S.comparable(out), out["timeouts"], wall, fused, issue
 
 
 def main():
@@ -844,6 +977,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.sm_issue import kernel as K
+    from repro_torch.kernels.sm_quantum import kernel as Q
     from repro_torch.kernels.wkv6 import kernel as W
     from repro_torch.sim.config import RTX3080TI, TINY
 
@@ -859,20 +993,25 @@ def main():
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in
-                  (("sm_issue", K), ("wkv6", W), ("flash_attention", FA))}
+                  (("sm_issue", K), ("sm_quantum", Q), ("wkv6", W),
+                   ("flash_attention", FA))}
         info = builds["sm_issue"].result()
         build_s = time.perf_counter() - t0
+        q_info = builds["sm_quantum"].result()
+        q_build_s = time.perf_counter() - t0
         wkv_info = builds["wkv6"].result()
         wkv_build_s = time.perf_counter() - t0
         fa_info = builds["flash_attention"].result()
         fa_build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "Used" in ln]
     print(f"[1 build] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; sm_issue built in {info['seconds']:.2f} s "
-          f"(load {build_s:.2f} s); ptxas: {' | '.join(ptxas)}", flush=True)
+          f"(load {build_s:.2f} s); ptxas: {ptxas_lines(info['log'])}",
+          flush=True)
+    print(f"[1 build] sm_quantum built in {q_info['seconds']:.2f} s beside "
+          f"the others (loaded {q_build_s:.2f} s after the start); ptxas: "
+          f"{ptxas_lines(q_info['log'])}", flush=True)
 
     # 2. kernel vs plain version
     kr = phase_kernel(torch, K)
@@ -885,51 +1024,75 @@ def main():
           f"{kr['bound_ms'] * 1e3:.4f} us ({kr['bound_by']}, "
           f"{kr['bytes']} B)", flush=True)
 
+    # q. the fused quantum against the eager SM phase, and its time
+    qr = phase_quantum(torch, Q)
+    widths = ", ".join(n for n, _ in QUANTUM_CASES)
+    print(f"[q sm_quantum] sm_quantum == the eager SM phase on "
+          f"{qr['cases']} seeded states ({widths} x GTO/LRR x instr_base "
+          f"or not; {qr['leaves']} "
+          f"leaves equal, max abs err {qr['max_abs_err']}, inputs "
+          f"unchanged); one quantum at 80x48 SC=4: kernel "
+          f"{qr['ms'] * 1e3:.2f} us/launch on the device "
+          f"({'profiler' if qr['device_timed'] else 'not profiled: events'}),"
+          f" wrapper {qr['wrapper_ms'] * 1e3:.2f} us/call, eager "
+          f"{qr['plain_ms'] * 1e3:.2f} us/call, bound "
+          f"{qr['bound_ms'] * 1e3:.4f} us ({qr['bound_by']}: {qr['bytes']} "
+          f"B, {qr['ops']} integer ops)", flush=True)
+
     # 3. TINY golden in both modes
     for mode in ("vmap", "seq"):
-        got, timeouts, wall, launches = run_case(
-            torch, K, "myocyte", 1.0, TINY, mode, 1 << 15)
+        got, timeouts, wall, fused, issue = run_case(
+            torch, K, Q, "myocyte", 1.0, TINY, mode, 1 << 15)
         check(got == tiny_golden["myocyte@1.0"],
               f"myocyte@1.0 {mode} differs from the golden: {got}")
         check(timeouts == 0, f"myocyte@1.0 {mode}: {timeouts} timeouts")
         quanta = got["cycles"] // TINY.quantum
-        if mode == "vmap":
-            ok = launches == TINY.quantum * quanta
-        else:   # one launch per SM that has work, per cycle
-            ok = (0 < launches <= TINY.quantum * quanta * TINY.n_sm
-                  and launches % TINY.quantum == 0)
-        check(ok, f"myocyte@1.0 {mode}: {launches} sm_issue launches for "
-              f"{quanta} quanta")
+        per_q = TINY.n_sm if mode == "seq" else 1    # seq: one SM a launch
+        check(fused == per_q * quanta and issue == 0,
+              f"myocyte@1.0 {mode}: {fused} sm_quantum and {issue} sm_issue"
+              f" launches for {quanta} quanta")
         print(f"[3 tiny] myocyte@1.0 {mode}: golden OK, {got['cycles']} "
-              f"cycles, {quanta} quanta, {launches} sm_issue launches, "
-              f"wall {wall:.2f} s", flush=True)
+              f"cycles, {quanta} quanta, {fused} sm_quantum launches, "
+              f"{issue} sm_issue, wall {wall:.2f} s", flush=True)
 
-    # 4. the main path at full width
-    main_launches = 0
-    walls = []
-    for bench, scale in (("nn", 0.5), ("syrk", 0.16)):
-        got, timeouts, wall, launches = run_case(
-            torch, K, bench, scale, RTX3080TI, "vmap", 1 << 17)
+    # 4. the main path at full width, then the eager SM phase as a witness
+    main_launches = main_issue = 0
+    walls = {}
+    for bench, scale, eager in (("nn", 0.5, False), ("syrk", 0.16, False),
+                                ("nn", 0.5, True)):
+        got, timeouts, wall, fused, issue = run_case(
+            torch, K, Q, bench, scale, RTX3080TI, "vmap", 1 << 17, eager)
         key = f"{bench}@{scale}"
-        check(got == full_golden[key], f"{key} differs from the pinned "
-              f"stats: {got}")
-        check(timeouts == 0, f"{key}: {timeouts} timeouts")
+        path = "eager witness" if eager else "fused"
+        check(got == full_golden[key], f"{key} ({path}) differs from the "
+              f"pinned stats: {got}")
+        check(timeouts == 0, f"{key} ({path}): {timeouts} timeouts")
         quanta = got["cycles"] // RTX3080TI.quantum
-        check(launches == RTX3080TI.quantum * quanta,
-              f"{key}: {launches} sm_issue launches for {quanta} quanta")
-        main_launches += launches
-        walls.append(wall)
-        print(f"[4 full] {key} RTX3080TI vmap: pinned stats OK, timeouts 0, "
-              f"{got['cycles']} cycles, {quanta} quanta, wall {wall:.3f} s, "
-              f"{quanta / wall:.1f} quanta/s, {got['cycles'] / wall:.1f} "
-              f"simulated cycles/s, {launches} sm_issue launches",
-              flush=True)
-    check(main_launches > 0, "the main path never launched sm_issue")
+        if eager:   # sm_issue once per cycle
+            ok = fused == 0 and issue == RTX3080TI.quantum * quanta
+            witness_launches = issue
+        else:
+            ok = fused == quanta and issue == 0
+            main_launches += fused
+            main_issue += issue
+        check(ok, f"{key} ({path}): {fused} sm_quantum and {issue} sm_issue"
+              f" launches for {quanta} quanta")
+        walls[key, eager] = wall
+        print(f"[4 full] {key} RTX3080TI vmap, {path} SM phase: pinned "
+              f"stats OK, timeouts 0, {got['cycles']} cycles, {quanta} "
+              f"quanta, wall {wall:.3f} s, {quanta / wall:.1f} quanta/s, "
+              f"{got['cycles'] / wall:.1f} simulated cycles/s, {fused} "
+              f"sm_quantum launches, {issue} sm_issue", flush=True)
+    print(f"[4 full] nn@0.5: the eager SM phase took "
+          f"{walls['nn@0.5', True] / walls['nn@0.5', False]:.2f}x the fused "
+          f"one's wall", flush=True)
+    check(main_launches > 0, "the main path never launched sm_quantum")
 
     # 5. where the time goes: a profile of the first quanta of syrk@0.16
     n_q = 16
     events, wall = profiled(torch, lambda: run_case(
-        torch, K, "syrk", 0.16, RTX3080TI, "vmap", n_q * RTX3080TI.quantum))
+        torch, K, Q, "syrk", 0.16, RTX3080TI, "vmap",
+        n_q * RTX3080TI.quantum))
     busy = sum(us for _, us in events) / 1e6
     kernels = [(n, us) for n, us in events
                if not n.startswith(("Memcpy", "Memset"))]
@@ -941,21 +1104,21 @@ def main():
         print(f"[5 profile] syrk@0.16 first {n_q} quanta under the "
               f"profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"(idle share {1 - busy / wall:.4f}), "
-              f"{len(kernels) / n_q:.0f} kernel launches/quantum, "
+              f"{len(kernels) / n_q:.1f} kernel launches/quantum "
+              f"({sum('sm_quantum' in n for n, _ in kernels) / n_q:.1f} of "
+              f"sm_quantum), "
               f"{sum('DtoH' in n for n, _ in events) / n_q:.1f} device-to-"
               f"host reads/quantum, {len(by_name)} distinct kernels; top: "
-              + "; ".join(f"{n[:60]} {us / 1e3:.1f} ms" for n, us in top),
+              + "; ".join(f"{n[:60]} {us / 1e3:.2f} ms" for n, us in top),
               flush=True)
     else:
         print(f"[5 profile] the profiler saw no device activity: device "
               f"busy share not measured (wall {wall:.3f} s)", flush=True)
 
     # a. the wkv6 build
-    ptxas = [ln.strip() for ln in wkv_info["log"].splitlines()
-             if "registers" in ln or "Used" in ln]
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
-          f"sm_issue (loaded {wkv_build_s:.2f} s after the start); "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+          f"the others (loaded {wkv_build_s:.2f} s after the start); "
+          f"ptxas: {ptxas_lines(wkv_info['log'])}", flush=True)
 
     # b. wkv6 against its plain version, and its time
     wr = phase_wkv6(torch, W)
@@ -1037,7 +1200,7 @@ def main():
 
     # e. the flash_attention build
     print(f"[e build] flash_attention built in {fa_info['seconds']:.2f} s "
-          f"beside sm_issue and wkv6 (loaded {fa_build_s:.2f} s after the "
+          f"beside the others (loaded {fa_build_s:.2f} s after the "
           f"start); ptxas: {flash_ptxas(fa_info['log'])}", flush=True)
 
     # f. flash_attention against its plain version, and its time
@@ -1056,18 +1219,26 @@ def main():
           f"{ar['vs_f64']['attention_plain'][0]:.3e}; there: kernel "
           f"{ar['ms'] * 1e3:.2f} us/launch on the device "
           f"({'profiler' if ar['device_timed'] else 'not profiled: events'})"
-          f", wrapper {ar['wrapper_ms'] * 1e3:.2f} us/call, plain "
-          f"{ar['plain_ms'] * 1e3:.2f} us/call, SDPA on the repeated KV "
-          f"{ar['library_ms'] * 1e3:.2f} us/call (max abs err "
-          f"{ar['library_err']:.3e} from plain), bound "
-          f"{ar['bound_ms'] * 1e3:.2f} us ({ar['bound_by']}: {ar['bytes']} "
-          f"B, {ar['ops']} f32 ops)", flush=True)
+          f"; in turns with SDPA on the repeated KV heads (kernel, SDPA, "
+          f"SDPA, kernel): wrapper "
+          f"{', '.join(f'{x * 1e3:.2f}' for x in ar['turns']['kernel'])} "
+          f"us/call, SDPA "
+          f"{', '.join(f'{x * 1e3:.2f}' for x in ar['turns']['sdpa'])} "
+          f"us/call (max abs err {ar['library_err']:.3e} from plain); plain "
+          f"{ar['plain_ms'] * 1e3:.2f} us/call; bound "
+          f"{ar['bound_ms'] * 1e3:.2f} us ({ar['bound_by']}: {ar['ops']} "
+          f"ops in {TF32_PASSES} TF32 passes at {TF32_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s; {ar['bytes']} B is "
+          f"{ar['bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us; on the CUDA "
+          f"cores at {ALU_OPS_PER_S / 1e12:.0f} TFLOP/s "
+          f"{ar['cuda_core_ms'] * 1e3:.2f} us)", flush=True)
     check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
           f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
           f"{ar['worst']})")
-    check(ar["vs_f64"]["flash_attention"][1] <= 1.0, "flash_attention "
-          f"disagrees with attention in f64 beyond {FLASH_TOLS['float32']} "
-          f"(max abs err {ar['vs_f64']['flash_attention'][0]})")
+    check(ar["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
+          f"flash_attention disagrees with attention in f64 beyond "
+          f"{FLASH_F64_TOL} (max abs err "
+          f"{ar['vs_f64']['flash_attention'][0]})")
 
     # g. the reduced dense models against the JAX package's golden results
     dr, dr_new = phase_dense_reduced(torch, FA)
@@ -1084,7 +1255,7 @@ def main():
               f"prefill", flush=True)
 
     # h. the dense serving path at full width
-    hr = phase_dense_full(torch, FA, W, K)
+    hr = phase_dense_full(torch, FA, W, K, Q)
     cfg = hr["cfg"]
     t = hr["times"]
     n_pre, n_dec = DENSE_BATCH * DENSE_PROMPT, DENSE_BATCH * (DENSE_NEW - 1)
@@ -1103,7 +1274,8 @@ def main():
           f" per step; the {DENSE_NEW - 1} decode steps timed alone "
           f"{spread('decode', 1e3 / (DENSE_NEW - 1), 'ms', '.2f')} per step;"
           f" peak device memory {hr['peak'] / 2**30:.3f} GiB; "
-          f"{hr['launches']} flash_attention launches (wkv6, sm_issue: "
+          f"{hr['launches']} flash_attention launches (wkv6, sm_issue, "
+          f"sm_quantum: "
           f"{hr['others']}); windows agree with generate: {hr['agree']}; "
           f"sample {hr['sample']}", flush=True)
     for s_, steps, diff, scale, finite in hr["cons"]:
@@ -1127,7 +1299,8 @@ def main():
     check(hr["launches"] == cfg.n_layers, f"generate launched "
           f"flash_attention {hr['launches']} times; the prefill has "
           f"{cfg.n_layers} layers")
-    check(hr["others"] == (0, 0), f"generate launched wkv6 or sm_issue: "
+    check(hr["others"] == (0, 0, 0), f"generate launched wkv6, sm_issue or "
+          f"sm_quantum: "
           f"{hr['others']}")
     check(tuple(toks.shape) == (DENSE_BATCH, DENSE_NEW),
           f"generate returned {tuple(toks.shape)}")
@@ -1156,12 +1329,24 @@ def main():
         "name": "sm_issue", "route": "cuda",
         "source": "src/repro_torch/kernels/sm_issue/csrc/sm_issue.cu",
         "replaces": "src/repro/kernels/sm_issue/kernel.py:45",
-        "launches": main_launches, "max_abs_err": kr["max_abs_err"],
+        # the main path's launches (phase 4's fused runs: none, sm_quantum
+        # took them over), beside the eager witness's and phase 2's
+        "launches": main_issue, "witness_launches": witness_launches,
+        "compare_launches": kr["cases"],
+        "max_abs_err": kr["max_abs_err"],
         "ms": kr["ms"], "plain_ms": kr["plain_ms"],
         "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
         "library_ms": None, "wrapper_ms": kr["wrapper_ms"],
         "us_per_launch": kr["ms"] * 1e3,
         "plain_us": kr["plain_ms"] * 1e3, "bound_us": kr["bound_ms"] * 1e3,
+    }, {
+        "name": "sm_quantum", "route": "cuda",
+        "source": "src/repro_torch/kernels/sm_quantum/csrc/sm_quantum.cu",
+        "replaces": "src/repro/kernels/sm_issue/kernel.py:45",
+        "launches": main_launches, "max_abs_err": qr["max_abs_err"],
+        "ms": qr["ms"], "plain_ms": qr["plain_ms"],
+        "bound_ms": qr["bound_ms"], "bound_by": qr["bound_by"],
+        "library_ms": None, "wrapper_ms": qr["wrapper_ms"],
     }, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
@@ -1180,6 +1365,7 @@ def main():
         "ms": ar["ms"], "plain_ms": ar["plain_ms"],
         "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],
         "library_ms": ar["library_ms"], "wrapper_ms": ar["wrapper_ms"],
+        "cuda_core_bound_ms": ar["cuda_core_ms"],
         "shape": list(FLASH_FULL_SHAPE),
     }]}))
     # 7. the result

@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.sim.config import DynConfig
+from repro_torch.sim.config import N_CLASSES, N_UNITS, DynConfig
+from repro_torch.sim.trace import gen_address
 
 
 def to_torch(tree, device):
@@ -43,6 +44,93 @@ def dyn_to_numpy(dyn: DynConfig) -> dict:
     """The port's ``DynConfig`` → a flat {key: numpy int32 array} dict,
     the input of the JAX package's ``DynConfig.from_flat``."""
     return to_numpy(dyn.flat())
+
+
+# ---------------------------------------------------------------------------
+# Seeded simulator state
+# ---------------------------------------------------------------------------
+
+QUANTUM_T0 = 320
+
+
+def random_quantum_inputs(rng, scfg, ragged=False):
+    """Seeded inputs of one SM quantum at the clock ``QUANTUM_T0``:
+    (warp, sm, req, stats_sm, trace) as numpy, every leaf randomized for
+    ``scfg``'s shapes, with CTA barriers (every warp of the first CTA waits
+    on half the SMs), warm L1s holding the addresses the warps are about to
+    touch, partly filled address sets, and 0 to 2 free MSHR rows per SM;
+    ``ragged`` adds an ``instr_base`` offset.  The tests feed the same
+    arrays to both packages."""
+    t0 = QUANTUM_T0
+    ns, w, sc = scfg.n_sm, scfg.warps_per_sm, scfg.n_subcores
+    m, wpc = scfg.mshr_per_sm, 4
+    n_ops = 40
+    pre = int(rng.integers(1, 8)) if ragged else 0
+    L = int(rng.integers(8, n_ops - pre + 1))
+    ops = rng.choice(np.arange(N_CLASSES), n_ops,
+                     p=[.25, .15, .05, .1, .2, .15, .1]).astype(np.int32)
+    trace = {"ops": ops, "dep": rng.random(n_ops) < 0.5,
+             "addr_mode": rng.integers(1, 4, n_ops).astype(np.int32),
+             "addr_param": rng.integers(0, 4, n_ops).astype(np.int32),
+             "n_ctas": np.int32(40), "warps_per_cta": np.int32(wpc),
+             "n_instr": np.int32(L)}
+    if ragged:
+        trace["instr_base"] = np.int32(pre)
+    cta = (np.arange(w) // wpc + rng.integers(0, 6, (ns, 1))).astype(
+        np.int32)
+    warp = {
+        "pc": rng.integers(0, L + 1, (ns, w)).astype(np.int32),
+        "active": rng.random((ns, w)) < 0.85,
+        "ready_at": rng.integers(t0 - 8, t0 + 12, (ns, w)).astype(np.int32),
+        "pending": rng.integers(0, 3, (ns, w)).astype(np.int32),
+        "wait_mem": rng.random((ns, w)) < 0.3,
+        "wait_bar": rng.random((ns, w)) < 0.2,
+        "cta": cta,
+        "wic": (np.arange(w) % wpc + np.zeros((ns, 1), int)).astype(
+            np.int32),
+    }
+    # on half the SMs, every warp of the first CTA waits at the barrier
+    warp["wait_bar"][::2, :wpc] = True
+    # warm L1: the addresses the warps are about to touch, in random ways
+    gwarp = warp["cta"] * wpc + warp["wic"]
+    pcs = np.clip(warp["pc"] + rng.integers(0, 3, (ns, w)), 0, L - 1)
+    addr = gen_address(*(torch.as_tensor(x) for x in (
+        trace["addr_mode"][pre + pcs], trace["addr_param"][pre + pcs],
+        gwarp, pcs)),
+        scfg.mem_blocks).numpy()
+    l1_tag = rng.integers(0, 1 << 20, (ns, scfg.l1_sets, scfg.l1_ways)
+                          ).astype(np.int32)
+    for s in range(ns):
+        for a in addr[s][rng.random(w) < 0.5]:
+            l1_tag[s, a % scfg.l1_sets, rng.integers(scfg.l1_ways)] = a
+    cap = scfg.addrset_cap
+    addrset = np.where(rng.random((ns, cap)) < rng.random(),
+                       rng.integers(0, 1 << 20, (ns, cap)), -1
+                       ).astype(np.int32)
+    sm = {
+        "last_issued": rng.integers(-1, w, (ns, sc)).astype(np.int32),
+        "unit_free": rng.integers(t0 - 4, t0 + 6, (ns, sc, N_UNITS)
+                                  ).astype(np.int32),
+        "l1_tag": l1_tag,
+        "l1_lru": rng.integers(0, t0, l1_tag.shape).astype(np.int32),
+        "addrset": addrset,
+        "addrset_over": rng.integers(0, 3, ns).astype(np.int32),
+    }
+    # busy MSHRs: per SM 0..2 free rows at the start
+    stage = rng.integers(1, 4, (ns, m)).astype(np.int32)
+    for s in range(ns):
+        stage[s, rng.permutation(m)[:rng.integers(0, 3)]] = 0
+    req = {
+        "stage": stage,
+        "addr": rng.integers(0, 1 << 20, (ns, m)).astype(np.int32),
+        "t": rng.integers(t0 - 4, t0 + 24, (ns, m)).astype(np.int32),
+        "warp": rng.integers(0, w, (ns, m)).astype(np.int32),
+        "is_store": rng.random((ns, m)) < 0.3,
+    }
+    stats_sm = {k: rng.integers(0, 50, ns).astype(np.int32) for k in (
+        "issued", "issued_mem", "l1_hit", "l1_miss", "cycles_issue",
+        "stall", "warp_cycles")}
+    return warp, sm, req, stats_sm, trace
 
 
 # ---------------------------------------------------------------------------

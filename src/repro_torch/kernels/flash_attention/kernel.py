@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_plain,
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535        # CUDA's limit on the grid's y (H) and z (B)
+_MAX_GRID_YZ = 65535        # CUDA's limit on the grid's y (B) and z axes
+_BQ = 64                    # query rows per block: the grid's z is Sq / 64
 
 
 def _check(name, x, dtype, device):
@@ -38,6 +39,9 @@ def _check(name, x, dtype, device):
                         f"expected {dtype}")
     if not x.is_contiguous():
         raise ValueError(f"flash_attention: {name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must be 16-byte aligned "
+                         "(the kernel copies rows in 16-byte pieces)")
 
 
 @cache
@@ -75,9 +79,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q has dtype {q.dtype}; the kernel "
                         "takes torch.float32 or torch.bfloat16")
-    if max(b, h) > _MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: batch {b} or {h} heads above "
-                         f"the grid's limit of {_MAX_GRID_YZ}")
+    if max(b, -(-sq // _BQ)) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: batch {b} or {sq} queries above "
+                         f"the grid's limit of {_MAX_GRID_YZ} (x {_BQ})")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, q.dtype, device)
     o = torch.empty_like(q)

@@ -3,12 +3,17 @@
 ``sm_quantum`` simulates Δ cycles of every SM it is given, touching only
 each SM's own state (warps, L1, its MSHR rows, its stats).  ``vmap`` mode
 hands it all SMs at once; ``seq`` mode one SM at a time
-(core/parallel.py).
+(core/parallel.py).  On CUDA tensors it is one launch of the fused
+``sm_quantum`` kernel (kernels/sm_quantum: one thread block per SM, the
+state in shared memory for the whole quantum, no host read); on CPU
+tensors it runs ``sm_quantum_eager``, the cycle loop below, which is that
+kernel's plain version.
 
 One cycle, per SM, as in ``repro.sim.smcore.sm_cycle_single``: deliver
 resolved memory responses, release CTA barriers, then let each sub-core
-issue at most one instruction.  The reference's per-sub-core step
-(``_issue_subcore``) is split three ways here:
+issue at most one instruction.  The eager loop splits the reference's
+per-sub-core step (``_issue_subcore``) three ways, to batch its tensor
+operations over SMs and sub-cores:
 
   1. warp selection for every SM and sub-core in one call of the
      ``sm_issue`` kernel, which returns two winners per sub-core: any op
@@ -18,20 +23,21 @@ issue at most one instruction.  The reference's per-sub-core step
      and MSHR allocation — the only state that sub-cores of one SM share
      within a cycle;
   3. ``_commit``, batched over sub-cores: scoreboard, dispatch port,
-     last-issued warp and stats.  Sub-cores own disjoint warps, ports and
-     last-issued slots, so the order does not matter there.
+     last-issued warp and stats.  Sub-cores own disjoint warp slots, ports
+     and last-issued slots, so the order does not matter there.
 
-Each quantum and each cycle read back a few flags, so that steps which
-would change nothing are skipped: a quantum for SMs with nothing to do,
-barrier release when no warp can be at a barrier, the issue steps when no
-SM issues, the memory side of a sub-core that issues no LDG/STG.  Every
-result is bit-identical to the reference.
+Each quantum and each cycle of the eager loop read back a few flags, so
+that steps which would change nothing are skipped: a quantum for SMs with
+nothing to do, barrier release when no warp can be at a barrier, the issue
+steps when no SM issues, the memory side of a sub-core that issues no
+LDG/STG.  Every result is bit-identical to the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.sm_issue.kernel import issue_select, unit_table
+from repro_torch.kernels.sm_quantum.kernel import sm_quantum as fused_quantum
 from repro_torch.sim.config import (BAR, LDG, N_UNITS, STG, DynConfig,
                                     StaticConfig)
 from repro_torch.sim.trace import gen_address
@@ -268,10 +274,11 @@ def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
     return warp, sm, req, stats
 
 
-def sm_quantum(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
-               dyn: DynConfig):
+def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
+                     dyn: DynConfig):
     """Run Δ consecutive cycles for every SM given — the communication
-    window.
+    window — as Δ calls of ``sm_cycle``.  On CUDA tensors it launches
+    ``sm_issue`` once per cycle.
 
     SMs with no active warp, no request in flight and no warp at a
     barrier do nothing for the whole quantum and are returned as they
@@ -291,3 +298,14 @@ def sm_quantum(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
         warp, sm, req, stats = sm_cycle(warp, sm, req, stats, trace, t0 + i,
                                         barriers, cfg, dyn)
     return warp, sm, req, stats
+
+
+def sm_quantum(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
+               dyn: DynConfig):
+    """The SM phase: Δ cycles of every SM given.  CUDA tensors go to one
+    launch of the fused ``sm_quantum`` kernel; CPU tensors run its plain
+    version, ``sm_quantum_eager``.  Returns fresh (warp, sm, req, stats)
+    dicts; the inputs are not modified."""
+    if warp["pc"].device.type == "cpu":
+        return sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg, dyn)
+    return fused_quantum(warp, sm, req, stats, trace, t0, cfg, dyn)

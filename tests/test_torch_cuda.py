@@ -1,8 +1,8 @@
-"""The port's CUDA path, on the card: the sm_issue, wkv6 and
+"""The port's CUDA path, on the card: the sm_issue, sm_quantum, wkv6 and
 flash_attention kernels against their plain PyTorch versions, the
-wrappers' input checks and launch counts, one simulation on the card
-against the same simulation on the CPU, and the reduced RWKV-6 and dense
-models on the card against their golden files.
+wrappers' input checks and launch counts, simulations on the card against
+the same simulations on the CPU and against the golden stats, and the
+reduced RWKV-6 and dense models on the card against their golden files.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -10,6 +10,7 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import json
 import os
 
@@ -18,18 +19,24 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.convert import (jitter_constant_leaves, lm_params_to_torch,
-                                 params_fingerprint, seeded_lm_params)
+from repro_torch.convert import (QUANTUM_T0, jitter_constant_leaves,
+                                 lm_params_to_torch, params_fingerprint,
+                                 random_quantum_inputs, seeded_lm_params,
+                                 to_numpy, to_torch)
+from repro_torch.core import engine
 from repro_torch.core import stats as S
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
+from repro_torch.kernels.sm_quantum import kernel as Q
 from repro_torch.kernels.wkv6 import kernel as W
 from repro_torch.models import factory
 from repro_torch.models.lm import LM
-from repro_torch.sim.config import N_CLASSES, N_UNITS, RTX3080TI, TINY
+from repro_torch.sim.config import (N_CLASSES, N_UNITS, RTX3080TI,
+                                    SCHEDULERS, TINY, split_config,
+                                    static_part)
 from repro_torch.sim.workloads import resolve_workload
 
 pytestmark = pytest.mark.cuda
@@ -40,6 +47,8 @@ SHAPES = ((8, 8, 2), (80, 48, 4), (4, 16, 4), (3, 96, 3))
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "torch_port_rwkv6_reduced.json")
+SIM_GOLDENS = {TINY: "determinism_tiny.json",
+               RTX3080TI: "torch_port_rtx3080ti.json"}
 DENSE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
                             "torch_port_dense_reduced.json")
 
@@ -107,17 +116,126 @@ def test_wrapper_rejects_bad_inputs(cuda):
         K.issue_select(*args, n_subcores=3)
 
 
+class _QuantumSteps:
+    """Counts the engine's quantum steps."""
+
+    def __init__(self, monkeypatch):
+        self.n = 0
+        step = engine.quantum_step
+
+        def counted(*args, **kw):
+            self.n += 1
+            return step(*args, **kw)
+        monkeypatch.setattr(engine, "quantum_step", counted)
+
+
 @pytest.mark.parametrize("cfg,bench,scale", [(TINY, "zoo:mixed", 0.01),
                                              (RTX3080TI, "nn", 0.05)])
-def test_simulate_on_card_equals_cpu(cuda, cfg, bench, scale):
+def test_simulate_on_card_equals_cpu(cuda, monkeypatch, cfg, bench, scale):
     w = resolve_workload(bench, scale)
-    before = K.issue_select.launches
+    steps = _QuantumSteps(monkeypatch)
+    before, fused = K.issue_select.launches, Q.sm_quantum.launches
     on_card = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap")))
-    assert K.issue_select.launches > before
+    # the SM phase is one sm_quantum launch per quantum, no sm_issue
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+    assert K.issue_select.launches == before
     on_cpu = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap"),
                                  device="cpu"))
     assert S.comparable(on_card) == S.comparable(on_cpu)
     assert on_card["timeouts"] == on_cpu["timeouts"] == 0
+
+
+@pytest.mark.parametrize("cfg,bench,scale,mode", [
+    (TINY, "myocyte", 1.0, "vmap"), (TINY, "myocyte", 1.0, "seq"),
+    (RTX3080TI, "nn", 0.5, "vmap")])
+def test_simulate_on_card_equals_golden(cuda, monkeypatch, cfg, bench, scale,
+                                        mode):
+    with open(os.path.join(os.path.dirname(GOLDEN), SIM_GOLDENS[cfg])) as f:
+        want = json.load(f)[f"{bench}@{scale}"]
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    out = S.finalize(simulate(resolve_workload(bench, scale), cfg,
+                              make_sm_runner(cfg, mode),
+                              max_cycles=1 << 17))
+    assert S.comparable(out) == want
+    assert out["timeouts"] == 0
+    per_step = cfg.n_sm if mode == "seq" else 1
+    assert Q.sm_quantum.launches - fused == per_step * steps.n
+
+
+SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
+QUANTUM_CFGS = {"tiny": TINY, "four_subcores": dataclasses.replace(TINY,
+                                                                   **SC4),
+                "rtx3080ti": RTX3080TI}
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("sched", ["gto", "lrr"])
+@pytest.mark.parametrize("mode", ["seq", "vmap"])
+@pytest.mark.parametrize("name", list(QUANTUM_CFGS))
+def test_sm_quantum_equals_eager(cuda, name, mode, sched, ragged):
+    """The fused kernel against the eager SM phase on CPU copies of the
+    same seeded state, leaf for leaf; the card's inputs stay as they
+    were."""
+    cfg = QUANTUM_CFGS[name]
+    host = random_quantum_inputs(np.random.default_rng(7), static_part(cfg),
+                                 ragged=ragged)
+    outs, launches = [], []
+    for dev in ("cpu", cuda):
+        _, dyn = split_config(cfg, {"sched": SCHEDULERS[sched]}, device=dev)
+        args = [to_torch(x, dev) for x in host]
+        before = Q.sm_quantum.launches
+        outs.append(make_sm_runner(cfg, mode)(
+            *args, torch.tensor(QUANTUM_T0, dtype=torch.int32, device=dev),
+            dyn))
+        launches.append(Q.sm_quantum.launches - before)
+        for x, a in zip(host, args):
+            for k in x:
+                assert np.array_equal(np.asarray(x[k]), a[k].cpu().numpy())
+    assert launches == [0, cfg.n_sm if mode == "seq" else 1]
+    for want, got in zip(*outs):
+        assert want.keys() == got.keys()
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert np.array_equal(to_numpy(got[k]), to_numpy(want[k])), k
+    # the seeded state issues, hits and misses in L1 and releases barriers
+    # (the four-sub-core state without instr_base hits no line it warmed:
+    # the eager loop gives it no L1 hit either)
+    keys = ["issued", "issued_mem", "l1_miss"]
+    if name != "four_subcores" or ragged:
+        keys.append("l1_hit")
+    for k in keys:
+        assert (outs[1][3][k].cpu() > torch.as_tensor(host[3][k])).any(), k
+    assert (~outs[1][0]["wait_bar"].cpu()
+            & torch.as_tensor(host[0]["wait_bar"])).any()
+
+
+def test_sm_quantum_wrapper_rejects_bad_inputs(cuda):
+    cfg = static_part(TINY)
+    host = random_quantum_inputs(np.random.default_rng(0), cfg)
+    _, dyn = split_config(TINY, device=cuda)
+    warp, sm, req, stats, trace = (to_torch(x, cuda) for x in host)
+    t0 = torch.tensor(QUANTUM_T0, dtype=torch.int32, device=cuda)
+    before = Q.sm_quantum.launches
+    with pytest.raises(TypeError, match="warp.pc has dtype torch.int64"):
+        Q.sm_quantum(dict(warp, pc=warp["pc"].long()), sm, req, stats, trace,
+                     t0, cfg, dyn)
+    strided = torch.cat([req["t"], req["t"]], 1)[:, ::2]
+    with pytest.raises(ValueError, match="req.t must be contiguous"):
+        Q.sm_quantum(warp, sm, dict(req, t=strided), stats, trace, t0, cfg,
+                     dyn)
+    with pytest.raises(ValueError, match="sm.l1_tag is on cpu"):
+        Q.sm_quantum(warp, dict(sm, l1_tag=sm["l1_tag"].cpu()), req, stats,
+                     trace, t0, cfg, dyn)
+    with pytest.raises(ValueError, match="sm.addrset has shape"):
+        Q.sm_quantum(warp, dict(sm, addrset=sm["addrset"][:, :-1]), req,
+                     stats, trace, t0, cfg, dyn)
+    with pytest.raises(ValueError, match="t0 is on cpu"):
+        Q.sm_quantum(warp, sm, req, stats, trace, t0.cpu(), cfg, dyn)
+    wide = dataclasses.replace(cfg, n_subcores=33)
+    with pytest.raises(ValueError, match="n_subcores=33"):
+        Q.sm_quantum(warp, sm, req, stats, trace, t0, wide, dyn)
+    assert Q.sm_quantum.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +379,10 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
                            k, v)
     with pytest.raises(ValueError, match="Sq = 8 > Sk = 4"):
         FA.flash_attention(q, k[:, :4], v[:, :4])
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        FA.flash_attention(shifted, k, v)
     odd = flash_inputs(1, 1, 8, 8, 2, 1, 48, torch.float32, cuda)
     with pytest.raises(ValueError, match="head size 48"):
         FA.flash_attention(*odd)

@@ -154,3 +154,91 @@ def test_pallas_kernel_and_oracle_disagree_when_sq_exceeds_sk():
     assert np.abs(got - want)[:, :, blind].max() > 0.1
     np.testing.assert_allclose(got[:, :, seeing], want[:, :, seeing],
                                rtol=2e-5, atol=2e-5)
+
+
+def tf32(x):
+    """f32 → TF32 as the card's ``cvt.rna.tf32.f32`` rounds it: the low 13
+    mantissa bits rounded to nearest, ties away from zero."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_toward_zero(x):
+    """f32 → TF32 with the low 13 mantissa bits cleared."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+# the split of an f32 operand into TF32 (big, small): the kernel's (big
+# rounded toward zero, small to nearest), and both to nearest
+SPLITS = {"kernel": lambda x: (tf32_toward_zero(x),
+                               tf32(x - tf32_toward_zero(x))),
+          "nearest": lambda x: (tf32(x), tf32(x - tf32(x)))}
+
+
+def tf32_mm(a, b, passes, split="kernel"):
+    """a @ b on emulated TF32 tensor cores, sums in f64, result in f32: one
+    pass (the operands rounded to nearest TF32) or the kernel's three (each
+    operand split into TF32 big and small parts; small terms first, small
+    x small dropped)."""
+    if passes == 1:
+        return (tf32(a).double() @ tf32(b).double()).float()
+    (ab, a_s), (bb, b_s) = SPLITS[split](a), SPLITS[split](b)
+    return (a_s.double() @ bb.double() + ab.double() @ b_s.double()
+            + ab.double() @ bb.double()).float()
+
+
+def tf32_attention(q, k, v, passes, split="kernel"):
+    """Causal attention of the kernel's arithmetic, on (B, S, H, hd) f32
+    with H == KV: scores and P V through ``tf32_mm``, softmax in f32."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    s = tf32_mm(qt, kt.transpose(-1, -2), passes, split) * (
+        q.shape[-1] ** -0.5)
+    sq, sk = s.shape[-2:]
+    keep = (torch.arange(sq)[:, None] + (sk - sq)) >= torch.arange(sk)
+    s = torch.where(keep, s, torch.tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = tf32_mm(p, vt, passes, split) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -10, 3.0], dtype=torch.float32)
+    # ties go away from zero; exact values stay
+    assert tf32(x).tolist() == [1 + 2 ** -10, 1 + 2 * 2 ** -10,
+                                -(1 + 2 ** -10), 1 + 2 ** -10, 3.0]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000, dtype=np.float32))
+    assert not (tf32(y).view(torch.int32) & 0x1FFF).any()
+    assert ((tf32(y) - y).abs() <= y.abs() * 2 ** -11).all()
+    # toward zero: never larger in magnitude, within one TF32 unit
+    z = tf32_toward_zero(y)
+    assert (z.abs() <= y.abs()).all()
+    assert ((z - y).abs() < y.abs() * 2 ** -10).all()
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_split_parts_sum_to_the_operand(split):
+    """big + small is exact in TF32 and within 2^-22 of the f32 value."""
+    y = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        10000, dtype=np.float32))
+    big, small = SPLITS[split](y)
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (big.double() + small.double() - y.double()).abs()
+    assert (err <= y.abs().double() * 2 ** -22).all()
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("seed", range(3))
+def test_three_tf32_passes_hold_the_f32_tolerance(seed, split):
+    """The tensor-core kernel's arithmetic: at (1, 128, 2 / 2, 128) causal,
+    Q K^T and P V in three TF32 passes are within f32's 2e-5 of the f64
+    attention, with the kernel's split and with both parts rounded to
+    nearest; one pass is not."""
+    (q, k, v), _ = inputs(seed, 1, 128, 128, 2, 2, 128, "float32")
+    truth = attention_plain(q.double(), k.double(), v.double())
+    err = {n: float((tf32_attention(q, k, v, n, split).double() - truth)
+                    .abs().max()) for n in (1, 3)}
+    assert err[3] <= TOLS["float32"], err
+    assert err[1] > TOLS["float32"], err
