@@ -30,13 +30,17 @@ last line.  The simulator's path:
   5. a profile of the first 16 quanta of syrk@0.16: device busy and
      idle share, kernel launches and device-to-host reads per quantum;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
-  a. the wkv6 build's ptxas registers;
-  b. wkv6 against its plain PyTorch version (wkv6_plain) on seeded cases,
-     hs in {16, 32, 64} x S in {1, 64, 512}, zero and random initial
-     state, and the full-width shape (8, 512, 32, 64) that the main path
-     launches it at, rtol = atol = 1e-4; there, both against the
-     recurrence in f64 (wkv6 held to 1e-4), the time per launch of both,
-     and the bound;
+  a. the wkv6 build: ptxas registers and spills, and the dynamic shared
+     memory of one block per head size;
+  b. wkv6 (chunks of 32 tokens, 3xTF32 mma.sync on the tensor cores)
+     against its plain PyTorch version (wkv6_plain) on seeded cases, hs
+     in {16, 32, 64} x S in {1, 64, 512}, zero and random initial state;
+     ragged S 37 and 100; a log decay of about -20 (plain in chunks of 1:
+     ROADMAP §3, F5) and of about -1e-6 on every token; and the
+     full-width shape (8, 512, 32, 64) that the main path launches it at,
+     rtol = atol = 1e-4, every output finite, and every case against the
+     recurrence in f64 within the same; at full width, the time per
+     launch of both (profiler and events) and the bound;
   c. the reduced rwkv6-1.6b with seeded weights against
      tests/golden/torch_port_rwkv6_reduced.json (the JAX package's
      prefill and decode logits, 1e-4, and greedy tokens);
@@ -50,7 +54,8 @@ The RWKV-6 serving path (f32 products in full f32: TF32 is off):
      drift of the same steps from a state moved by one f32 rounding;
      medians and ranges over three windows of prefill, decode and
      generate wall, tokens/s, peak device memory, and profiles of a
-     prefill and of four decode steps.
+     prefill and of four decode steps, with wkv6's share of their device
+     time.
 The dense GQA serving path (f32, TF32 off):
   e. the flash_attention build (in parallel with the two others): seconds,
      and ptxas registers and spills per dtype and hd;
@@ -239,6 +244,18 @@ def profiled(torch, fn):
     return device_events(prof), wall
 
 
+def kernel_us(torch, fn, name):
+    """Device time in microseconds of each launch of kernels whose name
+    holds ``name`` while ``fn`` runs; a profiler window now and then
+    reports no device activity, so up to three windows are tried."""
+    for _ in range(3):
+        events, _ = profiled(torch, fn)
+        kern = [us for ev, us in events if name in ev]
+        if kern:
+            break
+    return kern
+
+
 def phase_kernel(torch, K):
     """Kernel vs plain version, exact, on seeded cases."""
     rng = np.random.default_rng(20261016)
@@ -269,8 +286,7 @@ def phase_kernel(torch, K):
     def launches():
         for _ in range(500):
             K.issue_select(*args, n_subcores=sc)
-    events, _ = profiled(torch, launches)
-    kern = [us for name, us in events if "sm_issue_kernel" in name]
+    kern = kernel_us(torch, launches, "sm_issue_kernel")
     # device time per launch from the profiler; the CUDA-event time of
     # back-to-back wrapper calls where the profiler saw no device activity
     ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
@@ -286,14 +302,17 @@ def phase_kernel(torch, K):
             "bytes": n_bytes}
 
 
-def wkv_case(rng, torch, b, s, h, hs, zero_state):
+def wkv_case(rng, torch, b, s, h, hs, zero_state, decay="random"):
     """Seeded wkv6 inputs on the card, tests/test_kernels.py's
     distributions: r, k, v ~ 0.5 N, log decay -exp(N - 1), u ~ 0.3 N;
+    or a log decay about -20 ("strong") or -1e-6 ("weak") on every token;
     the initial state ~ 0.5 N, or zero (the TPU kernel's contract)."""
     f = np.float32
     shp = (b, s, h, hs)
     host = [(0.5 * rng.standard_normal(shp)).astype(f) for _ in range(3)]
-    host.append((-np.exp(rng.standard_normal(shp) - 1)).astype(f))
+    z = rng.standard_normal(shp)
+    host.append({"random": -np.exp(z - 1), "strong": -20 * np.exp(0.05 * z),
+                 "weak": -1e-6 * np.exp(0.3 * z)}[decay].astype(f))
     host.append((0.3 * rng.standard_normal((h, hs))).astype(f))
     host.append(np.zeros((b, h, hs, hs), f) if zero_state else
                 (0.5 * rng.standard_normal((b, h, hs, hs))).astype(f))
@@ -318,28 +337,50 @@ def phase_wkv6(torch, W):
     full-width shape."""
     from repro_torch.kernels.wkv6.ref import wkv_ref_stepwise
     rng = np.random.default_rng(20261017)
-    n_cases, max_err, worst = 0, 0.0, 0.0
-    cases = [((2, s, 4, hs), zero_state) for hs in (16, 32, 64)
+    n_cases, max_err, worst, worst_f64 = 0, 0.0, 0.0, 0.0
+    by_kind = {}
+    cases = [((2, s, 4, hs), zero_state, "random") for hs in (16, 32, 64)
              for s in (1, 64, 512) for zero_state in (True, False)]
+    # ragged lengths, within a chunk and over several
+    cases += [((2, s, 4, hs), False, "random") for hs in (16, 64)
+              for s in (37, 100)]
+    # a log decay of about -20 and of about -1e-6 on every token
+    cases += [((2, s, 4, hs), s == 37, decay) for decay in ("strong", "weak")
+              for hs in (16, 32, 64) for s in (37, 512)]
     # last, the shape the main path launches it at, which is also timed
-    cases.append((WKV_FULL_SHAPE, True))
-    for shape, zero_state in cases:
-        args = wkv_case(rng, torch, *shape, zero_state)
-        got = W.wkv6(*args)
-        want = W.wkv6_plain(*args)
+    cases.append((WKV_FULL_SHAPE, True, "random"))
+    for shape, zero_state, decay in cases:
+        args = wkv_case(rng, torch, *shape, zero_state, decay)
+        s = shape[1]
+        # wkv6_plain's chunk divides S; under strong decay its chunked
+        # form's own f32 rounding is above the tolerance (ROADMAP §3, F5),
+        # and it runs token by token
+        chunk = 1 if decay == "strong" else (64 if s % 64 == 0 else s)
+        got = W.wkv6(*args, chunk=chunk)       # the kernel reads no chunk
+        want = W.wkv6_plain(*args, chunk=chunk)
+        truth = wkv_ref_stepwise(*(a.double() for a in args))
         torch.cuda.synchronize()
-        for g, r in zip(got, want):
+        for g, r, t in zip(got, want, truth):
+            check(bool(torch.isfinite(g).all()), f"wkv6 returned a value "
+                  f"that is not finite at {shape}, {decay} decay")
             err = (g - r).abs()
             max_err = max(max_err, float(err.max()))
             # allclose's measure: |g - r| <= atol + rtol |r|
             worst = max(worst, float(
                 (err / (WKV_TOL + WKV_TOL * r.abs())).max()))
+            worst_f64 = max(worst_f64, float(
+                ((g.double() - t).abs() / (WKV_TOL + WKV_TOL * t.abs()))
+                .max()))
         n_cases += 1
+        kind = decay if decay != "random" else (
+            "ragged" if s not in (1, 64, 512) else "seeded")
+        by_kind[kind] = by_kind.get(kind, 0) + 1
     check(worst <= 1.0, f"wkv6 disagrees with wkv6_plain beyond "
           f"rtol = atol = {WKV_TOL} (max abs err {max_err}, worst "
           f"err/tol {worst})")
+    check(worst_f64 <= 1.0, f"wkv6 disagrees with the recurrence in f64 "
+          f"beyond rtol = atol = {WKV_TOL} (worst err/tol {worst_f64})")
     # at the full-width shape, both f32 forms against the recurrence in f64
-    truth = wkv_ref_stepwise(*(a.double() for a in args))
     vs_f64 = {name: max(float((o.double() - t).abs().max())
                         for o, t in zip(out, truth))
               for name, out in (("wkv6", got), ("wkv6_plain", want))}
@@ -353,11 +394,11 @@ def phase_wkv6(torch, W):
     def launches():
         for _ in range(10):
             W.wkv6(*args)
-    events, _ = profiled(torch, launches)
-    kern = [us for name, us in events if "wkv6_kernel" in name]
+    kern = kernel_us(torch, launches, "wkv6_kernel")
     ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
     bound_ms, bound_by, n_bytes, n_ops = wkv_bound(*WKV_FULL_SHAPE)
-    return {"cases": n_cases, "max_abs_err": max_err, "worst": worst,
+    return {"cases": n_cases, "by_kind": by_kind, "max_abs_err": max_err,
+            "worst": worst, "worst_f64": worst_f64,
             "vs_f64": vs_f64, "ms": ms, "wrapper_ms": wrapper_ms, "device_timed": bool(kern),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "ops": n_ops}
@@ -455,6 +496,8 @@ def _windows(torch, model, cfg, prompts, toks, max_len):
             "wall": wall, "busy": sum(by_name.values()) / 1e6,
             "n": len(events),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
+            "wkv6": sum(us for ev, us in by_name.items()
+                        if "wkv6_kernel" in ev) / 1e6,
             # the functional cache: index_put's clone and the layer stack
             "copies": sum(us for ev, us in by_name.items()
                           if "Memcpy DtoD" in ev
@@ -695,12 +738,7 @@ def phase_flash(torch, FA):
     def launches():
         for _ in range(10):
             FA.flash_attention(q, k, v)
-    # a profiler window now and then reports no device activity: retry
-    for _ in range(3):
-        events, _ = profiled(torch, launches)
-        kern = [us for name, us in events if "flash_kernel" in name]
-        if kern:
-            break
+    kern = kernel_us(torch, launches, "flash_kernel")
     ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
     bound_ms, bound_by, n_bytes, n_ops, cuda_core_ms = flash_bound(
         b, s, s, h, kv, hd, True)
@@ -911,11 +949,7 @@ def phase_quantum(torch, Q):
     def launches():
         for _ in range(100):
             Q.sm_quantum(*args, t0, scfg, dyn)
-    for _ in range(3):
-        events, _ = profiled(torch, launches)
-        kern = [us for name, us in events if "sm_quantum_kernel" in name]
-        if kern:
-            break
+    kern = kernel_us(torch, launches, "sm_quantum_kernel")
     ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
     # each input read once, each output written once: the state twice,
     # the trace and the scalars once
@@ -1118,15 +1152,20 @@ def main():
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
           f"the others (loaded {wkv_build_s:.2f} s after the start); "
+          f"dynamic shared memory per block by hs "
+          f"{wkv_info['smem_bytes']} B; "
           f"ptxas: {ptxas_lines(wkv_info['log'])}", flush=True)
 
     # b. wkv6 against its plain version, and its time
     wr = phase_wkv6(torch, W)
-    print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases (hs 16/32/64"
-          f" x S 1/64/512 x zero/random state, and {WKV_FULL_SHAPE}; max "
-          f"abs err "
+    print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases "
+          f"{wr['by_kind']} (hs 16/32/64 x S 1/64/512 x zero/random state; "
+          f"ragged S 37 and 100; log decay ~-20 and ~-1e-6 at S 37 and "
+          f"512; and {WKV_FULL_SHAPE}), every output finite; max abs err "
           f"{wr['max_abs_err']:.3e}, worst err/tol {wr['worst']:.4f} at "
-          f"rtol = atol = {WKV_TOL}); at {WKV_FULL_SHAPE} against the "
+          f"rtol = atol = {WKV_TOL}; against the recurrence in f64 on "
+          f"every case, worst err/tol {wr['worst_f64']:.4f}); at "
+          f"{WKV_FULL_SHAPE} against the "
           f"recurrence in f64: wkv6 max abs err {wr['vs_f64']['wkv6']:.3e}, "
           f"wkv6_plain {wr['vs_f64']['wkv6_plain']:.3e}; there: kernel "
           f"{wr['ms'] * 1e3:.2f} us/launch on the device "
@@ -1184,7 +1223,9 @@ def main():
         print(f"[d rwkv full] profile of {name}: wall {w['wall']:.3f} s, "
               f"device busy {w['busy']:.4f} s (idle share "
               f"{1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
-              "activities; top: " + "; ".join(
+              f"activities; wkv6 {w['wkv6'] * 1e3:.3f} ms "
+              f"({w['wkv6'] / max(w['busy'], 1e-12):.2%} of busy); top: "
+              + "; ".join(
                   f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
               flush=True)
     for s_, steps, diff, scale, tol in fr["cons"]:

@@ -8,7 +8,8 @@ from ``state``; zero ``state`` is the Pallas kernel's contract.  See
 ``csrc/wkv6.cu``.
 
 On CUDA tensors the wrapper launches the kernel (built from
-``csrc/wkv6.cu`` at first use) or raises; on CPU tensors it runs
+``csrc/wkv6.cu`` at first use: chunks of 32 tokens, the products in three
+TF32 passes on the tensor cores) or raises; on CPU tensors it runs
 ``wkv6_plain``, the chunked parallel form of the reference's
 ``models/layers/rwkv6.py:wkv_chunked``.  ``wkv6.launches`` counts kernel
 launches.
@@ -76,6 +77,9 @@ def _check(name, x, shape, device):
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"wkv6: {name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"wkv6: {name} must start on a 16-byte boundary "
+                         "(the kernel loads rows 16 bytes at a time)")
 
 
 @cache
@@ -85,12 +89,17 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.wkv6_smem_bytes.argtypes = [ctypes.c_int]
+    lib.wkv6_smem_bytes.restype = ctypes.c_int
+    info = dict(info, smem_bytes={hs: lib.wkv6_smem_bytes(hs)
+                                  for hs in HEAD_SIZES})
     return fn, info
 
 
 def build() -> dict:
     """Build (or reuse) and load the kernel; returns the build record of
-    ``repro_torch.kernels.build.build_library``."""
+    ``repro_torch.kernels.build.build_library``, with the dynamic shared
+    memory of one block per head size under ``smem_bytes``."""
     return _launcher()[1]
 
 
@@ -98,8 +107,9 @@ def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
     """The wkv recurrence from ``state``: the CUDA kernel on CUDA tensors,
     ``wkv6_plain`` on CPU tensors.  Same arguments and results as
     ``wkv6_plain``; ``chunk`` is the plain version's chunk length, and the
-    kernel, which walks the tokens one by one, does not read it.  On CUDA
-    every input is f32 and contiguous, and hs is 16, 32 or 64."""
+    kernel, whose chunk is fixed in its source, does not read it.  On CUDA
+    every input is f32, contiguous and 16-byte aligned, hs is 16, 32 or
+    64, and S may be any length."""
     device = r.device
     if device.type == "cpu":
         return wkv6_plain(r, k, v, wlog, u, state, chunk=chunk)

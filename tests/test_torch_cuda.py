@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
 from repro_torch.kernels.sm_quantum import kernel as Q
 from repro_torch.kernels.wkv6 import kernel as W
+from repro_torch.kernels.wkv6.ref import wkv_ref_stepwise
 from repro_torch.models import factory
 from repro_torch.models.lm import LM
 from repro_torch.sim.config import (N_CLASSES, N_UNITS, RTX3080TI,
@@ -243,34 +244,46 @@ def test_sm_quantum_wrapper_rejects_bad_inputs(cuda):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, hs): the reduced model's head size, test_kernels.py's, the
-# published one, and a ragged length
+# published one, ragged lengths (within a chunk and over several), one token
 WKV_SHAPES = ((2, 128, 4, 16), (2, 64, 2, 32), (2, 128, 2, 64),
-              (3, 37, 5, 64))
+              (3, 37, 5, 64), (2, 100, 3, 32), (2, 1, 2, 16))
 
 
-def wkv_inputs(rng, b, s, h, hs, device, zero_state):
+def wkv_inputs(rng, b, s, h, hs, device, zero_state, decay="random"):
+    """tests/test_kernels.py's distributions (log decay -exp(N - 1)), or a
+    log decay about -20 ("strong") or -1e-6 ("weak") on every token."""
     f = np.float32
     shp = (b, s, h, hs)
     host = [(0.5 * rng.standard_normal(shp)).astype(f) for _ in range(3)]
-    host.append((-np.exp(rng.standard_normal(shp) - 1)).astype(f))
+    z = rng.standard_normal(shp)
+    host.append({"random": -np.exp(z - 1), "strong": -20 * np.exp(0.05 * z),
+                 "weak": -1e-6 * np.exp(0.3 * z)}[decay].astype(f))
     host.append((0.3 * rng.standard_normal((h, hs))).astype(f))
     host.append(np.zeros((b, h, hs, hs), f) if zero_state else
                 (0.5 * rng.standard_normal((b, h, hs, hs))).astype(f))
     return [torch.as_tensor(x, device=device) for x in host]
 
 
+@pytest.mark.parametrize("decay", ["random", "strong", "weak"])
 @pytest.mark.parametrize("zero_state", [True, False])
 @pytest.mark.parametrize("shape", WKV_SHAPES)
-def test_wkv6_kernel_matches_plain(cuda, shape, zero_state):
+def test_wkv6_kernel_matches_plain(cuda, shape, zero_state, decay):
+    """Against wkv6_plain in one chunk of S (ragged lengths included), or
+    under strong decay in chunks of 1, where the chunked form's own f32
+    rounding is above the tolerance (ROADMAP §3, F5); and against the
+    recurrence in f64."""
     args = wkv_inputs(np.random.default_rng(sum(shape)), *shape, cuda,
-                      zero_state)
+                      zero_state, decay)
     before = W.wkv6.launches
     got = W.wkv6(*args, chunk=shape[1])
     assert W.wkv6.launches == before + 1
-    want = W.wkv6_plain(*args, chunk=shape[1])
+    want = W.wkv6_plain(*args, chunk=1 if decay == "strong" else shape[1])
+    truth = wkv_ref_stepwise(*(a.double() for a in args))
     torch.cuda.synchronize()
-    for g, r in zip(got, want):
+    for g, r, t in zip(got, want, truth):
+        assert torch.isfinite(g).all()
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(g.double(), t, rtol=1e-4, atol=1e-4)
 
 
 def test_wkv6_wrapper_rejects_bad_inputs(cuda):
@@ -295,6 +308,11 @@ def test_wkv6_wrapper_rejects_bad_inputs(cuda):
     odd = wkv_inputs(np.random.default_rng(1), 1, 8, 2, 48, cuda, False)
     with pytest.raises(ValueError, match="head size 48"):
         W.wkv6(*odd)
+    bad = list(args)
+    bad[3] = torch.empty(args[3].numel() + 1, device=cuda)[1:].view(
+        args[3].shape).copy_(args[3])
+    with pytest.raises(ValueError, match="wlog must start on a 16-byte"):
+        W.wkv6(*bad)
     assert W.wkv6.launches == before
 
 

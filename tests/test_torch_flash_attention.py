@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _tf32 import SPLITS, tf32, tf32_mm, tf32_toward_zero
 from repro.kernels.flash_attention.kernel import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import kernel as K
@@ -154,37 +155,6 @@ def test_pallas_kernel_and_oracle_disagree_when_sq_exceeds_sk():
     assert np.abs(got - want)[:, :, blind].max() > 0.1
     np.testing.assert_allclose(got[:, :, seeing], want[:, :, seeing],
                                rtol=2e-5, atol=2e-5)
-
-
-def tf32(x):
-    """f32 → TF32 as the card's ``cvt.rna.tf32.f32`` rounds it: the low 13
-    mantissa bits rounded to nearest, ties away from zero."""
-    bits = x.view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_toward_zero(x):
-    """f32 → TF32 with the low 13 mantissa bits cleared."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-# the split of an f32 operand into TF32 (big, small): the kernel's (big
-# rounded toward zero, small to nearest), and both to nearest
-SPLITS = {"kernel": lambda x: (tf32_toward_zero(x),
-                               tf32(x - tf32_toward_zero(x))),
-          "nearest": lambda x: (tf32(x), tf32(x - tf32(x)))}
-
-
-def tf32_mm(a, b, passes, split="kernel"):
-    """a @ b on emulated TF32 tensor cores, sums in f64, result in f32: one
-    pass (the operands rounded to nearest TF32) or the kernel's three (each
-    operand split into TF32 big and small parts; small terms first, small
-    x small dropped)."""
-    if passes == 1:
-        return (tf32(a).double() @ tf32(b).double()).float()
-    (ab, a_s), (bb, b_s) = SPLITS[split](a), SPLITS[split](b)
-    return (a_s.double() @ bb.double() + ab.double() @ b_s.double()
-            + ab.double() @ bb.double()).float()
 
 
 def tf32_attention(q, k, v, passes, split="kernel"):
