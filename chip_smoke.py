@@ -12,15 +12,21 @@ last line.  The simulator's path:
   2. sm_issue against its plain PyTorch version on the card, exact
      equality on seeded cases at the TINY and RTX 3080 Ti shapes, and the
      time per launch of both;
-  q. sm_quantum (one launch per quantum: one block per SM, the state in
-     shared memory) against the eager SM phase (its plain version, a cycle
-     loop around sm_issue) on seeded states at the TINY, four-sub-core and
-     RTX 3080 Ti widths, GTO and LRR, with and without an instr_base
-     offset, bit-exact on every leaf, the inputs left as they were; the
-     time of one quantum of both at full width, and the bound;
-  3. myocyte@1.0 on TINY in vmap and seq modes against
-     tests/golden/determinism_tiny.json: one sm_quantum launch per quantum
-     (per SM and quantum in seq), none of sm_issue;
+  q. sm_quantum (one launch per quantum for all lanes: one block per
+     lane and SM, the state in shared memory) against the eager SM phase
+     (its plain version, a cycle loop around sm_issue) on seeded one-lane
+     states at the TINY, four-sub-core and RTX 3080 Ti widths, GTO and
+     LRR, with and without an instr_base offset, and on four-lane states
+     (each lane its own state, trace, instr_base, dynamic config and t0),
+     where one launch must also equal four one-lane launches; bit-exact
+     on every leaf, the inputs left as they were; the time of one quantum
+     at full width for 1, 8 and 32 lanes, the eager one's for one lane,
+     and the bounds;
+  3. on TINY against tests/golden/determinism_tiny.json: myocyte@1.0 and
+     the trace workload trace:gather_chain@1.0 in vmap and seq modes, and
+     hotspot@0.02, whose cycle cap cuts 2 of its 4 kernels (timeouts 2,
+     as the JAX package reads); one sm_quantum launch per quantum (per
+     SM and quantum in seq), none of sm_issue;
   4. the main path at full width: nn@0.5 and syrk@0.16 on the RTX 3080 Ti
      config (80 SMs x 48 warps, vmap) against
      tests/golden/torch_port_rtx3080ti.json, with 0 timeouts, wall time,
@@ -29,6 +35,17 @@ last line.  The simulator's path:
      once per cycle) as a witness, against the same stats, and its wall;
   5. a profile of the first 16 quanta of syrk@0.16: device busy and
      idle share, kernel launches and device-to-host reads per quantum;
+  s. this slice's main path, the lane-batched sweeps: launch/dse.py's
+     default grid of 8 configs on the RTX 3080 Ti swept over nn@0.5 and
+     syrk@0.16 (8 lanes, one sm_quantum launch per quantum for all), every
+     lane against its solo run on the card and the plain-config lane
+     against tests/golden/torch_port_rtx3080ti.json, and both walls;
+     launch/zoo.py's grid of the three bundled traces x 4 TINY configs,
+     every lane against its solo run (--check);
+  l. syrk@0.16 swept over the default grid of 1, 8 and 32 configs: wall,
+     quanta, lane-quanta/s, and a profile of the first 16 quanta of the
+     quantum loop: launches and device-to-host reads per quantum, idle
+     share;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
   a. the wkv6 build: ptxas registers and spills, and the dynamic shared
      memory of one block per head size;
@@ -117,6 +134,22 @@ OPS_PER_SLOT = 24
 QUANTUM_CASES = (("tiny", {}), ("four_subcores", dict(
     n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)),
     ("rtx3080ti", None))
+# lane counts of the sweep's timings (phases q and l)
+LANE_COUNTS = (1, 8, 32)
+# phase s: launch/dse.py's default grid of this many configs, over these
+# workloads at the RTX 3080 Ti's full width
+SWEEP_LANES = 8
+SWEEP_CASES = (("nn", 0.5), ("syrk", 0.16))
+# phase l: the workload swept at every lane count of LANE_COUNTS
+LANES_CASE = ("syrk", 0.16)
+# phase 3: (workload, scale, mode, timeouts) against determinism_tiny.json.
+# hotspot@0.02 is cut by the golden's cycle cap in 2 of its 4 kernels: the
+# JAX package reads timeouts 2 on the same run (ROADMAP.md §3), the card
+# must read the same
+TINY_CASES = (("myocyte", 1.0, "vmap", 0), ("myocyte", 1.0, "seq", 0),
+              ("trace:gather_chain", 1.0, "vmap", 0),
+              ("trace:gather_chain", 1.0, "seq", 0),
+              ("hotspot", 0.02, "vmap", 2))
 TF32_OPS_PER_S = 495e12          # tensor cores, dense TF32
 TF32_PASSES = 3                  # the f32 split: three TF32 products
 FLASH_F64_TOL = 5e-6             # the kernel against f64 at full width
@@ -894,78 +927,157 @@ def phase_dense_full(torch, FA, W, K, Q):
             "sample": toks[0, :8].tolist()}
 
 
+def _state_bytes(args):
+    """Bytes of the four state dicts among a quantum's arguments."""
+    return sum(x.numel() * x.element_size() for a in args[:4]
+               for x in a.values())
+
+
+def quantum_bound(scfg, args, n_lanes):
+    """The least time of one quantum of ``n_lanes`` lanes: each input
+    read once, each output written once (the state twice, the trace and
+    the scalars once), against the integer operations of every warp slot
+    and cycle.  Returns (bound ms, 'bytes' or 'operations', bytes,
+    operations)."""
+    n_bytes = 2 * _state_bytes(args) + sum(
+        x[0].numel() * x.element_size() * n_lanes
+        for x in args[4].values()) + 4 * n_lanes * (2 * 7 + 4)
+    n_ops = (scfg.quantum * n_lanes * scfg.n_sm * scfg.warps_per_sm
+             * OPS_PER_SLOT)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
 def phase_quantum(torch, Q):
     """sm_quantum against the eager SM phase (its plain version, on the
-    card) on seeded states, every leaf exact; then one quantum of each
-    timed at the RTX 3080 Ti width."""
+    card): one lane on seeded states, every leaf exact; four lanes at
+    once, each with its own state, trace, instr_base, dynamic config and
+    clock, against the eager SM phase over the same lanes and against four
+    one-lane launches; then one quantum timed at the RTX 3080 Ti width for
+    every lane count of LANE_COUNTS."""
     import dataclasses
 
-    from repro_torch.convert import (QUANTUM_T0, random_quantum_inputs,
+    from repro_torch.convert import (QUANTUM_T0, random_lane_inputs,
+                                     random_quantum_inputs, stack_lanes,
                                      to_torch)
     from repro_torch.sim.config import (RTX3080TI, SCHEDULERS, TINY,
-                                        split_config, static_part)
+                                        DynConfig, split_config,
+                                        static_part)
     from repro_torch.sim.smcore import sm_quantum_eager
 
     rng = np.random.default_rng(20261017)
-    t0 = torch.tensor(QUANTUM_T0, dtype=torch.int32, device="cuda")
-    n_cases, n_leaves, bad, max_err = 0, 0, [], 0
+    t0 = torch.tensor([QUANTUM_T0], dtype=torch.int32, device="cuda")
+    n_cases, n_lane_cases, n_leaves, bad, max_err = 0, 0, 0, [], 0
+
+    def compare(tag, got, want):
+        nonlocal n_leaves, max_err
+        for g, w in zip(got, want):
+            for k in w:
+                n_leaves += 1
+                err = int((g[k].long() - w[k].long()).abs().max())
+                max_err = max(max_err, err)
+                if g[k].dtype != w[k].dtype or err:
+                    bad.append(f"{tag}/{k}")
+
     for name, over in QUANTUM_CASES:
         cfg = RTX3080TI if over is None else dataclasses.replace(TINY, **over)
         scfg = static_part(cfg)
         for sched in ("gto", "lrr"):
             _, dyn = split_config(cfg, {"sched": SCHEDULERS[sched]},
                                   device="cuda")
+            dyn = dyn.map(lambda x: x[None])
             for ragged in (False, True, False, True):
                 host = random_quantum_inputs(rng, scfg, ragged=ragged)
-                args = [to_torch(x, "cuda") for x in host]
+                args = [to_torch(stack_lanes([x]), "cuda") for x in host]
                 got = Q.sm_quantum(*args, t0, scfg, dyn)
                 want = sm_quantum_eager(*args, t0, scfg, dyn)
-                for g, w in zip(got, want):
-                    for k in w:
-                        n_leaves += 1
-                        err = int((g[k].long() - w[k].long()).abs().max())
-                        max_err = max(max_err, err)
-                        if g[k].dtype != w[k].dtype or err:
-                            bad.append(f"{name}/{sched}/{k}")
+                compare(f"{name}/{sched}", got, want)
                 for x, a in zip(host, args):
                     for k in x:
                         if not np.array_equal(np.asarray(x[k]),
-                                              a[k].cpu().numpy()):
+                                              a[k][0].cpu().numpy()):
                             bad.append(f"{name}/{sched}/input {k} changed")
                 n_cases += 1
+        for ragged in (False, True):
+            host, t0s, over_l = random_lane_inputs(rng, scfg, 4,
+                                                   ragged=ragged)
+            dyn = DynConfig.stack([split_config(cfg, o, device="cuda")[1]
+                                   for o in over_l])
+            args = [to_torch(x, "cuda") for x in host]
+            tl = torch.as_tensor(t0s, device="cuda")
+            before = Q.sm_quantum.launches
+            got = Q.sm_quantum(*args, tl, scfg, dyn)
+            if Q.sm_quantum.launches != before + 1:
+                bad.append(f"{name}/lanes: not one launch")
+            compare(f"{name}/lanes", got, sm_quantum_eager(*args, tl, scfg,
+                                                           dyn))
+            ones = [Q.sm_quantum(*({k: v[i:i + 1] for k, v in a.items()}
+                                   for a in args), tl[i:i + 1], scfg,
+                                 dyn.map(lambda x: x[i:i + 1]))
+                    for i in range(4)]
+            compare(f"{name}/lanes vs one-lane launches", got,
+                    [{k: torch.cat([o[j][k] for o in ones]) for k in got[j]}
+                     for j in range(4)])
+            n_lane_cases += 1
     torch.cuda.synchronize()
-    check(not bad, f"sm_quantum disagrees with the eager SM phase: "
-          f"{bad[:8]} (max abs err {max_err})")
-    # one quantum at the main path's width, both forms
+    check(not bad, f"sm_quantum disagrees with the eager SM phase or with "
+          f"one-lane launches: {bad[:8]} (max abs err {max_err})")
+    # one quantum at the main path's width, for 1, 8 and 32 lanes
     scfg = static_part(RTX3080TI)
-    _, dyn = split_config(RTX3080TI, device="cuda")
-    host = random_quantum_inputs(rng, scfg)
-    args = [to_torch(x, "cuda") for x in host]
-    wrapper_ms = time_per_call(
-        torch, lambda: Q.sm_quantum(*args, t0, scfg, dyn), 500)
-    plain_ms = time_per_call(
-        torch, lambda: sm_quantum_eager(*args, t0, scfg, dyn), 20)
+    host, t0s, over_l = random_lane_inputs(rng, scfg, max(LANE_COUNTS))
+    dyn_all = DynConfig.stack([split_config(RTX3080TI, o, device="cuda")[1]
+                               for o in over_l])
+    by_lanes = []
+    for n in LANE_COUNTS:
+        args = [to_torch({k: v[:n] for k, v in x.items()}, "cuda")
+                for x in host]
+        tl = torch.as_tensor(t0s[:n], device="cuda")
+        dyn = dyn_all.map(lambda x: x[:n])
+        wrapper_ms = time_per_call(
+            torch, lambda: Q.sm_quantum(*args, tl, scfg, dyn), 200)
 
-    def launches():
-        for _ in range(100):
-            Q.sm_quantum(*args, t0, scfg, dyn)
-    kern = kernel_us(torch, launches, "sm_quantum_kernel")
-    ms = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
-    # each input read once, each output written once: the state twice,
-    # the trace and the scalars once
-    state = sum(x.numel() * x.element_size() for a in args[:4]
-                for x in a.values())
-    n_bytes = 2 * state + sum(x.numel() * x.element_size()
-                              for x in args[4].values()) \
-        + 4 * (2 * 7 + 4)
-    n_ops = scfg.quantum * scfg.n_sm * scfg.warps_per_sm * OPS_PER_SLOT
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
-    return {"cases": n_cases, "leaves": n_leaves, "max_abs_err": max_err,
-            "ms": ms, "wrapper_ms": wrapper_ms, "device_timed": bool(kern),
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": n_bytes, "ops": n_ops}
+        def launches():
+            for _ in range(50):
+                Q.sm_quantum(*args, tl, scfg, dyn)
+        kern = kernel_us(torch, launches, "sm_quantum_kernel")
+        bound, by, n_bytes, n_ops = quantum_bound(scfg, args, n)
+        row = {"lanes": n,
+               "ms": sum(kern) / len(kern) / 1e3 if kern else wrapper_ms,
+               "device_timed": bool(kern), "wrapper_ms": wrapper_ms,
+               "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+               "ops": n_ops}
+        if n == 1:
+            row["plain_ms"] = time_per_call(
+                torch, lambda: sm_quantum_eager(*args, tl, scfg, dyn), 20)
+        by_lanes.append(row)
+    one = by_lanes[0]
+    return {"cases": n_cases, "lane_cases": n_lane_cases,
+            "leaves": n_leaves, "max_abs_err": max_err,
+            "ms": one["ms"], "wrapper_ms": one["wrapper_ms"],
+            "device_timed": one["device_timed"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+            "bound_by": one["bound_by"], "bytes": one["bytes"],
+            "ops": one["ops"], "by_lanes": by_lanes}
+
+
+class QuantumSteps:
+    """Counts the engine's quantum steps (one per lockstep quantum of all
+    lanes) while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.engine, self.step, self.n = engine, engine.quantum_step, 0
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self.step(*args, **kw)
+        engine.quantum_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.quantum_step = self.step
 
 
 def run_case(torch, K, Q, bench, scale, cfg, mode, max_cycles,
@@ -973,7 +1085,7 @@ def run_case(torch, K, Q, bench, scale, cfg, mode, max_cycles,
     """One simulation on the card; ``eager`` runs the SM phase through
     the eager per-cycle loop (sm_issue once per cycle) in place of the
     fused kernel.  Returns (comparable stats, timeouts, wall s,
-    sm_quantum launches, sm_issue launches)."""
+    sm_quantum launches, sm_issue launches, quantum steps)."""
     from repro_torch.core import stats as S
     from repro_torch.core.engine import simulate
     from repro_torch.core.parallel import make_sm_runner
@@ -989,16 +1101,147 @@ def run_case(torch, K, Q, bench, scale, cfg, mode, max_cycles,
         def runner(warp, sm, req, stats_sm, trace, t0, dyn):
             return sm_quantum_eager(warp, sm, req, stats_sm, trace, t0,
                                     scfg, dyn)
+    st, wall, fused, issue, steps = _counted_run(
+        torch, K, Q, lambda: simulate(w, cfg, runner, max_cycles=max_cycles,
+                                      device="cuda"))
+    out = S.finalize(st)
+    return S.comparable(out), out["timeouts"], wall, fused, issue, steps
+
+
+def _counted_run(torch, K, Q, fn):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after; returns (result, wall s, sm_quantum launches, sm_issue
+    launches, quantum steps)."""
     torch.cuda.synchronize()
     K.issue_select.launches = 0
     Q.sm_quantum.launches = 0
-    t0 = time.perf_counter()
-    st = simulate(w, cfg, runner, max_cycles=max_cycles, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fused, issue = Q.sm_quantum.launches, K.issue_select.launches
-    out = S.finalize(st)
-    return S.comparable(out), out["timeouts"], wall, fused, issue
+    with QuantumSteps() as steps:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, Q.sm_quantum.launches, K.issue_select.launches, \
+        steps.n
+
+
+def phase_sweep(torch, K, Q, full_golden):
+    """The slice's main path at full width: launch/dse.py's default grid
+    of SWEEP_LANES configs on the RTX 3080 Ti, swept over nn@0.5 and
+    syrk@0.16 through ``sweep``, every lane against its solo run on the
+    card (timeouts included) and the plain-config lanes against the
+    pinned stats; then launch/zoo.py's grid of the three bundled traces x
+    4 TINY configs, checked lane by lane against solo runs (``--check``).
+    Each run counts its own launches and quantum steps."""
+    from repro_torch.core import stats as S
+    from repro_torch.core.engine import simulate
+    from repro_torch.core.parallel import make_sm_runner
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.core.sweep import grid_sweep, sweep
+    from repro_torch.launch.dse import default_grid, lane_signature
+    from repro_torch.launch.zoo import check_grid_vs_solo
+    from repro_torch.sim.config import RTX3080TI, TINY
+    from repro_torch.sim.workloads import register_traces, zoo_workload
+    from repro_torch.workloads import make_workload
+
+    out = {"dse": {}, "launches": 0, "issue": 0}
+    plan = RunPlan(max_cycles=1 << 17)
+    cfgs = default_grid(RTX3080TI, SWEEP_LANES)
+    plain = [i for i, c in enumerate(cfgs) if c == RTX3080TI]
+    check(plain, "the default grid holds no plain RTX 3080 Ti lane")
+    for bench, scale in SWEEP_CASES:
+        w = make_workload(bench, scale=scale)
+        r, wall, fused, issue, steps = _counted_run(
+            torch, K, Q, lambda: sweep(w, cfgs, plan=plan, device="cuda"))
+        check(fused == steps > 0 and issue == 0,
+              f"{bench}@{scale} sweep: {fused} sm_quantum and {issue} "
+              f"sm_issue launches for {steps} quanta")
+        out["launches"] += fused
+        out["issue"] += issue
+        solo_wall, bad = 0.0, []
+        for i, cfg in enumerate(cfgs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap"),
+                                       plan=plan, device="cuda"))
+            solo_wall += time.perf_counter() - t0
+            if lane_signature(solo) != lane_signature(r.stats[i]):
+                bad.append(i)
+        check(not bad, f"{bench}@{scale} sweep lanes {bad} differ from "
+              "their solo runs on the card")
+        key = f"{bench}@{scale}"
+        for i in plain:
+            check(S.comparable(r.stats[i]) == full_golden[key],
+                  f"{key} sweep lane {i} (plain RTX 3080 Ti) differs from "
+                  "the pinned stats")
+        out["dse"][key] = {"wall": wall, "solo_wall": solo_wall,
+                           "steps": steps, "cycles": r.cycles,
+                           "timeouts": [s["timeouts"] for s in r.stats],
+                           "plain": plain, "launches": fused}
+    # the zoo grid of the bundled traces, --check
+    names = register_traces(os.path.join(ROOT, "tests", "data", "traces"))
+    ws = [zoo_workload(n) for n in names]
+    tcfgs = default_grid(TINY, 4)
+    grid, wall, fused, issue, steps = _counted_run(
+        torch, K, Q, lambda: grid_sweep(ws, tcfgs, plan=RunPlan(
+            max_cycles=1 << 15), device="cuda"))
+    check(fused == steps > 0 and issue == 0,
+          f"trace grid: {fused} sm_quantum and {issue} sm_issue launches "
+          f"for {steps} quanta")
+    out["launches"] += fused
+    out["issue"] += issue
+    n_checked = check_grid_vs_solo(grid, ws, tcfgs, 1 << 15, "cuda")
+    out["grid"] = {"names": names, "lanes": n_checked, "wall": wall,
+                   "steps": steps, "cycles": [[s["cycles"] for s in row]
+                                              for row in grid.stats]}
+    return out
+
+
+def phase_lanes(torch, K, Q):
+    """LANES_CASE (syrk@0.16) swept over the default grid of L configs for
+    every L of LANE_COUNTS: the sweep's wall, quanta and lane-quanta (each
+    lane's cycles over Δ, summed); then a profile of the quantum loop
+    alone over the first 16 quanta: kernel launches and device-to-host
+    reads per quantum, device busy and idle share."""
+    from repro_torch.core.batch import stack_kernels
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.core.sweep import make_sweep_runner, stack_dyn, sweep
+    from repro_torch.launch.dse import default_grid
+    from repro_torch.sim.config import RTX3080TI
+    from repro_torch.sim.state import init_state
+    from repro_torch.workloads import make_workload
+
+    w = make_workload(LANES_CASE[0], scale=LANES_CASE[1])
+    rows = []
+    n_q = 16
+    for n in LANE_COUNTS:
+        cfgs = default_grid(RTX3080TI, n)
+        r, wall, fused, issue, steps = _counted_run(
+            torch, K, Q, lambda: sweep(w, cfgs, plan=RunPlan(
+                max_cycles=1 << 17), device="cuda"))
+        check(fused == steps > 0 and issue == 0,
+              f"sweep of {n} lanes: {fused} sm_quantum and {issue} "
+              f"sm_issue launches for {steps} quanta")
+        check(all(s["timeouts"] == 0 for s in r.stats),
+              f"sweep of {n} lanes timed out")
+        lane_quanta = sum(c // RTX3080TI.quantum for c in r.cycles)
+        scfg, dyn = stack_dyn(cfgs, "cuda")
+        stacked = stack_kernels([k.pack("cuda") for k in w.kernels])
+        runner = make_sweep_runner(scfg, "vmap", n_q * RTX3080TI.quantum)
+        state0 = init_state(scfg, "cuda", n)
+        events, pwall = profiled(torch, lambda: runner(state0, stacked, dyn))
+        busy = sum(us for _, us in events) / 1e6
+        kernels = [(name, us) for name, us in events
+                   if not name.startswith(("Memcpy", "Memset"))]
+        rows.append({
+            "lanes": n, "wall": wall, "steps": steps,
+            "lane_quanta": lane_quanta, "launches": fused,
+            "profiled": bool(events),
+            "launches_per_q": len(kernels) / n_q,
+            "sm_quantum_per_q": sum("sm_quantum" in name
+                                    for name, _ in kernels) / n_q,
+            "dtoh_per_q": sum("DtoH" in name for name, _ in events) / n_q,
+            "idle": 1 - busy / pwall, "busy": busy, "pwall": pwall})
+    return rows
 
 
 def main():
@@ -1062,46 +1305,57 @@ def main():
     qr = phase_quantum(torch, Q)
     widths = ", ".join(n for n, _ in QUANTUM_CASES)
     print(f"[q sm_quantum] sm_quantum == the eager SM phase on "
-          f"{qr['cases']} seeded states ({widths} x GTO/LRR x instr_base "
-          f"or not; {qr['leaves']} "
-          f"leaves equal, max abs err {qr['max_abs_err']}, inputs "
-          f"unchanged); one quantum at 80x48 SC=4: kernel "
+          f"{qr['cases']} seeded one-lane states ({widths} x GTO/LRR x "
+          f"instr_base or not) and on {qr['lane_cases']} four-lane states "
+          f"(each lane its own state, trace, instr_base, dynamic config and "
+          f"t0; one launch == the eager lanes == four one-lane launches); "
+          f"{qr['leaves']} leaves equal, max abs err {qr['max_abs_err']}, "
+          f"inputs unchanged; one quantum at 80x48 SC=4, one lane: kernel "
           f"{qr['ms'] * 1e3:.2f} us/launch on the device "
           f"({'profiler' if qr['device_timed'] else 'not profiled: events'}),"
           f" wrapper {qr['wrapper_ms'] * 1e3:.2f} us/call, eager "
           f"{qr['plain_ms'] * 1e3:.2f} us/call, bound "
           f"{qr['bound_ms'] * 1e3:.4f} us ({qr['bound_by']}: {qr['bytes']} "
           f"B, {qr['ops']} integer ops)", flush=True)
+    for row in qr["by_lanes"]:
+        print(f"[q sm_quantum] {row['lanes']} lane(s) at 80x48 SC=4: kernel "
+              f"{row['ms'] * 1e3:.2f} us/launch on the device "
+              f"({'profiler' if row['device_timed'] else 'events'}), "
+              f"wrapper {row['wrapper_ms'] * 1e3:.2f} us/call, bound "
+              f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
+              f"{row['bytes']} B, {row['ops']} integer ops)", flush=True)
 
-    # 3. TINY golden in both modes
-    for mode in ("vmap", "seq"):
-        got, timeouts, wall, fused, issue = run_case(
-            torch, K, Q, "myocyte", 1.0, TINY, mode, 1 << 15)
-        check(got == tiny_golden["myocyte@1.0"],
-              f"myocyte@1.0 {mode} differs from the golden: {got}")
-        check(timeouts == 0, f"myocyte@1.0 {mode}: {timeouts} timeouts")
-        quanta = got["cycles"] // TINY.quantum
+    # 3. the TINY goldens: both modes, a trace, a run cut by its cap
+    for bench, scale, mode, want_timeouts in TINY_CASES:
+        key = f"{bench}@{scale}"
+        got, timeouts, wall, fused, issue, quanta = run_case(
+            torch, K, Q, bench, scale, TINY, mode, 1 << 15)
+        check(got == tiny_golden[key],
+              f"{key} {mode} differs from the golden: {got}")
+        check(timeouts == want_timeouts,
+              f"{key} {mode}: {timeouts} timeouts, the JAX package reads "
+              f"{want_timeouts}")
         per_q = TINY.n_sm if mode == "seq" else 1    # seq: one SM a launch
-        check(fused == per_q * quanta and issue == 0,
-              f"myocyte@1.0 {mode}: {fused} sm_quantum and {issue} sm_issue"
+        check(fused == per_q * quanta > 0 and issue == 0,
+              f"{key} {mode}: {fused} sm_quantum and {issue} sm_issue"
               f" launches for {quanta} quanta")
-        print(f"[3 tiny] myocyte@1.0 {mode}: golden OK, {got['cycles']} "
-              f"cycles, {quanta} quanta, {fused} sm_quantum launches, "
-              f"{issue} sm_issue, wall {wall:.2f} s", flush=True)
+        print(f"[3 tiny] {key} {mode}: golden OK, timeouts {timeouts} (as "
+              f"the JAX package), {got['cycles']} cycles, {quanta} quanta, "
+              f"{fused} sm_quantum launches, {issue} sm_issue, wall "
+              f"{wall:.2f} s", flush=True)
 
     # 4. the main path at full width, then the eager SM phase as a witness
     main_launches = main_issue = 0
     walls = {}
     for bench, scale, eager in (("nn", 0.5, False), ("syrk", 0.16, False),
                                 ("nn", 0.5, True)):
-        got, timeouts, wall, fused, issue = run_case(
+        got, timeouts, wall, fused, issue, quanta = run_case(
             torch, K, Q, bench, scale, RTX3080TI, "vmap", 1 << 17, eager)
         key = f"{bench}@{scale}"
         path = "eager witness" if eager else "fused"
         check(got == full_golden[key], f"{key} ({path}) differs from the "
               f"pinned stats: {got}")
         check(timeouts == 0, f"{key} ({path}): {timeouts} timeouts")
-        quanta = got["cycles"] // RTX3080TI.quantum
         if eager:   # sm_issue once per cycle
             ok = fused == 0 and issue == RTX3080TI.quantum * quanta
             witness_launches = issue
@@ -1148,6 +1402,44 @@ def main():
     else:
         print(f"[5 profile] the profiler saw no device activity: device "
               f"busy share not measured (wall {wall:.3f} s)", flush=True)
+
+    # s. this slice's main path: lane-batched sweeps at full width
+    sr = phase_sweep(torch, K, Q, full_golden)
+    for key, d in sr["dse"].items():
+        print(f"[s sweep] {key} RTX3080TI, dse default grid of "
+              f"{SWEEP_LANES} configs as {SWEEP_LANES} lanes: every lane == "
+              f"its solo run on the card (timeouts {d['timeouts']}), lanes "
+              f"{d['plain']} (plain RTX 3080 Ti) == pinned stats; cycles "
+              f"{d['cycles']}; sweep wall {d['wall']:.3f} s for {d['steps']} "
+              f"quanta ({d['launches']} sm_quantum launches, one per "
+              f"quantum), the {SWEEP_LANES} solo walls sum to "
+              f"{d['solo_wall']:.3f} s ({d['solo_wall'] / d['wall']:.2f}x)",
+              flush=True)
+    g = sr["grid"]
+    print(f"[s sweep] zoo grid {len(g['names'])} traces x 4 TINY configs "
+          f"({', '.join(g['names'])}): --check OK, all {g['lanes']} lanes == "
+          f"solo runs on the card; cycles {g['cycles']}; wall "
+          f"{g['wall']:.3f} s for {g['steps']} quanta", flush=True)
+    check(sr["launches"] > 0 and sr["issue"] == 0,
+          "the sweep path never launched sm_quantum, or launched sm_issue")
+
+    # l. lanes against wall time: one workload swept at 1, 8 and 32 lanes
+    lr = phase_lanes(torch, K, Q)
+    for row in lr:
+        prof = (f"first 16 quanta of the quantum loop under the profiler: "
+                f"{row['launches_per_q']:.1f} kernel launches/quantum "
+                f"({row['sm_quantum_per_q']:.1f} of sm_quantum), "
+                f"{row['dtoh_per_q']:.2f} device-to-host reads/quantum, "
+                f"device busy {row['busy']:.4f} s of {row['pwall']:.4f} s "
+                f"(idle share {row['idle']:.4f})" if row["profiled"] else
+                "the profiler saw no device activity: launches, reads and "
+                "idle share per quantum not measured")
+        print(f"[l lanes] {LANES_CASE[0]}@{LANES_CASE[1]} RTX3080TI, dse "
+              f"default grid of "
+              f"{row['lanes']} config(s): wall {row['wall']:.3f} s, "
+              f"{row['steps']} quanta, {row['lane_quanta']} lane-quanta, "
+              f"{row['lane_quanta'] / row['wall']:.1f} lane-quanta/s, "
+              f"{row['launches']} sm_quantum launches; {prof}", flush=True)
 
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
@@ -1384,10 +1676,15 @@ def main():
         "name": "sm_quantum", "route": "cuda",
         "source": "src/repro_torch/kernels/sm_quantum/csrc/sm_quantum.cu",
         "replaces": "src/repro/kernels/sm_issue/kernel.py:45",
-        "launches": main_launches, "max_abs_err": qr["max_abs_err"],
+        # the sweeps' launches (phase s), beside the solo path's (phase 4)
+        "launches": sr["launches"], "simulate_launches": main_launches,
+        "max_abs_err": qr["max_abs_err"],
         "ms": qr["ms"], "plain_ms": qr["plain_ms"],
         "bound_ms": qr["bound_ms"], "bound_by": qr["bound_by"],
         "library_ms": None, "wrapper_ms": qr["wrapper_ms"],
+        "by_lanes": [{k: row[k] for k in ("lanes", "ms", "wrapper_ms",
+                                          "bound_ms", "bound_by")}
+                     for row in qr["by_lanes"]],
     }, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",

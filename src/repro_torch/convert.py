@@ -33,6 +33,15 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
+def stack_lanes(trees: list):
+    """Per-lane trees (nested dicts of numpy arrays or scalars) → one tree
+    whose leaves lead with a lane axis, lane ``i`` from ``trees[i]``: the
+    layout of the port's lane-batched state, traces and configs."""
+    if isinstance(trees[0], dict):
+        return {k: stack_lanes([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
 def dyn_to_torch(flat: dict, device) -> DynConfig:
     """A flat {key: array} view of a DynConfig (the JAX package's
     ``DynConfig.flat()``) → the port's ``DynConfig`` on ``device``."""
@@ -131,6 +140,37 @@ def random_quantum_inputs(rng, scfg, ragged=False):
         "issued", "issued_mem", "l1_hit", "l1_miss", "cycles_issue",
         "stall", "warp_cycles")}
     return warp, sm, req, stats_sm, trace
+
+
+def random_lane_inputs(rng, scfg, n_lanes, ragged=False):
+    """Seeded inputs of one SM quantum for ``n_lanes`` lanes, each lane
+    its own: a state and trace from ``random_quantum_inputs`` (its own
+    ``instr_base`` when ``ragged``), a clock ``t0`` moved 7 cycles further
+    per lane (every time stamp of its state moved with it), and a dynamic
+    config (scheduler, L1 hit and interconnect latencies, per-class
+    tables).  Returns ((warp, sm, req, stats_sm, trace) with a leading
+    lane axis, as numpy; t0 (n_lanes,) int32; per-lane flat dynamic
+    overrides for ``split_config``)."""
+    lanes, t0s, dyns = [], [], []
+    for lane in range(n_lanes):
+        warp, sm, req, stats, trace = random_quantum_inputs(rng, scfg,
+                                                            ragged=ragged)
+        shift = 7 * lane
+        warp = dict(warp, ready_at=warp["ready_at"] + shift)
+        sm = dict(sm, unit_free=sm["unit_free"] + shift,
+                  l1_lru=sm["l1_lru"] + shift)
+        req = dict(req, t=req["t"] + shift)
+        lanes.append((warp, sm, req, stats, trace))
+        t0s.append(QUANTUM_T0 + shift)
+        dyns.append({
+            "sched": int(rng.integers(0, 2)),
+            "l1_hit_lat": int(rng.integers(8, 40)),
+            "icnt_lat": int(rng.integers(scfg.quantum, 2 * scfg.quantum)),
+            "lat": tuple(int(v) for v in rng.integers(1, 24, N_CLASSES)),
+            "disp": tuple(int(v) for v in rng.integers(1, 5, N_CLASSES))})
+    stacked = tuple(stack_lanes([lane[i] for lane in lanes])
+                    for i in range(5))
+    return stacked, np.asarray(t0s, np.int32), dyns
 
 
 # ---------------------------------------------------------------------------

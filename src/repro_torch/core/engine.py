@@ -8,16 +8,23 @@ Each machine quantum (Δ = 16 cycles):
 The SM phase runner is injected (core/parallel.py), so one engine body
 serves the sequential and vectorized modes, with bit-identical results.
 
-The reference's ``lax.while_loop`` over quanta and ``lax.scan`` over the
-stacked kernel axis are Python loops here; the quantum loop reads back one
-flag per quantum (has the kernel converged?) and stops at the first
-quantum that converged.
+Lanes: every state leaf, trace leaf and ``DynConfig`` leaf carries a
+leading lane axis of ``L`` independent simulations (core/sweep.py), and a
+solo ``simulate`` is the one-lane case of the same code.  The reference
+vmaps its ``lax.while_loop`` over lanes: every lane steps, and a lane
+whose kernel has converged, or whose clock reached ``max_cycles``, is
+frozen by select.  Here the lanes run in lockstep through Python loops
+over kernels and quanta: each quantum steps every lane, keeps the new
+state of the lanes still running, and reads back one flag (does any lane
+still run?); the loop stops at the first quantum after which none does.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.batch import check_workload_fits, stack_kernels
+from repro_torch.core.batch import (check_workload_fits, concat_kernels,
+                                    split_ragged, stack_kernels)
+from repro_torch.core.stats import take_lane
 from repro_torch.device import resolve_device
 from repro_torch.sim.config import (DynConfig, GPUConfig, StaticConfig,
                                     split_config)
@@ -28,19 +35,23 @@ from repro_torch.sim.trace import Workload
 
 
 def converged(ctrl: dict, warp: dict, req: dict, trace: dict):
-    """The kernel-completion predicate: all CTAs dispatched, no live warp
-    (active with work left or loads pending), no in-flight request."""
-    live = warp["active"] & ~((warp["pc"] >= trace["n_instr"])
-                              & (warp["pending"] == 0))
-    return ((ctrl["next_cta"] >= trace["n_ctas"]) & ~live.any()
-            & ~(req["stage"] != 0).any())
+    """The kernel-completion predicate, per lane: all CTAs dispatched, no
+    live warp (active with work left or loads pending), no in-flight
+    request."""
+    n_lanes = ctrl["cycle"].shape[0]
+    live = warp["active"] & ~((warp["pc"] >= trace["n_instr"].reshape(
+        n_lanes, 1, 1)) & (warp["pending"] == 0))
+    return ((ctrl["next_cta"] >= trace["n_ctas"].reshape(n_lanes))
+            & ~live.flatten(1).any(1)
+            & ~(req["stage"] != 0).flatten(1).any(1))
 
 
 def mark_entry_converged(state: dict, trace: dict) -> dict:
-    """Early exit: stamp ``done_cycle`` before the quantum loop when the
-    kernel is already converged at entry, so the loop runs zero quanta.
-    After ``reset_for_kernel`` only an ``n_ctas == 0`` padding kernel can
-    be converged at entry, and the kernel loop masks those out."""
+    """Early exit: stamp ``done_cycle`` before the quantum loop in every
+    lane whose kernel is already converged at entry, so that lane runs
+    zero quanta.  After ``reset_for_kernel`` only an ``n_ctas == 0``
+    padding kernel can be converged at entry, and the kernel loop masks
+    those out."""
     ctrl = state["ctrl"]
     entry = converged(ctrl, state["warp"], state["req"], trace)
     dc = torch.where((ctrl["done_cycle"] < 0) & entry, ctrl["cycle"],
@@ -50,6 +61,7 @@ def mark_entry_converged(state: dict, trace: dict) -> dict:
 
 def quantum_step(state: dict, trace: dict, cfg: StaticConfig,
                  dyn: DynConfig, sm_runner):
+    """One quantum of every lane."""
     t0 = state["ctrl"]["cycle"]
     req, mem, gstats = mem_phase(state["req"], state["mem"], state["stats"],
                                  t0, cfg, dyn,
@@ -67,52 +79,70 @@ def quantum_step(state: dict, trace: dict, cfg: StaticConfig,
             "stats_sm": stats_sm, "stats": gstats}
 
 
+def _select(pred, new, old):
+    """``new`` where the lane predicate ``pred`` (L,) holds, else ``old``,
+    leaf by leaf over nested dicts; ``pred`` is broadcast to each leaf's
+    rank."""
+    if isinstance(new, dict):
+        return {k: _select(pred, v, old[k]) for k, v in new.items()}
+    return torch.where(pred.reshape(-1, *(1,) * (new.dim() - 1)), new, old)
+
+
 def run_kernel(state: dict, trace: dict, cfg: StaticConfig,
                dyn: DynConfig, sm_runner, max_cycles: int = 1 << 20,
                early_exit: bool = True):
-    """Quanta until the kernel converged or the clock reached
-    ``max_cycles``; one host read per quantum."""
+    """Quanta until every lane's kernel converged or its clock reached
+    ``max_cycles``; one host read per quantum.  A lane that stopped is
+    frozen: it keeps its state while the others step."""
     if early_exit:
         state = mark_entry_converged(state, trace)
+    n_lanes = state["ctrl"]["cycle"].shape[0]
     while True:
         ctrl = state["ctrl"]
-        if not bool((ctrl["done_cycle"] < 0) & (ctrl["cycle"] < max_cycles)):
+        running = (ctrl["done_cycle"] < 0) & (ctrl["cycle"] < max_cycles)
+        if not bool(running.any()):
             return state
-        state = quantum_step(state, trace, cfg, dyn, sm_runner)
+        new = quantum_step(state, trace, cfg, dyn, sm_runner)
+        # one lane that runs needs no select
+        state = new if n_lanes == 1 else _select(running, new, state)
 
 
 def kernel_cycles(ctrl: dict):
-    """Cycles charged to the kernel that just ran: its done_cycle, or the
-    current clock if it hit max_cycles."""
+    """Cycles charged to the kernel that just ran, per lane: its
+    done_cycle, or the current clock if it hit max_cycles."""
     return torch.where(ctrl["done_cycle"] >= 0, ctrl["done_cycle"],
                        ctrl["cycle"])
-
-
-def _select(pred, old, new):
-    """``old`` where ``pred``, else ``new``, leaf by leaf over nested
-    dicts."""
-    if isinstance(new, dict):
-        return {k: _select(pred, old[k], v) for k, v in new.items()}
-    return torch.where(pred, old, new)
 
 
 def run_workload_stacked(state: dict, stacked: dict, cfg: StaticConfig,
                          dyn: DynConfig, sm_runner, max_cycles: int = 1 << 20,
                          early_exit: bool = True) -> dict:
-    """Run a whole workload: a loop over the stacked kernel axis
-    (core/batch.py:stack_kernels).
+    """Run a whole workload in every lane: a loop over the stacked kernel
+    axis, the lanes in lockstep.
+
+    ``stacked``'s leaves lead with the lane axis, then the kernel axis:
+    padded (core/batch.py:stack_kernels per lane), every leaf
+    ``(L, n_kernels, …)``; or ragged (``instr_base`` present,
+    core/batch.py:concat_kernels per lane), the per-kernel scalars
+    ``(L, n_kernels)`` and the flat instruction streams ``(L, n)``, split
+    by ``split_ragged`` and re-merged per kernel.  A lane axis may be a
+    stride-0 view of one workload shared by every lane.
 
     Per kernel: state reset (sim/state.py:reset_for_kernel), run the
     kernel to completion, accumulate its cycles.  Padding kernels
-    (``n_ctas == 0``) are masked out — the carried state passes through
-    unchanged and 0 cycles are charged.  A kernel that hits ``max_cycles``
-    bumps the ``timeouts`` counter."""
-    dev = state["ctrl"]["cycle"].device
-    total = torch.zeros((), dtype=torch.int32, device=dev)
-    timeouts = torch.zeros((), dtype=torch.int32, device=dev)
-    n_kernels = stacked["n_ctas"].shape[0]
+    (``n_ctas == 0``) are masked out per lane — the carried state passes
+    through unchanged and 0 cycles are charged.  A kernel that hits
+    ``max_cycles`` bumps the lane's ``timeouts`` counter."""
+    ctrl = state["ctrl"]
+    total = torch.zeros_like(ctrl["cycle"])
+    timeouts = torch.zeros_like(ctrl["cycle"])
+    if "instr_base" in stacked:
+        per_kernel, flat = split_ragged(stacked)
+    else:
+        per_kernel, flat = stacked, {}
+    n_kernels = per_kernel["n_ctas"].shape[1]
     for k in range(n_kernels):
-        packed = {f: v[k] for f, v in stacked.items()}
+        packed = dict(flat, **{f: v[:, k] for f, v in per_kernel.items()})
         st = reset_for_kernel(state, cfg)
         st = run_kernel(st, packed, cfg, dyn, sm_runner, max_cycles,
                         early_exit)
@@ -124,26 +154,34 @@ def run_workload_stacked(state: dict, stacked: dict, cfg: StaticConfig,
                                  timeouts=timeouts))
 
 
-def run_workload(state: dict, kernels: list, cfg: StaticConfig,
-                 dyn: DynConfig, sm_runner, max_cycles: int = 1 << 20,
-                 early_exit: bool = True) -> dict:
-    """Run packed kernels back to back: padded, stacked and handed to
-    ``run_workload_stacked``."""
-    return run_workload_stacked(state, stack_kernels(kernels), cfg, dyn,
-                                sm_runner, max_cycles, early_exit)
-
-
 def simulate(workload: Workload, cfg: GPUConfig, sm_runner, *,
-             max_cycles: int = 1 << 20, early_exit: bool = True,
-             device=None) -> dict:
-    """Run all kernels of a workload; returns the final state.
+             max_cycles: int | None = None, early_exit: bool = True,
+             device=None, plan=None) -> dict:
+    """Run all kernels of a workload; returns the final state of its one
+    lane (no lane axis).
 
-    Runs on the CUDA device unless ``device`` names another one."""
+    The one-lane case of ``run_workload_stacked``.  ``plan``
+    (core/plan.py:RunPlan) may give max_cycles, early_exit and the trace
+    layout instead of the keywords.  Runs on the CUDA device unless
+    ``device`` names another one."""
     device = resolve_device(device)
+    layout = "padded"
+    if plan is not None:
+        if max_cycles is not None:
+            raise ValueError("simulate: pass either plan= or max_cycles=, "
+                             "not both")
+        max_cycles, early_exit, layout = (plan.max_cycles, plan.early_exit,
+                                          plan.layout)
+    if max_cycles is None:
+        max_cycles = 1 << 20
     if max_cycles <= 0:
         raise ValueError(f"max_cycles must be positive, got {max_cycles}")
     scfg, dyn = split_config(cfg, device=device)
     check_workload_fits(scfg, workload)
-    stacked = stack_kernels([k.pack(device) for k in workload.kernels])
-    return run_workload_stacked(init_state(scfg, device), stacked, scfg,
-                                dyn, sm_runner, max_cycles, early_exit)
+    packs = [k.pack(device) for k in workload.kernels]
+    trace = (concat_kernels(packs) if layout == "ragged"
+             else stack_kernels(packs))
+    state = run_workload_stacked(
+        init_state(scfg, device, 1), {f: v[None] for f, v in trace.items()},
+        scfg, dyn.map(lambda x: x[None]), sm_runner, max_cycles, early_exit)
+    return take_lane(state, 0)

@@ -3,6 +3,10 @@
 Per-SM counters are integers, so the reduction is bit-exact regardless of
 execution mode or device count.  The per-SM bounded address sets (paper's
 set-valued stat, strategy 2) are unioned here, on the host, once.
+
+``finalize`` reads the state of one lane: ``take_lane`` (a sweep's or a
+pair sweep's lane) and ``take_grid_lane`` (a grid's (workload, config)
+lane) cut it out of a lane-batched state.
 """
 from __future__ import annotations
 
@@ -15,6 +19,22 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def take_lane(state: dict, i: int) -> dict:
+    """Lane ``i`` of a state with one leading lane axis, as a state
+    without it."""
+    if isinstance(state, dict):
+        return {k: take_lane(v, i) for k, v in state.items()}
+    return state[i]
+
+
+def take_grid_lane(state: dict, w: int, c: int) -> dict:
+    """Lane (workload ``w``, config ``c``) of a grid state with two
+    leading lane axes (workload, config)."""
+    if isinstance(state, dict):
+        return {k: take_grid_lane(v, w, c) for k, v in state.items()}
+    return state[w, c]
 
 
 def finalize(state: dict) -> dict:

@@ -39,13 +39,16 @@ def issue_select_plain(pc, active, ready_at, pending, wait_mem, wait_bar,
     """The plain PyTorch version of the kernel, vectorized over SMs and
     sub-cores.  Shapes: pc/active/ready_at/pending/wait_mem/wait_bar
     (n_sm, W); last_issued (n_sm, SC); unit_free (n_sm, SC, N_UNITS);
-    ops (L,); n_instr/instr_base/sched/t scalars.  Returns
-    (sel_open, sel_closed), each (n_sm, SC) int32 warp slots, -1 = none."""
+    ops (L,); n_instr/instr_base/sched/t scalars.  Beyond the kernel's
+    contract, each SM may bring its own trace and clock: ops (n_sm, L)
+    and n_instr/instr_base/sched/t (n_sm,) (the eager SM phase's lanes,
+    sim/smcore.py).  Returns (sel_open, sel_closed), each (n_sm, SC)
+    int32 warp slots, -1 = none."""
     ns, w = pc.shape
     sc = n_subcores
     dev = pc.device
     n_instr, instr_base, sched, t = (
-        torch.as_tensor(v, dtype=torch.int32, device=dev)
+        torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(-1, 1)
         for v in (n_instr, instr_base, sched, t))
     # warp slot w belongs to sub-core w % SC
     w_ids = torch.arange(w, dtype=torch.int32, device=dev)
@@ -53,7 +56,9 @@ def issue_select_plain(pc, active, ready_at, pending, wait_mem, wait_bar,
 
     blocked = (wait_mem & (pending > 0)) | wait_bar
     ready = active & (pc < n_instr) & ~blocked & (ready_at <= t)
-    op = ops[instr_base + torch.clamp(pc, min=0).minimum(n_instr - 1)]
+    # (an empty kernel, n_instr = 0, reads slot 0: no warp of it is ready)
+    fetch = instr_base + torch.clamp(pc, min=0).minimum(n_instr - 1)
+    op = ops.expand(ns, ops.shape[-1]).gather(1, fetch.clamp(min=0).long())
     port = lane.long() * N_UNITS + unit_table(dev)[op]
     cand = ready & (unit_free.reshape(ns, -1).gather(1, port) <= t)
 

@@ -23,6 +23,14 @@
 //      the first free row (F3), scoreboard, port, last-issued warp, stats;
 //   4. cycles_issue and warp_cycles.
 //
+// Lanes: the launch runs L independent simulations at once (a sweep's
+// configs, a grid's (workload, config) pairs; repro_torch/core/sweep.py):
+// one block per (lane, SM), L x n_sm blocks, the state leaves laid out
+// (L, n_sm, ...) so that block b owns the b-th SM slice of every leaf.
+// Each block reads its lane's trace arrays, trace scalars, instr_base,
+// latency tables, timing scalars and t0 at that lane's offset; a lane
+// stride of 0 shares one of them among all lanes (a sweep's trace).
+//
 // Design: one block per simulated SM, one warp of 32 threads per sub-core.
 // The SM's whole state (warps, dispatch ports, last-issued slots, L1 tags
 // and LRU times, address set, its MSHR rows, its 7 counters; ~18 KB at the
@@ -33,7 +41,7 @@
 // memory, so the host reads nothing during the SM phase.  Warp selection is
 // a shuffle reduction over a packed (key + 1, slot) value in the sub-core's
 // warp; the winner's L1 probe, address-set probes and free-row search run
-// on the same warp as ballots over ways, probes and rows, and its lane 0
+// on the same warp as ballots over ways, probes and rows, and its thread 0
 // writes the results; sub-core after sub-core, with a block barrier
 // between them, since the L1, the address set and the MSHR rows are shared
 // by the sub-cores of an SM.  The barrier step runs only in cycles where a
@@ -53,6 +61,7 @@
 namespace {
 
 constexpr int kNLeaves = 26;
+constexpr int kNAux = 13;
 constexpr int kNUnits = 5;
 constexpr int kNClasses = 7;
 constexpr int kLDG = 4;
@@ -95,8 +104,10 @@ struct Args {
   const int32_t* l1_hit_lat;
   const int32_t* icnt_lat;
   const int32_t* t0;
+  long long lane_stride[kNAux];  // elements between lanes, in aux order
   int n_warps, n_subcores, l1_sets, l1_ways, addrset_cap, mshr, mem_blocks,
       quantum;
+  int n_sm;               // SMs per lane
   int scratch;            // offset of W words of scratch
 };
 
@@ -130,8 +141,14 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
   extern __shared__ int32_t sh[];
   __shared__ int s_lat[kNClasses], s_disp[kNClasses];
   __shared__ int s_free, s_issued_any, s_n_active;
+  // block = one SM of one lane; its slice of every leaf is the block's
   const int sm = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const long long lane = blockIdx.x / a.n_sm;
   const int W = a.n_warps, SC = a.n_subcores, M = a.mshr;
+  const int32_t* ops = a.ops + lane * a.lane_stride[0];
+  const uint8_t* dep = a.dep + lane * a.lane_stride[1];
+  const int32_t* addr_mode = a.addr_mode + lane * a.lane_stride[2];
+  const int32_t* addr_param = a.addr_param + lane * a.lane_stride[3];
 
   for (int f = 0; f < kNLeaves; ++f) {
     const int n = a.count[f];
@@ -145,8 +162,8 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
     }
   }
   if (tid < kNClasses) {
-    s_lat[tid] = __ldg(a.lat + tid);
-    s_disp[tid] = __ldg(a.disp + tid);
+    s_lat[tid] = __ldg(a.lat + lane * a.lane_stride[7] + tid);
+    s_disp[tid] = __ldg(a.disp + lane * a.lane_stride[8] + tid);
   }
   if (tid == 0) s_n_active = 0;
   int32_t* pc = sh + a.off[PC];
@@ -169,14 +186,15 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
   int32_t* r_store = sh + a.off[R_IS_STORE];
   int32_t* rel = sh + a.scratch;
 
-  const int n_instr = __ldg(a.n_instr);
-  const int base = a.instr_base ? __ldg(a.instr_base) : 0;
-  const int wpc = __ldg(a.warps_per_cta);
-  const bool gto = __ldg(a.sched) == 0;
-  const int l1_hit_lat = __ldg(a.l1_hit_lat);
-  const int icnt_lat = __ldg(a.icnt_lat);
-  const int t0 = __ldg(a.t0);
-  const int warp_id = tid >> 5, lane = tid & 31;
+  const int n_instr = __ldg(a.n_instr + lane * a.lane_stride[4]);
+  const int wpc = __ldg(a.warps_per_cta + lane * a.lane_stride[5]);
+  const int base =
+      a.instr_base ? __ldg(a.instr_base + lane * a.lane_stride[6]) : 0;
+  const bool gto = __ldg(a.sched + lane * a.lane_stride[9]) == 0;
+  const int l1_hit_lat = __ldg(a.l1_hit_lat + lane * a.lane_stride[10]);
+  const int icnt_lat = __ldg(a.icnt_lat + lane * a.lane_stride[11]);
+  const int t0 = __ldg(a.t0 + lane * a.lane_stride[12]);
+  const int warp_id = tid >> 5, thr = tid & 31;   // thread of the warp
   __syncthreads();
   {
     // the SM phase never changes `active`: warp_cycles grows by a constant
@@ -236,7 +254,7 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
         const int32_t* uf = unit_free + sc * kNUnits;
         unsigned long long best = kNone;
         bool exists = false;
-        for (int j = lane; j < per_sc; j += 32) {
+        for (int j = thr; j < per_sc; j += 32) {
           const int w = sc + SC * j;
           const int p = pc[w];
           if (!active[w] || p >= n_instr) continue;
@@ -244,7 +262,7 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
           if ((wait_mem[w] && pending[w] > 0) || wait_bar[w] ||
               ready_at[w] > t)
             continue;
-          const int op = __ldg(a.ops + base + min(max(p, 0), n_instr - 1));
+          const int op = __ldg(ops + base + min(max(p, 0), n_instr - 1));
           if (uf[kUnitOfClass[op]] > t) continue;
           if ((op == kLDG || op == kSTG) && !has_free) continue;
           const int key = gto ? (w == last ? -1 : w)
@@ -255,21 +273,21 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
         }
         best = warp_min(best);
         exists = __any_sync(FULL, exists);
-        // the winner's issue, on the whole warp: every lane holds the same
-        // winner; lanes probe in parallel, lane 0 writes
+        // the winner's issue, on the whole warp: every thread holds the
+        // same winner; threads probe in parallel, thread 0 writes
         if (best == kNone) {
-          if (exists && lane == 0) sh[a.off[S_STALL]] += 1;
+          if (exists && thr == 0) sh[a.off[S_STALL]] += 1;
         } else {
           const int w = sc + SC * (int)(best & 0xffffffffu);
           const int spc = min(max(pc[w], 0), n_instr - 1);
-          const int op = __ldg(a.ops + base + spc);
+          const int op = __ldg(ops + base + spc);
           const bool mem = op == kLDG || op == kSTG;
           bool hit = false, miss = false;
           if (mem) {
             const int gwarp =
                 (int)((uint32_t)cta[w] * (uint32_t)wpc + (uint32_t)wic[w]);
-            const int addr = gen_address(__ldg(a.addr_mode + base + spc),
-                                         __ldg(a.addr_param + base + spc),
+            const int addr = gen_address(__ldg(addr_mode + base + spc),
+                                         __ldg(addr_param + base + spc),
                                          gwarp, spc, a.mem_blocks);
             // L1 probe: the first matching way, else the first way of
             // least LRU time
@@ -279,7 +297,7 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
             int way = -1;
             unsigned long long victim = kNone;
             for (int k0 = 0; k0 < a.l1_ways && way < 0; k0 += 32) {
-              const int k = k0 + lane;
+              const int k = k0 + thr;
               const unsigned match =
                   __ballot_sync(FULL, k < a.l1_ways && tag[k] == addr);
               if (match) way = k0 + __ffs(match) - 1;
@@ -296,19 +314,19 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
             const int cap = a.addrset_cap;
             const int h =
                 (int)(((uint32_t)addr * 2654435761u) % (uint32_t)cap);
-            const int cur = lane < 4 ? aset[(h + lane) % cap] : 0;
+            const int cur = thr < 4 ? aset[(h + thr) % cap] : 0;
             const unsigned ok =
-                __ballot_sync(FULL, lane < 4 && (cur == addr || cur == -1));
+                __ballot_sync(FULL, thr < 4 && (cur == addr || cur == -1));
             // MSHR allocation on a miss: the first free row (one exists:
             // has_free held, and only this warp allocates)
             int row = -1;
             if (!hit)
               for (int r0 = 0; r0 < M && row < 0; r0 += 32) {
                 const unsigned f = __ballot_sync(
-                    FULL, r0 + lane < M && r_stage[r0 + lane] == 0);
+                    FULL, r0 + thr < M && r_stage[r0 + thr] == 0);
                 if (f) row = r0 + __ffs(f) - 1;
               }
-            if (lane == 0) {
+            if (thr == 0) {
               tag[way] = addr;
               lru[way] = t;
               if (ok)
@@ -326,11 +344,11 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
               }
             }
           }
-          if (lane == 0) {
+          if (thr == 0) {
             const int lat =
                 op == kLDG ? (hit ? l1_hit_lat : 1) : s_lat[op];
             const bool dep_next =
-                spc + 1 < n_instr && __ldg(a.dep + base + spc + 1);
+                spc + 1 < n_instr && __ldg(dep + base + spc + 1);
             pc[w] = spc + 1;
             ready_at[w] = t + (dep_next ? max(lat, 1) : 1);
             wait_mem[w] = dep_next && miss;
@@ -370,18 +388,22 @@ __global__ void __launch_bounds__(1024) sm_quantum_kernel(const Args a) {
 
 }  // namespace
 
-// in: the 26 state leaves of all SMs, contiguous, in kernel.py:LEAVES order
-// (int32, or 1-byte bool where is_bool), count[f] elements per SM
-// (kernel.py:leaf_counts); out: 26 tensors of the same shapes.
-// aux: ops, dep, addr_mode, addr_param, n_instr, warps_per_cta, instr_base
-// (null: 0), lat, disp, sched, l1_hit_lat, icnt_lat, t0.  dims: warps per
-// SM, sub-cores, L1 sets, L1 ways, address-set capacity, MSHR rows per SM,
-// memory blocks, Delta.  Returns cudaGetLastError() after the launch (0
-// when it was accepted), or cudaErrorInvalidValue for sizes it cannot take.
+// in: the 26 state leaves of all lanes and SMs, contiguous (L, n_sm, ...),
+// in kernel.py:LEAVES order (int32, or 1-byte bool where is_bool),
+// count[f] elements per SM (kernel.py:leaf_counts); out: 26 tensors of the
+// same shapes.  aux: ops, dep, addr_mode, addr_param, n_instr,
+// warps_per_cta, instr_base (null: 0), lat, disp, sched, l1_hit_lat,
+// icnt_lat, t0, each of lane l at aux[i] + l * lane_stride[i] elements.
+// dims: warps per SM, sub-cores, L1 sets, L1 ways, address-set capacity,
+// MSHR rows per SM, memory blocks, Delta.  Returns cudaGetLastError()
+// after the launch (0 when it was accepted), or cudaErrorInvalidValue for
+// sizes it cannot take.
 extern "C" int sm_quantum_launch(const void* const* in, void* const* out,
                                  const int* count, const int* is_bool,
-                                 const void* const* aux, const int* dims,
-                                 int n_sm, void* stream) {
+                                 const void* const* aux,
+                                 const long long* lane_stride,
+                                 const int* dims, int n_lanes, int n_sm,
+                                 void* stream) {
   Args a;
   a.n_warps = dims[0];
   a.n_subcores = dims[1];
@@ -394,7 +416,7 @@ extern "C" int sm_quantum_launch(const void* const* in, void* const* out,
   const int W = a.n_warps, SC = a.n_subcores;
   if (SC < 1 || SC > 32 || W < 1 || W % SC || a.l1_sets < 1 ||
       a.l1_ways < 1 || a.addrset_cap < 1 || a.mshr < 0 || a.mem_blocks < 1 ||
-      n_sm < 1)
+      n_sm < 1 || n_lanes < 1 || (long long)n_lanes * n_sm > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   int words = 0;
   for (int f = 0; f < kNLeaves; ++f) {
@@ -421,6 +443,11 @@ extern "C" int sm_quantum_launch(const void* const* in, void* const* out,
   a.l1_hit_lat = (const int32_t*)aux[10];
   a.icnt_lat = (const int32_t*)aux[11];
   a.t0 = (const int32_t*)aux[12];
+  for (int i = 0; i < kNAux; ++i) {
+    if (lane_stride[i] < 0) return (int)cudaErrorInvalidValue;
+    a.lane_stride[i] = lane_stride[i];
+  }
+  a.n_sm = n_sm;
   const size_t smem = sizeof(int32_t) * (size_t)words;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -428,6 +455,7 @@ extern "C" int sm_quantum_launch(const void* const* in, void* const* out,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  sm_quantum_kernel<<<n_sm, 32 * SC, smem, (cudaStream_t)stream>>>(a);
+  sm_quantum_kernel<<<n_lanes * n_sm, 32 * SC, smem, (cudaStream_t)stream>>>(
+      a);
   return (int)cudaGetLastError();
 }

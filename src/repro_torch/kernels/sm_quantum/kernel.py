@@ -1,12 +1,15 @@
 """The fused SM quantum: the CUDA kernel's wrapper.
 
-``sm_quantum`` runs Δ cycles of the SM phase for every SM given, exactly
-``repro/sim/smcore.py:sm_quantum_single`` per SM, in one launch: one
-thread block per SM, the SM's state in shared memory for the whole quantum
-(see ``csrc/sm_quantum.cu``).  Its plain version is the port's eager cycle
-loop, ``repro_torch.sim.smcore.sm_quantum_eager``, which the tests hold
-bit-exact against the JAX package; ``repro_torch.sim.smcore.sm_quantum``
-sends CPU tensors there and CUDA tensors here.
+``sm_quantum`` runs Δ cycles of the SM phase for every lane and SM given,
+exactly ``repro/sim/smcore.py:sm_quantum_single`` per SM, in one launch:
+one thread block per (lane, SM), the SM's state in shared memory for the
+whole quantum (see ``csrc/sm_quantum.cu``).  Lanes are independent
+simulations (core/sweep.py), each with its own trace, dynamic config and
+clock, or sharing one through a lane stride of 0.  Its plain version is
+the port's eager cycle loop, ``repro_torch.sim.smcore.sm_quantum_eager``,
+which the tests hold bit-exact against the JAX package;
+``repro_torch.sim.smcore.sm_quantum`` sends CPU tensors there and CUDA
+tensors here.
 
 The wrapper takes CUDA tensors only: it launches the kernel (built from
 ``csrc/sm_quantum.cu`` at first use) or raises.  Inputs are never
@@ -104,11 +107,25 @@ def _refuse(name, x, dtype, shape, device):
     raise ValueError(f"sm_quantum: {name} must be contiguous")
 
 
+def _lane_stride(name, x, dtype, inner, n_lanes, device) -> int:
+    """Check an aux argument of shape ``(n_lanes, *inner)``, its inner
+    part contiguous; returns its stride along the lane axis in elements
+    (0 where one value is shared by every lane)."""
+    if x.device != device or x.dtype != dtype \
+            or tuple(x.shape) != (n_lanes, *inner):
+        _refuse(name, x, dtype, torch.Size((n_lanes, *inner)), device)
+    if not x[:1].is_contiguous():
+        raise ValueError(f"sm_quantum: {name} must be contiguous past its "
+                         "lane axis")
+    return x.stride(0) if n_lanes > 1 else 0
+
+
 @cache
 def _launcher():
     lib, info = build_library(SOURCE, "sm_quantum")
     fn = lib.sm_quantum_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, info
 
@@ -119,16 +136,20 @@ def build() -> dict:
     return _launcher()[1]
 
 
-_SCALAR, _TABLE = torch.Size(()), torch.Size((N_CLASSES,))
+_SCALAR, _TABLE = (), (N_CLASSES,)
 _IS_BOOL = (ctypes.c_int * 26)(*(int((g, k) in BOOL_LEAVES)
                                   for g, keys in LEAVES for k in keys))
 
 
 def sm_quantum(warp, sm, req, stats_sm, trace, t0, cfg: StaticConfig, dyn):
-    """Δ cycles of every SM given (leading SM axis), in one launch of the
-    CUDA kernel.  Returns fresh (warp, sm, req, stats_sm) dicts.  ``trace``
-    is a packed kernel trace (``instr_base`` optional, 0 when absent);
-    ``t0`` a 0-d int32 tensor."""
+    """Δ cycles of every lane and SM given, in one launch of the CUDA
+    kernel.  Returns fresh (warp, sm, req, stats_sm) dicts.
+
+    State leaves ``(L, n_sm, …)``, contiguous.  ``trace``: a packed
+    kernel trace per lane — instruction arrays ``(L, n)``, scalars
+    ``(L,)``, ``instr_base`` optional (0 when absent); ``t0`` ``(L,)``
+    int32; ``dyn``'s scalars ``(L,)`` and tables ``(L, N_CLASSES)``.  An
+    argument's lane axis may have stride 0 (one value for every lane)."""
     device = warp["pc"].device
     if device.type != "cuda":
         raise ValueError(f"sm_quantum: no kernel for device {device}")
@@ -140,12 +161,12 @@ def sm_quantum(warp, sm, req, stats_sm, trace, t0, cfg: StaticConfig, dyn):
                          f"{shared_bytes(cfg)} bytes of shared memory, above "
                          f"the block's {MAX_SHARED}")
     leaves = pack_state(warp, sm, req, stats_sm)
-    ns = leaves[0].shape[0]
+    n_lanes, ns = leaves[0].shape[:2]
     i32, b = torch.int32, torch.bool
     for ((g, k), shape), x in zip(per_sm_shapes(cfg).items(), leaves):
         _check((g, k), x, b if (g, k) in BOOL_LEAVES else i32,
-               torch.Size((ns, *shape)), device)
-    length = torch.Size((trace["ops"].shape[0],))
+               torch.Size((n_lanes, ns, *shape)), device)
+    length = (trace["ops"].shape[-1],)
     # the kernel's aux arguments, in its order
     aux = (("trace.ops", trace["ops"], i32, length),
            ("trace.dep", trace["dep"], b, length),
@@ -160,11 +181,11 @@ def sm_quantum(warp, sm, req, stats_sm, trace, t0, cfg: StaticConfig, dyn):
            ("dyn.cache.l1_hit_lat", dyn.cache.l1_hit_lat, i32, _SCALAR),
            ("dyn.icnt.icnt_lat", dyn.icnt.icnt_lat, i32, _SCALAR),
            ("t0", t0, i32, _SCALAR))
-    for name, x, dtype, shape in aux:
-        if x is not None:      # no instr_base: 0
-            _check(name, x, dtype, shape, device)
+    strides = [0 if x is None      # no instr_base: 0
+               else _lane_stride(name, x, dtype, inner, n_lanes, device)
+               for name, x, dtype, inner in aux]
     outs = [torch.empty_like(x) for x in leaves]
-    if ns == 0:
+    if n_lanes * ns == 0:
         return unpack_state(outs)
     dims = (ctypes.c_int * 8)(
         cfg.warps_per_sm, cfg.n_subcores, cfg.l1_sets, cfg.l1_ways,
@@ -174,7 +195,8 @@ def sm_quantum(warp, sm, req, stats_sm, trace, t0, cfg: StaticConfig, dyn):
     err = fn((ctypes.c_void_p * 26)(*(x.data_ptr() for x in leaves)),
              (ctypes.c_void_p * 26)(*(x.data_ptr() for x in outs)),
              (ctypes.c_int * 26)(*leaf_counts(cfg)), _IS_BOOL,
-             (ctypes.c_void_p * len(ptrs))(*ptrs), dims, ns,
+             (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_longlong * len(strides))(*strides), dims, n_lanes, ns,
              torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"sm_quantum: kernel launch failed with CUDA "

@@ -23,6 +23,18 @@ import torch
 FP32, INT32, SFU, TENSOR, LDG, STG, BAR = range(7)
 N_CLASSES = 7
 CLASS_NAMES = ("fp32", "int32", "sfu", "tensor", "ldg", "stg", "bar")
+
+
+def class_index(name: str) -> int:
+    """Instruction-class index by name ('fp32', 'sfu', ...)."""
+    try:
+        return CLASS_NAMES.index(name.lower())
+    except ValueError:
+        raise ValueError(
+            f"unknown instruction class {name!r}; expected one of "
+            f"{CLASS_NAMES}") from None
+
+
 # execution units (per sub-core dispatch ports)
 U_FP32, U_INT, U_SFU, U_TENSOR, U_LSU = range(5)
 N_UNITS = 5
@@ -115,6 +127,20 @@ class DynConfig:
         """The inverse of ``from_flat``: flat {key: tensor} view."""
         return {k: getattr(getattr(self, g), leaf)
                 for k, (g, leaf) in _FLAT_TO_GROUP.items()}
+
+    def map(self, fn) -> "DynConfig":
+        """The same grouping with ``fn`` applied to every leaf."""
+        return DynConfig.from_flat({k: fn(v) for k, v in self.flat().items()},
+                                   self.icnt.icnt_lat.device)
+
+    @classmethod
+    def stack(cls, dyns: list) -> "DynConfig":
+        """Stack one-config DynConfigs leaf by leaf along a new leading
+        lane axis: scalars become ``(n,)``, the tables ``(n, N_CLASSES)``."""
+        flats = [d.flat() for d in dyns]
+        return cls.from_flat({k: torch.stack([f[k] for f in flats])
+                              for k in flats[0]},
+                             dyns[0].icnt.icnt_lat.device)
 
 
 def check_dyn(static: "StaticConfig", dyn: DynConfig, lane: str = "") -> None:

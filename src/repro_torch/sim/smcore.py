@@ -31,6 +31,13 @@ that steps which would change nothing are skipped: a quantum for SMs with
 nothing to do, barrier release when no warp can be at a barrier, the issue
 steps when no SM issues, the memory side of a sub-core that issues no
 LDG/STG.  Every result is bit-identical to the reference.
+
+Lanes: the state carries a leading lane axis ``(L, n_sm, …)``, each lane
+with its own trace, ``instr_base``, dynamic config and clock ``t0``.  The
+eager loop flattens lanes and SMs into ``L · n_sm`` SM rows, each row
+carrying its lane's trace scalars, clock and timing tables (SMs never
+interact within a quantum); warp selection is one call of the plain
+version on the CPU and one ``sm_issue`` launch per lane on the card.
 """
 from __future__ import annotations
 
@@ -47,7 +54,8 @@ _N_PROBES = 4
 
 
 def _deliver(warp, req, t):
-    """Deliver resolved responses: free the rows, count down loads."""
+    """Deliver resolved responses: free the rows, count down loads.
+    ``t``: (rows, 1) clock of each SM row."""
     done = (req["stage"] == 3) & (req["t"] <= t)
     dec = torch.zeros_like(warp["pending"]).scatter_add(
         1, req["warp"].long(), (done & ~req["is_store"]).int())
@@ -71,9 +79,9 @@ def _release_barriers(warp, n_instr, t):
 
 
 def _l1_access(sm, addr, t, enable, cfg: StaticConfig):
-    """One L1 probe per SM at ``addr`` (n_sm,); returns the hit flags.
-    Where ``enable``, the probed way takes the tag and the LRU time, in
-    place in ``sm``."""
+    """One L1 probe per SM row at ``addr`` (rows,); returns the hit flags.
+    Where ``enable``, the probed way takes the tag and the LRU time ``t``
+    (rows,), in place in ``sm``."""
     ns = addr.shape[0]
     st = torch.remainder(addr, cfg.l1_sets).long()
     rows = torch.arange(ns, device=addr.device)
@@ -117,18 +125,19 @@ def _addrset_insert(sm, addr, enable, cfg: StaticConfig):
 
 def _issue_subcore(sm, req, addr, t, mem_cand, sel_store, sel_warp,
                    cfg: StaticConfig, dyn: DynConfig):
-    """The memory side of one sub-core's issue, for every SM at once.
+    """The memory side of one sub-core's issue, for every SM row at once.
 
-    ``mem_cand`` (n_sm,): the sub-core's ``sel_open`` winner is an LDG/STG
+    ``mem_cand`` (rows,): the sub-core's ``sel_open`` winner is an LDG/STG
     (whose address is ``addr``, store flag ``sel_store``, warp slot
     ``sel_warp``).  It issues only while the SM still has a free MSHR row,
     after the allocations of lower sub-cores this cycle; otherwise the
-    sub-core takes its ``sel_closed`` winner.  Updates ``sm`` in place;
-    returns (req, use_open, mem_issue, hit)."""
+    sub-core takes its ``sel_closed`` winner.  ``t`` and ``dyn``'s leaves
+    are per SM row, (rows, 1).  Updates ``sm`` in place; returns (req,
+    use_open, mem_issue, hit)."""
     free = req["stage"] == 0
     use_open = free.any(1)
     mem_issue = mem_cand & use_open
-    hit = _l1_access(sm, addr, t, mem_issue, cfg)
+    hit = _l1_access(sm, addr, t[:, 0], mem_issue, cfg)
     _addrset_insert(sm, addr, mem_issue, cfg)
     # MSHR allocation on miss: the first free row
     alloc = (free & (torch.cumsum(free.int(), 1) == 1)
@@ -144,16 +153,18 @@ def _issue_subcore(sm, req, addr, t, mem_cand, sel_store, sel_warp,
     return req, use_open, mem_issue, hit
 
 
-def _fetch(warp, trace, sel, lanes):
+def _fetch(warp, trace, sel, subcores):
     """Warp slot, clipped pc and op of each sub-core's winner ``sel``
-    (n_sm, SC); a sub-core without a winner reads its first slot, as the
-    reference's argmin does, and nothing it reads is used."""
+    (rows, SC); a sub-core without a winner reads its first slot, as the
+    reference's argmin does, and nothing it reads is used.  ``trace``
+    holds one row per SM row (``_row_trace``)."""
     n_instr = trace["n_instr"]
     do = sel >= 0
-    wsel = torch.where(do, sel, lanes).long()
+    wsel = torch.where(do, sel, subcores).long()
     spc = torch.clamp(warp["pc"].gather(1, wsel), min=0).minimum(n_instr - 1)
-    fetch = trace["instr_base"] + spc
-    return do, wsel, spc, fetch, trace["ops"][fetch]
+    # (an empty kernel, n_instr = 0, reads slot 0: it has no winner)
+    fetch = (trace["instr_base"] + spc).clamp(min=0).long()
+    return do, wsel, spc, fetch, trace["ops"].gather(1, fetch)
 
 
 def _commit(warp, sm, stats, trace, t, do, wsel, spc, sop, mem_issue, hit,
@@ -164,10 +175,11 @@ def _commit(warp, sm, stats, trace, t, do, wsel, spc, sop, mem_issue, hit,
     l1_miss = mem_issue & ~hit
     lat = torch.where(sop == LDG,
                       torch.where(hit, dyn.cache.l1_hit_lat, 1),
-                      dyn.core.lat[sop])
+                      dyn.core.lat.gather(1, sop.long()))
     nxt = spc + 1
-    dep_next = (nxt < n_instr) & trace["dep"][
-        trace["instr_base"] + nxt.minimum(n_instr - 1)]
+    dep_next = (nxt < n_instr) & trace["dep"].gather(
+        1, (trace["instr_base"] + nxt.minimum(n_instr - 1)).clamp(
+            min=0).long())
     wait_lat = torch.where(dep_next, torch.clamp(lat, min=1), 1)
 
     def put(x, new):
@@ -187,7 +199,8 @@ def _commit(warp, sm, stats, trace, t, do, wsel, spc, sop, mem_issue, hit,
     port = (torch.arange(sc, device=do.device) * N_UNITS
             + unit_table(do.device)[sop])
     unit_free = sm["unit_free"].view(ns, -1)
-    busy = torch.where(do, t + dyn.core.disp[sop], unit_free.gather(1, port))
+    busy = torch.where(do, t + dyn.core.disp.gather(1, sop.long()),
+                       unit_free.gather(1, port))
     sm = dict(sm,
               unit_free=unit_free.scatter(1, port, busy).view_as(
                   sm["unit_free"]),
@@ -201,12 +214,34 @@ def _commit(warp, sm, stats, trace, t, do, wsel, spc, sop, mem_issue, hit,
     return warp, sm, stats
 
 
+def _select(warp, sm, trace, lanes, t, n_subcores):
+    """Warp selection for every SM row.  On the CPU one call of the plain
+    version takes every row's own trace and clock; the kernel takes one
+    trace and one clock per launch, so on the card there is one launch
+    per lane.  ``lanes``: per lane, (first row, last row + 1, ops,
+    n_instr, instr_base, sched)."""
+    state = (warp["pc"], warp["active"], warp["ready_at"], warp["pending"],
+             warp["wait_mem"], warp["wait_bar"], sm["last_issued"],
+             sm["unit_free"])
+    if warp["pc"].device.type == "cpu":
+        return issue_select(*state, trace["ops"], trace["n_instr"],
+                            trace["instr_base"], trace["sched"], t,
+                            n_subcores=n_subcores)
+    parts = [issue_select(*(x[a:b] for x in state), ops, n_instr, base,
+                          sched, t[a, 0], n_subcores=n_subcores)
+             for a, b, ops, n_instr, base, sched in lanes]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(2))
+
+
 def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
-             cfg: StaticConfig, dyn: DynConfig):
-    """One cycle of every SM given (arrays with the leading SM axis).
-    ``trace`` must carry ``instr_base`` (0 in the padded layout);
-    ``barriers``: some warp may wait at a CTA barrier.  Updates ``sm``'s
-    L1 and address-set tensors in place."""
+             cfg: StaticConfig, dyn: DynConfig, lanes):
+    """One cycle of every SM row given (arrays with a leading axis of SM
+    rows; ``trace``, ``t`` and ``dyn`` per row, from ``_row_trace`` and
+    ``_row_dyn``; ``lanes`` as ``_select`` takes it); ``barriers``: some
+    warp may wait at a CTA barrier.  Updates ``sm``'s L1 and address-set
+    tensors in place."""
     n_instr = trace["n_instr"]
     nsc = cfg.n_subcores
     ns = warp["pc"].shape[0]
@@ -214,14 +249,10 @@ def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
     warp, req = _deliver(warp, req, t)
     if barriers:
         warp = _release_barriers(warp, n_instr, t)
-    sel_open, sel_closed = issue_select(
-        warp["pc"], warp["active"], warp["ready_at"], warp["pending"],
-        warp["wait_mem"], warp["wait_bar"], sm["last_issued"],
-        sm["unit_free"], trace["ops"], n_instr, trace["instr_base"],
-        dyn.core.sched, t, n_subcores=nsc)
-    lanes = torch.arange(nsc, device=t.device)
+    sel_open, sel_closed = _select(warp, sm, trace, lanes, t, nsc)
+    subcores = torch.arange(nsc, device=t.device)
     do_o, wsel_o, spc_o, fetch_o, sop_o = _fetch(warp, trace, sel_open,
-                                                 lanes)
+                                                 subcores)
     # an LDG/STG winner issues only while its SM has a free MSHR row; rows
     # free up only in _deliver, so an SM without one now takes sel_closed
     # on every sub-core this cycle
@@ -247,9 +278,9 @@ def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
     if any(flags[2:]):
         gwarp = (warp["cta"].gather(1, wsel_o) * trace["warps_per_cta"]
                  + warp["wic"].gather(1, wsel_o))
-        addr = gen_address(trace["addr_mode"][fetch_o],
-                           trace["addr_param"][fetch_o], gwarp, spc_o,
-                           cfg.mem_blocks)
+        addr = gen_address(trace["addr_mode"].gather(1, fetch_o),
+                           trace["addr_param"].gather(1, fetch_o), gwarp,
+                           spc_o, cfg.mem_blocks)
         for sc in range(nsc):
             if flags[2 + sc]:
                 req, use_open[:, sc], mem_issue[:, sc], hit[:, sc] = \
@@ -258,7 +289,7 @@ def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
                                    cfg, dyn)
     if flags[1] or any(flags[2:]):
         sel = torch.where(use_open, sel_open, sel_closed)
-        do, wsel, spc, _, sop = _fetch(warp, trace, sel, lanes)
+        do, wsel, spc, _, sop = _fetch(warp, trace, sel, subcores)
     else:
         # every winner issues as selected: sel_closed == sel_open
         do, wsel, spc, sop = do_o, wsel_o, spc_o, sop_o
@@ -274,38 +305,87 @@ def sm_cycle(warp, sm, req, stats, trace, t, barriers: bool,
     return warp, sm, req, stats
 
 
+def _row_trace(trace: dict, sched, n_lanes: int, ns: int) -> dict:
+    """A lane-batched trace as one row per SM row: instruction arrays
+    (rows, n), scalars (rows, 1); ``instr_base`` 0 where absent; and the
+    lane's scheduler selector ``sched``."""
+    def rows(x):
+        return x.reshape(n_lanes, *x.shape[1:]).repeat_interleave(ns, 0)
+    out = {f: rows(trace[f]) for f in ("ops", "dep", "addr_mode",
+                                       "addr_param")}
+    base = trace.get("instr_base")
+    if base is None:
+        base = torch.zeros_like(trace["n_instr"])
+    for f, x in (("n_instr", trace["n_instr"]),
+                 ("warps_per_cta", trace["warps_per_cta"]),
+                 ("instr_base", base)):
+        out[f] = rows(x.reshape(n_lanes, 1))
+    out["sched"] = rows(sched.reshape(n_lanes, 1))
+    return out
+
+
+def _row_dyn(dyn: DynConfig, n_lanes: int, ns: int) -> DynConfig:
+    """A lane-batched DynConfig as one row per SM row: scalars (rows, 1),
+    tables (rows, N_CLASSES)."""
+    return dyn.map(lambda x: x.reshape(n_lanes, -1).repeat_interleave(ns, 0))
+
+
 def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
                      dyn: DynConfig):
-    """Run Δ consecutive cycles for every SM given — the communication
-    window — as Δ calls of ``sm_cycle``.  On CUDA tensors it launches
-    ``sm_issue`` once per cycle.
+    """Run Δ consecutive cycles for every lane and SM given — the
+    communication window — as Δ calls of ``sm_cycle`` over the lanes' SM
+    rows.  On CUDA tensors it launches ``sm_issue`` once per cycle and
+    lane.
 
-    SMs with no active warp, no request in flight and no warp at a
-    barrier do nothing for the whole quantum and are returned as they
-    are; otherwise the L1 and address-set tensors are copied once and
-    then updated in place, cycle by cycle."""
-    if "instr_base" not in trace:
-        trace = dict(trace, instr_base=torch.zeros_like(trace["n_instr"]))
+    State leaves ``(L, n_sm, …)``; ``trace``'s instruction arrays
+    ``(L, n)`` (one row per lane, or a row shared through a stride of
+    0) and scalars ``(L,)``, ``instr_base`` optional; ``t0`` ``(L,)``;
+    ``dyn``'s leaves ``(L,)`` and ``(L, N_CLASSES)``.
+
+    When no SM of any lane has an active warp, a request in flight or a
+    warp at a barrier, the quantum changes nothing and the inputs are
+    returned as they are; otherwise the L1 and address-set tensors are
+    copied once and then updated in place, cycle by cycle."""
+    n_lanes, ns = warp["pc"].shape[:2]
     busy, waiting, has_bar = torch.stack([
         warp["active"].any() | (req["stage"] != 0).any(),
         warp["wait_bar"].any(), (trace["ops"] == BAR).any()]).tolist()
     if not (busy or waiting):
         return warp, sm, req, stats
     barriers = waiting or has_bar
-    sm = dict(sm, l1_tag=sm["l1_tag"].clone(), l1_lru=sm["l1_lru"].clone(),
-              addrset=sm["addrset"].clone())
+
+    def flat(part):
+        return {k: v.reshape(n_lanes * ns, *v.shape[2:])
+                for k, v in part.items()}
+
+    def unflat(part):
+        return {k: v.reshape(n_lanes, ns, *v.shape[1:])
+                for k, v in part.items()}
+
+    w, s, r, st = (flat(p) for p in (warp, sm, req, stats))
+    s = dict(s, l1_tag=s["l1_tag"].clone(), l1_lru=s["l1_lru"].clone(),
+             addrset=s["addrset"].clone())
+    rows = _row_trace(trace, dyn.core.sched, n_lanes, ns)
+    row_dyn = _row_dyn(dyn, n_lanes, ns)
+    t_rows = t0.reshape(n_lanes, 1).repeat_interleave(ns, 0)
+    lanes = None
+    if warp["pc"].device.type != "cpu":     # the kernel's per-lane launches
+        lanes = [(i * ns, (i + 1) * ns, trace["ops"].reshape(n_lanes, -1)[i],
+                  rows["n_instr"][i * ns, 0], rows["instr_base"][i * ns, 0],
+                  rows["sched"][i * ns, 0]) for i in range(n_lanes)]
     for i in range(cfg.quantum):
-        warp, sm, req, stats = sm_cycle(warp, sm, req, stats, trace, t0 + i,
-                                        barriers, cfg, dyn)
-    return warp, sm, req, stats
+        w, s, r, st = sm_cycle(w, s, r, st, rows, t_rows + i, barriers, cfg,
+                               row_dyn, lanes)
+    return tuple(unflat(p) for p in (w, s, r, st))
 
 
 def sm_quantum(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
                dyn: DynConfig):
-    """The SM phase: Δ cycles of every SM given.  CUDA tensors go to one
-    launch of the fused ``sm_quantum`` kernel; CPU tensors run its plain
-    version, ``sm_quantum_eager``.  Returns fresh (warp, sm, req, stats)
-    dicts; the inputs are not modified."""
+    """The SM phase: Δ cycles of every lane and SM given (arguments as
+    ``sm_quantum_eager`` takes them).  CUDA tensors go to one launch of
+    the fused ``sm_quantum`` kernel for all lanes; CPU tensors run its
+    plain version, ``sm_quantum_eager``.  Returns fresh (warp, sm, req,
+    stats) dicts; the inputs are not modified."""
     if warp["pc"].device.type == "cpu":
         return sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg, dyn)
     return fused_quantum(warp, sm, req, stats, trace, t0, cfg, dyn)

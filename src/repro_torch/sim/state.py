@@ -1,6 +1,11 @@
 """Simulator state: a struct of arrays, as dicts of tensors.
 
-Same keys, shapes and dtypes (int32, bool) as ``repro.sim.state``:
+Same keys, dtypes (int32, bool) and per-lane shapes as
+``repro.sim.state``, behind a leading lane axis ``(L, …)``: lane ``l``
+is one independent simulation (one config of a sweep, one (workload,
+config) pair of a grid), as the reference's ``batched_init`` gives its
+vmapped lanes; a solo run is one lane.
+
 
   · arrays with a leading ``n_sm`` axis are touched ONLY by the SM phase;
   · ``mem`` / ``ctrl`` and the global stats are touched ONLY by the
@@ -15,16 +20,18 @@ import torch
 from repro_torch.sim.config import N_UNITS, StaticConfig
 
 
-def init_state(cfg: StaticConfig, device) -> dict:
+def init_state(cfg: StaticConfig, device, n_lanes: int = 1) -> dict:
+    """The state of ``n_lanes`` fresh simulations: every leaf has a
+    leading lane axis of that length."""
     ns, w, m = cfg.n_sm, cfg.warps_per_sm, cfg.mshr_per_sm
     sc = cfg.n_subcores
     i32, b = torch.int32, torch.bool
 
     def zeros(*shape, dtype=i32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros((n_lanes, *shape), dtype=dtype, device=device)
 
     def full(shape, v):
-        return torch.full(shape, v, dtype=i32, device=device)
+        return torch.full((n_lanes, *shape), v, dtype=i32, device=device)
 
     return {
         "warp": {
@@ -65,7 +72,8 @@ def init_state(cfg: StaticConfig, device) -> dict:
             "rr": zeros(),
             "done_cycle": full((), -1),
             # original SM id at each array position
-            "sm_ids": torch.arange(ns, dtype=i32, device=device),
+            "sm_ids": torch.arange(ns, dtype=i32, device=device).expand(
+                n_lanes, ns).contiguous(),
         },
         # per-SM stats (parallel region; reduced at the epilogue)
         "stats_sm": {k: zeros(ns) for k in (
@@ -83,7 +91,8 @@ def init_state(cfg: StaticConfig, device) -> dict:
 def reset_for_kernel(state: dict, cfg: StaticConfig) -> dict:
     """Between kernels: clear warps and requests, flush L1 (Accel-sim
     semantics), keep L2/DRAM state and accumulated stats."""
-    s = init_state(cfg, state["ctrl"]["cycle"].device)
+    cycle = state["ctrl"]["cycle"]
+    s = init_state(cfg, cycle.device, cycle.shape[0])
     return {
         "warp": s["warp"],
         "sm": dict(state["sm"],

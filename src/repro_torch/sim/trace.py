@@ -18,7 +18,7 @@ A_NONE, A_STREAM, A_STRIDED, A_RANDOM = range(4)
 _U32 = 0xFFFFFFFF
 
 
-@dataclass(eq=False)      # array fields: compare by identity
+@dataclass(eq=False)
 class KernelTrace:
     name: str
     n_ctas: int
@@ -31,6 +31,17 @@ class KernelTrace:
     @property
     def n_instr(self) -> int:
         return len(self.ops)
+
+    def __eq__(self, other) -> bool:
+        """Full IR equality, array fields elementwise (the dataclass's
+        default equality is ambiguous on arrays)."""
+        if not isinstance(other, KernelTrace):
+            return NotImplemented
+        return (self.name == other.name
+                and self.n_ctas == other.n_ctas
+                and self.warps_per_cta == other.warps_per_cta
+                and all(np.array_equal(getattr(self, f), getattr(other, f))
+                        for f in ("ops", "dep", "addr_mode", "addr_param")))
 
     def pack(self, device) -> dict:
         def i32(x):
@@ -51,6 +62,13 @@ class KernelTrace:
 class Workload:
     name: str
     kernels: list = field(default_factory=list)
+
+    @property
+    def total_ctas(self) -> int:
+        return sum(k.n_ctas for k in self.kernels)
+
+    def ctas_per_kernel(self) -> list[int]:
+        return [k.n_ctas for k in self.kernels]
 
 
 def build_kernel(name: str, *, n_ctas: int, warps_per_cta: int,

@@ -14,16 +14,27 @@ compute signatures:
   mixed             multi-kernel pipeline mixing the above phases
 
 ``zoo_names()`` lists them and ``zoo_workload(name, scale=…)`` builds one.
-Real-trace workloads (``trace:<name>``) need trace ingestion, which is not
-ported yet: such names raise ``NotImplementedError``.
+
+Real-trace workloads ride the same registry under ``trace:<name>``:
+``register_trace(path)`` ingests an Accel-sim SASS trace subset file
+(sim/traceio.py) and registers its lowered Workload, after which it flows
+through every batched path like a synthetic workload.
+``zoo_workload('trace:x')`` auto-registers from the trace search path
+(``REPRO_TRACE_PATH`` dirs, then the repo's bundled ``tests/data/traces``)
+when the name is not yet registered.  ``resolve_workload(name)`` is the
+one-stop resolver: plain zoo names, ``zoo:``/``trace:`` prefixes, and the
+Table-2 synthetic names (repro_torch.workloads).
 """
 from __future__ import annotations
+
+import os
 
 from repro_torch.sim.config import BAR, FP32, INT32, LDG, SFU, STG, TENSOR
 from repro_torch.sim.trace import (A_RANDOM, A_STREAM, A_STRIDED, Workload,
                                    build_kernel)
 
 ZOO: dict = {}
+TRACE_INGESTS: dict = {}   # "trace:<name>" -> traceio.TraceIngest
 
 
 def register(name: str):
@@ -38,20 +49,68 @@ def zoo_names() -> list:
 
 
 def zoo_workload(name: str, scale: float = 1.0) -> Workload:
-    """Build a zoo workload by registry name."""
-    if name.startswith("trace:"):
-        raise NotImplementedError(
-            f"zoo workload {name!r}: trace ingestion (trace:<name>) is not "
-            "ported to repro_torch yet")
+    """Build a zoo workload by registry name.  ``trace:<x>`` names not
+    yet registered are auto-registered from the trace search path."""
+    if name not in ZOO and name.startswith("trace:"):
+        _autoregister_trace(name)
     if name not in ZOO:
         raise KeyError(f"unknown zoo workload {name!r}; "
                        f"available: {', '.join(zoo_names())}")
     return ZOO[name](scale)
 
 
+# ---------------------------------------------------------------------------
+# real-trace workloads (sim/traceio.py) — "trace:<name>" registry entries
+# ---------------------------------------------------------------------------
+
+def trace_search_dirs() -> list:
+    """Where ``trace:<x>`` names resolve from: ``REPRO_TRACE_PATH``
+    (os.pathsep-separated), then the repo's bundled fixture directory."""
+    dirs = [d for d in os.environ.get("REPRO_TRACE_PATH", "")
+            .split(os.pathsep) if d]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    dirs.append(os.path.join(root, "tests", "data", "traces"))
+    return dirs
+
+
+def register_trace(path: str) -> str:
+    """Ingest one trace file and register it as ``trace:<stem>``.
+    Returns the registry name.  ``scale`` on the registered builder
+    scales CTA counts like the synthetic generators (1.0 = real grid)."""
+    from repro_torch.sim import traceio
+
+    ing = traceio.load_trace(path)
+    name = ing.workload.name
+    TRACE_INGESTS[name] = ing
+    ZOO[name] = lambda scale, _w=ing.workload: \
+        traceio.scale_trace_workload(_w, scale)
+    return name
+
+
+def register_traces(path: str) -> list:
+    """Register a trace file or every ``*.trace`` in a directory."""
+    from repro_torch.sim import traceio
+
+    files = traceio.trace_files(path)
+    if not files:
+        raise FileNotFoundError(f"no .trace files under {path!r}")
+    return [register_trace(f) for f in files]
+
+
+def _autoregister_trace(name: str) -> None:
+    stem = name[len("trace:"):]
+    for d in trace_search_dirs():
+        candidate = os.path.join(d, stem + ".trace")
+        if os.path.exists(candidate):
+            register_trace(candidate)
+            return
+
+
 def resolve_workload(name: str, scale: float = 1.0) -> Workload:
-    """One resolver for the ported workload namespaces: ``zoo:<x>`` and
-    bare zoo names, then the Table-2 synthetic generators."""
+    """One resolver for every workload namespace: ``trace:<x>`` and
+    ``zoo:<x>`` prefixes, bare zoo names, and the Table-2 synthetic
+    generators (repro_torch.workloads.make_workload)."""
     if name.startswith("zoo:"):
         return zoo_workload(name[len("zoo:"):], scale)
     if name.startswith("trace:") or name in ZOO:

@@ -48,7 +48,10 @@ def test_cta_issue_equal(cfg, seed):
     args = random_inputs(np.random.default_rng(seed), jscfg)
     want = jax.jit(JCTA.cta_issue, static_argnums=(4,))(
         *jax.tree_util.tree_map(jnp.asarray, args), jscfg)
-    got = PCTA.cta_issue(*(to_torch(x, "cpu") for x in args), pscfg)
+    # the port's one-lane case: a leading lane axis of length 1
+    got = PCTA.cta_issue(*({k: v[None] for k, v in to_torch(x, "cpu").items()}
+                           for x in args), pscfg)
+    got = tuple({k: v[0] for k, v in g.items()} for g in got)
     for w, g in zip(want, got):
         w = jax.tree_util.tree_map(np.asarray, w)
         g = to_numpy(g)
@@ -65,13 +68,13 @@ def test_dispatch_fills_every_sm_round_robin():
     import repro_torch.sim.state as PS
     st = PS.init_state(pscfg, "cpu")
     st["ctrl"]["rr"].fill_(5)
-    trace = to_torch({"n_instr": np.int32(8), "n_ctas": np.int32(84),
-                      "warps_per_cta": np.int32(4)}, "cpu")
+    trace = to_torch({"n_instr": np.int32([8]), "n_ctas": np.int32([84]),
+                      "warps_per_cta": np.int32([4])}, "cpu")
     warp, ctrl, stats = PCTA.cta_issue(st["warp"], st["ctrl"], st["stats"],
                                        trace, pscfg)
     assert int(stats["ctas_launched"]) == 84
     assert int(ctrl["next_cta"]) == 84
-    cta = warp["cta"].numpy()
+    cta = warp["cta"][0].numpy()
     assert (cta[:, :4] == cta[:, :1]).all()           # one CTA, 4 slots
     assert sorted(cta[:, 0]) == list(range(80))        # round 1: all SMs
     assert cta[5, 0] == 0 and cta[4, 0] == 79          # deal from SM 5

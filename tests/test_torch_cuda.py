@@ -21,12 +21,15 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.convert import (QUANTUM_T0, jitter_constant_leaves,
                                  lm_params_to_torch, params_fingerprint,
-                                 random_quantum_inputs, seeded_lm_params,
-                                 to_numpy, to_torch)
+                                 random_lane_inputs, random_quantum_inputs,
+                                 seeded_lm_params, stack_lanes, to_numpy,
+                                 to_torch)
 from repro_torch.core import engine
 from repro_torch.core import stats as S
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
+from repro_torch.core.plan import RunPlan
+from repro_torch.core.sweep import grid_sweep
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
@@ -36,8 +39,9 @@ from repro_torch.kernels.wkv6.ref import wkv_ref_stepwise
 from repro_torch.models import factory
 from repro_torch.models.lm import LM
 from repro_torch.sim.config import (N_CLASSES, N_UNITS, RTX3080TI,
-                                    SCHEDULERS, TINY, split_config,
-                                    static_part)
+                                    SCHEDULERS, TINY, DynConfig,
+                                    split_config, static_part)
+from repro_torch.sim.smcore import sm_quantum_eager
 from repro_torch.sim.workloads import resolve_workload
 
 pytestmark = pytest.mark.cuda
@@ -148,6 +152,8 @@ def test_simulate_on_card_equals_cpu(cuda, monkeypatch, cfg, bench, scale):
 
 @pytest.mark.parametrize("cfg,bench,scale,mode", [
     (TINY, "myocyte", 1.0, "vmap"), (TINY, "myocyte", 1.0, "seq"),
+    (TINY, "trace:gather_chain", 1.0, "vmap"),
+    (TINY, "trace:gather_chain", 1.0, "seq"),
     (RTX3080TI, "nn", 0.5, "vmap")])
 def test_simulate_on_card_equals_golden(cuda, monkeypatch, cfg, bench, scale,
                                         mode):
@@ -164,6 +170,47 @@ def test_simulate_on_card_equals_golden(cuda, monkeypatch, cfg, bench, scale,
     assert Q.sm_quantum.launches - fused == per_step * steps.n
 
 
+def test_hotspot_golden_on_card(cuda, monkeypatch):
+    """The golden case ``hotspot@0.02`` on TINY at the golden's
+    max_cycles = 1 << 15: all 14 counters equal the golden, and 2 of its
+    4 kernels are cut by the cap.  The 2 is the JAX package's own reading
+    of the same run on the CPU (``timeouts`` 2; without the cap it runs
+    131,520 cycles with 0 timeouts: ROADMAP.md §3); the card has no JAX
+    to ask.  Off tier-1: ~40 s on one CPU thread."""
+    with open(os.path.join(os.path.dirname(GOLDEN), SIM_GOLDENS[TINY])) as f:
+        want = json.load(f)["hotspot@0.02"]
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    out = S.finalize(simulate(resolve_workload("hotspot", 0.02), TINY,
+                              make_sm_runner(TINY, "vmap"),
+                              max_cycles=1 << 15))
+    assert S.comparable(out) == want
+    assert out["timeouts"] == 2
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+
+
+def test_grid_on_card_equals_solo_runs(cuda, monkeypatch):
+    """A ragged grid of traces and a multi-kernel zoo workload on the
+    card: one sm_quantum launch per quantum for all lanes together, and
+    every lane equals its solo run on the card, timeouts included."""
+    names = ("trace:gather_chain", "zoo:reduction_tree", "trace:vecadd")
+    ws = [resolve_workload(n, 0.005 if n.startswith("zoo") else 1.0)
+          for n in names]
+    cfgs = [TINY, dataclasses.replace(TINY, scheduler="lrr", l2_lat=64)]
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    grid = grid_sweep(ws, cfgs, plan=RunPlan(max_cycles=1 << 15,
+                                             layout="ragged"))
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+    for w, workload in enumerate(ws):
+        for c, cfg in enumerate(cfgs):
+            solo = S.finalize(simulate(workload, cfg,
+                                       make_sm_runner(cfg, "vmap"),
+                                       max_cycles=1 << 15))
+            assert S.comparable(grid.stats[w][c]) == S.comparable(solo)
+            assert grid.stats[w][c]["timeouts"] == solo["timeouts"] == 0
+
+
 SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
 QUANTUM_CFGS = {"tiny": TINY, "four_subcores": dataclasses.replace(TINY,
                                                                    **SC4),
@@ -176,23 +223,24 @@ QUANTUM_CFGS = {"tiny": TINY, "four_subcores": dataclasses.replace(TINY,
 @pytest.mark.parametrize("name", list(QUANTUM_CFGS))
 def test_sm_quantum_equals_eager(cuda, name, mode, sched, ragged):
     """The fused kernel against the eager SM phase on CPU copies of the
-    same seeded state, leaf for leaf; the card's inputs stay as they
-    were."""
+    same seeded state (one lane), leaf for leaf; the card's inputs stay
+    as they were."""
     cfg = QUANTUM_CFGS[name]
     host = random_quantum_inputs(np.random.default_rng(7), static_part(cfg),
                                  ragged=ragged)
     outs, launches = [], []
     for dev in ("cpu", cuda):
         _, dyn = split_config(cfg, {"sched": SCHEDULERS[sched]}, device=dev)
-        args = [to_torch(x, dev) for x in host]
+        args = [to_torch(stack_lanes([x]), dev) for x in host]
         before = Q.sm_quantum.launches
         outs.append(make_sm_runner(cfg, mode)(
-            *args, torch.tensor(QUANTUM_T0, dtype=torch.int32, device=dev),
-            dyn))
+            *args, torch.tensor([QUANTUM_T0], dtype=torch.int32, device=dev),
+            dyn.map(lambda x: x[None])))
         launches.append(Q.sm_quantum.launches - before)
         for x, a in zip(host, args):
             for k in x:
-                assert np.array_equal(np.asarray(x[k]), a[k].cpu().numpy())
+                assert np.array_equal(np.asarray(x[k]),
+                                      a[k][0].cpu().numpy())
     assert launches == [0, cfg.n_sm if mode == "seq" else 1]
     for want, got in zip(*outs):
         assert want.keys() == got.keys()
@@ -206,22 +254,55 @@ def test_sm_quantum_equals_eager(cuda, name, mode, sched, ragged):
     if name != "four_subcores" or ragged:
         keys.append("l1_hit")
     for k in keys:
-        assert (outs[1][3][k].cpu() > torch.as_tensor(host[3][k])).any(), k
-    assert (~outs[1][0]["wait_bar"].cpu()
+        assert (outs[1][3][k][0].cpu() > torch.as_tensor(host[3][k])).any(), k
+    assert (~outs[1][0]["wait_bar"][0].cpu()
             & torch.as_tensor(host[0]["wait_bar"])).any()
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("name", list(QUANTUM_CFGS))
+def test_sm_quantum_lanes_equal_one_lane_launches(cuda, name, ragged):
+    """One launch over four lanes, each with its own state, trace,
+    instr_base, dynamic config and clock, equals the eager SM phase over
+    the same lanes on the card, and four one-lane launches, leaf for
+    leaf."""
+    cfg = QUANTUM_CFGS[name]
+    scfg = static_part(cfg)
+    host, t0s, over = random_lane_inputs(np.random.default_rng(11), scfg, 4,
+                                         ragged=ragged)
+    dyn = DynConfig.stack([split_config(cfg, o, device=cuda)[1]
+                           for o in over])
+    args = [to_torch(x, cuda) for x in host]
+    t0 = torch.as_tensor(t0s, device=cuda)
+    before = Q.sm_quantum.launches
+    got = Q.sm_quantum(*args, t0, scfg, dyn)
+    assert Q.sm_quantum.launches == before + 1
+    eager = sm_quantum_eager(*args, t0, scfg, dyn)
+    ones = [Q.sm_quantum(*({k: v[i:i + 1] for k, v in a.items()}
+                           for a in args), t0[i:i + 1], scfg,
+                         dyn.map(lambda x: x[i:i + 1])) for i in range(4)]
+    for j in range(4):
+        for k in got[j]:
+            assert torch.equal(got[j][k], eager[j][k]), k
+            assert torch.equal(got[j][k],
+                               torch.cat([o[j][k] for o in ones])), k
+    issued = got[3]["issued"].sum(1) - args[3]["issued"].sum(1)
+    assert (issued > 0).all()
 
 
 def test_sm_quantum_wrapper_rejects_bad_inputs(cuda):
     cfg = static_part(TINY)
     host = random_quantum_inputs(np.random.default_rng(0), cfg)
     _, dyn = split_config(TINY, device=cuda)
-    warp, sm, req, stats, trace = (to_torch(x, cuda) for x in host)
-    t0 = torch.tensor(QUANTUM_T0, dtype=torch.int32, device=cuda)
+    dyn = dyn.map(lambda x: x[None])
+    warp, sm, req, stats, trace = (to_torch(stack_lanes([x]), cuda)
+                                   for x in host)
+    t0 = torch.tensor([QUANTUM_T0], dtype=torch.int32, device=cuda)
     before = Q.sm_quantum.launches
     with pytest.raises(TypeError, match="warp.pc has dtype torch.int64"):
         Q.sm_quantum(dict(warp, pc=warp["pc"].long()), sm, req, stats, trace,
                      t0, cfg, dyn)
-    strided = torch.cat([req["t"], req["t"]], 1)[:, ::2]
+    strided = torch.cat([req["t"], req["t"]], 2)[..., ::2]
     with pytest.raises(ValueError, match="req.t must be contiguous"):
         Q.sm_quantum(warp, sm, dict(req, t=strided), stats, trace, t0, cfg,
                      dyn)
@@ -229,8 +310,14 @@ def test_sm_quantum_wrapper_rejects_bad_inputs(cuda):
         Q.sm_quantum(warp, dict(sm, l1_tag=sm["l1_tag"].cpu()), req, stats,
                      trace, t0, cfg, dyn)
     with pytest.raises(ValueError, match="sm.addrset has shape"):
-        Q.sm_quantum(warp, dict(sm, addrset=sm["addrset"][:, :-1]), req,
+        Q.sm_quantum(warp, dict(sm, addrset=sm["addrset"][..., :-1]), req,
                      stats, trace, t0, cfg, dyn)
+    with pytest.raises(ValueError, match="t0 has shape"):
+        Q.sm_quantum(warp, sm, req, stats, trace, t0[0], cfg, dyn)
+    with pytest.raises(ValueError, match="trace.ops must be contiguous"):
+        Q.sm_quantum(warp, sm, req, stats, dict(
+            trace, ops=torch.cat([trace["ops"], trace["ops"]], 1)[:, ::2]),
+            t0, cfg, dyn)
     with pytest.raises(ValueError, match="t0 is on cpu"):
         Q.sm_quantum(warp, sm, req, stats, trace, t0.cpu(), cfg, dyn)
     wide = dataclasses.replace(cfg, n_subcores=33)

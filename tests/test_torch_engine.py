@@ -68,7 +68,8 @@ def load(path):
 
 @pytest.mark.parametrize("bench,scale,mode", [
     ("myocyte", 1.0, "seq"), ("myocyte", 1.0, "vmap"),
-    ("zoo:mixed", 0.03, "vmap")])
+    ("zoo:mixed", 0.03, "vmap"),
+    ("trace:gather_chain", 1.0, "vmap"), ("trace:gather_chain", 1.0, "seq")])
 def test_tiny_matches_golden(bench, scale, mode):
     got = run_port(bench, scale, TINY, mode, TINY_MAX_CYCLES)
     assert got == load(TINY_GOLDEN)[f"{bench}@{scale}"]
@@ -95,12 +96,13 @@ def test_padding_kernels_are_inert():
     scfg, dyn = split_config(TINY, device="cpu")
     packs = [k.pack("cpu") for k in w.kernels]
     n_instr = max(int(p["ops"].shape[0]) for p in packs) + 5
+    stacked = stack_kernels(packs, n_instr=n_instr, n_kernels=len(packs) + 2)
     for early_exit in (True, False):
+        # one lane
         st = run_workload_stacked(
-            init_state(scfg, "cpu"),
-            stack_kernels(packs, n_instr=n_instr, n_kernels=len(packs) + 2),
-            scfg, dyn, runner, early_exit=early_exit)
-        got = S.finalize(st)
+            init_state(scfg, "cpu"), {f: v[None] for f, v in stacked.items()},
+            scfg, dyn.map(lambda x: x[None]), runner, early_exit=early_exit)
+        got = S.finalize(S.take_lane(st, 0))
         assert S.comparable(got) == S.comparable(want)
         assert got["timeouts"] == 0
     assert want["ctas_launched"] == sum(k.n_ctas for k in w.kernels)
@@ -137,11 +139,6 @@ def test_simulate_without_device_needs_cuda(monkeypatch):
 def test_shard_mode_is_refused_by_name():
     with pytest.raises(NotImplementedError, match="shard"):
         make_sm_runner(TINY, "shard")
-
-
-def test_trace_workloads_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="trace:gather_chain"):
-        resolve_workload("trace:gather_chain", 1.0)
 
 
 def test_cli_prints_comparable_stats(capsys):

@@ -55,16 +55,25 @@ def random_mem_inputs(rng, t0, scfg=JSCFG, addr_hi=4096, random_mem=False):
     return req, mem, stats
 
 
+def lane_axis(tree):
+    """A dict of tensors with a leading lane axis of length 1."""
+    return {k: v[None] for k, v in tree.items()}
+
+
 def run_both(req, mem, stats, t0, sm_ids=None, jscfg=JSCFG, jdyn=JDYN,
              pscfg=PSCFG, pdyn=PDYN):
     jax_ids = None if sm_ids is None else jnp.asarray(sm_ids)
     want = J_MEM_PHASE(*(jax.tree_util.tree_map(jnp.asarray, x)
                          for x in (req, mem, stats)), jnp.int32(t0),
                        jscfg, jdyn, sm_ids=jax_ids)
-    got = PM.mem_phase(*(to_torch(x, "cpu") for x in (req, mem, stats)),
-                       torch.tensor(t0, dtype=torch.int32), pscfg, pdyn,
+    # the port's one-lane case: a leading lane axis of length 1
+    got = PM.mem_phase(*(lane_axis(to_torch(x, "cpu"))
+                         for x in (req, mem, stats)),
+                       torch.tensor([t0], dtype=torch.int32), pscfg,
+                       pdyn.map(lambda x: x[None]),
                        sm_ids=None if sm_ids is None
-                       else torch.as_tensor(sm_ids))
+                       else torch.as_tensor(sm_ids)[None])
+    got = tuple({k: v[0] for k, v in g.items()} for g in got)
     for w, g in zip(want, got):
         w = jax.tree_util.tree_map(np.asarray, w)
         g = to_numpy(g)

@@ -14,7 +14,7 @@ import torch
 import repro_torch.core.parallel as PP
 import repro_torch.sim.config as PC
 from repro_torch.convert import (QUANTUM_T0, random_quantum_inputs,
-                                 to_numpy, to_torch)
+                                 stack_lanes, to_numpy, to_torch)
 from repro_torch.kernels.sm_quantum import kernel as K
 from repro_torch.sim import smcore
 from repro_torch.sim.state import init_state
@@ -31,12 +31,14 @@ def _one_thread():
 
 
 def _inputs(seed, pcfg, sched, ragged=False):
+    """One lane of seeded quantum inputs, with its lane axis."""
     inputs = random_quantum_inputs(np.random.default_rng(seed),
                                    PC.static_part(pcfg), ragged=ragged)
     _, dyn = PC.split_config(pcfg, {"sched": PC.SCHEDULERS[sched]},
                              device="cpu")
-    return ([to_torch(x, "cpu") for x in inputs],
-            torch.tensor(QUANTUM_T0, dtype=torch.int32), dyn)
+    return ([to_torch(stack_lanes([x]), "cpu") for x in inputs],
+            torch.tensor([QUANTUM_T0], dtype=torch.int32),
+            dyn.map(lambda x: x[None]))
 
 
 @pytest.mark.parametrize("mode", ["seq", "vmap"])
@@ -54,10 +56,10 @@ def test_cpu_runs_eager_loop_not_the_launcher(monkeypatch, mode, sched):
     scfg = PC.static_part(pcfg)
     if mode == "seq":
         parts = [smcore.sm_quantum_eager(
-            *({k: v[i:i + 1] for k, v in p.items()}
+            *({k: v[:, i:i + 1] for k, v in p.items()}
               for p in (warp, sm, req, stats)), trace, t0, scfg, dyn)
             for i in range(scfg.n_sm)]
-        want = tuple({k: torch.cat([o[j][k] for o in parts])
+        want = tuple({k: torch.cat([o[j][k] for o in parts], 1)
                       for k in parts[0][j]} for j in range(4))
     else:
         want = smcore.sm_quantum_eager(warp, sm, req, stats, trace, t0,
@@ -74,16 +76,16 @@ def test_cpu_runs_eager_loop_not_the_launcher(monkeypatch, mode, sched):
                                  dataclasses.replace(PC.TINY, **SC4)])
 def test_pack_unpack_round_trip(cfg):
     scfg = PC.static_part(cfg)
-    st = init_state(scfg, "cpu")
+    st = init_state(scfg, "cpu", 2)
     parts = (st["warp"], st["sm"], st["req"], st["stats_sm"])
     leaves = K.pack_state(*parts)
     assert len(leaves) == 26
-    # the kernel's order, shapes and dtypes
+    # the kernel's order, shapes and dtypes, behind the lane axis
     shapes = K.per_sm_shapes(scfg)
     assert list(shapes) == [(g, k) for g, keys in K.LEAVES for k in keys]
     for ((g, k), shape), x in zip(shapes.items(), leaves):
         assert x is st[g][k]
-        assert tuple(x.shape) == (scfg.n_sm, *shape), (g, k)
+        assert tuple(x.shape) == (2, scfg.n_sm, *shape), (g, k)
         assert (x.dtype == torch.bool) == ((g, k) in K.BOOL_LEAVES), (g, k)
     back = K.unpack_state(leaves)
     for p, b in zip(parts, back):
@@ -91,7 +93,7 @@ def test_pack_unpack_round_trip(cfg):
         assert all(b[k] is p[k] for k in p)
     # the per-SM sizes the kernel is given, and the shared-memory budget:
     # every leaf of one SM as int32, W scratch
-    assert K.leaf_counts(scfg) == tuple(x[0].numel() for x in leaves)
+    assert K.leaf_counts(scfg) == tuple(x[0, 0].numel() for x in leaves)
     words = sum(K.leaf_counts(scfg)) + scfg.warps_per_sm
     assert K.shared_bytes(scfg) == 4 * words <= K.MAX_SHARED
 

@@ -17,7 +17,7 @@ import repro_torch.core.parallel as PP
 import repro_torch.sim.config as PC
 from repro_torch.convert import QUANTUM_T0 as T0
 from repro_torch.convert import (dyn_to_torch, random_quantum_inputs,
-                                 to_numpy, to_torch)
+                                 stack_lanes, to_numpy, to_torch)
 
 SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
 
@@ -43,9 +43,11 @@ def run_both(inputs, jcfg, pcfg, mode, sched):
     want = _reference_quantum(
         *jax.tree_util.tree_map(jnp.asarray, inputs), jscfg, mode, jdyn,
         jnp.int32(T0))
+    # the port's one-lane case: a leading lane axis of length 1
     got = PP.make_sm_runner(pcfg, mode)(
-        *(to_torch(x, "cpu") for x in inputs),
-        torch.tensor(T0, dtype=torch.int32), pdyn)
+        *(to_torch(stack_lanes([x]), "cpu") for x in inputs),
+        torch.tensor([T0], dtype=torch.int32), pdyn.map(lambda x: x[None]))
+    got = [{k: v[0] for k, v in g.items()} for g in got]
     names = ("warp", "sm", "req", "stats_sm")
     for name, w, g in zip(names, want, got):
         w = jax.tree_util.tree_map(np.asarray, w)

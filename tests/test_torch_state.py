@@ -13,7 +13,7 @@ import repro_torch.core.batch as PB
 import repro_torch.sim.config as PC
 import repro_torch.sim.state as PS
 import repro_torch.workloads.synthetic as PW
-from repro_torch.convert import to_numpy, to_torch
+from repro_torch.convert import stack_lanes, to_numpy, to_torch
 
 
 def flat_leaves(tree, prefix=""):
@@ -34,11 +34,21 @@ def assert_trees_equal(want, got):
         assert np.array_equal(want[k], got[k]), k
 
 
+def take_lane(tree, i):
+    if isinstance(tree, dict):
+        return {k: take_lane(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 @pytest.mark.parametrize("cfg", ["TINY", "RTX3080TI"])
 def test_init_state_equal(cfg):
+    """Every lane of the port's lane-batched state is the reference's
+    state."""
     jstate = JS.init_state(JC.static_part(getattr(JC, cfg)))
-    pstate = PS.init_state(PC.static_part(getattr(PC, cfg)), "cpu")
-    assert_trees_equal(jstate, to_numpy(pstate))
+    pstate = to_numpy(PS.init_state(PC.static_part(getattr(PC, cfg)), "cpu",
+                                    3))
+    for lane in range(3):
+        assert_trees_equal(jstate, take_lane(pstate, lane))
 
 
 def random_state(rng, scfg):
@@ -62,9 +72,10 @@ def test_reset_for_kernel_equal(seed):
     state = random_state(np.random.default_rng(seed), scfg)
     want = JS.reset_for_kernel(
         jax.tree_util.tree_map(jax.numpy.asarray, state), scfg)
-    got = PS.reset_for_kernel(to_torch(state, "cpu"),
+    # the port's one-lane case: a leading lane axis of length 1
+    got = PS.reset_for_kernel(to_torch(stack_lanes([state]), "cpu"),
                               PC.static_part(PC.TINY))
-    assert_trees_equal(want, to_numpy(got))
+    assert_trees_equal(want, take_lane(to_numpy(got), 0))
 
 
 @pytest.mark.parametrize("name", ["gaussian", "myocyte", "conv"])
