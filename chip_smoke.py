@@ -46,6 +46,25 @@ last line.  The simulator's path:
      quanta, lane-quanta/s, and a profile of the first 16 quanta of the
      quantum loop: launches and device-to-host reads per quantum, idle
      share;
+  t. counter timelines (64 rows every 16 quanta) at full width: nn@0.5
+     and syrk@0.16 solo, every row, lockstep_waste and telemetry_samples
+     against tests/golden/torch_port_telemetry.json (the JAX package's),
+     comparable() against the pinned stats, the last row against
+     finalize; dse's default grid of 8 configs over syrk@0.16, every
+     lane's timeline against its solo card run; the traces' zoo grid x 4
+     TINY configs and syrk@0.16 at 32 lanes, their last rows against
+     finalize and their lockstep waste; profiles of 16 quanta of the loop
+     with telemetry off and on at 1 and 8 lanes, in a fresh process (off
+     within one launch per quantum of the loop's count before telemetry
+     existed), and the loop's wall over 64 quanta timed in turns off, on,
+     on, off;
+  r. the seeded analytic-prune search (nn@0.5 on the RTX 3080 Ti, seed 0,
+     3 rounds of 256 candidates, top 8) with its verify sweeps on the
+     card: equal in full to the same search on the CPU in this process,
+     round 0's verified set equal to tests/golden/torch_port_search.json
+     (the JAX package's) and equal cycles on every vector both measured;
+     then launch/dse.py --base 3080ti --workload nn --scale 0.5 --search
+     --check;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
   a. the wkv6 build: ptxas registers and spills, and the dynamic shared
      memory of one block per head size;
@@ -142,6 +161,17 @@ SWEEP_LANES = 8
 SWEEP_CASES = (("nn", 0.5), ("syrk", 0.16))
 # phase l: the workload swept at every lane count of LANE_COUNTS
 LANES_CASE = ("syrk", 0.16)
+# phase t: the JAX package's full-width timelines (tests/
+# test_torch_telemetry.py --regen), and the quantum loop's kernel launches
+# per quantum with telemetry off by lane count, as phase l reads them
+# (PERF.md §5): telemetry off must stay within one launch of them
+TELEMETRY_GOLDEN = "torch_port_telemetry.json"
+LOOP_LAUNCHES_PER_Q = {1: 325.8, 8: 371.9}
+# the loop's wall with telemetry off and on: quanta per run, and rounds of
+# the turns off, on, on, off
+TURN_QUANTA, TURNS = 64, 2
+# phase r: the JAX package's search (tests/test_torch_search.py --regen)
+SEARCH_GOLDEN = "torch_port_search.json"
 # phase 3: (workload, scale, mode, timeouts) against determinism_tiny.json.
 # hotspot@0.02 is cut by the golden's cycle cap in 2 of its 4 kernels: the
 # JAX package reads timeouts 2 on the same run (ROADMAP.md §3), the card
@@ -1196,23 +1226,61 @@ def phase_sweep(torch, K, Q, full_golden):
     return out
 
 
+def quantum_loop(w, cfgs, n_q):
+    """A call of the quantum loop alone over the first ``n_q`` quanta of
+    workload ``w``, one lane per config of ``cfgs``, from a fresh state."""
+    from repro_torch.core.batch import stack_kernels
+    from repro_torch.core.sweep import make_sweep_runner, stack_dyn
+    from repro_torch.sim.state import init_state
+
+    scfg, dyn = stack_dyn(cfgs, "cuda")
+    stacked = stack_kernels([k.pack("cuda") for k in w.kernels])
+    runner = make_sweep_runner(scfg, "vmap", n_q * scfg.quantum)
+    state0 = init_state(scfg, "cuda", len(cfgs))
+    return lambda: runner(state0, stacked, dyn)
+
+
+def loop_profile(torch, w, cfgs, n_q=16):
+    """A profile of the quantum loop alone over the first ``n_q`` quanta
+    of workload ``w`` with one lane per config of ``cfgs``: kernel launches
+    (and sm_quantum's) and device-to-host reads per quantum, device busy
+    and idle share, wall."""
+    events, pwall = profiled(torch, quantum_loop(w, cfgs, n_q))
+    kernels = [(name, us) for name, us in events
+               if not name.startswith(("Memcpy", "Memset"))]
+    busy = sum(us for _, us in events) / 1e6
+    return {"profiled": bool(events),
+            "launches_per_q": len(kernels) / n_q,
+            "sm_quantum_per_q": sum("sm_quantum" in name
+                                    for name, _ in kernels) / n_q,
+            "dtoh_per_q": sum("DtoH" in name for name, _ in events) / n_q,
+            "idle": 1 - busy / pwall, "busy": busy, "pwall": pwall}
+
+
+def profile_text(row):
+    if not row["profiled"]:
+        return ("the profiler saw no device activity: launches, reads and "
+                "idle share per quantum not measured")
+    return (f"{row['launches_per_q']:.1f} kernel launches/quantum "
+            f"({row['sm_quantum_per_q']:.1f} of sm_quantum), "
+            f"{row['dtoh_per_q']:.2f} device-to-host reads/quantum, device "
+            f"busy {row['busy']:.4f} s of {row['pwall']:.4f} s (idle share "
+            f"{row['idle']:.4f})")
+
+
 def phase_lanes(torch, K, Q):
     """LANES_CASE (syrk@0.16) swept over the default grid of L configs for
     every L of LANE_COUNTS: the sweep's wall, quanta and lane-quanta (each
     lane's cycles over Δ, summed); then a profile of the quantum loop
-    alone over the first 16 quanta: kernel launches and device-to-host
-    reads per quantum, device busy and idle share."""
-    from repro_torch.core.batch import stack_kernels
+    alone over its first 16 quanta (``loop_profile``)."""
     from repro_torch.core.plan import RunPlan
-    from repro_torch.core.sweep import make_sweep_runner, stack_dyn, sweep
+    from repro_torch.core.sweep import sweep
     from repro_torch.launch.dse import default_grid
     from repro_torch.sim.config import RTX3080TI
-    from repro_torch.sim.state import init_state
     from repro_torch.workloads import make_workload
 
     w = make_workload(LANES_CASE[0], scale=LANES_CASE[1])
     rows = []
-    n_q = 16
     for n in LANE_COUNTS:
         cfgs = default_grid(RTX3080TI, n)
         r, wall, fused, issue, steps = _counted_run(
@@ -1224,24 +1292,289 @@ def phase_lanes(torch, K, Q):
         check(all(s["timeouts"] == 0 for s in r.stats),
               f"sweep of {n} lanes timed out")
         lane_quanta = sum(c // RTX3080TI.quantum for c in r.cycles)
-        scfg, dyn = stack_dyn(cfgs, "cuda")
-        stacked = stack_kernels([k.pack("cuda") for k in w.kernels])
-        runner = make_sweep_runner(scfg, "vmap", n_q * RTX3080TI.quantum)
-        state0 = init_state(scfg, "cuda", n)
-        events, pwall = profiled(torch, lambda: runner(state0, stacked, dyn))
-        busy = sum(us for _, us in events) / 1e6
-        kernels = [(name, us) for name, us in events
-                   if not name.startswith(("Memcpy", "Memset"))]
-        rows.append({
-            "lanes": n, "wall": wall, "steps": steps,
-            "lane_quanta": lane_quanta, "launches": fused,
-            "profiled": bool(events),
-            "launches_per_q": len(kernels) / n_q,
-            "sm_quantum_per_q": sum("sm_quantum" in name
-                                    for name, _ in kernels) / n_q,
-            "dtoh_per_q": sum("DtoH" in name for name, _ in events) / n_q,
-            "idle": 1 - busy / pwall, "busy": busy, "pwall": pwall})
+        rows.append(dict(loop_profile(torch, w, cfgs), lanes=n, wall=wall,
+                         steps=steps, lane_quanta=lane_quanta,
+                         launches=fused))
     return rows
+
+
+def phase_telemetry(torch, K, Q, full_golden):
+    """Counter timelines on the card at full width, TELEMETRY_GOLDEN's
+    knobs (64 rows every 16 quanta): nn@0.5 and syrk@0.16 solo, every row,
+    ``lockstep_waste`` and ``telemetry_samples`` against the JAX
+    package's golden, ``comparable()`` against the pinned stats, the last
+    row against ``finalize``; dse's default grid of SWEEP_LANES configs
+    over syrk@0.16, every lane's timeline against its solo card run; the
+    traces' zoo grid x 4 TINY configs and syrk@0.16 at 32 lanes, each
+    lane's last row against ``finalize``, with their lockstep waste; and
+    profiles of 16 quanta of the loop with telemetry off and on at 1 and
+    SWEEP_LANES lanes, and its wall timed in turns.  Each run counts its
+    own launches."""
+    from repro_torch.core import stats as S
+    from repro_torch.core import telemetry as T
+    from repro_torch.core.engine import simulate
+    from repro_torch.core.parallel import make_sm_runner
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.core.stats import take_lane
+    from repro_torch.core.sweep import grid_sweep, sweep
+    from repro_torch.launch.dse import default_grid, lane_signature
+    from repro_torch.sim.config import RTX3080TI, TINY
+    from repro_torch.sim.workloads import register_traces, zoo_workload
+    from repro_torch.workloads import make_workload
+
+    with open(os.path.join(GOLDEN, TELEMETRY_GOLDEN)) as f:
+        golden = json.load(f)
+    plan = RunPlan(max_cycles=golden["max_cycles"],
+                   telemetry_samples=golden["samples"],
+                   telemetry_every=golden["every"])
+    out = {"solo": {}, "launches": 0, "knobs": (golden["samples"],
+                                                golden["every"])}
+
+    def counted(fn, what):
+        res, wall, fused, issue, steps = _counted_run(torch, K, Q, fn)
+        check(fused == steps > 0 and issue == 0,
+              f"{what}: {fused} sm_quantum and {issue} sm_issue launches "
+              f"for {steps} quanta")
+        out["launches"] += fused
+        return res, wall, steps
+
+    def solo(w, cfg):
+        [cfg] = plan.apply_telemetry([cfg])
+        st = simulate(w, cfg, make_sm_runner(cfg, "vmap"),
+                      plan=RunPlan(max_cycles=plan.max_cycles),
+                      device="cuda")
+        return st, S.finalize(st)
+
+    def record(tl, stats):
+        return {"timeline": np.asarray(tl).tolist(),
+                "lockstep_waste": stats["lockstep_waste"],
+                "telemetry_samples": stats["telemetry_samples"]}
+
+    for bench, scale in SWEEP_CASES:
+        key = f"{bench}@{scale}"
+        w = make_workload(bench, scale=scale)
+        (st, fin), wall, steps = counted(lambda: solo(w, RTX3080TI),
+                                         f"{key} with telemetry")
+        got = record(T.timeline(st), fin)
+        check(got == golden["cases"][key], f"{key}: the timeline, waste or "
+              f"sample count differs from {TELEMETRY_GOLDEN}")
+        check(S.comparable(fin) == full_golden[key] and fin["timeouts"] == 0,
+              f"{key} with telemetry differs from the pinned stats")
+        bad = T.check_final_sample(st, fin)
+        check(not bad, f"{key}: last row != finalize on {bad}")
+        out["solo"][key] = {"wall": wall, "steps": steps,
+                            "waste": fin["lockstep_waste"],
+                            "samples": fin["telemetry_samples"]}
+
+    # dse's default grid over syrk@0.16: every lane against its solo run
+    bench, scale = LANES_CASE
+    w = make_workload(bench, scale=scale)
+    cfgs = default_grid(RTX3080TI, SWEEP_LANES)
+    r, wall, steps = counted(lambda: sweep(w, cfgs, plan=plan,
+                                           device="cuda"),
+                             f"{bench}@{scale} sweep with telemetry")
+    tls, bad = r.timelines(), []
+    for i, cfg in enumerate(cfgs):
+        st, fin = solo(w, cfg)
+        if (record(T.timeline(st), fin) != record(tls[str(i)], r.stats[i])
+                or lane_signature(fin) != lane_signature(r.stats[i])
+                or T.check_final_sample(take_lane(r.state, i), r.stats[i])):
+            bad.append(i)
+    check(not bad, f"{bench}@{scale} sweep lanes {bad}: timeline or stats "
+          "differ from their solo runs on the card")
+    out["dse"] = {"wall": wall, "steps": steps,
+                  "waste": [s["lockstep_waste"] for s in r.stats],
+                  "quanta": [c // RTX3080TI.quantum for c in r.cycles]}
+
+    # lockstep waste of unlike workloads: the traces' zoo grid
+    names = register_traces(os.path.join(ROOT, "tests", "data", "traces"))
+    ws = [zoo_workload(n) for n in names]
+    tcfgs = default_grid(TINY, 4)
+    grid, wall, steps = counted(lambda: grid_sweep(
+        ws, tcfgs, plan=RunPlan(max_cycles=1 << 15,
+                                telemetry_samples=plan.telemetry_samples,
+                                telemetry_every=plan.telemetry_every),
+        device="cuda"), "trace grid with telemetry")
+    bad = [(n, c) for i, n in enumerate(names) for c in range(len(tcfgs))
+           if T.check_final_sample(grid.lane_state(i, c), grid.stats[i][c])]
+    check(not bad, f"trace grid lanes {bad}: last row != finalize")
+    out["grid"] = {"names": names, "wall": wall, "steps": steps,
+                   "waste": [[s["lockstep_waste"] for s in row]
+                             for row in grid.stats],
+                   "quanta": [[s["cycles"] // TINY.quantum for s in row]
+                              for row in grid.stats]}
+
+    # and syrk@0.16 over 32 lanes
+    n = max(LANE_COUNTS)
+    cfgs32 = default_grid(RTX3080TI, n)
+    r, wall, steps = counted(lambda: sweep(w, cfgs32, plan=plan,
+                                           device="cuda"),
+                             f"{bench}@{scale} x {n} lanes with telemetry")
+    bad = [i for i in range(n)
+           if T.check_final_sample(take_lane(r.state, i), r.stats[i])]
+    check(not bad, f"{n}-lane sweep lanes {bad}: last row != finalize")
+    out["lanes32"] = {"lanes": n, "wall": wall, "steps": steps,
+                      "waste": [s["lockstep_waste"] for s in r.stats],
+                      "quanta": [c // RTX3080TI.quantum for c in r.cycles]}
+
+    # what telemetry costs the loop: 16 quanta off and on under the
+    # profiler in a fresh process, then TURN_QUANTA quanta timed here in
+    # turns off, on, on, off
+    out["profiles"], out["turns"] = fresh_telemetry_profiles(), {}
+    for n in (1, SWEEP_LANES):
+        cfgs = default_grid(RTX3080TI, n)
+        walls = {False: [], True: []}
+        for on in (False, True, True, False) * TURNS:
+            fn = quantum_loop(w, plan.apply_telemetry(cfgs) if on else cfgs,
+                              TURN_QUANTA)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[on].append(time.perf_counter() - t0)
+        out["turns"][n] = walls
+        off = out["profiles"][n, False]
+        if off["profiled"]:
+            check(abs(off["launches_per_q"] - LOOP_LAUNCHES_PER_Q[n]) <= 1.0,
+                  f"telemetry off, {n} lane(s): {off['launches_per_q']} "
+                  f"launches per quantum, not {LOOP_LAUNCHES_PER_Q[n]}")
+    return out
+
+
+def telemetry_profiles():
+    """``loop_profile`` of LANES_CASE over the dse default grid of 1 and
+    SWEEP_LANES configs, telemetry off and on (TELEMETRY_GOLDEN's knobs),
+    as {"<lanes>,<0|1>": row}."""
+    import torch
+
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.launch.dse import default_grid
+    from repro_torch.sim.config import RTX3080TI
+    from repro_torch.workloads import make_workload
+
+    with open(os.path.join(GOLDEN, TELEMETRY_GOLDEN)) as f:
+        golden = json.load(f)
+    plan = RunPlan(telemetry_samples=golden["samples"],
+                   telemetry_every=golden["every"])
+    w = make_workload(LANES_CASE[0], scale=LANES_CASE[1])
+    rows = {}
+    for n in (1, SWEEP_LANES):
+        cfgs = default_grid(RTX3080TI, n)
+        for on in (False, True):
+            rows[f"{n},{int(on)}"] = loop_profile(
+                torch, w, plan.apply_telemetry(cfgs) if on else cfgs)
+    return rows
+
+
+def fresh_telemetry_profiles():
+    """``telemetry_profiles`` in a fresh process: there every window of
+    the same loop reads the same kernel count, while late in this long
+    process a window reads up to ~1.4 kernels per quantum fewer.
+    Returns {(lanes, on): row}."""
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.telemetry_profiles()))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, ROOT, os.path.join(ROOT, "src")],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "the telemetry profiles' process failed: "
+          f"{proc.stderr[-2000:]}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {(int(k.split(",")[0]), k.endswith(",1")): v
+            for k, v in rows.items()}
+
+
+def search_record(result):
+    """Everything of a SearchResult but its timings, as plain JSON (the
+    form of SEARCH_GOLDEN's result)."""
+    timing = ("analytic_s", "analytic_cands_per_s", "verify_s",
+              "verify_lanes_per_s")
+    return json.loads(json.dumps({
+        "seed": result.seed, "space": [list(result.space.lo),
+                                       list(result.space.hi)],
+        "features": result.features.tolist(),
+        "best": {k: list(v) if isinstance(v, tuple) else v
+                 for k, v in result.best.items()},
+        "best_cycles": result.best_cycles,
+        "theta": result.model.theta.tolist(), "calib": result.model.calib,
+        "rounds": [{k: v for k, v in r.items() if k not in timing}
+                   for r in result.rounds],
+        "verified": [[np.asarray(v).tolist(), int(c)]
+                     for v, c, _ in result.verified],
+    }))
+
+
+def phase_search(torch, K, Q):
+    """The seeded analytic-prune search of SEARCH_GOLDEN's case (nn@0.5 on
+    the RTX 3080 Ti, seed 0, 3 rounds of 256 candidates, top 8) with its
+    verify sweeps on the card: (a) equal, in full, to the same search on
+    the CPU in this process; (b) round 0's verified set equal to the JAX
+    package's golden, and equal cycles on every vector both measured;
+    then ``python -m repro_torch.launch.dse --base 3080ti --workload nn
+    --scale 0.5 --search --check``, in this process."""
+    import contextlib
+    import io
+
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.core.search import search
+    from repro_torch.launch import dse
+    from repro_torch.launch.cli import base_config
+    from repro_torch.workloads import make_workload
+
+    with open(os.path.join(GOLDEN, SEARCH_GOLDEN)) as f:
+        golden = json.load(f)
+    case = golden["case"]
+    w = make_workload(case["workload"], scale=case["scale"])
+    kw = dict(plan=RunPlan(max_cycles=case["max_cycles"],
+                           search_rounds=case["rounds"],
+                           search_topk=case["topk"]),
+              seed=case["seed"], base=base_config(case["base"]),
+              n_candidates=case["n_candidates"], calibrate_from=None)
+    card, wall, fused, issue, steps = _counted_run(
+        torch, K, Q, lambda: search(w, device="cuda", **kw))
+    check(fused == steps > 0 and issue == 0,
+          f"search: {fused} sm_quantum and {issue} sm_issue launches for "
+          f"{steps} quanta")
+    t0 = time.perf_counter()
+    cpu = search(w, device="cpu", **kw)
+    cpu_wall = time.perf_counter() - t0
+    got, want = search_record(card), golden["result"]
+    check(got == search_record(cpu), "the search on the card differs from "
+          "the same search on the CPU")
+    topk = case["topk"]
+
+    def as_set(rows):
+        return sorted((tuple(v), c) for v, c in rows)
+    check(as_set(got["verified"][:topk]) == as_set(want["verified"][:topk]),
+          f"round 0's verified set differs from {SEARCH_GOLDEN}")
+    theirs = {tuple(v): c for v, c in want["verified"]}
+    shared = [(tuple(v), c) for v, c in got["verified"]
+              if tuple(v) in theirs]
+    bad = [v for v, c in shared if theirs[v] != c]
+    check(not bad, f"{len(bad)} vectors measured by both the card and "
+          f"{SEARCH_GOLDEN} differ in cycles")
+    out = {"wall": wall, "cpu_wall": cpu_wall, "steps": steps,
+           "launches": fused, "shared": len(shared),
+           "n_verified": len(got["verified"]), "equal_golden": got == want,
+           "best": card.best_cycles, "golden_best": want["best_cycles"],
+           "rounds": [{k: r[k] for k in ("round", "n_scored", "verify_s",
+                                         "analytic_s", "rank_corr",
+                                         "best_measured")}
+                      for r in card.rounds]}
+    argv = ["--base", "3080ti", "--workload", case["workload"], "--scale",
+            str(case["scale"]), "--search", "--check"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, dse_wall, fused, issue, steps = _counted_run(
+            torch, K, Q, lambda: dse.main(argv))
+    lines = buf.getvalue().strip().splitlines()
+    check(lines and lines[-1].startswith("[dse] check OK") and issue == 0
+          and fused == steps > 0, f"dse {' '.join(argv)}: "
+          f"{lines[-3:]} ({fused} sm_quantum, {issue} sm_issue launches for "
+          f"{steps} quanta)")
+    out.update(launches=out["launches"] + fused, dse_wall=dse_wall,
+               dse_argv=" ".join(argv), dse_lines=lines[-3:])
+    return out
 
 
 def main():
@@ -1426,20 +1759,72 @@ def main():
     # l. lanes against wall time: one workload swept at 1, 8 and 32 lanes
     lr = phase_lanes(torch, K, Q)
     for row in lr:
-        prof = (f"first 16 quanta of the quantum loop under the profiler: "
-                f"{row['launches_per_q']:.1f} kernel launches/quantum "
-                f"({row['sm_quantum_per_q']:.1f} of sm_quantum), "
-                f"{row['dtoh_per_q']:.2f} device-to-host reads/quantum, "
-                f"device busy {row['busy']:.4f} s of {row['pwall']:.4f} s "
-                f"(idle share {row['idle']:.4f})" if row["profiled"] else
-                "the profiler saw no device activity: launches, reads and "
-                "idle share per quantum not measured")
         print(f"[l lanes] {LANES_CASE[0]}@{LANES_CASE[1]} RTX3080TI, dse "
               f"default grid of "
               f"{row['lanes']} config(s): wall {row['wall']:.3f} s, "
               f"{row['steps']} quanta, {row['lane_quanta']} lane-quanta, "
               f"{row['lane_quanta'] / row['wall']:.1f} lane-quanta/s, "
-              f"{row['launches']} sm_quantum launches; {prof}", flush=True)
+              f"{row['launches']} sm_quantum launches; first 16 quanta of "
+              f"the quantum loop under the profiler: {profile_text(row)}",
+              flush=True)
+
+    # t. counter timelines at full width, and what they cost
+    tr = phase_telemetry(torch, K, Q, full_golden)
+    samples, every = tr["knobs"]
+    for key, d in tr["solo"].items():
+        print(f"[t telemetry] {key} RTX3080TI vmap, {samples} rows every "
+              f"{every} quanta: every row, lockstep_waste {d['waste']} and "
+              f"telemetry_samples {d['samples']} == {TELEMETRY_GOLDEN}; "
+              f"comparable() == pinned stats; last row == finalize; wall "
+              f"{d['wall']:.3f} s for {d['steps']} quanta", flush=True)
+    d = tr["dse"]
+    print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, dse default grid "
+          f"of {SWEEP_LANES} configs with telemetry: every lane's timeline "
+          f"== its solo card run's; wall {d['wall']:.3f} s for {d['steps']} "
+          f"quanta; lane quanta {d['quanta']}; lockstep_waste {d['waste']}",
+          flush=True)
+    d = tr["lanes32"]
+    print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, dse default grid "
+          f"of {d['lanes']} configs: last rows == finalize; wall "
+          f"{d['wall']:.3f} s for {d['steps']} quanta; frozen lane-quanta "
+          f"{d['lanes'] * d['steps'] - sum(d['quanta'])} of "
+          f"{d['lanes'] * d['steps']}; lane quanta {d['quanta']}; "
+          f"lockstep_waste {d['waste']} (sum {sum(d['waste'])})", flush=True)
+    g = tr["grid"]
+    n_lanes = sum(len(row) for row in g["quanta"])
+    print(f"[t telemetry] zoo grid {len(g['names'])} traces x 4 TINY configs "
+          f"({', '.join(g['names'])}) with telemetry: last rows == finalize; "
+          f"wall {g['wall']:.3f} s for {g['steps']} quanta; frozen "
+          f"lane-quanta {n_lanes * g['steps'] - sum(map(sum, g['quanta']))} "
+          f"of {n_lanes * g['steps']}; lane quanta {g['quanta']}; "
+          f"lockstep_waste {g['waste']}", flush=True)
+    for (n, on), row in tr["profiles"].items():
+        print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, {n} lane(s), "
+              f"telemetry {'on' if on else 'off'}: first 16 quanta of the "
+              f"quantum loop under the profiler: {profile_text(row)}",
+              flush=True)
+    for n, walls in tr["turns"].items():
+        off, on = (float(np.median(walls[k])) for k in (False, True))
+        print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, {n} lane(s), "
+              f"{TURN_QUANTA} quanta of the loop in turns off/on/on/off x "
+              f"{TURNS}: off {', '.join(f'{x:.4f}' for x in walls[False])} s,"
+              f" on {', '.join(f'{x:.4f}' for x in walls[True])} s; medians "
+              f"{off:.4f} and {on:.4f} s ({on / off - 1:+.2%} with "
+              f"telemetry)", flush=True)
+
+    # r. the seeded analytic-prune search, verify sweeps on the card
+    rr_ = phase_search(torch, K, Q)
+    print(f"[r search] {SEARCH_GOLDEN}'s case on the card == the same search "
+          f"on the CPU in full (card wall {rr_['wall']:.3f} s, CPU "
+          f"{rr_['cpu_wall']:.3f} s); round 0's verified set == the golden's,"
+          f" equal cycles on all {rr_['shared']} of {rr_['n_verified']} "
+          f"vectors both measured (whole search == golden: "
+          f"{rr_['equal_golden']}); best {rr_['best']} cycles (golden "
+          f"{rr_['golden_best']}); {rr_['steps']} quanta; rounds "
+          f"{rr_['rounds']}", flush=True)
+    print(f"[r search] dse {rr_['dse_argv']} on the card: "
+          f"{rr_['dse_lines'][-1]} (wall {rr_['dse_wall']:.3f} s)",
+          flush=True)
 
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
@@ -1676,8 +2061,11 @@ def main():
         "name": "sm_quantum", "route": "cuda",
         "source": "src/repro_torch/kernels/sm_quantum/csrc/sm_quantum.cu",
         "replaces": "src/repro/kernels/sm_issue/kernel.py:45",
-        # the sweeps' launches (phase s), beside the solo path's (phase 4)
+        # the sweeps' launches (phase s), beside the solo path's (phase 4),
+        # the telemetry path's (phase t) and the search path's (phase r)
         "launches": sr["launches"], "simulate_launches": main_launches,
+        "telemetry_launches": tr["launches"],
+        "search_launches": rr_["launches"],
         "max_abs_err": qr["max_abs_err"],
         "ms": qr["ms"], "plain_ms": qr["plain_ms"],
         "bound_ms": qr["bound_ms"], "bound_by": qr["bound_by"],

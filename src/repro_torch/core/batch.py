@@ -22,16 +22,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.telemetry import COUNTERS
+
 # per-instruction (length-L) fields of a packed kernel trace
 INSTR_FIELDS = ("ops", "dep", "addr_mode", "addr_param")
 # per-kernel scalar fields
 SCALAR_FIELDS = ("n_ctas", "warps_per_cta", "n_instr")
-# the columns of a run manifest's timeline rows (the reference's
-# core/telemetry.py:COUNTERS), read by cost_hints_from_manifests
-TIMELINE_COUNTERS = (
-    "cycle", "issued", "issued_mem", "l1_hit", "l1_miss", "cycles_issue",
-    "stall", "warp_cycles", "l2_hit", "l2_miss", "dram_req", "dram_row_hit",
-    "ctas_launched", "active_warps", "lockstep_waste")
 
 
 def check_workload_fits(scfg, workload) -> None:
@@ -288,7 +284,7 @@ def cost_hints_from_manifests(run_dir: str = "experiments/runs") -> dict:
     import json
     import os
 
-    col = TIMELINE_COUNTERS.index("lockstep_waste")
+    col = COUNTERS.index("lockstep_waste")
     hints: dict = {}
     for path in sorted(glob.glob(os.path.join(run_dir, "*.json"))):
         try:

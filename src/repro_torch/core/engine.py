@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.batch import (check_workload_fits, concat_kernels,
                                     split_ragged, stack_kernels)
 from repro_torch.core.stats import take_lane
@@ -75,8 +76,13 @@ def quantum_step(state: dict, trace: dict, cfg: StaticConfig,
     done_cycle = torch.where((ctrl["done_cycle"] < 0) & done, cycle_end,
                              ctrl["done_cycle"])
     ctrl = dict(ctrl, cycle=cycle_end, done_cycle=done_cycle)
-    return {"warp": warp, "sm": sm, "req": req, "mem": mem, "ctrl": ctrl,
-            "stats_sm": stats_sm, "stats": gstats}
+    out = {"warp": warp, "sm": sm, "req": req, "mem": mem, "ctrl": ctrl,
+           "stats_sm": stats_sm, "stats": gstats}
+    # the counter timeline: nothing runs for it when telemetry is off
+    if telemetry.enabled(cfg):
+        out["telem"] = telemetry.quantum_update(state["telem"], out, trace,
+                                                cfg)
+    return out
 
 
 def _select(pred, new, old):
@@ -93,7 +99,9 @@ def run_kernel(state: dict, trace: dict, cfg: StaticConfig,
                early_exit: bool = True):
     """Quanta until every lane's kernel converged or its clock reached
     ``max_cycles``; one host read per quantum.  A lane that stopped is
-    frozen: it keeps its state while the others step."""
+    frozen: it keeps its state, its timeline included, while the others
+    step.  With telemetry on, every lane then takes the kernel's forced
+    end sample (core/telemetry.py)."""
     if early_exit:
         state = mark_entry_converged(state, trace)
     n_lanes = state["ctrl"]["cycle"].shape[0]
@@ -101,10 +109,14 @@ def run_kernel(state: dict, trace: dict, cfg: StaticConfig,
         ctrl = state["ctrl"]
         running = (ctrl["done_cycle"] < 0) & (ctrl["cycle"] < max_cycles)
         if not bool(running.any()):
-            return state
+            break
         new = quantum_step(state, trace, cfg, dyn, sm_runner)
         # one lane that runs needs no select
         state = new if n_lanes == 1 else _select(running, new, state)
+    if telemetry.enabled(cfg):
+        state = dict(state, telem=telemetry.sample(state["telem"], state,
+                                                   cfg, force=True))
+    return state
 
 
 def kernel_cycles(ctrl: dict):

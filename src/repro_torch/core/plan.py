@@ -15,8 +15,9 @@ Fields by concern:
               similar padded shape / predicted cost and run each bucket
               padded only to its own max (core/batch.py:bucket_workloads).
               ``layout`` ('padded' | 'ragged'): per-bucket trace layout.
-  telemetry   ``telemetry_samples`` / ``telemetry_every`` (slice 7 of the
-              port: only 0 samples runs).
+  telemetry   ``telemetry_samples`` / ``telemetry_every`` — applied to
+              the lanes' StaticConfig (all-lanes-or-none) by
+              ``apply_telemetry``.
   caching     ``cache_dir`` (a persistent cache of compiled programs: the
               port compiles no program, and it waits for a graph cache);
               ``aot_cache`` is accepted and inert — the port runs eagerly,
@@ -31,6 +32,7 @@ once (DeprecationWarning), as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 
@@ -51,18 +53,21 @@ class RunPlan:
     max_cycles: int = 1 << 20
     early_exit: bool = True
     # packing.  max_buckets=None with bucket_by='cost' picks the bucket
-    # count from the analytic cost model (slice 8); with other policies
-    # None falls back to the classic ceiling of 4.
+    # count by minimizing the analytically-predicted total padded cost
+    # (core/batch.py:choose_bucket_count); with other policies None falls
+    # back to the classic ceiling of 4.
     bucket_by: str = "none"
     max_buckets: int | None = 4
     layout: str = "padded"
-    # telemetry (slice 7)
+    # telemetry (sized into the lanes' StaticConfig — all lanes or none)
     telemetry_samples: int = 0
     telemetry_every: int = 1
     # caching: cache_dir waits for a graph cache; aot_cache is inert
     cache_dir: str | None = None
     aot_cache: bool = True
-    # analytic-prune search knobs (slice 8), validated as the reference
+    # analytic-prune search (core/search.py): proposer seed, rounds of
+    # propose→score→verify, and how many predicted-best candidates each
+    # round's one cycle-accurate sweep verifies
     search_seed: int = 0
     search_rounds: int = 3
     search_topk: int = 8
@@ -129,21 +134,31 @@ class RunPlan:
             raise NotImplementedError(
                 "RunPlan.mesh: multi-device distribution over a "
                 "('cfg','sm') mesh is slice 10 of the port, not ported yet")
-        if self.telemetry_samples > 0:
-            raise NotImplementedError(
-                f"RunPlan.telemetry_samples={self.telemetry_samples}: "
-                "counter-timeline telemetry is slice 7 of the port, not "
-                "ported yet; use telemetry_samples=0")
-        if self.bucket_by == "cost" and self.max_buckets is None:
-            raise NotImplementedError(
-                "RunPlan(bucket_by='cost', max_buckets=None): the automatic "
-                "bucket count needs analytic.predicted_workload_cost, "
-                "slice 8 of the port, not ported yet; give max_buckets")
         if self.cache_dir:
             raise NotImplementedError(
                 f"RunPlan.cache_dir={self.cache_dir!r}: the port compiles "
                 "no program to cache; a persistent cache waits for the "
                 "graph cache of the quantum step")
+
+    def apply_telemetry(self, cfgs):
+        """Size the counter-timeline buffer into every lane's static half
+        (no-op when ``telemetry_samples == 0``).  Lanes may be full
+        GPUConfig / StaticConfig objects or pre-split ``(StaticConfig,
+        overrides)`` pairs — all of them must share one StaticConfig, so
+        telemetry is all-lanes-or-none."""
+        if self.telemetry_samples <= 0:
+            return cfgs
+        kw = dict(telemetry_samples=self.telemetry_samples,
+                  telemetry_every=self.telemetry_every)
+
+        def one(c):
+            if isinstance(c, tuple) and len(c) == 2:
+                return (dataclasses.replace(c[0], **kw), c[1])
+            return dataclasses.replace(c, **kw)
+
+        if isinstance(cfgs, (list, tuple)):
+            return [one(c) for c in cfgs]
+        return one(cfgs)
 
     def describe(self) -> dict:
         """JSON-safe summary for run manifests."""

@@ -59,6 +59,12 @@ def finalize(state: dict) -> dict:
         _np(state["sm"]["addrset_over"])))
     ipc = out["issued"] / max(out["cycles"], 1)
     out["ipc"] = round(ipc, 4)
+    # telemetry (core/telemetry.py): cumulative lockstep waste and the
+    # number of timeline samples; run metadata like the timeouts, kept
+    # out of comparable()
+    if "telem" in state:
+        out["lockstep_waste"] = int(state["telem"]["waste"])
+        out["telemetry_samples"] = int(state["telem"]["idx"])
     return out
 
 

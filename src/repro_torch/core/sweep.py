@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import batch
 from repro_torch.core import stats as S
+from repro_torch.core import telemetry
 from repro_torch.core.batch import (concat_kernels, concat_workloads,
                                     stack_kernels, stack_workloads)
 from repro_torch.core.engine import run_workload_stacked
@@ -41,10 +42,6 @@ from repro_torch.device import resolve_device
 from repro_torch.sim.config import DynConfig, StaticConfig, split_config
 from repro_torch.sim.state import init_state
 from repro_torch.sim.trace import Workload
-
-_TELEMETRY = ("timelines need counter-timeline telemetry, slice 7 of the "
-              "port, not ported yet")
-
 
 def stack_dyn(cfgs, device=None):
     """Split each config and stack the ``DynConfig``s along a new leading
@@ -173,7 +170,12 @@ class SweepResult:
         return [{k: s[k] for k in keys} for s in self.stats]
 
     def timelines(self) -> dict:
-        raise NotImplementedError(_TELEMETRY)
+        """{lane_index_str: (n_used, N_COUNTERS) sample rows} for every
+        lane, when the StaticConfig enabled telemetry."""
+        if not telemetry.enabled(self.scfg):
+            return {}
+        return {str(i): telemetry.timeline(take_lane(self.state, i))
+                for i in range(self.n)}
 
 
 def sweep(workload: Workload, cfgs, mode: str = None,
@@ -185,6 +187,7 @@ def sweep(workload: Workload, cfgs, mode: str = None,
     plan = resolve_plan(plan, where="sweep", mode=mode,
                         max_cycles=max_cycles, mesh=mesh, exchange=exchange)
     device = resolve_device(device)
+    cfgs = plan.apply_telemetry(cfgs)
     scfg, dyn_batch = stack_dyn(cfgs, device)
     batch.check_workload_fits(scfg, workload)
     packs = [k.pack(device) for k in workload.kernels]
@@ -236,19 +239,33 @@ class GridResult:
                 for c in range(self.n_cfgs)]
 
     def timelines(self) -> dict:
-        raise NotImplementedError(_TELEMETRY)
+        """{"<workload>/<cfg>": (n_used, N_COUNTERS) sample rows} per grid
+        lane, when the StaticConfig enabled telemetry."""
+        if not telemetry.enabled(self.scfg):
+            return {}
+        return {f"{self.names[w]}/{c}": telemetry.timeline(
+                    self.lane_state(w, c))
+                for w in range(self.n_workloads)
+                for c in range(self.n_cfgs)}
 
 
 def bucket_groups(workloads, plan: RunPlan, scfg: StaticConfig) -> list:
     """The one bucket-forming policy ``grid_sweep`` and ``pair_sweep``
     share: partition the workload-lane indices per ``plan.bucket_by`` /
-    ``plan.max_buckets`` (core/batch.py:bucket_workloads), with 'cost'
-    keys seeded from measured run-manifest hints."""
+    ``plan.max_buckets`` (core/batch.py:bucket_workloads), seeding 'cost'
+    keys from measured run-manifest hints refined by the analytic model
+    when the bucket count is chosen automatically."""
     hints = None
     max_buckets = plan.max_buckets
     if plan.bucket_by == "cost":
-        # RunPlan refuses 'cost' without max_buckets until slice 8
         hints = batch.cost_hints_from_manifests()
+        if max_buckets is None:
+            # lanes without a measured hint get an analytically predicted
+            # cost key, and bucket_workloads(max_buckets=None) minimizes
+            # the predicted total padded cost over the candidate counts
+            from repro_torch.core import analytic
+            hints = dict({w.name: analytic.predicted_workload_cost(w, scfg)
+                          for w in workloads}, **hints)
     elif max_buckets is None:
         max_buckets = 4            # the classic ceiling for non-cost modes
     return batch.bucket_workloads(workloads, plan.bucket_by, max_buckets,
@@ -271,6 +288,7 @@ def grid_sweep(workloads, cfgs, mode: str = None, max_cycles: int = None,
     plan = resolve_plan(plan, where="grid_sweep", mode=mode,
                         max_cycles=max_cycles, mesh=mesh, exchange=exchange)
     device = resolve_device(device)
+    cfgs = plan.apply_telemetry(cfgs)
     scfg, dyn_batch = stack_dyn(cfgs, device)
     for w in workloads:
         batch.check_workload_fits(scfg, w)
@@ -356,7 +374,7 @@ def pair_sweep(pairs, plan: RunPlan = None, lane_quantum: int | None = None,
         raise ValueError("empty pair list")
     device = resolve_device(device)
     workloads = [w for w, _ in pairs]
-    cfgs = [c for _, c in pairs]
+    cfgs = plan.apply_telemetry([c for _, c in pairs])
     scfg, _ = stack_dyn(cfgs, device)   # validates the shared static shape
     for w in workloads:
         batch.check_workload_fits(scfg, w)

@@ -1,25 +1,26 @@
 """Shared launcher CLI surface — one home for the RunPlan flags.
 
 The port's copy of the parts of ``repro.launch.cli`` that launch/dse.py
-and launch/zoo.py need: ``add_plan_args`` installs the shared execution
-and packing flags, ``plan_from_args`` turns them into the typed
-``RunPlan`` (core/plan.py) that ``sweep``/``grid_sweep`` accept,
-``add_sample_args`` the per-class timing-table sweep triples, and
-``base_config`` the named base configs.  The same command lines as the
-reference's launchers work here, plus ``--device``: the launchers run on
-the CUDA device unless it names another.
+and launch/zoo.py need: ``add_plan_args`` installs the shared execution,
+packing and observability flags, ``plan_from_args`` turns them into the
+typed ``RunPlan`` (core/plan.py) that ``sweep``/``grid_sweep`` accept,
+``add_sample_args`` the per-class timing-table sweep triples,
+``add_search_args`` the analytic-prune search knobs (dse only),
+``profile_ctx`` the ``--profile DIR`` trace and ``base_config`` the named
+base configs.  The same command lines as the reference's launchers work
+here, plus ``--device``: the launchers run on the CUDA device unless it
+names another.
 
 Flags of later slices parse as in the reference and raise
 ``NotImplementedError`` naming their slice when used: ``--mesh`` (slice
-10), ``--telemetry`` (slice 7, through RunPlan), ``--profile`` (a trace
-beside the run manifests of slice 7), ``--cache-dir`` (a graph cache,
-through RunPlan).  ``--no-aot-cache`` is accepted and inert: nothing is
-compiled.  The port writes no run manifest yet, so ``--no-manifest``
-changes nothing.
+10) and ``--cache-dir`` (a graph cache, through RunPlan).
+``--no-aot-cache`` is accepted and inert: nothing is compiled.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 
 from repro_torch.core.plan import BUCKET_POLICIES, LAYOUTS, RunPlan
 
@@ -46,9 +47,11 @@ def add_plan_args(ap: argparse.ArgumentParser) -> None:
                          "each bucket padded only to its own max "
                          "(core/batch.py:bucket_workloads)")
     ap.add_argument("--max-buckets", type=int, default=None,
-                    help="bucket count ceiling for --bucket-by; unset keeps "
-                         "the classic ceiling of 4 (with --bucket-by cost "
-                         "the automatic count is slice 8 of the port)")
+                    help="bucket count ceiling for --bucket-by; unset with "
+                         "--bucket-by cost picks the count that minimizes "
+                         "the predicted total padded cost "
+                         "(core/batch.py:choose_bucket_count), unset "
+                         "otherwise keeps the classic ceiling of 4")
     ap.add_argument("--layout", choices=LAYOUTS, default="padded",
                     help="kernel-trace layout: 'ragged' concatenates "
                          "kernels with an instr_base offset table instead "
@@ -61,16 +64,17 @@ def add_plan_args(ap: argparse.ArgumentParser) -> None:
                     help="accepted, inert: the port runs eagerly")
     # -- observability ------------------------------------------------------
     ap.add_argument("--telemetry", type=int, default=0, metavar="S",
-                    help="sample the per-SM counter timeline into S rows "
-                         "per lane (slice 7 of the port); 0 = off")
+                    help="sample the per-SM counter timeline into S "
+                         "preallocated rows per lane (core/telemetry.py); "
+                         "0 = off (nothing added to the run)")
     ap.add_argument("--telemetry-every", type=int, default=1, metavar="N",
                     help="sampling cadence in quanta (default 1)")
     ap.add_argument("--profile", default="", metavar="DIR",
-                    help="capture a profiler trace of the run into DIR "
-                         "(with the run manifests of slice 7)")
+                    help="capture a torch.profiler trace of the run into "
+                         "DIR/trace.json, alongside the manifest")
     ap.add_argument("--no-manifest", action="store_true",
-                    help="skip the run manifest (the port writes none "
-                         "until slice 7)")
+                    help="skip writing the run manifest JSON under "
+                         "experiments/runs/")
 
 
 def add_sample_args(ap: argparse.ArgumentParser, when: str) -> None:
@@ -94,16 +98,38 @@ def add_sample_args(ap: argparse.ArgumentParser, when: str) -> None:
                          "seed, same lanes)")
 
 
+def add_search_args(ap: argparse.ArgumentParser) -> None:
+    """The analytic-prune search knobs (core/search.py), dse-only."""
+    ap.add_argument("--search", action="store_true",
+                    help="search the config space instead of sweeping a "
+                         "fixed grid: propose candidates, score them all "
+                         "with the analytical surrogate (core/analytic.py),"
+                         " cycle-accurately verify only the predicted "
+                         "top-k per round (core/search.py)")
+    ap.add_argument("--search-rounds", type=int, default=3,
+                    help="propose→score→verify rounds (default 3)")
+    ap.add_argument("--search-topk", type=int, default=8,
+                    help="candidates verified per round in one sweep() "
+                         "call (default 8)")
+    ap.add_argument("--search-seed", type=int, default=0,
+                    help="proposer seed — the full candidate sequence and "
+                         "top-k are bit-reproducible per seed")
+    ap.add_argument("--search-cands", type=int, default=256,
+                    help="candidates proposed and analytically scored per "
+                         "round (default 256)")
+    ap.add_argument("--search-spread", type=float, default=2.0,
+                    help="search box half-width: each base config entry "
+                         "spans [v/spread, v*spread] (default 2.0); "
+                         "--sample-* triples override per-class table "
+                         "bounds")
+
+
 def plan_from_args(args: argparse.Namespace) -> RunPlan:
     """The parsed shared flags as a validated RunPlan."""
     if getattr(args, "mesh", None):
         raise NotImplementedError(
             f"--mesh {args.mesh[0]} {args.mesh[1]}: multi-device "
             "distribution is slice 10 of the port, not ported yet")
-    if getattr(args, "profile", ""):
-        raise NotImplementedError(
-            "--profile: profiler traces beside run manifests come with "
-            "telemetry, slice 7 of the port, not ported yet")
     return RunPlan(
         max_cycles=args.max_cycles,
         early_exit=not args.no_early_exit,
@@ -114,9 +140,33 @@ def plan_from_args(args: argparse.Namespace) -> RunPlan:
         aot_cache=not args.no_aot_cache,
         telemetry_samples=args.telemetry,
         telemetry_every=args.telemetry_every,
+        # search knobs exist only on parsers that called add_search_args
+        search_seed=getattr(args, "search_seed", 0),
+        search_rounds=getattr(args, "search_rounds", 3),
+        search_topk=getattr(args, "search_topk", 8),
     )
 
 
 def base_config(name: str):
     from repro_torch.sim.config import RTX3080TI, TINY
     return {"tiny": TINY, "3080ti": RTX3080TI}[name]
+
+
+@contextlib.contextmanager
+def profile_ctx(args):
+    """``--profile DIR``: a torch.profiler trace of the block (the CPU,
+    and the card when there is one), written to DIR/trace.json; nothing
+    when the flag is off."""
+    if not getattr(args, "profile", ""):
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

@@ -5,11 +5,21 @@
       --values 8,16,24,48
   python -m repro_torch.launch.dse --n 8 --sample-lat fp32 2 8 --check
   python -m repro_torch.launch.dse --n 4 --check --device cpu
+  python -m repro_torch.launch.dse --base 3080ti --workload nn --scale 0.5 \\
+      --search --check
 
-The port's ``repro.launch.dse`` in its sweep modes: the N configs run as
-N lanes of one lockstep sweep (core/sweep.py), on the CUDA device unless
-``--device`` names another.  ``--check`` re-runs every lane solo and
-asserts its comparable stats and timeouts equal the lane's.
+The port's ``repro.launch.dse``: the N configs run as N lanes of one
+lockstep sweep (core/sweep.py), on the CUDA device unless ``--device``
+names another.  ``--check`` re-runs every lane solo and asserts its
+comparable stats and timeouts equal the lane's.  Each run writes a
+manifest under ``experiments/runs/`` (core/telemetry.py) unless
+``--no-manifest``; ``--telemetry S`` adds the lanes' counter timelines
+to it.
+
+``--search`` explores the config space instead of sweeping a fixed grid
+(core/search.py): seeded proposals, all scored by the analytical
+surrogate, the predicted top-k of each round verified in one sweep;
+``--check`` then re-runs every verified lane solo.
 
 ``--sample-lat CLASS LO HI`` (repeatable; likewise ``--sample-disp``)
 sweeps a PER-CLASS entry of the DynConfig's timing tables: the N lanes
@@ -18,8 +28,8 @@ CLASS (fp32/int32/sfu/tensor/ldg/stg/bar) evenly from LO to HI.  The ldg
 latency entry is inert (load latency is cache-dependent).
 
 Without --axis/--sample-*, a default grid is swept: L2 latency × scheduler
-(GTO/LRR).  All lanes share one StaticConfig shape.  ``--search`` is slice
-8 of the port and ``--mesh`` slice 10: both raise.
+(GTO/LRR).  All lanes share one StaticConfig shape.  ``--mesh`` is slice
+10 of the port and raises.
 """
 from __future__ import annotations
 
@@ -32,14 +42,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import stats as S
+from repro_torch.core import telemetry as T
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
 from repro_torch.core.plan import RunPlan
 from repro_torch.core.sweep import sweep
 from repro_torch.device import resolve_device
 from repro_torch.launch.cli import (add_plan_args, add_sample_args,
-                                    base_config, plan_from_args)
-from repro_torch.sim.config import DYNAMIC_FIELDS, GPUConfig, class_index
+                                    add_search_args, base_config,
+                                    plan_from_args, profile_ctx)
+from repro_torch.sim.config import (DYNAMIC_FIELDS, SCHEDULERS, GPUConfig,
+                                    class_index)
 from repro_torch.workloads import make_workload
 
 BASES = {name: base_config(name) for name in ("3080ti", "tiny")}
@@ -122,6 +135,62 @@ def check_lanes_vs_solo(w, cfgs, stats, max_cycles: int, device) -> int:
     return len(cfgs)
 
 
+def lane_config(scfg, flat: dict) -> GPUConfig:
+    """The GPUConfig of a ``(StaticConfig, flat overrides)`` lane — how
+    ``--check`` replays a search lane solo."""
+    sched = {v: k for k, v in SCHEDULERS.items()}[int(flat["sched"])]
+    return GPUConfig(**dataclasses.asdict(scfg),
+                     **{k: int(flat[k]) for k in DYNAMIC_FIELDS},
+                     scheduler=sched, lat_of_class=tuple(flat["lat"]),
+                     disp_of_class=tuple(flat["disp"]))
+
+
+def run_search(args, plan, base, w, device):
+    """--search: analytic-prune search instead of a fixed-grid sweep."""
+    from repro_torch.core import analytic
+    from repro_torch.core.search import SearchSpace, search
+
+    space = SearchSpace.from_base(base, spread=args.search_spread,
+                                  sample_lat=args.sample_lat,
+                                  sample_disp=args.sample_disp)
+    t0 = time.time()
+    with profile_ctx(args):
+        result = search(w, space, plan=plan,
+                        n_candidates=args.search_cands,
+                        calibrate_from=None if args.no_manifest else "",
+                        log=print, device=device)
+    wall = time.time() - t0
+
+    rep = result.report()
+    print(json.dumps(rep, indent=1))
+    print(f"[dse] search {w.name}: scored {result.n_scored} candidates "
+          f"analytically, verified {result.n_verified} cycle-accurately "
+          f"over {len(result.rounds)} rounds, best={result.best_cycles} "
+          f"cycles, wall={wall:.1f}s")
+
+    if not args.no_manifest:
+        # verified lanes + stats + the workload's feature vector: exactly
+        # the rows calibration_rows_from_manifests harvests to warm-start
+        # the next search of this StaticConfig
+        mpath = T.write_manifest(
+            "search", scfg=result.scfg, mesh_shape=args.mesh,
+            timings={"wall_s": round(wall, 4)},
+            stats=[st for _, _, st in result.verified],
+            lanes=[analytic.describe_vec(v) for v, _, _ in result.verified],
+            extra={"workload": w.name, "plan": plan.describe(),
+                   "features": result.features.tolist(),
+                   "search": rep, "profile_dir": args.profile or None},
+            device=device)
+        print(f"[dse] manifest: {mpath}")
+
+    if args.check:
+        cfgs = [lane_config(result.scfg, analytic.decode(v))
+                for v, _, _ in result.verified]
+        n = check_lanes_vs_solo(w, cfgs, [st for _, _, st in result.verified],
+                                args.max_cycles, device)
+        print(f"[dse] check OK: all {n} verified lanes bit-exact vs solo")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", choices=sorted(BASES), default="tiny")
@@ -134,16 +203,10 @@ def main(argv=None):
                     help="comma-separated values for --axis")
     ap.add_argument("--check", action="store_true",
                     help="verify every lane against a solo engine run")
-    ap.add_argument("--search", action="store_true",
-                    help="analytic-prune search (slice 8 of the port: not "
-                         "ported yet)")
     add_sample_args(ap, when="the N lanes")
+    add_search_args(ap)
     add_plan_args(ap)
     args = ap.parse_args(argv)
-    if args.search:
-        raise NotImplementedError(
-            "--search: the analytic-prune search (core/search.py, "
-            "core/analytic.py) is slice 8 of the port, not ported yet")
     plan = plan_from_args(args)
     device = resolve_device(args.device)
     if device.type == "cpu":
@@ -151,6 +214,13 @@ def main(argv=None):
         torch.set_num_threads(1)
 
     base = BASES[args.base]
+    if args.search:
+        if args.axis:
+            raise SystemExit("--search and --axis are separate modes; "
+                             "pick one (--sample-* triples shape the "
+                             "search box instead)")
+        w = make_workload(args.workload, scale=args.scale)
+        return run_search(args, plan, base, w, device)
     if args.axis and (args.sample_lat or args.sample_disp):
         raise SystemExit("--axis and --sample-lat/--sample-disp are "
                          "separate sweep modes; pick one")
@@ -167,7 +237,8 @@ def main(argv=None):
 
     w = make_workload(args.workload, scale=args.scale)
     t0 = time.time()
-    result = sweep(w, cfgs, plan=plan, device=device)
+    with profile_ctx(args):
+        result = sweep(w, cfgs, plan=plan, device=device)
     wall = time.time() - t0
 
     rows = []
@@ -181,9 +252,22 @@ def main(argv=None):
           f"{device}, wall={wall:.1f}s (compile={tm.get('compile_s')}s "
           f"execute={tm.get('execute_s')}s {tm.get('lanes_per_s')} lanes/s)")
 
+    if not args.no_manifest:
+        tls = result.timelines()
+        mpath = T.write_manifest(
+            "dse", scfg=result.scfg, mesh_shape=args.mesh,
+            timings=dict(tm, wall_s=round(wall, 4)),
+            stats=result.stats,
+            timelines={k: v.tolist() for k, v in tls.items()} or None,
+            lanes=[describe(c) for c in cfgs],
+            extra={"workload": w.name, "plan": plan.describe(),
+                   "profile_dir": args.profile or None},
+            device=device)
+        print(f"[dse] manifest: {mpath}")
+
     if args.check:
-        n = check_lanes_vs_solo(w, cfgs, result.stats, args.max_cycles,
-                                device)
+        n = check_lanes_vs_solo(w, plan.apply_telemetry(cfgs), result.stats,
+                                args.max_cycles, device)
         print(f"[dse] check OK: all {n} lanes bit-exact vs solo")
 
 

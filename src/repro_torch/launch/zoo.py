@@ -26,7 +26,10 @@ and runs the full grid as W·C lanes (core/sweep.py:grid_sweep).
 ``--check`` reruns every (workload, config) pair solo and asserts the
 grid lane is bit-identical, timeouts included.  ``--sample-lat`` /
 ``--sample-disp`` replace the default config grid with a per-class
-timing-table sweep (launch/dse.py:sample_table_grid).
+timing-table sweep (launch/dse.py:sample_table_grid).  ``--grid`` and
+``--run`` write a run manifest under ``experiments/runs/``
+(core/telemetry.py) unless ``--no-manifest``, with the lanes' counter
+timelines under ``--telemetry S``; ``--profile DIR`` traces the run.
 """
 from __future__ import annotations
 
@@ -37,15 +40,17 @@ import time
 import torch
 
 from repro_torch.core import stats as S
+from repro_torch.core import telemetry as T
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
 from repro_torch.core.plan import RunPlan
 from repro_torch.core.sweep import grid_sweep
 from repro_torch.device import resolve_device
 from repro_torch.launch.cli import (add_plan_args, add_sample_args,
-                                    plan_from_args)
-from repro_torch.launch.dse import (BASES, default_grid, lane_signature,
-                                    sample_table_grid)
+                                    plan_from_args, profile_ctx)
+from repro_torch.launch.dse import (BASES, default_grid, describe,
+                                    lane_signature, sample_table_grid)
+from repro_torch.sim.config import static_part
 from repro_torch.sim.workloads import (TRACE_INGESTS, register_traces,
                                        zoo_names, zoo_workload)
 
@@ -113,7 +118,8 @@ def run_grid(args, trace_names, device) -> None:
     plan = plan_from_args(args)
 
     t0 = time.time()
-    grid = grid_sweep(workloads, cfgs, plan=plan, device=device)
+    with profile_ctx(args):
+        grid = grid_sweep(workloads, cfgs, plan=plan, device=device)
     wall = time.time() - t0
     print(json.dumps(grid.table(), indent=1))
     tm = grid.timings
@@ -122,6 +128,21 @@ def run_grid(args, trace_names, device) -> None:
           f"buckets={tm.get('n_buckets')}) on {device}, wall={wall:.1f}s "
           f"(compile={tm.get('compile_s')}s execute={tm.get('execute_s')}s "
           f"{tm.get('lanes_per_s')} lanes/s)")
+
+    if not args.no_manifest:
+        tls = grid.timelines()
+        mpath = T.write_manifest(
+            "zoo_grid", scfg=grid.scfg, mesh_shape=args.mesh,
+            timings=dict(tm, wall_s=round(wall, 4)),
+            stats=[dict(grid.stats[w][c], workload=grid.names[w], cfg=c)
+                   for w in range(n_w) for c in range(n_c)],
+            timelines={k: v.tolist() for k, v in tls.items()} or None,
+            lanes=[dict(describe(cfg), workload=grid.names[w], cfg=c)
+                   for w in range(n_w) for c, cfg in enumerate(cfgs)],
+            extra={"workloads": grid.names, "plan": plan.describe(),
+                   "profile_dir": args.profile or None},
+            device=device)
+        print(f"[zoo] manifest: {mpath}")
 
     if args.check:
         n = check_grid_vs_solo(grid, workloads, cfgs, args.max_cycles,
@@ -132,16 +153,32 @@ def run_grid(args, trace_names, device) -> None:
 def run_one(args, device) -> None:
     w = zoo_workload(args.run, scale=_scale_for(args.run, args.scale))
     plan = plan_from_args(args)
-    cfg = BASES[args.base]
+    [cfg] = plan.apply_telemetry([BASES[args.base]])
     t0 = time.time()
-    out = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap"), plan=plan,
-                              device=device))
+    with profile_ctx(args):
+        st = simulate(w, cfg, make_sm_runner(cfg, "vmap"), plan=plan,
+                      device=device)
     wall = time.time() - t0
+    out = S.finalize(st)
     print(json.dumps(dict(S.comparable(out), ipc=out["ipc"],
                           timeouts=out["timeouts"]), indent=1))
     flag = " [TIMEOUT: truncated at max_cycles]" if out["timeout"] else ""
     print(f"[zoo] {w.name}: {out['cycles']} GPU cycles, ipc={out['ipc']}, "
           f"wall={wall:.1f}s{flag}")
+
+    if not args.no_manifest:
+        scfg = static_part(cfg)
+        tls = ({w.name: T.timeline(st).tolist()}
+               if T.enabled(scfg) else None)
+        mpath = T.write_manifest(
+            "zoo_run", scfg=scfg,
+            timings={"wall_s": round(wall, 4), "n_lanes": 1},
+            stats=[dict(out, workload=w.name)], timelines=tls,
+            lanes=[dict(describe(cfg), workload=w.name)],
+            extra={"workloads": [w.name],
+                   "profile_dir": args.profile or None},
+            device=device)
+        print(f"[zoo] manifest: {mpath}")
 
 
 def main(argv=None):

@@ -10,8 +10,8 @@ tensors (timing numerics).
 ``DynConfig`` keeps the reference's grouping by machine layer (``core``,
 ``cache``, ``mem``, ``icnt``) so that ``dyn.core.lat[op]`` reads the same
 on both sides; its leaves are 0-d or ``(N_CLASSES,)`` int32 tensors on one
-device.  Counter-timeline telemetry is not ported yet: a ``StaticConfig``
-with ``telemetry_samples > 0`` is refused.
+device.  ``StaticConfig.telemetry_samples > 0`` sizes the counter-timeline
+buffer of the state (core/telemetry.py).
 """
 from __future__ import annotations
 
@@ -184,13 +184,6 @@ class StaticConfig:
     telemetry_samples: int = 0
     telemetry_every: int = 1
 
-    def __post_init__(self):
-        if self.telemetry_samples > 0:
-            raise ValueError(
-                f"telemetry_samples={self.telemetry_samples}: counter-"
-                "timeline telemetry is not ported to repro_torch yet; "
-                "use telemetry_samples=0")
-
 
 def static_part(cfg) -> StaticConfig:
     """The hashable static half of a full GPUConfig (identity on an
@@ -297,7 +290,8 @@ class GPUConfig:
     addrset_cap: int = 2048      # per-SM unique-address stat set
     scheduler: str = "gto"       # gto | lrr
     mem_blocks: int = 1 << 22    # simulated VRAM in 128 B blocks
-    # counter-timeline telemetry: only 0 (off) is ported so far
+    # counter-timeline telemetry (core/telemetry.py): rows per lane, and
+    # the sampling cadence in quanta; 0 rows = off
     telemetry_samples: int = 0
     telemetry_every: int = 1
     # per-class timing tables (dynamic)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.sim.config import N_UNITS, StaticConfig
 
 
@@ -33,7 +34,7 @@ def init_state(cfg: StaticConfig, device, n_lanes: int = 1) -> dict:
     def full(shape, v):
         return torch.full((n_lanes, *shape), v, dtype=i32, device=device)
 
-    return {
+    state = {
         "warp": {
             "pc": zeros(ns, w),
             "active": zeros(ns, w, dtype=b),
@@ -86,14 +87,20 @@ def init_state(cfg: StaticConfig, device, n_lanes: int = 1) -> dict:
             "l2_hit", "l2_miss", "dram_req", "dram_row_hit",
             "ctas_launched")},
     }
+    # the counter-timeline part only when the StaticConfig asks for
+    # samples (core/telemetry.py): telemetry off leaves the state as is
+    if telemetry.enabled(cfg):
+        state["telem"] = telemetry.init(cfg, device, n_lanes)
+    return state
 
 
 def reset_for_kernel(state: dict, cfg: StaticConfig) -> dict:
     """Between kernels: clear warps and requests, flush L1 (Accel-sim
-    semantics), keep L2/DRAM state and accumulated stats."""
+    semantics), keep L2/DRAM state, accumulated stats and the telemetry
+    timeline (which spans the whole workload)."""
     cycle = state["ctrl"]["cycle"]
     s = init_state(cfg, cycle.device, cycle.shape[0])
-    return {
+    new = {
         "warp": s["warp"],
         "sm": dict(state["sm"],
                    l1_tag=s["sm"]["l1_tag"], l1_lru=s["sm"]["l1_lru"],
@@ -106,3 +113,6 @@ def reset_for_kernel(state: dict, cfg: StaticConfig) -> dict:
         "stats_sm": dict(state["stats_sm"]),
         "stats": dict(state["stats"]),
     }
+    if "telem" in state:
+        new["telem"] = dict(state["telem"])
+    return new

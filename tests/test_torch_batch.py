@@ -38,10 +38,10 @@ from repro.core.telemetry import COUNTERS
 from repro_torch.convert import (random_lane_inputs, stack_lanes, to_numpy,
                                  to_torch)
 from repro_torch.core import stats as S
+from repro_torch.core import telemetry as PT
 from repro_torch.core.engine import (mark_entry_converged, run_kernel,
                                      run_workload_stacked, simulate)
 from repro_torch.core.parallel import make_sm_runner
-from repro_torch.core.sweep import GridResult, SweepResult
 from repro_torch.launch import dse, zoo
 from repro_torch.sim import smcore
 from repro_torch.sim.state import init_state
@@ -175,7 +175,7 @@ def test_bucket_policy_error():
 
 
 def test_cost_hints_from_manifests_equal(tmp_path):
-    assert PB.TIMELINE_COUNTERS == COUNTERS
+    assert PT.COUNTERS == COUNTERS
     wi = COUNTERS.index("lockstep_waste")
     tl = [[0.0] * len(COUNTERS), [0.0] * len(COUNTERS)]
     tl[-1][wi] = 40.0
@@ -223,8 +223,6 @@ def test_runplan_errors_equal(kw):
 
 @pytest.mark.parametrize("kw,slice_", [
     (dict(mesh=_Mesh("cfg", "sm")), "slice 10"),
-    (dict(telemetry_samples=4), "slice 7"),
-    (dict(bucket_by="cost", max_buckets=None), "slice 8"),
     (dict(cache_dir="/tmp/x"), "graph cache")])
 def test_later_slices_raise_by_name(kw, slice_):
     JPLAN.RunPlan(**kw) if "mesh" not in kw else None   # the reference runs
@@ -237,15 +235,8 @@ def test_later_slices_raise_by_name_elsewhere():
         make_sm_runner(PC.TINY, "shard")
     with pytest.raises(NotImplementedError, match="slice 10"):
         dse.main(["--mesh", "2", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        dse.main(["--search", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        zoo.main(["--grid", "1", "1", "--telemetry", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        zoo.main(["--grid", "1", "1", "--profile", "d", "--device", "cpu"])
-    for result in (SweepResult(None, {}, 0), GridResult(None, {}, [], 0, 0)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            result.timelines()
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        zoo.main(["--grid", "1", "1", "--mesh", "1", "1", "--device", "cpu"])
 
 
 def test_runplan_defaults_and_describe():

@@ -100,8 +100,11 @@ def test_check_dyn_errors_match():
         assert str(pe.value) == str(je.value)
 
 
-def test_telemetry_is_refused_by_name():
-    with pytest.raises(ValueError, match="telemetry"):
-        P.split_config(dataclasses.replace(P.TINY, telemetry_samples=4),
-                       device="cpu")
+def test_telemetry_config_splits_as_reference():
+    kw = dict(telemetry_samples=4, telemetry_every=3)
+    got, _ = P.split_config(dataclasses.replace(P.TINY, **kw), device="cpu")
+    want, _ = J.split_config(dataclasses.replace(J.TINY, **kw))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(ValueError, match="telemetry_every=0 must be ≥ 1"):
+        dataclasses.replace(P.TINY, telemetry_every=0)
 

@@ -1,8 +1,10 @@
 """The port's CUDA path, on the card: the sm_issue, sm_quantum, wkv6 and
 flash_attention kernels against their plain PyTorch versions, the
 wrappers' input checks and launch counts, simulations on the card against
-the same simulations on the CPU and against the golden stats, and the
-reduced RWKV-6 and dense models on the card against their golden files.
+the same simulations on the CPU and against the golden stats, counter
+timelines against their golden file and the CPU, the seeded search on the
+card against the same search on the CPU, and the reduced RWKV-6 and dense
+models on the card against their golden files.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -26,10 +28,12 @@ from repro_torch.convert import (QUANTUM_T0, jitter_constant_leaves,
                                  to_torch)
 from repro_torch.core import engine
 from repro_torch.core import stats as S
+from repro_torch.core import telemetry as T
 from repro_torch.core.engine import simulate
 from repro_torch.core.parallel import make_sm_runner
 from repro_torch.core.plan import RunPlan
-from repro_torch.core.sweep import grid_sweep
+from repro_torch.core.search import SearchSpace, search
+from repro_torch.core.sweep import grid_sweep, sweep
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
@@ -209,6 +213,74 @@ def test_grid_on_card_equals_solo_runs(cuda, monkeypatch):
                                        max_cycles=1 << 15))
             assert S.comparable(grid.stats[w][c]) == S.comparable(solo)
             assert grid.stats[w][c]["timeouts"] == solo["timeouts"] == 0
+
+
+def _load_golden(name):
+    with open(os.path.join(os.path.dirname(GOLDEN), name)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("bench,scale", [("nn", 0.5), ("syrk", 0.16)])
+def test_telemetry_golden_on_card(cuda, monkeypatch, bench, scale):
+    """The full-width counter timelines on the card: every row,
+    ``lockstep_waste`` and ``telemetry_samples`` equal the JAX package's
+    (tests/golden/torch_port_telemetry.json), ``comparable()`` the pinned
+    stats, and the last row equals ``finalize``."""
+    golden = _load_golden("torch_port_telemetry.json")
+    cfg = dataclasses.replace(RTX3080TI, telemetry_samples=golden["samples"],
+                              telemetry_every=golden["every"])
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    st = simulate(resolve_workload(bench, scale), cfg,
+                  make_sm_runner(cfg, "vmap"),
+                  max_cycles=golden["max_cycles"])
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+    out = S.finalize(st)
+    key = f"{bench}@{scale}"
+    assert {"timeline": T.timeline(st).tolist(),
+            "lockstep_waste": out["lockstep_waste"],
+            "telemetry_samples": out["telemetry_samples"]} == \
+        golden["cases"][key]
+    assert S.comparable(out) == _load_golden(SIM_GOLDENS[RTX3080TI])[key]
+    assert T.check_final_sample(st, out) == []
+
+
+def test_sweep_timelines_on_card_equal_cpu(cuda):
+    """A TINY sweep with a full timeline buffer: every lane's timeline on
+    the card equals the CPU's."""
+    w = resolve_workload("zoo:mixed", 0.005)
+    cfgs = [TINY, dataclasses.replace(TINY, scheduler="lrr", l2_lat=64)]
+    plan = RunPlan(max_cycles=1 << 14, telemetry_samples=32,
+                   telemetry_every=2)
+    card = sweep(w, cfgs, plan=plan)
+    cpu = sweep(w, cfgs, plan=plan, device="cpu")
+    for key, tl in cpu.timelines().items():
+        assert np.array_equal(card.timelines()[key], tl), key
+    assert [s["lockstep_waste"] for s in card.stats] == \
+        [s["lockstep_waste"] for s in cpu.stats]
+
+
+def test_search_card_equals_cpu(cuda, monkeypatch):
+    """The seeded analytic-prune search with its verify sweeps on the card
+    equals the same search on the CPU, timings apart."""
+    timing = ("analytic_s", "analytic_cands_per_s", "verify_s",
+              "verify_lanes_per_s")
+    w = resolve_workload("nn", 0.05)
+    plan = RunPlan(max_cycles=1 << 14, search_rounds=2, search_topk=4)
+    kw = dict(space=SearchSpace.from_base(TINY), plan=plan, seed=7,
+              base=TINY, n_candidates=48, calibrate_from=None)
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    card = search(w, **kw)
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+    cpu = search(w, device="cpu", **kw)
+    assert card.best == cpu.best and card.best_cycles == cpu.best_cycles
+    assert [(v.tolist(), c) for v, c, _ in card.verified] == \
+        [(v.tolist(), c) for v, c, _ in cpu.verified]
+    assert [{k: v for k, v in r.items() if k not in timing}
+            for r in card.rounds] == \
+        [{k: v for k, v in r.items() if k not in timing} for r in cpu.rounds]
+    assert np.array_equal(card.model.theta, cpu.model.theta)
 
 
 SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)

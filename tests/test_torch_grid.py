@@ -106,7 +106,7 @@ def test_grid_lanes_equal_jax_grid(jax_grid, plan):
 
 def test_zoo_trace_grid_check(capsys):
     zoo.main(["--trace", os.path.join(HERE, "data", "traces"), "--grid", "3",
-              "2", "--check", "--device", "cpu"])
+              "2", "--check", "--device", "cpu", "--no-manifest"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == "[zoo] check OK: all 6 lanes bit-exact vs solo runs"
     table = json.loads("\n".join(out[:-2]))
@@ -135,7 +135,7 @@ def test_zoo_run_and_list(capsys):
     listed = capsys.readouterr().out.split()
     assert [n for n in listed if not n.startswith("trace:")] == [
         n for n in JZ.zoo_names() if not n.startswith("trace:")]
-    zoo.main(["--run", "trace:vecadd", "--device", "cpu"])
+    zoo.main(["--run", "trace:vecadd", "--device", "cpu", "--no-manifest"])
     out = capsys.readouterr().out.strip().splitlines()
     printed = json.loads("\n".join(out[:-1]))
     assert printed["cycles"] == 464 and printed["timeouts"] == 0

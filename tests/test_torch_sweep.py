@@ -185,7 +185,7 @@ def test_pair_sweep_errors():
 
 def test_dse_check_passes(capsys):
     dse.main(["--workload", "nn", "--scale", "0.02", "--n", "4", "--check",
-              "--device", "cpu"])
+              "--device", "cpu", "--no-manifest"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == "[dse] check OK: all 4 lanes bit-exact vs solo"
     rows = json.loads("\n".join(out[:-2]))
