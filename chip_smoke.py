@@ -65,6 +65,24 @@ last line.  The simulator's path:
      (the JAX package's) and equal cycles on every vector both measured;
      then launch/dse.py --base 3080ti --workload nn --scale 0.5 --search
      --check;
+  v. the simulation server (core/service.py, launch/serve.py) on the card
+     at full width, RTX 3080 Ti base, bucket_by='shape': one synchronous
+     batch of nn@0.5 and syrk@0.16, nn@0.5 with a config override, the
+     bundled vecadd and mm_tile traces uploaded as text and a sample grid
+     of 4 lanes over nn@0.5; the plain nn@0.5 and syrk@0.16 lanes against
+     tests/golden/torch_port_rtx3080ti.json, every lane against its solo
+     card run, the same jobs reversed and split over two batches giving
+     the same lanes, one sm_quantum launch per quantum of every bucket
+     run; a threaded soak (4 client threads x 4 seeded draws from those
+     jobs, batch_lanes 8, max_wait 50 ms): everything served and drained,
+     every lane exact, jobs/s, p50 and p99 of queue_s and total_s,
+     batches and lanes per batch; the kernel launches per quantum of a
+     served bucket of syrk@0.16 at 1 and 8 lanes (two profiled runs cut at
+     16 and 48 quanta, differenced) against the bare quantum loop's; then
+     the frontends in child processes: a scripted --stdin session (its
+     cold start to first completion beside the warm in-process batch of
+     the same jobs), a --port 0 socket session beside --selftest, every
+     completion equal to the in-process lanes;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
   a. the wkv6 build: ptxas registers and spills, and the dynamic shared
      memory of one block per head size;
@@ -172,6 +190,18 @@ LOOP_LAUNCHES_PER_Q = {1: 325.8, 8: 371.9}
 TURN_QUANTA, TURNS = 64, 2
 # phase r: the JAX package's search (tests/test_torch_search.py --regen)
 SEARCH_GOLDEN = "torch_port_search.json"
+# phase v: the simulation server on the RTX 3080 Ti: the workloads of its
+# batch, the bundled traces uploaded as text, the lanes of its sample
+# grid; the soak's client threads, draws per client and seed; the
+# submissions the child servers get (by id); the quanta of the two
+# profiled runs of a served bucket, whose difference is per quantum
+SERVE_CASES = (("nn", 0.5), ("syrk", 0.16))
+SERVE_TRACES = ("vecadd", "mm_tile")
+SERVE_SAMPLE_LANES = 4
+SOAK_CLIENTS, SOAK_DRAWS, SOAK_SEED = 4, 4, 20261017
+CHILD_IDS = ("nn@0.5", "cfg", "vecadd", "mm_tile")
+SERVE_PROFILE_QUANTA = (16, 48)
+SERVE_CASES_TEXT = tuple(f"{b}@{s}" for b, s in SERVE_CASES)
 # phase 3: (workload, scale, mode, timeouts) against determinism_tiny.json.
 # hotspot@0.02 is cut by the golden's cycle cap in 2 of its 4 kernels: the
 # JAX package reads timeouts 2 on the same run (ROADMAP.md §3), the card
@@ -1577,6 +1607,373 @@ def phase_search(torch, K, Q):
     return out
 
 
+def serve_subs():
+    """Phase v's submissions: SERVE_CASES as they are, the first with a
+    config override, the bundled SERVE_TRACES uploaded as text, and a
+    sample grid of SERVE_SAMPLE_LANES lanes over the first."""
+    (nn, nn_s), (other, other_s) = SERVE_CASES
+    subs = [{"id": f"{nn}@{nn_s}", "workload": nn, "scale": nn_s},
+            {"id": f"{other}@{other_s}", "workload": other,
+             "scale": other_s},
+            {"id": "cfg", "workload": nn, "scale": nn_s,
+             "config": {"l2_lat": 64, "scheduler": "lrr"}}]
+    for name in SERVE_TRACES:
+        with open(os.path.join(ROOT, "tests", "data", "traces",
+                               f"{name}.trace")) as f:
+            subs.append({"id": name, "trace_text": f.read()})
+    subs.append({"id": "grid", "workload": nn, "scale": nn_s,
+                 "sample": {"n": SERVE_SAMPLE_LANES,
+                            "lat": [["fp32", 2, 8]]}})
+    return subs
+
+
+def serve_plan(max_cycles=1 << 20):
+    from repro_torch.core.plan import RunPlan
+    return RunPlan(max_cycles=max_cycles, bucket_by="shape")
+
+
+def serve_sync(torch, K, Q, batches):
+    """A fresh synchronous server on the card (RTX 3080 Ti base) serving
+    each list of submissions of ``batches`` as one batch, its launch
+    counts set to 0 just before and read just after.  Returns ({id: the
+    job}, [batch walls], sm_quantum launches, quanta)."""
+    from repro_torch.core.service import SimService
+    from repro_torch.sim.config import RTX3080TI
+
+    svc = SimService(base=RTX3080TI, plan=serve_plan(), start=False)
+    check(svc.device.type == "cuda", f"the server chose {svc.device}")
+    jobs, walls, launches, quanta = {}, [], 0, 0
+    for group in batches:
+        mine = [svc.submit(s) for s in group]
+        n, wall, fused, issue, steps = _counted_run(torch, K, Q,
+                                                    svc.run_pending)
+        check(n == len(mine) and all(j.done and j.error is None
+                                     for j in mine),
+              f"a served batch failed: {[j.response() for j in mine]}")
+        check(fused == steps > 0 and issue == 0,
+              f"served batch: {fused} sm_quantum and {issue} sm_issue "
+              f"launches for {steps} quanta of its bucket runs")
+        jobs.update((j.id, j) for j in mine)
+        walls.append(wall)
+        launches += fused
+        quanta += steps
+    return jobs, walls, launches, quanta
+
+
+def served_launches(torch, sub, n_q):
+    """A profile of one synchronous served batch of ``sub`` cut at
+    ``n_q`` quanta: (kernels, sm_quantum kernels, quanta, profiled)."""
+    from repro_torch.core.service import SimService
+    from repro_torch.sim.config import RTX3080TI
+
+    svc = SimService(base=RTX3080TI, plan=serve_plan(
+        n_q * RTX3080TI.quantum), start=False)
+    svc.submit(sub)
+    with QuantumSteps() as steps:
+        events, _ = profiled(torch, svc.run_pending)
+    kernels = [n for n, _ in events if not n.startswith(("Memcpy",
+                                                         "Memset"))]
+    return (len(kernels), sum("sm_quantum" in n for n in kernels), steps.n,
+            bool(events))
+
+
+def _child_env():
+    src = os.path.join(ROOT, "src")
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=src + (os.pathsep + path
+                                              if path else ""))
+
+
+def _serve_child(args, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        cwd=ROOT, env=_child_env(), text=True, **kw)
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+
+
+def _session_lines(subs):
+    """A client's session: the submissions, a malformed one, flush, stats
+    and shutdown, one JSON object a line."""
+    return ([json.dumps(dict(s, op="submit")) for s in subs]
+            + [json.dumps({"op": "submit", "workload": 7}),
+               json.dumps({"op": "flush"}), json.dumps({"op": "stats"}),
+               json.dumps({"op": "shutdown"})])
+
+
+def _check_session(replies, subs, want, where):
+    """Every reply of a session: the acks, one rejection naming
+    'workload', flushed, stats, draining, and one completion per
+    submission whose stats equal ``want`` (comparable() by id)."""
+    done = {r["id"]: r for r in replies if r.get("status") == "done"}
+    acks = [r["id"] for r in replies if r.get("status") == "queued"]
+    bad = [r for r in replies if r.get("ok") is False]
+    check(sorted(acks) == sorted(s["id"] for s in subs),
+          f"{where}: acks {acks}")
+    check(len(bad) == 1 and bad[0].get("field") == "workload",
+          f"{where}: rejections {bad}")
+    check(any(r.get("status") == "flushed" for r in replies)
+          and any(r.get("status") == "draining" for r in replies)
+          and any("submitted" in r for r in replies),
+          f"{where}: no flushed, draining or stats reply")
+    check(sorted(done) == sorted(s["id"] for s in subs),
+          f"{where}: completions for {sorted(done)}")
+    for s in subs:
+        check(done[s["id"]]["stats"] == want[s["id"]],
+              f"{where}: {s['id']}'s lanes differ from the in-process "
+              "server's")
+
+
+def serve_children(want):
+    """The frontends in child processes on the card: a scripted stdin
+    session (``--stdin --base 3080ti``), timed from the start to its
+    first completion; then a socket session on ``--port 0`` beside
+    ``--selftest``.  ``want``: {id: comparable() per lane} of the
+    in-process server."""
+    subs = [s for s in serve_subs() if s["id"] in CHILD_IDS]
+    out = {}
+    # stdin, alone: the cold child's time to its first completion
+    t0 = time.perf_counter()
+    proc = _serve_child(["--stdin", "--base", "3080ti"],
+                        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                        stderr=subprocess.DEVNULL)
+    try:
+        proc.stdin.write("\n".join(_session_lines(subs)) + "\n")
+        proc.stdin.close()
+        replies, first = [], None
+        for line in proc.stdout:
+            replies.append(json.loads(line))
+            if first is None and replies[-1].get("status") == "done":
+                first = time.perf_counter() - t0
+        rc = proc.wait(timeout=600)
+    finally:
+        _stop(proc)
+    check(rc == 0, f"the stdin server exited {rc}")
+    _check_session(replies, subs, want, "stdin server")
+    out.update(stdin_first_s=first, stdin_s=time.perf_counter() - t0,
+               stdin_lines=len(replies))
+    # the socket session beside --selftest
+    t0 = time.perf_counter()
+    selftest = _serve_child(["--selftest"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    sock = _serve_child(["--port", "0", "--base", "3080ti"],
+                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        out.update(socket_session(sock, subs, want))
+        rc = sock.wait(timeout=600)
+        check(rc == 0, f"the socket server exited {rc}")
+        text, _ = selftest.communicate(timeout=900)
+    finally:
+        _stop(sock)
+        _stop(selftest)
+    lines = text.strip().splitlines()
+    check(selftest.returncode == 0 and lines
+          and lines[-1].startswith("[selftest] PASS"),
+          f"serve --selftest exited {selftest.returncode}: {lines[-5:]}")
+    out.update(selftest_s=time.perf_counter() - t0,
+               selftest_lines=[ln for ln in lines
+                               if ln.startswith("[selftest]")][:3])
+    return out
+
+
+def socket_session(proc, subs, want):
+    """One client of a socket server started with ``--port 0``: the port
+    from its ``listening on`` line, the session, and every completion on
+    this connection."""
+    import re
+    import socket
+    import threading
+
+    port = None
+    for line in proc.stderr:
+        m = re.search(r"listening on [0-9.]+:(\d+)", line)
+        if m:
+            port = int(m.group(1))
+            break
+    check(port, "the socket server never said where it listens")
+    drain = threading.Thread(target=lambda: proc.stderr.read(), daemon=True)
+    drain.start()
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as conn:
+        f = conn.makefile("rw")
+        lines = _session_lines(subs)
+        for line in lines[:-1]:                 # all but the shutdown
+            f.write(line + "\n")
+        f.flush()
+        replies = []
+        while sum(r.get("status") == "done" for r in replies) < len(subs):
+            line = f.readline()
+            check(line, "the socket server closed the connection early")
+            replies.append(json.loads(line))
+        f.write(lines[-1] + "\n")
+        f.flush()
+        replies.append(json.loads(f.readline()))
+    _check_session(replies, subs, want, "socket server")
+    return {"socket_lines": len(replies), "port": port}
+
+
+def phase_serve(torch, K, Q, full_golden):
+    """The simulation server on the card at full width (RTX 3080 Ti base,
+    bucket_by='shape'): one synchronous batch of ``serve_subs()``, its
+    plain SERVE_CASES lanes against the pinned stats and every lane
+    against its solo card run; the same jobs reversed and split over two
+    batches; a threaded soak (SOAK_CLIENTS clients x SOAK_DRAWS seeded
+    draws, batch_lanes 8, max_wait_s 0.05); the kernel launches per
+    quantum of a served bucket at 1 and 8 lanes against the bare quantum
+    loop's; and the stdin, socket and selftest frontends in child
+    processes."""
+    import threading
+
+    from repro_torch.core import stats as S
+    from repro_torch.core.engine import simulate
+    from repro_torch.core.parallel import make_sm_runner
+    from repro_torch.core.service import SimService
+    from repro_torch.launch.dse import lane_signature
+    from repro_torch.sim.config import RTX3080TI
+
+    subs = serve_subs()
+    solo = {}
+
+    def solo_sigs(job):
+        sigs = []
+        for w, cfg in job.pairs:
+            key = (w.name, cfg)
+            if key not in solo:
+                solo[key] = lane_signature(S.finalize(simulate(
+                    w, cfg, make_sm_runner(cfg, "vmap"), plan=serve_plan(),
+                    device="cuda")))
+            sigs.append(solo[key])
+        return sigs
+
+    def lanes(jobs):
+        return {i: [lane_signature(s) for s in j.stats]
+                for i, j in jobs.items()}
+
+    out = {}
+    jobs, walls, launches, quanta = serve_sync(torch, K, Q, [subs])
+    main = lanes(jobs)
+    for bench, scale in SERVE_CASES:
+        key = f"{bench}@{scale}"
+        check(S.comparable(jobs[key].stats[0]) == full_golden[key],
+              f"served {key} differs from the pinned stats")
+    for i, job in jobs.items():
+        check(main[i] == solo_sigs(job), f"served {i}'s lanes differ from "
+              "their solo card runs")
+        check(all(s["timeouts"] == 0 for s in main[i]), f"{i} timed out")
+        json.dumps(job.response())
+    batch = jobs[subs[0]["id"]].batch
+    out.update(wall=walls[0], launches=launches, quanta=quanta,
+               n_lanes=batch["n_lanes"], n_buckets=batch["n_buckets"],
+               cycles={i: [s["cycles"] for s in v] for i, v in main.items()},
+               n_solo=len(solo))
+    rev, rwalls, rl, _ = serve_sync(torch, K, Q, [subs[::-1]])
+    split, swalls, sl, _ = serve_sync(torch, K, Q, [subs[:3], subs[3:]])
+    check(lanes(rev) == main, "the reversed batch's lanes differ")
+    check(lanes(split) == main, "the split batches' lanes differ")
+    out.update(rev_wall=rwalls[0], split_walls=swalls,
+               launches_all=launches + rl + sl)
+    # the warm in-process batch of the child servers' jobs
+    child_subs = [s for s in subs if s["id"] in CHILD_IDS]
+    warm, wwalls, wl, _ = serve_sync(torch, K, Q, [child_subs])
+    check(lanes(warm) == {i: main[i] for i in CHILD_IDS},
+          "the child servers' jobs, served in-process, differ")
+    out.update(warm_wall=wwalls[0], launches_all=out["launches_all"] + wl)
+
+    # the threaded soak
+    svc = SimService(base=RTX3080TI, plan=serve_plan(), batch_lanes=8,
+                     max_wait_s=0.05)
+    soak, soak_lock = [], threading.Lock()
+
+    def client(ci):
+        rng = np.random.default_rng(SOAK_SEED + ci)
+        for j, pick in enumerate(rng.integers(0, len(subs), SOAK_DRAWS)):
+            job = svc.submit(dict(subs[pick], id=f"c{ci}-{j}"))
+            with soak_lock:
+                soak.append((subs[pick]["id"], job))
+
+    torch.cuda.synchronize()
+    K.issue_select.launches = 0
+    Q.sm_quantum.launches = 0
+    with QuantumSteps() as steps:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(SOAK_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        drained = svc.drain(timeout=600.0)
+        soak_wall = time.perf_counter() - t0
+    fused, issue = Q.sm_quantum.launches, K.issue_select.launches
+    counters = svc.stats()
+    svc.shutdown(drain=False)
+    n = SOAK_CLIENTS * SOAK_DRAWS
+    check(drained and not any(t.is_alive() for t in threads),
+          f"the soak did not drain: {counters}")
+    check(len(soak) == n and counters["served"] == counters["submitted"]
+          == n and counters["errors"] == 0 and counters["pending"] == 0,
+          f"soak counters {counters}")
+    for key, job in soak:
+        check(job.done and job.error is None, f"{job.id} starved or "
+              f"failed: {job.response()}")
+        check([lane_signature(s) for s in job.stats] == main[key],
+              f"soak job {job.id} ({key}) differs from its solo runs")
+    check(fused == steps.n > 0 and issue == 0,
+          f"soak: {fused} sm_quantum and {issue} sm_issue launches for "
+          f"{steps.n} quanta")
+    queue_s = [j.latency()["queue_s"] for _, j in soak]
+    total_s = [j.latency()["total_s"] for _, j in soak]
+    batches = {id(j.batch): j.batch for _, j in soak}
+    out["soak"] = {
+        "jobs": n, "wall": soak_wall, "jobs_per_s": n / soak_wall,
+        "queue_p50": float(np.percentile(queue_s, 50)),
+        "queue_p99": float(np.percentile(queue_s, 99)),
+        "total_p50": float(np.percentile(total_s, 50)),
+        "total_p99": float(np.percentile(total_s, 99)),
+        "batches": counters["batches"],
+        "lanes_per_batch": counters["lanes"] / counters["batches"],
+        "batch_lanes": sorted(b["n_lanes"] for b in batches.values()),
+        "launches": fused, "quanta": steps.n}
+    out["launches_all"] += fused
+
+    # kernel launches per quantum of a served bucket, against the loop's
+    bench, scale = SERVE_CASES[1]
+    from repro_torch.launch.dse import sample_table_grid
+    from repro_torch.workloads import make_workload
+    w = make_workload(bench, scale=scale)
+    lat = [["fp32", 2, 8]]
+    rows = []
+    for n_lanes in (1, SWEEP_LANES):
+        sub = {"workload": bench, "scale": scale}
+        if n_lanes > 1:
+            sub["sample"] = {"n": n_lanes, "lat": lat}
+        (k1, q1, s1, p1), (k2, q2, s2, p2) = (
+            served_launches(torch, sub, n_q) for n_q in SERVE_PROFILE_QUANTA)
+        loop = loop_profile(torch, w, sample_table_grid(
+            RTX3080TI, n_lanes, lat) if n_lanes > 1 else [RTX3080TI])
+        row = {"lanes": n_lanes, "profiled": p1 and p2 and loop["profiled"],
+               "loop": loop["launches_per_q"], "quanta": (s1, s2)}
+        if row["profiled"]:
+            row["per_q"] = (k2 - k1) / (s2 - s1)
+            row["sm_quantum_per_q"] = (q2 - q1) / (s2 - s1)
+            check(row["sm_quantum_per_q"] == 1.0,
+                  f"{n_lanes} lane(s): {row['sm_quantum_per_q']} sm_quantum "
+                  "launches per served quantum")
+            check(row["per_q"] <= row["loop"] + 1.0,
+                  f"{n_lanes} lane(s): the server adds launches per "
+                  f"quantum: {row['per_q']:.2f} against the loop's "
+                  f"{row['loop']:.2f}")
+        rows.append(row)
+    out["per_q"] = rows
+
+    out["children"] = serve_children({i: [S.comparable(s) for s in
+                                          jobs[i].stats] for i in jobs})
+    return out
+
+
 def main():
     start = time.perf_counter()
     import torch
@@ -1826,6 +2223,53 @@ def main():
           f"{rr_['dse_lines'][-1]} (wall {rr_['dse_wall']:.3f} s)",
           flush=True)
 
+    # v. the simulation server at full width
+    t_v = time.perf_counter()
+    vr = phase_serve(torch, K, Q, full_golden)
+    v_s = time.perf_counter() - t_v
+    print(f"[v serve] RTX3080TI server, bucket_by=shape, one batch of "
+          f"{len(serve_subs())} jobs ({vr['n_lanes']} lanes, "
+          f"{vr['n_buckets']} buckets): {', '.join(SERVE_CASES_TEXT)} == "
+          f"pinned stats; every lane == its solo card run "
+          f"({vr['n_solo']} solo runs), timeouts 0; cycles {vr['cycles']}; "
+          f"batch wall {vr['wall']:.3f} s for {vr['quanta']} quanta of its "
+          f"bucket runs ({vr['launches']} sm_quantum launches, one per "
+          f"quantum); reversed {vr['rev_wall']:.3f} s and split in two "
+          f"{', '.join(f'{x:.3f}' for x in vr['split_walls'])} s: the same "
+          f"lanes", flush=True)
+    d = vr["soak"]
+    print(f"[v serve] threaded soak, {SOAK_CLIENTS} clients x {SOAK_DRAWS} "
+          f"seeded draws, batch_lanes 8, max_wait 50 ms: all {d['jobs']} "
+          f"served, no error, drained, every lane == its solo card run; "
+          f"{d['jobs_per_s']:.3f} jobs/s ({d['wall']:.3f} s); queue_s p50 "
+          f"{d['queue_p50']:.4f} p99 {d['queue_p99']:.4f}; total_s p50 "
+          f"{d['total_p50']:.4f} p99 {d['total_p99']:.4f}; {d['batches']} "
+          f"batches, {d['lanes_per_batch']:.2f} lanes per batch "
+          f"{d['batch_lanes']}; {d['launches']} sm_quantum launches for "
+          f"{d['quanta']} quanta", flush=True)
+    for row in vr["per_q"]:
+        if row["profiled"]:
+            text = (f"{row['per_q']:.2f} kernel launches per quantum "
+                    f"({row['sm_quantum_per_q']:.2f} of sm_quantum; quanta "
+                    f"{row['quanta'][0]} and {row['quanta'][1]} differenced)"
+                    f", the bare quantum loop {row['loop']:.2f} (first 16 "
+                    f"quanta, with its setup)")
+        else:
+            text = "the profiler saw no device activity: not measured"
+        print(f"[v serve] served bucket of {SERVE_CASES[1][0]}@"
+              f"{SERVE_CASES[1][1]}, {row['lanes']} lane(s): {text}",
+              flush=True)
+    c = vr["children"]
+    print(f"[v serve] child servers on the card: --stdin session "
+          f"({c['stdin_lines']} lines, completions == in-process lanes): "
+          f"cold start to first completion {c['stdin_first_s']:.3f} s, "
+          f"whole session {c['stdin_s']:.3f} s, against the warm in-process "
+          f"batch of the same {len(CHILD_IDS)} jobs {vr['warm_wall']:.3f} s;"
+          f" --port 0 (port {c['port']}, {c['socket_lines']} lines, "
+          f"completions == in-process lanes) beside --selftest (exit 0, "
+          f"{c['selftest_s']:.3f} s: {' | '.join(c['selftest_lines'])}); "
+          f"phase v {v_s:.1f} s", flush=True)
+
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
           f"the others (loaded {wkv_build_s:.2f} s after the start); "
@@ -2062,10 +2506,12 @@ def main():
         "source": "src/repro_torch/kernels/sm_quantum/csrc/sm_quantum.cu",
         "replaces": "src/repro/kernels/sm_issue/kernel.py:45",
         # the sweeps' launches (phase s), beside the solo path's (phase 4),
-        # the telemetry path's (phase t) and the search path's (phase r)
+        # the telemetry path's (phase t), the search path's (phase r) and
+        # the server's (phase v)
         "launches": sr["launches"], "simulate_launches": main_launches,
         "telemetry_launches": tr["launches"],
         "search_launches": rr_["launches"],
+        "serve_launches": vr["launches_all"],
         "max_abs_err": qr["max_abs_err"],
         "ms": qr["ms"], "plain_ms": qr["plain_ms"],
         "bound_ms": qr["bound_ms"], "bound_by": qr["bound_by"],

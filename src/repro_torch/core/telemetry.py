@@ -19,7 +19,8 @@ its ``telem`` with it, so a lane's timeline equals its solo run's.  With
 telemetry off the state has no ``telem`` part and the engine launches
 nothing for it.
 
-**Run manifests.**  The launchers write one JSON manifest per run under
+**Run manifests.**  The launchers write one JSON manifest per run, and
+the sim server one per job (``write_job_manifest``), under
 ``experiments/runs/``: git sha, StaticConfig hash, host context (torch
 version, device platform, name and count), timings, per-lane stats and
 the sampled timelines, in the reference's schema, so
@@ -265,3 +266,24 @@ def write_manifest(kind: str, *, scfg=None, mesh_shape=None, timings=None,
     with open(path, "w") as f:
         json.dump(payload, f, indent=1)
     return path
+
+
+def write_job_manifest(job, *, scfg=None, out_dir=None, device=None) -> str:
+    """Per-job manifest for the sim server (core/service.py): the job's
+    identity, its per-lane ``finalize`` stats, and the latency split the
+    serving story is about — how long the job queued against how long its
+    batch spent executing.  Same schema and venue as every other run
+    manifest (experiments/runs/), so report.py and
+    cost_hints_from_manifests see served jobs like any other run;
+    ``device`` is the server's."""
+    return write_manifest(
+        "serve_job", scfg=scfg, stats=job.stats,
+        timings=dict(job.latency(), **{
+            "n_lanes": job.n_lanes,
+            "batch_lanes": (job.batch or {}).get("n_lanes"),
+            "aot_cache": (job.batch or {}).get("aot_cache"),
+        }),
+        lanes=[{"workload": job.name}] * job.n_lanes,
+        extra={"job": {"id": job.id, "seq": job.seq,
+                       "batch": job.batch}},
+        out_dir=out_dir, device=device)

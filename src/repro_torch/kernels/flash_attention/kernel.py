@@ -14,12 +14,11 @@ F4).  ``flash_attention.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from functools import cache
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library
+from repro_torch.kernels.build import build_library, once
 from repro_torch.kernels.flash_attention.ref import (attention_plain,
                                                      check_shapes)
 
@@ -44,7 +43,7 @@ def _check(name, x, dtype, device):
                          "(the kernel copies rows in 16-byte pieces)")
 
 
-@cache
+@once
 def _launcher():
     lib, info = build_library(SOURCE, "flash_attention")
     fn = lib.flash_attention_launch

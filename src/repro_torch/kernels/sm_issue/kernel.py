@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library
+from repro_torch.kernels.build import build_library, once
 from repro_torch.sim.config import (LDG, N_UNITS, SCHED_GTO, STG,
                                     UNIT_OF_CLASS)
 
@@ -90,7 +90,7 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"sm_issue: {name} must be contiguous")
 
 
-@cache
+@once
 def _launcher():
     lib, info = build_library(SOURCE, "sm_issue")
     fn = lib.sm_issue_launch

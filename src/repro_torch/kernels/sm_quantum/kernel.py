@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library
+from repro_torch.kernels.build import build_library, once
 from repro_torch.sim.config import N_CLASSES, N_UNITS, StaticConfig
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sm_quantum.cu"
@@ -120,7 +120,7 @@ def _lane_stride(name, x, dtype, inner, n_lanes, device) -> int:
     return x.stride(0) if n_lanes > 1 else 0
 
 
-@cache
+@once
 def _launcher():
     lib, info = build_library(SOURCE, "sm_quantum")
     fn = lib.sm_quantum_launch

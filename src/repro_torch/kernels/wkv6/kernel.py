@@ -17,12 +17,11 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from functools import cache
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library
+from repro_torch.kernels.build import build_library, once
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 HEAD_SIZES = (16, 32, 64)
@@ -82,7 +81,7 @@ def _check(name, x, shape, device):
                          "(the kernel loads rows 16 bytes at a time)")
 
 
-@cache
+@once
 def _launcher():
     lib, info = build_library(SOURCE, "wkv6")
     fn = lib.wkv6_launch

@@ -6,10 +6,11 @@ packing and observability flags, ``plan_from_args`` turns them into the
 typed ``RunPlan`` (core/plan.py) that ``sweep``/``grid_sweep`` accept,
 ``add_sample_args`` the per-class timing-table sweep triples,
 ``add_search_args`` the analytic-prune search knobs (dse only),
-``profile_ctx`` the ``--profile DIR`` trace and ``base_config`` the named
-base configs.  The same command lines as the reference's launchers work
-here, plus ``--device``: the launchers run on the CUDA device unless it
-names another.
+``add_service_args``/``service_from_args`` the sim server's knobs
+(launch/serve.py), ``profile_ctx`` the ``--profile DIR`` trace and
+``base_config`` the named base configs.  The same command lines as the
+reference's launchers work here, plus ``--device``: the launchers run on
+the CUDA device unless it names another.
 
 Flags of later slices parse as in the reference and raise
 ``NotImplementedError`` naming their slice when used: ``--mesh`` (slice
@@ -147,9 +148,48 @@ def plan_from_args(args: argparse.Namespace) -> RunPlan:
     )
 
 
+def add_service_args(ap: argparse.ArgumentParser) -> None:
+    """The sim-server knobs (launch/serve.py → core/service.py): base
+    hardware config and the batch-former's flush rule."""
+    ap.add_argument("--base", choices=("tiny", "3080ti"), default="tiny",
+                    help="base GPU config the server compiles for; job "
+                         "overrides may only touch dynamic knobs "
+                         "(sim/config.py:DYNAMIC_FIELDS + scheduler + "
+                         "per-class tables)")
+    ap.add_argument("--batch-lanes", type=int, default=8,
+                    help="flush the queue once this many lanes are "
+                         "waiting (the batch-size half of the flush rule)")
+    ap.add_argument("--max-wait-ms", type=float, default=50.0,
+                    help="flush when the oldest pending job has waited "
+                         "this long (the deadline half of the flush rule)")
+    ap.add_argument("--lane-quantum", type=int, default=None, metavar="Q",
+                    help="round each bucket's lane count up to a multiple "
+                         "of Q by repeating live lanes — padded slots "
+                         "carry real requests and AOT signatures stay "
+                         "stable as batch sizes drift")
+    ap.add_argument("--manifests", action="store_true",
+                    help="write a per-job run manifest (queue/compile/"
+                         "execute latency split) under experiments/runs/")
+
+
 def base_config(name: str):
     from repro_torch.sim.config import RTX3080TI, TINY
     return {"tiny": TINY, "3080ti": RTX3080TI}[name]
+
+
+def service_from_args(args: argparse.Namespace, plan=None):
+    """A configured (threaded) SimService from the parsed service+plan
+    flags, on ``--device`` (the CUDA card when it is not given)."""
+    from repro_torch.core.service import SimService
+    return SimService(
+        base=base_config(args.base),
+        plan=plan,
+        batch_lanes=args.batch_lanes,
+        max_wait_s=args.max_wait_ms / 1000.0,
+        lane_quantum=args.lane_quantum,
+        manifests=args.manifests,
+        device=args.device,
+    )
 
 
 @contextlib.contextmanager

@@ -3,8 +3,10 @@ flash_attention kernels against their plain PyTorch versions, the
 wrappers' input checks and launch counts, simulations on the card against
 the same simulations on the CPU and against the golden stats, counter
 timelines against their golden file and the CPU, the seeded search on the
-card against the same search on the CPU, and the reduced RWKV-6 and dense
-models on the card against their golden files.
+card against the same search on the CPU, the simulation server on the card
+against solo card runs and the golden stats, the first build of a kernel
+from two threads, and the reduced RWKV-6 and dense models on the card
+against their golden files.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -281,6 +283,132 @@ def test_search_card_equals_cpu(cuda, monkeypatch):
             for r in card.rounds] == \
         [{k: v for k, v in r.items() if k not in timing} for r in cpu.rounds]
     assert np.array_equal(card.model.theta, cpu.model.theta)
+
+
+TRACE_DIR = os.path.join(os.path.dirname(GOLDEN), "..", "data", "traces")
+# the card server's pool: the golden pairs, a config-override lane, a
+# sample grid and an uploaded trace, each a footprint of its own
+SERVE_SUBS = (
+    {"id": "myocyte", "workload": "myocyte"},
+    {"id": "gather", "workload": "trace:gather_chain"},
+    {"id": "cfg", "workload": "zoo:reduction_tree", "scale": 0.005,
+     "config": {"l2_lat": 64, "scheduler": "lrr"}},
+    {"id": "grid", "workload": "trace:vecadd",
+     "sample": {"n": 2, "lat": [["fp32", 2, 8]]}},
+)
+
+
+def _serve_subs():
+    with open(os.path.join(TRACE_DIR, "mm_tile.trace")) as f:
+        return SERVE_SUBS + ({"id": "upload", "trace_text": f.read()},)
+
+
+def _lane_sigs(job) -> list:
+    return [dict(S.comparable(s), timeouts=s["timeouts"])
+            for s in job.stats]
+
+
+def _solo_sigs(job) -> list:
+    out = []
+    for w, cfg in job.pairs:
+        st = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap"),
+                                 max_cycles=1 << 15))
+        out.append(dict(S.comparable(st), timeouts=st["timeouts"]))
+    return out
+
+
+def test_server_on_card_equals_solo_runs_and_golden(cuda, monkeypatch):
+    """A TINY server on its default device, the card, serves one batch:
+    one sm_quantum launch per quantum of every bucket run, every lane
+    equal to its solo card run, and the golden pairs (myocyte@1.0,
+    trace:gather_chain@1.0) equal to their golden stats."""
+    from repro_torch.core.service import SimService
+    with open(os.path.join(os.path.dirname(GOLDEN), SIM_GOLDENS[TINY])) as f:
+        golden = json.load(f)
+    svc = SimService(base=TINY, plan=RunPlan(max_cycles=1 << 15,
+                                             bucket_by="shape"), start=False)
+    assert svc.device.type == "cuda"
+    jobs = [svc.submit(s) for s in _serve_subs()]
+    steps = _QuantumSteps(monkeypatch)
+    fused = Q.sm_quantum.launches
+    assert svc.run_pending() == len(jobs)
+    assert Q.sm_quantum.launches - fused == steps.n > 0
+    assert jobs[0].batch["n_buckets"] > 1
+    assert S.comparable(jobs[0].stats[0]) == golden["myocyte@1.0"]
+    assert S.comparable(jobs[1].stats[0]) == \
+        golden["trace:gather_chain@1.0"]
+    for job in jobs:
+        assert _lane_sigs(job) == _solo_sigs(job), job.id
+        json.dumps(job.response())
+
+
+def test_threaded_server_on_card(cuda):
+    """The scheduler thread runs every batch on the card while two client
+    threads submit; after drain, every lane equals its solo card run."""
+    import threading
+    from repro_torch.core.service import SimService
+    svc = SimService(base=TINY, plan=RunPlan(max_cycles=1 << 15,
+                                             bucket_by="shape"),
+                     batch_lanes=3, max_wait_s=0.02)
+    subs = _serve_subs()[1:]
+    jobs, lock = [], threading.Lock()
+
+    def client(ci):
+        for j in range(2):
+            job = svc.submit(dict(subs[(ci + j) % len(subs)],
+                                  id=f"c{ci}-{j}"))
+            with lock:
+                jobs.append(job)
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert svc.drain(timeout=300.0), svc.stats()
+    svc.shutdown(drain=False)
+    assert svc.stats()["served"] == 4 and svc.stats()["errors"] == 0
+    for job in jobs:
+        assert _lane_sigs(job) == _solo_sigs(job), job.id
+
+
+def test_kernel_first_build_from_two_threads(cuda, tmp_path, monkeypatch):
+    """Two threads reach sm_quantum's first build at once: nvcc runs once,
+    one library is installed and both threads load it; a launcher made
+    with ``build.once`` hands both threads the same one."""
+    import threading
+    from repro_torch.kernels import build
+
+    def together(fn):
+        barrier = threading.Barrier(2)
+        out = [None, None]
+
+        def run(i):
+            barrier.wait()
+            out[i] = fn()
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        return out
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "a")
+    built = together(lambda: build.build_library(Q.SOURCE, "sm_quantum"))
+    assert sorted(info["seconds"] > 0 for _, info in built) == [False, True]
+    assert os.listdir(tmp_path / "a") == [os.path.basename(
+        built[0][1]["path"])]
+    assert all(hasattr(lib, "sm_quantum_launch") for lib, _ in built)
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "b")
+    launcher = build.once(lambda: build.build_library(Q.SOURCE,
+                                                      "sm_quantum"))
+    first = together(launcher)
+    assert first[0] is first[1]
+    assert len(os.listdir(tmp_path / "b")) == 1
 
 
 SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
