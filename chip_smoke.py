@@ -83,6 +83,23 @@ last line.  The simulator's path:
      cold start to first completion beside the warm in-process batch of
      the same jobs), a --port 0 socket session beside --selftest, every
      completion equal to the in-process lanes;
+  m. SM-axis sharding and the ('cfg','sm') mesh on this one card, every
+     mesh position repeating it (the counterpart of the JAX package's
+     forced host devices): nn@0.5 and syrk@0.16 at full width through
+     run_workload with run_kernel_sharded over 4 shards, static and
+     dynamic assignment, window exchange, against
+     tests/golden/torch_port_rtx3080ti.json with 0 timeouts and one
+     sm_quantum launch per shard per quantum; the per-cycle exchange
+     (sm_issue every cycle) on TINY myocyte@1.0 and trace:gather_chain@1.0
+     at 4 shards against tests/golden/determinism_tiny.json; dse's default
+     grid of 8 configs over nn@0.5 at meshes 1x1, 2x1, 1x2, 2x2 and 4x1,
+     every lane (timeouts included) against the no-mesh sweep, with each
+     shape's wall, sm_quantum launches per group quantum, and a profile
+     of 16 quanta (kernel launches per quantum, idle share) printed
+     before any check: on one card they measure what distribution costs
+     the host, not a speed-up; telemetry on at 2x2 equal to the no-mesh
+     timelines; dse --mesh 2 2 --check and zoo --trace tests/data/traces
+     --grid 3 4 --mesh 1 2 --check through main() on the card;
 The RWKV-6 serving path (f32 products in full f32: TF32 is off):
   a. the wkv6 build: ptxas registers and spills, and the dynamic shared
      memory of one block per head size;
@@ -202,6 +219,16 @@ SOAK_CLIENTS, SOAK_DRAWS, SOAK_SEED = 4, 4, 20261017
 CHILD_IDS = ("nn@0.5", "cfg", "vecadd", "mm_tile")
 SERVE_PROFILE_QUANTA = (16, 48)
 SERVE_CASES_TEXT = tuple(f"{b}@{s}" for b, s in SERVE_CASES)
+# phase m: SM-axis sharding and the ('cfg','sm') mesh on the one card,
+# every mesh position repeating it: the 1-D shards of SWEEP_CASES at full
+# width, the per-cycle exchange on TINY cases, and dse's default grid of
+# SWEEP_LANES configs over MESH_CASE at every shape of MESH_SHAPES
+SHARD_DEVICES = 4
+SHARD_CYCLE_CASES = (("myocyte", 1.0), ("trace:gather_chain", 1.0))
+MESH_CASE = ("nn", 0.5)
+MESH_SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1))
+MESH_TELEMETRY_SHAPE = (2, 2)
+MESH_PROFILE_QUANTA = 16
 # phase 3: (workload, scale, mode, timeouts) against determinism_tiny.json.
 # hotspot@0.02 is cut by the golden's cycle cap in 2 of its 4 kernels: the
 # JAX package reads timeouts 2 on the same run (ROADMAP.md §3), the card
@@ -1270,12 +1297,13 @@ def quantum_loop(w, cfgs, n_q):
     return lambda: runner(state0, stacked, dyn)
 
 
-def loop_profile(torch, w, cfgs, n_q=16):
+def loop_profile(torch, w, cfgs, n_q=16, loop=None):
     """A profile of the quantum loop alone over the first ``n_q`` quanta
-    of workload ``w`` with one lane per config of ``cfgs``: kernel launches
-    (and sm_quantum's) and device-to-host reads per quantum, device busy
-    and idle share, wall."""
-    events, pwall = profiled(torch, quantum_loop(w, cfgs, n_q))
+    of workload ``w`` with one lane per config of ``cfgs`` (or of ``loop``,
+    a call that runs those quanta): kernel launches (and sm_quantum's)
+    and device-to-host reads per quantum, device busy and idle share,
+    wall."""
+    events, pwall = profiled(torch, loop or quantum_loop(w, cfgs, n_q))
     kernels = [(name, us) for name, us in events
                if not name.startswith(("Memcpy", "Memset"))]
     busy = sum(us for _, us in events) / 1e6
@@ -1815,6 +1843,260 @@ def socket_session(proc, subs, want):
     return {"socket_lines": len(replies), "port": port}
 
 
+class GroupSteps:
+    """Counts the quantum steps of 'sm' groups (one per quantum of each
+    group of a mesh) while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.core import parallel
+        self.mod, self.make, self.n = parallel, parallel.make_shard_body, 0
+
+        def make(*args, **kw):
+            body = self.make(*args, **kw)
+
+            def counted(*a):
+                self.n += 1
+                return body(*a)
+            return counted
+        parallel.make_shard_body = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_shard_body = self.make
+
+
+def _mesh_counted(torch, K, Q, fn):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after; returns (result, wall s, sm_quantum launches, sm_issue
+    launches, group quantum steps)."""
+    torch.cuda.synchronize()
+    K.issue_select.launches = 0
+    Q.sm_quantum.launches = 0
+    with GroupSteps() as steps:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, Q.sm_quantum.launches, K.issue_select.launches, \
+        steps.n
+
+
+def one_card(torch, n):
+    """``n`` mesh positions on the current card."""
+    return [torch.device("cuda", torch.cuda.current_device())] * n
+
+
+def shard_run(torch, K, Q, bench, scale, cfg, policy, exchange, max_cycles,
+              devices=None):
+    """One workload through ``run_workload`` with ``run_kernel_sharded``
+    over a 1-D mesh of SHARD_DEVICES positions, ``devices`` or the card
+    repeated.  Returns (comparable stats, timeouts, wall s, sm_quantum
+    launches, sm_issue launches, quanta)."""
+    from repro_torch.core import stats as S
+    from repro_torch.core.engine import run_workload
+    from repro_torch.core.parallel import (permute_state, run_kernel_sharded,
+                                           sm_permutation)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sim.config import split_config
+    from repro_torch.sim.state import init_state
+    from repro_torch.sim.workloads import resolve_workload
+
+    w = resolve_workload(bench, scale)
+    scfg, dyn = split_config(cfg, device="cuda")
+    mesh = make_host_mesh(SHARD_DEVICES, devices=devices or one_card(
+        torch, SHARD_DEVICES))
+
+    def run():
+        state = permute_state(init_state(scfg, "cuda", 1),
+                              sm_permutation(cfg, SHARD_DEVICES, policy))
+        return run_workload(
+            state, [k.pack("cuda") for k in w.kernels], scfg, dyn,
+            kernel_runner=lambda st, k, d: run_kernel_sharded(
+                st, k, cfg, mesh, max_cycles=max_cycles, exchange=exchange,
+                dyn=d))
+    st, wall, fused, issue, steps = _mesh_counted(torch, K, Q, run)
+    out = S.finalize(S.take_lane(st, 0))
+    return S.comparable(out), out["timeouts"], wall, fused, issue, steps
+
+
+def mesh_loop(w, cfgs, mesh, n_q):
+    """A call of the mesh sweep runner alone over the first ``n_q`` quanta
+    of every 'cfg' group, one lane per config of ``cfgs``, from a state
+    placed once."""
+    from repro_torch.core import distribute as D
+    from repro_torch.core.batch import stack_kernels
+    from repro_torch.core.sweep import stack_dyn
+    from repro_torch.sim.state import init_state
+
+    scfg, dyn = stack_dyn(cfgs, "cuda")
+    stacked = stack_kernels([k.pack("cuda") for k in w.kernels])
+    runner = D.make_dist_sweep_runner(scfg, mesh, n_q * scfg.quantum)
+    args = (D.place_state(init_state(scfg, "cuda", len(cfgs)), mesh,
+                          D.CFG_AXIS),
+            D.place_lanes(stacked, mesh, ()), D.place_lanes(dyn, mesh))
+    return lambda: runner(*args)
+
+
+def _launcher_run(main, argv):
+    """A launcher's ``main(argv)`` with its stdout captured: (lines, error
+    text or None)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        err = None
+    except (AssertionError, RuntimeError, ValueError) as e:
+        err = f"{type(e).__name__}: {e}"
+    return buf.getvalue().strip().splitlines(), err
+
+
+def phase_mesh(torch, K, Q, tiny_golden, full_golden):
+    """SM-axis sharding and the 2-D ('cfg','sm') mesh on one card, every
+    mesh position repeating it (the counterpart of the reference's forced
+    host devices): measures, records what disagrees, checks nothing —
+    main prints every reading first.
+
+      · SWEEP_CASES at full width through ``run_workload`` with
+        ``run_kernel_sharded`` over SHARD_DEVICES positions, static and
+        dynamic assignment, window exchange: stats, timeouts, launches;
+      · SHARD_CYCLE_CASES on TINY at SHARD_DEVICES, per-cycle exchange
+        (sm_issue every cycle, no sm_quantum);
+      · dse's default grid of SWEEP_LANES configs over MESH_CASE at every
+        shape of MESH_SHAPES against the card's no-mesh sweep, lane by
+        lane with timeouts, each with a profile of MESH_PROFILE_QUANTA
+        quanta of the mesh runner; telemetry at MESH_TELEMETRY_SHAPE
+        against the no-mesh timelines;
+      · ``dse --mesh 2 2 --check`` and ``zoo --trace ... --grid 3 4
+        --mesh 1 2 --check`` through ``main()``, on ``--device`` the
+        card (every position)."""
+    from repro_torch.core import stats as S
+    from repro_torch.core import telemetry as T
+    from repro_torch.core.distribute import make_mesh
+    from repro_torch.core.plan import RunPlan
+    from repro_torch.core.sweep import sweep
+    from repro_torch.launch import dse, zoo
+    from repro_torch.launch.dse import default_grid, lane_signature
+    from repro_torch.sim.config import RTX3080TI, TINY
+    from repro_torch.workloads import make_workload
+
+    out = {"bad": [], "shard": [], "cycle": [], "mesh": [], "launches": 0,
+           "issue": 0}
+    for bench, scale in SWEEP_CASES:
+        key = f"{bench}@{scale}"
+        for policy in ("static", "dynamic"):
+            got, to, wall, fused, issue, steps = shard_run(
+                torch, K, Q, bench, scale, RTX3080TI, policy, "window",
+                1 << 17)
+            quanta = steps
+            out["shard"].append(dict(key=key, policy=policy, wall=wall,
+                                     launches=fused, issue=issue,
+                                     quanta=quanta, timeouts=to))
+            out["launches"] += fused
+            if got != full_golden[key] or to != 0:
+                out["bad"].append(f"{key} {policy}/window at "
+                                  f"{SHARD_DEVICES} shards: stats or "
+                                  f"timeouts {to} differ from the pinned")
+            if not (fused == SHARD_DEVICES * quanta > 0 and issue == 0):
+                out["bad"].append(f"{key} {policy}/window: {fused} "
+                                  f"sm_quantum and {issue} sm_issue "
+                                  f"launches for {quanta} quanta")
+    for bench, scale in SHARD_CYCLE_CASES:
+        key = f"{bench}@{scale}"
+        got, to, wall, fused, issue, steps = shard_run(
+            torch, K, Q, bench, scale, TINY, "dynamic", "cycle", 1 << 15)
+        out["cycle"].append(dict(key=key, wall=wall, launches=fused,
+                                 issue=issue, quanta=steps, timeouts=to))
+        out["issue"] += issue
+        if got != tiny_golden[key] or to != 0:
+            out["bad"].append(f"{key} dynamic/cycle: stats or timeouts {to}"
+                              " differ from determinism_tiny.json")
+        if not (fused == 0 and issue > 0):
+            out["bad"].append(f"{key} dynamic/cycle: {fused} sm_quantum and "
+                              f"{issue} sm_issue launches")
+    # the 2-D mesh: dse's default grid over MESH_CASE
+    cfgs = default_grid(RTX3080TI, SWEEP_LANES)
+    w = make_workload(MESH_CASE[0], scale=MESH_CASE[1])
+    plan = dict(max_cycles=1 << 17)
+    ref, ref_wall, _, _, _ = _counted_run(
+        torch, K, Q, lambda: sweep(w, cfgs, plan=RunPlan(**plan),
+                                   device="cuda"))
+    want = [lane_signature(st) for st in ref.stats]
+    out["nomesh"] = dict(loop_profile(torch, w, cfgs, MESH_PROFILE_QUANTA),
+                         wall=ref_wall)
+    for a, b in MESH_SHAPES:
+        mesh = make_mesh(a, b, devices=one_card(torch, a * b))
+        r, wall, fused, issue, steps = _mesh_counted(
+            torch, K, Q, lambda: sweep(w, cfgs, plan=RunPlan(
+                mesh=mesh, **plan), device="cuda"))
+        out["launches"] += fused
+        prof = loop_profile(torch, w, cfgs, MESH_PROFILE_QUANTA,
+                            mesh_loop(w, cfgs, mesh, MESH_PROFILE_QUANTA))
+        out["mesh"].append(dict(prof, shape=(a, b), wall=wall,
+                                launches=fused, issue=issue,
+                                group_steps=steps))
+        got = [lane_signature(st) for st in r.stats]
+        if got != want:
+            out["bad"].append(f"{a}x{b} mesh: lanes "
+                              f"{[i for i, (g, x) in enumerate(zip(got, want)) if g != x]}"
+                              " differ from the no-mesh sweep")
+        if not (fused == b * steps > 0 and issue == 0):
+            out["bad"].append(f"{a}x{b} mesh: {fused} sm_quantum and "
+                              f"{issue} sm_issue launches for {steps} group "
+                              "quanta")
+    # counter timelines on the mesh against the no-mesh timelines
+    a, b = MESH_TELEMETRY_SHAPE
+    tplan = dict(plan, telemetry_samples=64, telemetry_every=16)
+    t_ref = sweep(w, cfgs, plan=RunPlan(**tplan), device="cuda")
+    t_mesh, t_wall, fused, _, _ = _mesh_counted(
+        torch, K, Q, lambda: sweep(w, cfgs, plan=RunPlan(
+            mesh=make_mesh(a, b, devices=one_card(torch, a * b)), **tplan),
+            device="cuda"))
+    out["launches"] += fused
+    tls, ref_tls = t_mesh.timelines(), t_ref.timelines()
+    rows = sum(len(v) for v in tls.values())
+    same = (tls.keys() == ref_tls.keys()
+            and all(np.array_equal(tls[k], ref_tls[k]) for k in tls)
+            and [s["lockstep_waste"] for s in t_mesh.stats]
+            == [s["lockstep_waste"] for s in t_ref.stats])
+    finals = [T.check_final_sample(S.take_lane(t_mesh.state, i), st)
+              for i, st in enumerate(t_mesh.stats)]
+    out["telemetry"] = dict(wall=t_wall, rows=rows, same=same,
+                            waste=[s["lockstep_waste"] for s in t_mesh.stats])
+    if not same or any(finals):
+        out["bad"].append(f"{a}x{b} mesh with telemetry: timelines or "
+                          f"lockstep waste differ from the no-mesh run, or "
+                          f"last rows {finals} differ from finalize")
+    # the launchers through main(), on the card at every position
+    card = str(one_card(torch, 1)[0])
+    traces = os.path.join(ROOT, "tests", "data", "traces")
+    out["launchers"] = {}
+    for name, main, argv, ok_line in (
+            ("dse", dse.main,
+             ["--base", "3080ti", "--workload", MESH_CASE[0], "--scale",
+              str(MESH_CASE[1]), "--n", str(SWEEP_LANES), "--mesh", "2",
+              "2", "--device", card, "--check", "--no-manifest"],
+             f"[dse] check OK: all {SWEEP_LANES} lanes bit-exact vs solo"),
+            ("zoo", zoo.main,
+             ["--trace", traces, "--grid", "3", "4", "--mesh", "1", "2",
+              "--device", card, "--check", "--no-manifest"],
+             "[zoo] check OK: all 12 lanes bit-exact vs solo runs")):
+        (lines, err), wall, fused, issue, steps = _mesh_counted(
+            torch, K, Q, lambda: _launcher_run(main, argv))
+        out["launches"] += fused
+        where = [x for x in lines if "('cfg','sm') mesh" in x]
+        out["launchers"][name] = dict(wall=wall, launches=fused,
+                                      group_steps=steps, err=err,
+                                      device=card,
+                                      where=where[0] if where else None)
+        if err or not lines or lines[-1] != ok_line or not where \
+                or fused == 0:
+            out["bad"].append(f"{' '.join(argv)}: {err or lines[-1:]}, "
+                              f"{fused} sm_quantum launches")
+    return out
+
+
 def phase_serve(torch, K, Q, full_golden):
     """The simulation server on the card at full width (RTX 3080 Ti base,
     bucket_by='shape'): one synchronous batch of ``serve_subs()``, its
@@ -2270,6 +2552,53 @@ def main():
           f"{c['selftest_s']:.3f} s: {' | '.join(c['selftest_lines'])}); "
           f"phase v {v_s:.1f} s", flush=True)
 
+    # m. SM-axis sharding and the ('cfg','sm') mesh, every position on
+    # this card: the readings first, then the checks
+    t_m = time.perf_counter()
+    mr = phase_mesh(torch, K, Q, tiny_golden, full_golden)
+    m_s = time.perf_counter() - t_m
+    for row in mr["shard"]:
+        print(f"[m shard] {row['key']} RTX3080TI over {SHARD_DEVICES} "
+              f"shards of this card, {row['policy']}/window: wall "
+              f"{row['wall']:.3f} s, {row['quanta']} quanta, "
+              f"{row['launches']} sm_quantum launches "
+              f"({row['launches'] / max(row['quanta'], 1):.2f} per quantum),"
+              f" {row['issue']} sm_issue, timeouts {row['timeouts']}",
+              flush=True)
+    for row in mr["cycle"]:
+        print(f"[m shard] {row['key']} TINY over {SHARD_DEVICES} shards, "
+              f"dynamic/cycle: wall {row['wall']:.3f} s, {row['quanta']} "
+              f"quanta, {row['issue']} sm_issue launches, "
+              f"{row['launches']} sm_quantum, timeouts {row['timeouts']}",
+              flush=True)
+    print(f"[m mesh] {MESH_CASE[0]}@{MESH_CASE[1]} x dse's default grid of "
+          f"{SWEEP_LANES} configs, one card repeated at every mesh position: "
+          "these readings measure what distribution costs the host, not a "
+          "speed-up", flush=True)
+    print(f"[m mesh] no mesh: wall {mr['nomesh']['wall']:.3f} s; first "
+          f"{MESH_PROFILE_QUANTA} quanta: {profile_text(mr['nomesh'])}",
+          flush=True)
+    for row in mr["mesh"]:
+        a, b = row["shape"]
+        print(f"[m mesh] {a}x{b} ('cfg','sm') mesh: wall {row['wall']:.3f} "
+              f"s, {row['group_steps']} group quanta, {row['launches']} "
+              f"sm_quantum launches ({row['launches'] / max(row['group_steps'], 1):.2f}"
+              f" per group quantum, {b} shard device(s) per group); first "
+              f"{MESH_PROFILE_QUANTA} quanta of every group: "
+              f"{profile_text(row)}", flush=True)
+    d = mr["telemetry"]
+    print(f"[m mesh] {MESH_TELEMETRY_SHAPE[0]}x{MESH_TELEMETRY_SHAPE[1]} with "
+          f"telemetry (64 rows every 16 quanta): {d['rows']} rows, equal to "
+          f"the no-mesh timelines: {d['same']}, lockstep waste "
+          f"{d['waste']}, wall {d['wall']:.3f} s", flush=True)
+    for name, row in mr["launchers"].items():
+        print(f"[m mesh] {name} main() --mesh --check on {row['device']}: wall "
+              f"{row['wall']:.3f} s, {row['launches']} sm_quantum launches "
+              f"for {row['group_steps']} group quanta; "
+              f"{row['err'] or row['where']}", flush=True)
+    print(f"[m mesh] phase m {m_s:.1f} s", flush=True)
+    check(not mr["bad"], "phase m: " + "; ".join(mr["bad"]))
+
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
           f"the others (loaded {wkv_build_s:.2f} s after the start); "
@@ -2494,6 +2823,8 @@ def main():
         # the main path's launches (phase 4's fused runs: none, sm_quantum
         # took them over), beside the eager witness's and phase 2's
         "launches": main_issue, "witness_launches": witness_launches,
+        # the per-cycle exchange of SM-axis sharding (phase m)
+        "mesh_cycle_launches": mr["issue"],
         "compare_launches": kr["cases"],
         "max_abs_err": kr["max_abs_err"],
         "ms": kr["ms"], "plain_ms": kr["plain_ms"],
@@ -2512,6 +2843,8 @@ def main():
         "telemetry_launches": tr["launches"],
         "search_launches": rr_["launches"],
         "serve_launches": vr["launches_all"],
+        # the mesh path's (phase m: 1-D shards, 2-D meshes, launchers)
+        "mesh_launches": mr["launches"],
         "max_abs_err": qr["max_abs_err"],
         "ms": qr["ms"], "plain_ms": qr["plain_ms"],
         "bound_ms": qr["bound_ms"], "bound_by": qr["bound_by"],

@@ -6,7 +6,8 @@ Each machine quantum (Δ = 16 cycles):
   3. SM phase ×Δ    (parallel region) — per SM, local
 
 The SM phase runner is injected (core/parallel.py), so one engine body
-serves the sequential and vectorized modes, with bit-identical results.
+serves the sequential, vectorized and sharded modes, with bit-identical
+results; the SM-sharded quantum loop plugs in as a ``kernel_runner``.
 
 Lanes: every state leaf, trace leaf and ``DynConfig`` leaf carries a
 leading lane axis of ``L`` independent simulations (core/sweep.py), and a
@@ -47,6 +48,13 @@ def converged(ctrl: dict, warp: dict, req: dict, trace: dict):
             & ~(req["stage"] != 0).flatten(1).any(1))
 
 
+def stamp_done(ctrl: dict, done, at) -> dict:
+    """``ctrl`` with ``done_cycle`` set to ``at`` in every lane that is
+    ``done`` and was not yet."""
+    return dict(ctrl, done_cycle=torch.where(
+        (ctrl["done_cycle"] < 0) & done, at, ctrl["done_cycle"]))
+
+
 def mark_entry_converged(state: dict, trace: dict) -> dict:
     """Early exit: stamp ``done_cycle`` before the quantum loop in every
     lane whose kernel is already converged at entry, so that lane runs
@@ -55,9 +63,7 @@ def mark_entry_converged(state: dict, trace: dict) -> dict:
     those out."""
     ctrl = state["ctrl"]
     entry = converged(ctrl, state["warp"], state["req"], trace)
-    dc = torch.where((ctrl["done_cycle"] < 0) & entry, ctrl["cycle"],
-                     ctrl["done_cycle"])
-    return dict(state, ctrl=dict(ctrl, done_cycle=dc))
+    return dict(state, ctrl=stamp_done(ctrl, entry, ctrl["cycle"]))
 
 
 def quantum_step(state: dict, trace: dict, cfg: StaticConfig,
@@ -72,10 +78,8 @@ def quantum_step(state: dict, trace: dict, cfg: StaticConfig,
     warp, sm, req, stats_sm = sm_runner(warp, state["sm"], req,
                                         state["stats_sm"], trace, t0, dyn)
     cycle_end = t0 + cfg.quantum
-    done = converged(ctrl, warp, req, trace)
-    done_cycle = torch.where((ctrl["done_cycle"] < 0) & done, cycle_end,
-                             ctrl["done_cycle"])
-    ctrl = dict(ctrl, cycle=cycle_end, done_cycle=done_cycle)
+    ctrl = dict(stamp_done(ctrl, converged(ctrl, warp, req, trace),
+                           cycle_end), cycle=cycle_end)
     out = {"warp": warp, "sm": sm, "req": req, "mem": mem, "ctrl": ctrl,
            "stats_sm": stats_sm, "stats": gstats}
     # the counter timeline: nothing runs for it when telemetry is off
@@ -126,9 +130,53 @@ def kernel_cycles(ctrl: dict):
                        ctrl["cycle"])
 
 
+def _kernel_traces(stacked: dict) -> list:
+    """The stacked kernels one at a time: per kernel, every lane's packed
+    trace, ``(L, …)`` (ragged: the flat instruction streams with the
+    kernel's scalars)."""
+    if "instr_base" in stacked:
+        per_kernel, flat = split_ragged(stacked)
+    else:
+        per_kernel, flat = stacked, {}
+    return [dict(flat, **{f: v[:, k] for f, v in per_kernel.items()})
+            for k in range(per_kernel["n_ctas"].shape[1])]
+
+
+def run_groups_stacked(states: list, stackeds: list, cfg: StaticConfig,
+                       dyns: list, kernel_runner, state_transform=None,
+                       reset=reset_for_kernel, select=_select) -> list:
+    """``run_workload_stacked`` for several independent lane groups at once,
+    kernel by kernel: ``kernel_runner(states, packeds, dyns) -> states``
+    runs one kernel of every group (core/distribute.py's 'cfg' groups,
+    which it steps together).  Every group's workload has the same
+    kernel count; ``cfg`` is the shape ``reset`` builds.  ``reset`` and
+    ``select`` default to the whole state's; an 'sm' group's state brings
+    its own (core/parallel.py:reset_group, select_group)."""
+    kernels = [_kernel_traces(s) for s in stackeds]
+    states = list(states)
+    totals = [torch.zeros_like(st["ctrl"]["cycle"]) for st in states]
+    timeouts = [torch.zeros_like(t) for t in totals]
+    for k in range(len(kernels[0])):
+        packed = [ks[k] for ks in kernels]
+        sts = [reset(st, cfg) for st in states]
+        if state_transform is not None:
+            sts = [state_transform(st) for st in sts]
+        sts = kernel_runner(sts, packed, dyns)
+        for g, st in enumerate(sts):
+            empty = packed[g]["n_ctas"] == 0
+            totals[g] = totals[g] + torch.where(empty, 0,
+                                                kernel_cycles(st["ctrl"]))
+            timeouts[g] = timeouts[g] + (
+                ~empty & (st["ctrl"]["done_cycle"] < 0)).int()
+            states[g] = select(empty, states[g], st)
+    return [dict(st, ctrl=dict(st["ctrl"], total_cycles=t, timeouts=o))
+            for st, t, o in zip(states, totals, timeouts)]
+
+
 def run_workload_stacked(state: dict, stacked: dict, cfg: StaticConfig,
                          dyn: DynConfig, sm_runner, max_cycles: int = 1 << 20,
-                         early_exit: bool = True) -> dict:
+                         early_exit: bool = True, state_transform=None,
+                         kernel_runner=None) -> dict:
     """Run a whole workload in every lane: a loop over the stacked kernel
     axis, the lanes in lockstep.
 
@@ -140,30 +188,49 @@ def run_workload_stacked(state: dict, stacked: dict, cfg: StaticConfig,
     by ``split_ragged`` and re-merged per kernel.  A lane axis may be a
     stride-0 view of one workload shared by every lane.
 
-    Per kernel: state reset (sim/state.py:reset_for_kernel), run the
-    kernel to completion, accumulate its cycles.  Padding kernels
-    (``n_ctas == 0``) are masked out per lane — the carried state passes
-    through unchanged and 0 cycles are charged.  A kernel that hits
-    ``max_cycles`` bumps the lane's ``timeouts`` counter."""
-    ctrl = state["ctrl"]
-    total = torch.zeros_like(ctrl["cycle"])
-    timeouts = torch.zeros_like(ctrl["cycle"])
-    if "instr_base" in stacked:
-        per_kernel, flat = split_ragged(stacked)
-    else:
-        per_kernel, flat = stacked, {}
-    n_kernels = per_kernel["n_ctas"].shape[1]
-    for k in range(n_kernels):
-        packed = dict(flat, **{f: v[:, k] for f, v in per_kernel.items()})
-        st = reset_for_kernel(state, cfg)
-        st = run_kernel(st, packed, cfg, dyn, sm_runner, max_cycles,
-                        early_exit)
-        empty = packed["n_ctas"] == 0
-        total = total + torch.where(empty, 0, kernel_cycles(st["ctrl"]))
-        timeouts = timeouts + (~empty & (st["ctrl"]["done_cycle"] < 0)).int()
-        state = _select(empty, state, st)
-    return dict(state, ctrl=dict(state["ctrl"], total_cycles=total,
-                                 timeouts=timeouts))
+    Per kernel: state reset (sim/state.py:reset_for_kernel), then
+    ``state_transform`` when given, run the kernel to completion,
+    accumulate its cycles.  Padding kernels (``n_ctas == 0``) are masked
+    out per lane — the carried state passes through unchanged and 0
+    cycles are charged.  A kernel that hits ``max_cycles`` bumps the
+    lane's ``timeouts`` counter.
+
+    ``kernel_runner`` — ``(state, packed, dyn) -> state`` — replaces the
+    default ``run_kernel`` quantum loop (a sharded one, say: see
+    core/parallel.py:run_kernel_sharded); the reset, masking and timeout
+    accounting stay shared by every execution mode."""
+    if kernel_runner is None:
+        def kernel_runner(st, packed, d):
+            return run_kernel(st, packed, cfg, d, sm_runner, max_cycles,
+                              early_exit)
+
+    def one_group(sts, packeds, dyns):
+        return [kernel_runner(sts[0], packeds[0], dyns[0])]
+
+    [state] = run_groups_stacked([state], [stacked], cfg, [dyn], one_group,
+                                 state_transform)
+    return state
+
+
+def run_workload(state: dict, kernels: list, cfg: StaticConfig,
+                 dyn: DynConfig, sm_runner=None, max_cycles: int = 1 << 20,
+                 state_transform=None, kernel_runner=None) -> dict:
+    """Run packed kernels back to back in every lane of ``state``,
+    accumulating total cycles.  ``kernels`` (``KernelTrace.pack``) and
+    ``dyn`` (``split_config``) are one workload and one config, without a
+    lane axis: every lane shares them through stride-0 views.  The kernel
+    list is padded and stacked (core/batch.py) and handed to
+    ``run_workload_stacked``, with its ``kernel_runner`` when given (say
+    ``core/parallel.py:run_kernel_sharded``)."""
+    n = state["ctrl"]["cycle"].shape[0]
+
+    def lanes(tree: dict) -> dict:
+        return {f: v.expand(n, *v.shape) for f, v in tree.items()}
+
+    return run_workload_stacked(
+        state, lanes(stack_kernels(kernels)), cfg,
+        dyn.map(lambda x: x.expand(n, *x.shape)), sm_runner, max_cycles,
+        state_transform=state_transform, kernel_runner=kernel_runner)
 
 
 def simulate(workload: Workload, cfg: GPUConfig, sm_runner, *,

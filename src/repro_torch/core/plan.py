@@ -9,7 +9,7 @@ Fields by concern:
   execution   ``mode`` (seq/vmap), ``max_cycles`` (per-kernel quantum-loop
               horizon), ``early_exit`` (entry-converged lanes charge zero
               quanta — core/engine.py); ``mesh`` + ``exchange`` (2-D
-              ('cfg','sm') distribution: slice 10 of the port).
+              ('cfg','sm') distribution, core/distribute.py).
   packing     ``bucket_by`` ('none' | 'shape' | 'cost'): split the
               workload lanes of a grid into ≤ ``max_buckets`` buckets of
               similar padded shape / predicted cost and run each bucket
@@ -23,8 +23,8 @@ Fields by concern:
               ``aot_cache`` is accepted and inert — the port runs eagerly,
               so there is no compiled executable to keep.
 
-What the port cannot do yet raises ``NotImplementedError`` naming the
-slice that brings it, after the reference's own validation.
+What the port cannot do yet (``cache_dir``) raises
+``NotImplementedError`` after the reference's own validation.
 
 Legacy keyword compatibility: ``resolve_plan`` lets the old flat kwargs
 (`mode=`, `max_cycles=`, `mesh=`, `exchange=`) build a RunPlan and warn
@@ -48,7 +48,7 @@ class RunPlan:
     ``simulate`` call, validated once at construction."""
     # execution
     mode: str = "vmap"
-    mesh: object = None          # a ('cfg','sm') device mesh: slice 10
+    mesh: object = None          # core/distribute.py:Mesh, ('cfg','sm') axes
     exchange: str = "window"
     max_cycles: int = 1 << 20
     early_exit: bool = True
@@ -129,11 +129,7 @@ class RunPlan:
                 raise ValueError(
                     "RunPlan.mesh must be a 2-D ('cfg','sm') mesh "
                     f"(core/distribute.py:make_mesh), got axes {names}")
-        # what the port does not run yet, by the slice that brings it
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RunPlan.mesh: multi-device distribution over a "
-                "('cfg','sm') mesh is slice 10 of the port, not ported yet")
+        # what the port does not run yet
         if self.cache_dir:
             raise NotImplementedError(
                 f"RunPlan.cache_dir={self.cache_dir!r}: the port compiles "
@@ -162,8 +158,11 @@ class RunPlan:
 
     def describe(self) -> dict:
         """JSON-safe summary for run manifests."""
+        mesh = None
+        if self.mesh is not None:
+            mesh = [int(self.mesh.shape["cfg"]), int(self.mesh.shape["sm"])]
         return {
-            "mode": self.mode, "mesh": None, "exchange": self.exchange,
+            "mode": self.mode, "mesh": mesh, "exchange": self.exchange,
             "max_cycles": self.max_cycles, "early_exit": self.early_exit,
             "bucket_by": self.bucket_by, "max_buckets": self.max_buckets,
             "layout": self.layout,

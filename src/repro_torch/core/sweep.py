@@ -20,7 +20,8 @@ Workloads of a grid or a pair sweep are padded to a shared (kernel
 count, instruction count) with inert kernels and NOP slots, or
 ragged-concatenated (``plan.layout``); a sweep's one workload is shared
 by every lane through a stride-0 view.  Runs on the CUDA device unless
-``device`` names another one.
+``device`` names another one; with ``plan.mesh`` a sweep or grid runs
+on the mesh's devices instead (core/distribute.py).
 """
 from __future__ import annotations
 
@@ -99,6 +100,15 @@ def make_sweep_runner(scfg: StaticConfig, mode: str = "vmap",
     return sweep_run
 
 
+def grid_lanes(stacked: dict, dyn: DynConfig) -> tuple:
+    """W stacked workloads × C configs as W·C lanes, workload-major: the
+    lanes' (stacked kernels, DynConfig)."""
+    n_w = stacked["n_ctas"].shape[0]
+    n_c = dyn.icnt.icnt_lat.shape[0]
+    lanes = {f: v.repeat_interleave(n_c, 0) for f, v in stacked.items()}
+    return lanes, dyn.map(lambda x: x.repeat(n_w, *(1,) * (x.dim() - 1)))
+
+
 def make_grid_runner(scfg: StaticConfig, mode: str = "vmap",
                      max_cycles: int = 1 << 20, early_exit: bool = True):
     """``(state_grid, stacked_workloads, dyn_batch) -> final state`` with
@@ -110,9 +120,7 @@ def make_grid_runner(scfg: StaticConfig, mode: str = "vmap",
     def grid_run(state0, stacked, dyn):
         n_w = stacked["n_ctas"].shape[0]
         n_c = dyn.icnt.icnt_lat.shape[0]
-        lanes = {f: v.repeat_interleave(n_c, 0) for f, v in stacked.items()}
-        tiled = dyn.map(lambda x: x.repeat(n_w, *(1,) * (x.dim() - 1)))
-        out = run(state0, lanes, tiled)
+        out = run(state0, *grid_lanes(stacked, dyn))
         return _map(out, lambda x: x.reshape(n_w, n_c, *x.shape[1:]))
     return grid_run
 
@@ -146,6 +154,16 @@ def timed_call(runner, *args, n_lanes: int = 1) -> tuple:
     return out, {"n_lanes": n_lanes, "compile_s": None,
                  "execute_s": execute_s,
                  "lanes_per_s": round(n_lanes / max(execute_s, 1e-9), 2)}
+
+
+def _run_device(plan: RunPlan, device) -> torch.device:
+    """Where a run's tensors live: the mesh's first device when the plan
+    has a mesh (its devices win; a ``device`` of another type raises),
+    else ``device`` (core/device.py)."""
+    if plan.mesh is not None:
+        from repro_torch.core.distribute import mesh_device
+        return mesh_device(plan.mesh, device)
+    return resolve_device(device)
 
 
 def _to_cpu(state: dict) -> dict:
@@ -183,10 +201,13 @@ def sweep(workload: Workload, cfgs, mode: str = None,
           plan: RunPlan = None, device=None) -> SweepResult:
     """Run ``workload`` under every config, one lane per config, all
     lanes in one lockstep run.  Execution knobs come from ``plan=``
-    (core/plan.py:RunPlan); the legacy flat kwargs build one."""
+    (core/plan.py:RunPlan); the legacy flat kwargs build one.  With a
+    mesh, lanes are split over 'cfg' and each lane's SM axis over 'sm'
+    (core/distribute.py) — same stats, bit-exact, at any mesh shape; the
+    mesh's devices win over ``device``."""
     plan = resolve_plan(plan, where="sweep", mode=mode,
                         max_cycles=max_cycles, mesh=mesh, exchange=exchange)
-    device = resolve_device(device)
+    device = _run_device(plan, device)
     cfgs = plan.apply_telemetry(cfgs)
     scfg, dyn_batch = stack_dyn(cfgs, device)
     batch.check_workload_fits(scfg, workload)
@@ -194,10 +215,21 @@ def sweep(workload: Workload, cfgs, mode: str = None,
     stacked = (concat_kernels(packs) if plan.layout == "ragged"
                else stack_kernels(packs))
     n = len(cfgs)
-    runner = make_sweep_runner(scfg, plan.mode, plan.max_cycles,
-                               plan.early_exit)
-    bstate, timings = timed_call(runner, init_state(scfg, device, n),
-                                 stacked, dyn_batch, n_lanes=n)
+    state0 = init_state(scfg, device, n)
+    if plan.mesh is not None:
+        from repro_torch.core import distribute as D
+
+        D.check_mesh(plan.mesh, scfg, n)
+        dyn_batch = D.place_lanes(dyn_batch, plan.mesh)
+        stacked = D.place_lanes(stacked, plan.mesh, ())
+        state0 = D.place_state(state0, plan.mesh, D.CFG_AXIS)
+        runner = D.make_dist_sweep_runner(scfg, plan.mesh, plan.max_cycles,
+                                          plan.exchange, plan.early_exit)
+    else:
+        runner = make_sweep_runner(scfg, plan.mode, plan.max_cycles,
+                                   plan.early_exit)
+    bstate, timings = timed_call(runner, state0, stacked, dyn_batch,
+                                 n_lanes=n)
     host = _to_cpu(bstate)
     stats = [S.finalize(take_lane(host, i)) for i in range(n)]
     return SweepResult(scfg=scfg, state=bstate, n=n, stats=stats,
@@ -284,18 +316,30 @@ def grid_sweep(workloads, cfgs, mode: str = None, max_cycles: int = None,
     count, instruction count) with inert kernels/NOP slots (or
     ragged-concatenated, ``plan.layout``), so each lane is bit-identical
     to a solo ``simulate()`` of that (workload, config) pair.  Stats come
-    back in the original lane order."""
+    back in the original lane order.
+
+    With a mesh (2-D ('cfg', 'sm'), core/distribute.py) config lanes are
+    split over 'cfg', each lane's SM axis over 'sm'; every group runs
+    every workload.  Stats are bit-exact at any mesh shape."""
     plan = resolve_plan(plan, where="grid_sweep", mode=mode,
                         max_cycles=max_cycles, mesh=mesh, exchange=exchange)
-    device = resolve_device(device)
+    device = _run_device(plan, device)
     cfgs = plan.apply_telemetry(cfgs)
     scfg, dyn_batch = stack_dyn(cfgs, device)
     for w in workloads:
         batch.check_workload_fits(scfg, w)
     nw, nc = len(workloads), len(cfgs)
     groups = bucket_groups(workloads, plan, scfg)
-    runner = make_grid_runner(scfg, plan.mode, plan.max_cycles,
-                              plan.early_exit)
+    if plan.mesh is not None:
+        from repro_torch.core import distribute as D
+
+        D.check_mesh(plan.mesh, scfg, nc)
+        dyn_batch = D.place_lanes(dyn_batch, plan.mesh)
+        runner = D.make_dist_grid_runner(scfg, plan.mesh, plan.max_cycles,
+                                         plan.exchange, plan.early_exit)
+    else:
+        runner = make_grid_runner(scfg, plan.mode, plan.max_cycles,
+                                  plan.early_exit)
 
     stats = [[None] * nc for _ in range(nw)]
     bucket_states = []
@@ -305,9 +349,14 @@ def grid_sweep(workloads, cfgs, mode: str = None, max_cycles: int = None,
         ws = [workloads[i] for i in idxs]
         stacked = (concat_workloads(ws, device) if plan.layout == "ragged"
                    else stack_workloads(ws, device))
-        bstate, tm = timed_call(runner,
-                                init_state(scfg, device, len(ws) * nc),
-                                stacked, dyn_batch, n_lanes=len(ws) * nc)
+        state0 = init_state(scfg, device, len(ws) * nc)
+        if plan.mesh is not None:
+            stacked = D.place_lanes(stacked, plan.mesh, ())
+            state0 = D.place_state(
+                _map(state0, lambda x: x.reshape(len(ws), nc, *x.shape[1:])),
+                plan.mesh, None, D.CFG_AXIS)
+        bstate, tm = timed_call(runner, state0, stacked, dyn_batch,
+                                n_lanes=len(ws) * nc)
         bucket_states.append((list(idxs), bstate))
         host = _to_cpu(bstate)
         for pos, w in enumerate(idxs):
@@ -368,8 +417,12 @@ def pair_sweep(pairs, plan: RunPlan = None, lane_quantum: int | None = None,
 
     ``lane_quantum`` rounds each bucket's lane count up to a multiple by
     repeating live lanes (``_pad_fill``); duplicate results are dropped.
-    All configs must share one StaticConfig."""
+    All configs must share one StaticConfig; the mesh path is not wired
+    for pair lanes (use grid_sweep for mesh runs)."""
     plan = resolve_plan(plan, where="pair_sweep")
+    if plan.mesh is not None:
+        raise ValueError("pair_sweep does not support mesh distribution; "
+                         "use grid_sweep for mesh runs")
     if not pairs:
         raise ValueError("empty pair list")
     device = resolve_device(device)

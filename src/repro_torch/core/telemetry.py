@@ -17,7 +17,8 @@ fully converged (no live warp, no request in flight) while its kernel is
 still running.  A lane that stopped is frozen by the engine's select,
 its ``telem`` with it, so a lane's timeline equals its solo run's.  With
 telemetry off the state has no ``telem`` part and the engine launches
-nothing for it.
+nothing for it.  On a mesh (core/distribute.py) the per-SM sums and the
+waste add over an 'sm' group's blocks, so the row stays the machine's.
 
 **Run manifests.**  The launchers write one JSON manifest per run, and
 the sim server one per job (``write_job_manifest``), under
@@ -76,42 +77,57 @@ def init(scfg, device, n_lanes: int = 1) -> dict:
     }
 
 
-def _row(telem: dict, state: dict):
-    """One (L, N_COUNTERS) snapshot of the current counters.  Sums over
-    SMs are int32 (``torch.sum`` of int32 would return int64)."""
+def sm_counts(warp: dict, req: dict, stats_sm: dict, n_instr=None) -> dict:
+    """The per-lane sums over SMs that a row and the waste read, int32
+    (``torch.sum`` of int32 would return int64): ``sm`` (L, len(CUM_SM))
+    the per-SM counters, ``active`` (L,) the active warps and, given the
+    lanes' ``n_instr``, ``idle`` (L,) the SMs with no live warp and no
+    request in flight.  An 'sm' group adds its blocks' counts
+    (core/parallel.py:group_counts): integer sums, so exact."""
     i32 = torch.int32
-    sm = torch.stack([state["stats_sm"][k] for k in CUM_SM], 1)
+    out = {"sm": torch.stack([stats_sm[k] for k in CUM_SM], 1).sum(
+               2, dtype=i32),
+           "active": warp["active"].flatten(1).sum(1, dtype=i32)}
+    if n_instr is not None:
+        live = warp["active"] & ~((warp["pc"] >= n_instr.reshape(-1, 1, 1))
+                                  & (warp["pending"] == 0))
+        sm_live = live.any(2)                              # (L, n_sm)
+        sm_busy = (req["stage"] != 0).any(2)
+        out["idle"] = (~(sm_live | sm_busy)).sum(1, dtype=i32)
+    return out
+
+
+def _counts(state: dict, n_instr=None) -> dict:
+    return sm_counts(state["warp"], state["req"], state["stats_sm"], n_instr)
+
+
+def _row(telem: dict, state: dict, counts: dict):
+    """One (L, N_COUNTERS) snapshot of the current counters."""
     glob = torch.stack([state["stats"][k] for k in CUM_GLOBAL], 1)
     return torch.cat([
         state["ctrl"]["cycle"][:, None],
-        sm.sum(2, dtype=i32),
-        glob.to(i32),
-        state["warp"]["active"].flatten(1).sum(1, dtype=i32)[:, None],
+        counts["sm"],
+        glob.to(torch.int32),
+        counts["active"][:, None],
         telem["waste"][:, None]], 1)
 
 
-def waste_increment(state: dict, n_instr, scfg):
+def waste_increment(state: dict, counts: dict, scfg):
     """Lockstep waste accrued this quantum, per lane: Δ cycles for every
-    SM with no live warp and no request in flight while the kernel is not
-    done.  Reads the state after the SM phase, with this quantum's
-    ``done_cycle`` stamped, so the quantum a kernel converges in adds
-    none."""
-    warp = state["warp"]
-    n_lanes = n_instr.shape[0]
-    live = warp["active"] & ~((warp["pc"] >= n_instr.reshape(n_lanes, 1, 1))
-                              & (warp["pending"] == 0))
-    sm_live = live.any(2)                                  # (L, n_sm)
-    sm_busy = (state["req"]["stage"] != 0).any(2)
-    idle = (~(sm_live | sm_busy)).sum(1, dtype=torch.int32)
+    idle SM (``counts['idle']``) while the kernel is not done.  Reads the
+    state after the SM phase, with this quantum's ``done_cycle`` stamped,
+    so the quantum a kernel converges in adds none."""
     running = state["ctrl"]["done_cycle"] < 0
-    return torch.where(running, idle * scfg.quantum, 0)
+    return torch.where(running, counts["idle"] * scfg.quantum, 0)
 
 
-def sample(telem: dict, state: dict, scfg, force: bool = False) -> dict:
+def sample(telem: dict, state: dict, scfg, force: bool = False,
+           counts: dict | None = None) -> dict:
     """Maybe write a row, per lane.  Periodic rows fire every
     ``telemetry_every``-th quantum while the buffer has room; ``force``
     (end of kernel) always writes, over the last slot when the buffer is
-    full.  The row goes in with a ``where`` at one slot per lane."""
+    full.  The row goes in with a ``where`` at one slot per lane.
+    ``counts``: the state's ``sm_counts``, when the caller has them."""
     n = scfg.telemetry_samples
     idx = telem["idx"]
     if force:
@@ -122,18 +138,22 @@ def sample(telem: dict, state: dict, scfg, force: bool = False) -> dict:
     pos = idx.clamp(0, n - 1)
     slot = torch.arange(n, dtype=idx.dtype, device=idx.device)
     hit = (slot[None, :] == pos[:, None]) & do[:, None]    # (L, S)
-    buf = torch.where(hit[:, :, None], _row(telem, state)[:, None, :],
-                      telem["buf"])
+    row = _row(telem, state, _counts(state) if counts is None else counts)
+    buf = torch.where(hit[:, :, None], row[:, None, :], telem["buf"])
     return dict(telem, buf=buf,
                 idx=torch.clamp(idx + do.to(idx.dtype), max=n))
 
 
-def quantum_update(telem: dict, state: dict, trace: dict, scfg) -> dict:
+def quantum_update(telem: dict, state: dict, trace: dict, scfg,
+                   counts: dict | None = None) -> dict:
     """The telemetry step at the end of every quantum: add the quantum's
-    lockstep waste, then maybe take a periodic sample."""
+    lockstep waste, then maybe take a periodic sample.  ``counts``: the
+    state's ``sm_counts`` with ``idle``, when the caller has them."""
+    if counts is None:
+        counts = _counts(state, trace["n_instr"])
     telem = dict(telem, waste=telem["waste"] + waste_increment(
-        state, trace["n_instr"], scfg))
-    return sample(telem, state, scfg)
+        state, counts, scfg))
+    return sample(telem, state, scfg, counts=counts)
 
 
 # ---------------------------------------------------------------------------

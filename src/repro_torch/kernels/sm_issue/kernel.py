@@ -144,7 +144,10 @@ def issue_select(pc, active, ready_at, pending, wait_mem, wait_bar,
     fn, _ = _launcher()
     ptrs = [x.data_ptr() for x in (*args[:9], *scalars, sel_open,
                                    sel_closed)]
-    err = fn(*ptrs, ns, w, sc, torch.cuda.current_stream(device).cuda_stream)
+    # the launcher launches on the current device: make it the tensors'
+    with torch.cuda.device(device):
+        err = fn(*ptrs, ns, w, sc,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"sm_issue: kernel launch failed with CUDA error "
                            f"{err}")

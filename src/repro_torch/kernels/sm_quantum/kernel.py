@@ -192,12 +192,15 @@ def sm_quantum(warp, sm, req, stats_sm, trace, t0, cfg: StaticConfig, dyn):
         cfg.addrset_cap, cfg.mshr_per_sm, cfg.mem_blocks, cfg.quantum)
     ptrs = [None if x is None else x.data_ptr() for _, x, _, _ in aux]
     fn, _ = _launcher()
-    err = fn((ctypes.c_void_p * 26)(*(x.data_ptr() for x in leaves)),
-             (ctypes.c_void_p * 26)(*(x.data_ptr() for x in outs)),
-             (ctypes.c_int * 26)(*leaf_counts(cfg)), _IS_BOOL,
-             (ctypes.c_void_p * len(ptrs))(*ptrs),
-             (ctypes.c_longlong * len(strides))(*strides), dims, n_lanes, ns,
-             torch.cuda.current_stream(device).cuda_stream)
+    # the launcher sets its shared-memory attribute and launches on the
+    # current device: make it the tensors' one
+    with torch.cuda.device(device):
+        err = fn((ctypes.c_void_p * 26)(*(x.data_ptr() for x in leaves)),
+                 (ctypes.c_void_p * 26)(*(x.data_ptr() for x in outs)),
+                 (ctypes.c_int * 26)(*leaf_counts(cfg)), _IS_BOOL,
+                 (ctypes.c_void_p * len(ptrs))(*ptrs),
+                 (ctypes.c_longlong * len(strides))(*strides), dims, n_lanes,
+                 ns, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"sm_quantum: kernel launch failed with CUDA "
                            f"error {err}")

@@ -12,10 +12,12 @@ typed ``RunPlan`` (core/plan.py) that ``sweep``/``grid_sweep`` accept,
 reference's launchers work here, plus ``--device``: the launchers run on
 the CUDA device unless it names another.
 
-Flags of later slices parse as in the reference and raise
-``NotImplementedError`` naming their slice when used: ``--mesh`` (slice
-10) and ``--cache-dir`` (a graph cache, through RunPlan).
-``--no-aot-cache`` is accepted and inert: nothing is compiled.
+``--mesh A B`` builds a 2-D ('cfg','sm') mesh (core/distribute.py:
+make_mesh) on ``--device``: the first A·B CUDA cards, one card at every
+position with ``--device cuda:0``, or the CPU with ``--device cpu``.
+``--cache-dir`` (a graph cache) parses as in the reference and raises
+``NotImplementedError`` through RunPlan; ``--no-aot-cache`` is accepted
+and inert: nothing is compiled.
 """
 from __future__ import annotations
 
@@ -33,8 +35,11 @@ def add_plan_args(ap: argparse.ArgumentParser) -> None:
                     help="torch device (default: the CUDA device)")
     # -- execution / distribution ------------------------------------------
     ap.add_argument("--mesh", nargs=2, type=int, metavar=("A", "B"),
-                    help="distribute over a 2-D ('cfg','sm') device mesh "
-                         "(slice 10 of the port: not ported yet)")
+                    help="distribute over a 2-D ('cfg','sm') device mesh — "
+                         "A config-lane groups × B SM blocks: the first A·B "
+                         "CUDA cards, or the --device at every position "
+                         "when it names one (cpu, cuda:0) "
+                         "(core/distribute.py)")
     ap.add_argument("--max-cycles", type=int, default=1 << 15,
                     help="per-kernel quantum-loop horizon (timeout guard)")
     ap.add_argument("--no-early-exit", action="store_true",
@@ -126,12 +131,15 @@ def add_search_args(ap: argparse.ArgumentParser) -> None:
 
 
 def plan_from_args(args: argparse.Namespace) -> RunPlan:
-    """The parsed shared flags as a validated RunPlan."""
+    """The parsed shared flags as a validated RunPlan.  Builds the mesh
+    here (--mesh A B, on --device), so launchers never pick devices for
+    it themselves."""
+    mesh = None
     if getattr(args, "mesh", None):
-        raise NotImplementedError(
-            f"--mesh {args.mesh[0]} {args.mesh[1]}: multi-device "
-            "distribution is slice 10 of the port, not ported yet")
+        from repro_torch.core.distribute import make_mesh
+        mesh = make_mesh(*args.mesh, device=getattr(args, "device", None))
     return RunPlan(
+        mesh=mesh,
         max_cycles=args.max_cycles,
         early_exit=not args.no_early_exit,
         bucket_by=args.bucket_by,

@@ -28,8 +28,13 @@ CLASS (fp32/int32/sfu/tensor/ldg/stg/bar) evenly from LO to HI.  The ldg
 latency entry is inert (load latency is cache-dependent).
 
 Without --axis/--sample-*, a default grid is swept: L2 latency × scheduler
-(GTO/LRR).  All lanes share one StaticConfig shape.  ``--mesh`` is slice
-10 of the port and raises.
+(GTO/LRR).  All lanes share one StaticConfig shape.
+
+``--mesh A B`` splits the config lanes over a 2-D ('cfg', 'sm') device
+mesh (core/distribute.py) — A config groups × B SM blocks, on the first
+A·B CUDA cards or, with ``--device cpu``, the CPU at every position —
+with every lane bit-exact vs its solo run (``--check``):
+  python -m repro_torch.launch.dse --n 8 --mesh 2 2 --check --device cpu
 """
 from __future__ import annotations
 
@@ -247,9 +252,11 @@ def main(argv=None):
                          l1_miss=st["l1_miss"], l2_miss=st["l2_miss"],
                          dram_req=st["dram_req"]))
     print(json.dumps(rows, indent=1))
+    where = (f"{args.mesh[0]}x{args.mesh[1]} ('cfg','sm') mesh"
+             if args.mesh else device)
     tm = result.timings
     print(f"[dse] {len(cfgs)} configs × {w.name}: one lockstep run on "
-          f"{device}, wall={wall:.1f}s (compile={tm.get('compile_s')}s "
+          f"{where}, wall={wall:.1f}s (compile={tm.get('compile_s')}s "
           f"execute={tm.get('execute_s')}s {tm.get('lanes_per_s')} lanes/s)")
 
     if not args.no_manifest:

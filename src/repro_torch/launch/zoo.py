@@ -10,6 +10,8 @@ whole benchmarks × configs grid as one lockstep run.
 
 The port's ``repro.launch.zoo`` in its --list, --run, --grid, --trace and
 --check modes, on the CUDA device unless ``--device`` names another.
+``--grid W C --mesh A B`` distributes the grid over a 2-D ('cfg', 'sm')
+device mesh (core/distribute.py): A config groups × B SM blocks.
 
 ``--trace FILE|DIR`` ingests real Accel-sim SASS trace subset files
 (sim/traceio.py) and registers them in the zoo as ``trace:<stem>``
@@ -122,10 +124,12 @@ def run_grid(args, trace_names, device) -> None:
         grid = grid_sweep(workloads, cfgs, plan=plan, device=device)
     wall = time.time() - t0
     print(json.dumps(grid.table(), indent=1))
+    where = (f"{args.mesh[0]}x{args.mesh[1]} ('cfg','sm') mesh"
+             if args.mesh else device)
     tm = grid.timings
     print(f"[zoo] grid {n_w} workloads × {n_c} configs = {n_w * n_c} lanes "
           f"(bucket_by={plan.bucket_by} layout={plan.layout} "
-          f"buckets={tm.get('n_buckets')}) on {device}, wall={wall:.1f}s "
+          f"buckets={tm.get('n_buckets')}) on {where}, wall={wall:.1f}s "
           f"(compile={tm.get('compile_s')}s execute={tm.get('execute_s')}s "
           f"{tm.get('lanes_per_s')} lanes/s)")
 

@@ -13,9 +13,10 @@ Entry points run on the CUDA card unless the caller names another device.
 Random draws come from an explicit ``torch.Generator`` on the device,
 seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
-Sharding (``ctx``) comes with ROADMAP slice 10; ``train_loss`` with the
-training slice (11c); the caches and frontends of other families, and
-the arguments that size them, with their slices.
+Sharding (``ctx``) comes with ROADMAP item 11d, on the simulator's mesh
+(core/distribute.py); ``train_loss`` with the training slice (11c); the
+caches and frontends of other families, and the arguments that size
+them, with their slices.
 """
 from __future__ import annotations
 

@@ -330,17 +330,14 @@ def _row_dyn(dyn: DynConfig, n_lanes: int, ns: int) -> DynConfig:
     return dyn.map(lambda x: x.reshape(n_lanes, -1).repeat_interleave(ns, 0))
 
 
-def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
-                     dyn: DynConfig):
-    """Run Δ consecutive cycles for every lane and SM given — the
-    communication window — as Δ calls of ``sm_cycle`` over the lanes' SM
-    rows.  On CUDA tensors it launches ``sm_issue`` once per cycle and
-    lane.
-
-    State leaves ``(L, n_sm, …)``; ``trace``'s instruction arrays
-    ``(L, n)`` (one row per lane, or a row shared through a stride of
-    0) and scalars ``(L,)``, ``instr_base`` optional; ``t0`` ``(L,)``;
-    ``dyn``'s leaves ``(L,)`` and ``(L, N_CLASSES)``.
+def sm_cycles_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
+                    dyn: DynConfig):
+    """The eager loop one cycle at a time: a generator that runs Δ
+    consecutive cycles for every lane and SM given (arguments as
+    ``sm_quantum_eager`` takes them), yields the request table's
+    ``stage`` ``(L, n_sm, M)`` after each cycle, and returns the final
+    (warp, sm, req, stats) (``finish``).  SM-axis sharding steps several
+    of them in turn, cycle by cycle (core/parallel.py, exchange='cycle').
 
     When no SM of any lane has an active warp, a request in flight or a
     warp at a barrier, the quantum changes nothing and the inputs are
@@ -351,6 +348,8 @@ def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
         warp["active"].any() | (req["stage"] != 0).any(),
         warp["wait_bar"].any(), (trace["ops"] == BAR).any()]).tolist()
     if not (busy or waiting):
+        for _ in range(cfg.quantum):
+            yield req["stage"]
         return warp, sm, req, stats
     barriers = waiting or has_bar
 
@@ -376,7 +375,34 @@ def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
     for i in range(cfg.quantum):
         w, s, r, st = sm_cycle(w, s, r, st, rows, t_rows + i, barriers, cfg,
                                row_dyn, lanes)
+        yield r["stage"].reshape(req["stage"].shape)
     return tuple(unflat(p) for p in (w, s, r, st))
+
+
+def finish(cycles):
+    """Run a ``sm_cycles_eager`` generator to its end; returns its final
+    (warp, sm, req, stats)."""
+    try:
+        while True:
+            next(cycles)
+    except StopIteration as stop:
+        return stop.value
+
+
+def sm_quantum_eager(warp, sm, req, stats, trace, t0, cfg: StaticConfig,
+                     dyn: DynConfig):
+    """Run Δ consecutive cycles for every lane and SM given — the
+    communication window — as Δ calls of ``sm_cycle`` over the lanes' SM
+    rows (``sm_cycles_eager`` run to its end).  On CUDA tensors it
+    launches ``sm_issue`` once per cycle and lane.
+
+    State leaves ``(L, n_sm, …)``; ``trace``'s instruction arrays
+    ``(L, n)`` (one row per lane, or a row shared through a stride of
+    0) and scalars ``(L,)``, ``instr_base`` optional; ``t0`` ``(L,)``;
+    ``dyn``'s leaves ``(L,)`` and ``(L, N_CLASSES)``.  A quantum that
+    changes nothing returns the inputs as they are."""
+    return finish(sm_cycles_eager(warp, sm, req, stats, trace, t0, cfg,
+                                  dyn))
 
 
 def sm_quantum(warp, sm, req, stats, trace, t0, cfg: StaticConfig,

@@ -4,8 +4,8 @@ stages, against the JAX package and against one-lane calls.
 
   · padded and ragged layouts equal the reference's, array for array;
   · bucketing, cost keys and manifest hints equal the reference's;
-  · ``RunPlan`` raises the reference's errors, and every option of a
-    later slice raises ``NotImplementedError`` naming that slice;
+  · ``RunPlan`` raises the reference's errors, takes a ('cfg','sm') mesh,
+    and ``cache_dir`` raises ``NotImplementedError``;
   · padding is inert, and an entry-converged padding kernel runs zero
     quanta;
   · ``mem_phase``, ``cta_issue`` and the eager SM phase over L lanes (each
@@ -13,6 +13,7 @@ stages, against the JAX package and against one-lane calls.
     calls, and each lane equals the reference's call.
 """
 import json
+import os
 import warnings
 from functools import partial
 
@@ -50,6 +51,9 @@ from test_torch_memsys import J_MEM_PHASE, random_mem_inputs
 
 SCALE = 0.005
 MAX_CYCLES = 1 << 15
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "golden", "determinism_tiny.json")
+TRACES = os.path.join(HERE, "data", "traces")
 ZOO_MIX = ("gemm_tiled", "mixed", "reduction_tree", "streaming_copy",
            "stencil")
 
@@ -222,21 +226,43 @@ def test_runplan_errors_equal(kw):
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    (dict(mesh=_Mesh("cfg", "sm")), "slice 10"),
-    (dict(cache_dir="/tmp/x"), "graph cache")])
+    pytest.param(dict(cache_dir="/tmp/x"), "graph cache",
+                 id="kw1-graph cache")])
 def test_later_slices_raise_by_name(kw, slice_):
-    JPLAN.RunPlan(**kw) if "mesh" not in kw else None   # the reference runs
+    JPLAN.RunPlan(**kw)                                 # the reference runs
     with pytest.raises(NotImplementedError, match=slice_):
         PPLAN.RunPlan(**kw)
 
 
-def test_later_slices_raise_by_name_elsewhere():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        make_sm_runner(PC.TINY, "shard")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        dse.main(["--mesh", "2", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        zoo.main(["--grid", "1", "1", "--mesh", "1", "1", "--device", "cpu"])
+def test_runplan_takes_a_mesh():
+    """A ('cfg','sm') mesh is accepted and described as the reference's
+    RunPlan describes a mesh of the same shape."""
+    from repro_torch.core.distribute import make_mesh
+    got = PPLAN.RunPlan(mesh=make_mesh(1, 2, device="cpu"))
+    mesh = _Mesh("cfg", "sm")
+    mesh.shape = {"cfg": 1, "sm": 2}
+    assert got.describe() == JPLAN.RunPlan(mesh=mesh).describe()
+    assert got.describe()["mesh"] == [1, 2]
+
+
+def test_shard_runner_and_launchers_take_a_mesh(capsys):
+    """The shard SM runner steps a workload through the engine equal to
+    the golden, and both launchers run on a CPU mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    with open(GOLDEN) as f:
+        want = json.load(f)["trace:gather_chain@1.0"]
+    runner = make_sm_runner(PC.TINY, "shard",
+                            make_host_mesh(2, device="cpu"))
+    got = S.finalize(simulate(PZ.resolve_workload("trace:gather_chain"),
+                              PC.TINY, runner, max_cycles=MAX_CYCLES,
+                              device="cpu"))
+    assert S.comparable(got) == want
+    dse.main(["--workload", "nn", "--scale", "0.02", "--n", "2", "--mesh",
+              "1", "2", "--device", "cpu", "--no-manifest"])
+    assert "on 1x2 ('cfg','sm') mesh" in capsys.readouterr().out
+    zoo.main(["--trace", TRACES, "--grid", "1", "2", "--mesh", "2", "1",
+              "--device", "cpu", "--no-manifest"])
+    assert "on 2x1 ('cfg','sm') mesh" in capsys.readouterr().out
 
 
 def test_runplan_defaults_and_describe():

@@ -5,7 +5,9 @@ the same simulations on the CPU and against the golden stats, counter
 timelines against their golden file and the CPU, the seeded search on the
 card against the same search on the CPU, the simulation server on the card
 against solo card runs and the golden stats, the first build of a kernel
-from two threads, and the reduced RWKV-6 and dense models on the card
+from two threads, SM-axis shards and a 2×2 ('cfg','sm') grid on a mesh
+that repeats the card, the simulator's kernels launched on a second card
+(skipped with one), and the reduced RWKV-6 and dense models on the card
 against their golden files.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
@@ -415,6 +417,119 @@ SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
 QUANTUM_CFGS = {"tiny": TINY, "four_subcores": dataclasses.replace(TINY,
                                                                    **SC4),
                 "rtx3080ti": RTX3080TI}
+
+
+def _tiny_golden():
+    with open(os.path.join(os.path.dirname(GOLDEN),
+                           SIM_GOLDENS[TINY])) as f:
+        return json.load(f)
+
+
+def _one_card(n):
+    """A mesh position list that repeats the current card ``n`` times."""
+    return [torch.device("cuda", torch.cuda.current_device())] * n
+
+
+@pytest.mark.parametrize("bench,n_dev,policy,exchange", [
+    ("myocyte", 4, "static", "window"),
+    ("trace:gather_chain", 4, "dynamic", "cycle")])
+def test_shard_on_repeated_card_equals_golden(cuda, bench, n_dev, policy,
+                                              exchange):
+    """SM-axis sharding over a 1-D mesh that repeats the card: the golden
+    stats; window exchange launches sm_quantum once per block per quantum
+    and no sm_issue, cycle exchange sm_issue once per block per cycle."""
+    from repro_torch.core.engine import run_workload
+    from repro_torch.core.parallel import (permute_state, run_kernel_sharded,
+                                           sm_permutation)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sim.state import init_state
+    scfg, dyn = split_config(TINY, device=cuda)
+    mesh = make_host_mesh(n_dev, devices=_one_card(n_dev))
+    w = resolve_workload(bench, 1.0)
+    before, fused = K.issue_select.launches, Q.sm_quantum.launches
+    st = run_workload(
+        permute_state(init_state(scfg, cuda, 1),
+                      sm_permutation(TINY, n_dev, policy)),
+        [k.pack(cuda) for k in w.kernels], scfg, dyn,
+        kernel_runner=lambda s, k, d: run_kernel_sharded(
+            s, k, TINY, mesh, max_cycles=1 << 15, exchange=exchange, dyn=d))
+    out = S.finalize(S.take_lane(st, 0))
+    assert S.comparable(out) == _tiny_golden()[f"{bench}@1.0"]
+    assert out["timeouts"] == 0
+    quanta = out["cycles"] // TINY.quantum
+    if exchange == "window":
+        assert Q.sm_quantum.launches - fused == n_dev * quanta
+        assert K.issue_select.launches == before
+    else:
+        assert Q.sm_quantum.launches == fused
+        assert K.issue_select.launches > before
+
+
+def test_grid_on_one_repeated_card_2x2_equals_nomesh(cuda):
+    """A 2×2 ('cfg','sm') mesh that repeats the card at every position:
+    every lane of a grid, its timeline included, equals the no-mesh grid
+    on the card; sm_quantum launches come in one per block per quantum."""
+    from repro_torch.core.distribute import make_mesh
+    names = ("trace:gather_chain", "zoo:reduction_tree", "trace:vecadd")
+    ws = [resolve_workload(n, 0.005 if n.startswith("zoo") else 1.0)
+          for n in names]
+    cfgs = [TINY, dataclasses.replace(TINY, scheduler="lrr", l2_lat=64)]
+    plan = dict(max_cycles=1 << 15, telemetry_samples=16, telemetry_every=2)
+    ref = grid_sweep(ws, cfgs, plan=RunPlan(**plan))
+    fused = Q.sm_quantum.launches
+    got = grid_sweep(ws, cfgs, plan=RunPlan(
+        mesh=make_mesh(2, 2, devices=_one_card(4)), **plan))
+    launches = Q.sm_quantum.launches - fused
+    assert launches > 0 and launches % 2 == 0
+    for w in range(len(ws)):
+        for c in range(len(cfgs)):
+            for s in (got.stats[w][c], ref.stats[w][c]):
+                assert s["timeouts"] == 0
+            assert S.comparable(got.stats[w][c]) == \
+                S.comparable(ref.stats[w][c])
+    tls = ref.timelines()
+    for key, tl in got.timelines().items():
+        assert np.array_equal(tl, tls[key]), key
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """sm_issue and sm_quantum on tensors of a second card while the
+    first is current: each launches on its tensors' card (sm_quantum sets
+    its shared-memory attribute there first) and equals its plain
+    version; then a 1-D mesh over two distinct cards gives the golden
+    stats."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card: launches on cuda:1 while "
+                    "cuda:0 is current")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(11)
+    with torch.cuda.device(0):
+        args = random_inputs(rng, 80, 48, 4, other)
+        got = K.issue_select(*args, n_subcores=4)
+        want = K.issue_select_plain(*args, n_subcores=4)
+        for g, r in zip(got, want):
+            assert g.device == other and torch.equal(g, r)
+        # an SM state above the 48 KB a block gets without
+        # cudaFuncSetAttribute, so the attribute is set on cuda:1
+        cfg = dataclasses.replace(RTX3080TI, addrset_cap=8192, l1_sets=256)
+        assert Q.shared_bytes(static_part(cfg)) > 48 * 1024
+        host = random_quantum_inputs(rng, static_part(cfg))
+        outs = []
+        for dev in ("cpu", other):
+            _, dyn = split_config(cfg, device=dev)
+            outs.append(make_sm_runner(cfg, "vmap")(
+                *[to_torch(stack_lanes([x]), dev) for x in host],
+                torch.tensor([QUANTUM_T0], dtype=torch.int32, device=dev),
+                dyn.map(lambda x: x[None])))
+        for want, got in zip(*outs):
+            for k in want:
+                assert got[k].device == other
+                assert np.array_equal(to_numpy(got[k]), to_numpy(want[k])), k
+    from repro_torch.launch.mesh import make_host_mesh
+    w = resolve_workload("myocyte", 1.0)
+    out = S.finalize(simulate(w, TINY, make_sm_runner(
+        TINY, "shard", make_host_mesh(2)), max_cycles=1 << 15))
+    assert S.comparable(out) == _tiny_golden()["myocyte@1.0"]
 
 
 @pytest.mark.parametrize("ragged", [False, True])

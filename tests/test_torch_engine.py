@@ -20,6 +20,7 @@ import torch
 
 import repro.configs as JCONFIGS
 from repro.configs import SHAPES as JSHAPES
+from repro.sim.config import TINY as TINY_J
 from repro.core import stats as JS
 from repro.workloads.lm_traces import arch_workload as jarch_workload
 from repro_torch.configs import SHAPES, get_config
@@ -137,8 +138,38 @@ def test_simulate_without_device_needs_cuda(monkeypatch):
 
 
 def test_shard_mode_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="shard"):
-        make_sm_runner(TINY, "shard")
+    """Without a mesh that has an 'sm' axis, mode='shard' raises the
+    reference's ValueError."""
+    from repro.core.parallel import make_sm_runner as jrunner
+    from repro_torch.core.distribute import make_mesh
+    with pytest.raises(ValueError) as want:
+        jrunner(TINY_J, "shard")
+    for mesh in (None, _OneAxis("cfg")):
+        with pytest.raises(ValueError) as got:
+            make_sm_runner(TINY, "shard", mesh)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_sm_runner(TINY, "shard", make_mesh(1, 3, device="cpu"))
+
+
+class _OneAxis:
+    def __init__(self, name):
+        self.axis_names = (name,)
+
+
+@pytest.mark.parametrize("bench,n_dev", [("trace:gather_chain", 2),
+                                         ("trace:gather_chain", 4)])
+def test_shard_mode_runs_and_equals_golden(bench, n_dev):
+    """The shard SM runner (blocks over a CPU mesh's 'sm' axis, the serial
+    region on the whole arrays) through ``simulate``: the golden stats."""
+    from repro_torch.launch.mesh import make_host_mesh
+    with open(TINY_GOLDEN) as f:
+        want = json.load(f)[f"{bench}@1.0"]
+    runner = make_sm_runner(TINY, "shard", make_host_mesh(n_dev,
+                                                          device="cpu"))
+    got = S.finalize(simulate(resolve_workload(bench, 1.0), TINY, runner,
+                              max_cycles=TINY_MAX_CYCLES, device="cpu"))
+    assert S.comparable(got) == want and got["timeouts"] == 0
 
 
 def test_cli_prints_comparable_stats(capsys):

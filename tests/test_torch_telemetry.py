@@ -1,8 +1,8 @@
 """Counter timelines and run manifests of the port (core/telemetry.py,
 launch/report.py) against the JAX package.
 
-Mirrors tests/test_telemetry.py (all but its multi-device mesh case,
-which waits for the port's distribution slice):
+Mirrors tests/test_telemetry.py, its 2-D ('cfg','sm') mesh case on a
+mesh that puts the CPU at every position included:
 
 1. off is free: ``telemetry_samples == 0`` leaves the state without a
    ``telem`` part and finalize without telemetry keys;
@@ -205,24 +205,38 @@ def test_sweep_lanes_equal_solo_runs(lane_sweeps):
         assert S.comparable(out) == S.comparable(got.stats[i])
 
 
-def test_grid_lanes_equal_jax():
+GRID_NAMES = ("trace:gather_chain", "trace:vecadd", "trace:mm_tile")
+GRID_OVER = [{}, dict(scheduler="lrr")]
+GRID_PLAN = dict(max_cycles=MAX, bucket_by="shape", max_buckets=2,
+                 telemetry_samples=16, telemetry_every=2)
+
+
+def trace_grid(**kw):
+    """The port's grid of three traces x two configs, ``GRID_PLAN`` with
+    ``kw`` over it."""
+    return grid_sweep([resolve_workload(n) for n in GRID_NAMES],
+                      [dataclasses.replace(TINY, **o) for o in GRID_OVER],
+                      plan=RunPlan(**dict(GRID_PLAN, **kw)), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def one_bucket_grid():
+    """The trace grid in one bucket, made on first use."""
+    return trace_grid(bucket_by="none")
+
+
+def test_grid_lanes_equal_jax(one_bucket_grid):
     """A grid of three traces x two configs in two shape buckets: every
     lane's timeline equals the JAX package's and the port's one-bucket
     grid's (a lane equals its solo run however it is bucketed)."""
     from repro.core.plan import RunPlan as JPlan
-    names = ("trace:gather_chain", "trace:vecadd", "trace:mm_tile")
-    over = [{}, dict(scheduler="lrr")]
-    plan = dict(max_cycles=MAX, bucket_by="shape", max_buckets=2,
-                telemetry_samples=16, telemetry_every=2)
-    cfgs = [dataclasses.replace(TINY, **o) for o in over]
-    ws = [resolve_workload(n) for n in names]
-    got = grid_sweep(ws, cfgs, plan=RunPlan(**plan), device="cpu")
+    names = GRID_NAMES
+    got = trace_grid()
     assert got.timings["n_buckets"] == 2
     want = jgrid_sweep([jresolve(n) for n in names],
-                       [dataclasses.replace(JC.TINY, **o) for o in over],
-                       plan=JPlan(**dict(plan, bucket_by="none")))
-    one = grid_sweep(ws, cfgs, plan=RunPlan(**dict(plan, bucket_by="none")),
-                     device="cpu")
+                       [dataclasses.replace(JC.TINY, **o) for o in GRID_OVER],
+                       plan=JPlan(**dict(GRID_PLAN, bucket_by="none")))
+    one = one_bucket_grid
     tls, jtls, one_tls = got.timelines(), want.timelines(), one.timelines()
     assert list(tls) == list(jtls) == list(one_tls) == \
         [f"{n}/{c}" for n in names for c in range(2)]
@@ -236,6 +250,39 @@ def test_grid_lanes_equal_jax():
                                         got.stats[w][c]) == [], key
             assert np.array_equal(
                 T.timeline(take_grid_lane(one.state, w, c)), tls[key])
+
+
+def test_mesh_final_samples_and_timelines_match_single_device(
+        one_bucket_grid):
+    """2-D ('cfg','sm') mesh: per-lane final samples still equal finalize
+    totals (the counter sums add over each group's SM blocks, the
+    reference's psum over 'sm'), and the sampled timelines equal the
+    single-device run's row for row (tests/test_telemetry.py's mesh case,
+    on the trace grid above instead of two zoo workloads at 0.02, to stay
+    cheap here)."""
+    from repro_torch.core.distribute import make_mesh
+    out = {}
+    for label, g in (("nomesh", one_bucket_grid),
+                     ("2x2", trace_grid(bucket_by="none",
+                                        mesh=make_mesh(2, 2,
+                                                       device="cpu")))):
+        lanes = [(w, c) for w in range(len(GRID_NAMES))
+                 for c in range(len(GRID_OVER))]
+        out[label] = {
+            "bad": [f"{w}/{c}:{n}" for w, c in lanes
+                    for n in T.check_final_sample(
+                        take_grid_lane(g.state, w, c), g.stats[w][c])],
+            "comparable": [S.comparable(g.stats[w][c]) for w, c in lanes],
+            "waste": [g.stats[w][c]["lockstep_waste"] for w, c in lanes],
+            "timelines": {k: v.tolist() for k, v in g.timelines().items()},
+        }
+    assert out["nomesh"]["bad"] == []
+    assert out["2x2"]["bad"] == []
+    assert out["2x2"]["comparable"] == out["nomesh"]["comparable"]
+    assert out["2x2"]["waste"] == out["nomesh"]["waste"]
+    assert out["2x2"]["timelines"] == out["nomesh"]["timelines"]
+    assert all(len(t) > 2 for t in out["nomesh"]["timelines"].values())
+    assert any(w > 0 for w in out["nomesh"]["waste"])
 
 
 def test_pair_sweep_lanes_carry_timelines():
