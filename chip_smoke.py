@@ -5,10 +5,10 @@
 Phases, each printing one line; any failure exits non-zero before the
 last line.  The simulator's path:
   1. the card's name and power limit (nvidia-smi) and the build of the
-     port's four CUDA kernels (sm_issue, sm_quantum, wkv6 and
-     flash_attention, one nvcc each, started together) from the sources in
-     this checkout, with sm_quantum's ptxas registers, shared memory and
-     spills;
+     port's six CUDA sources (sm_issue, sm_quantum, wkv6, flash_attention
+     and the two backward sources wkv6_bwd and flash_attention_bwd, one
+     nvcc each, started together) from the sources in this checkout, with
+     sm_quantum's ptxas registers, shared memory and spills;
   2. sm_issue against its plain PyTorch version on the card, exact
      equality on seeded cases at the TINY and RTX 3080 Ti shapes, and the
      time per launch of both;
@@ -37,9 +37,10 @@ last line.  The simulator's path:
      idle share, kernel launches and device-to-host reads per quantum;
   s. this slice's main path, the lane-batched sweeps: launch/dse.py's
      default grid of 8 configs on the RTX 3080 Ti swept over nn@0.5 and
-     syrk@0.16 (8 lanes, one sm_quantum launch per quantum for all), every
-     lane against its solo run on the card and the plain-config lane
-     against tests/golden/torch_port_rtx3080ti.json, and both walls;
+     syrk@0.16 (8 lanes, one sm_quantum launch per quantum for all), the
+     plain-config lane against tests/golden/torch_port_rtx3080ti.json,
+     both walls, and nn@0.5's lanes against their solo runs on the card
+     (syrk@0.16's lanes meet their solo runs in phase t);
      launch/zoo.py's grid of the three bundled traces x 4 TINY configs,
      every lane against its solo run (--check);
   l. syrk@0.16 swept over the default grid of 1, 8 and 32 configs: wall,
@@ -60,11 +61,12 @@ last line.  The simulator's path:
      on, off;
   r. the seeded analytic-prune search (nn@0.5 on the RTX 3080 Ti, seed 0,
      3 rounds of 256 candidates, top 8) with its verify sweeps on the
-     card: equal in full to the same search on the CPU in this process,
-     round 0's verified set equal to tests/golden/torch_port_search.json
+     card; the same case cut to one round on the card equal in full to it
+     on the CPU in this process; the card's round 0 verified set equal to
+     tests/golden/torch_port_search.json
      (the JAX package's) and equal cycles on every vector both measured;
      then launch/dse.py --base 3080ti --workload nn --scale 0.5 --search
-     --check;
+     --search-rounds 1 --check;
   v. the simulation server (core/service.py, launch/serve.py) on the card
      at full width, RTX 3080 Ti base, bucket_by='shape': one synchronous
      batch of nn@0.5 and syrk@0.16, nn@0.5 with a config override, the
@@ -73,7 +75,7 @@ last line.  The simulator's path:
      tests/golden/torch_port_rtx3080ti.json, every lane against its solo
      card run, the same jobs reversed and split over two batches giving
      the same lanes, one sm_quantum launch per quantum of every bucket
-     run; a threaded soak (4 client threads x 4 seeded draws from those
+     run; a threaded soak (4 client threads x 2 seeded draws from those
      jobs, batch_lanes 8, max_wait 50 ms): everything served and drained,
      every lane exact, jobs/s, p50 and p99 of queue_s and total_s,
      batches and lanes per batch; the kernel launches per quantum of a
@@ -123,7 +125,7 @@ The RWKV-6 serving path (f32 products in full f32: TF32 is off):
      of that case, held to the same: the same with every prefill through
      wkv6_plain, the kernel against wkv6_plain in the model, and the
      drift of the same steps from a state moved by one f32 rounding;
-     medians and ranges over three windows of prefill, decode and
+     medians and ranges over two windows of prefill, decode and
      generate wall, tokens/s, peak device memory, and profiles of a
      prefill and of four decode steps, with wkv6's share of their device
      time.
@@ -155,15 +157,44 @@ The dense GQA serving path (f32, TF32 off):
      layer of the prefill; cache consistency 448 + 64 and 63 + 1 steps
      within 1e-3 of the largest logit; the kernel against attention_plain
      inside the model on a 128-token prefill; medians and ranges over
-     three windows of prefill, decode and generate wall, tokens/s, peak
+     two windows of prefill, decode and generate wall, tokens/s, peak
      device memory, and profiles of a prefill and of four decode steps.
      Every reading is printed before any is checked.
+Training (f32, TF32 off, deterministic kernels), this slice's main path:
+  k. the backward kernels (builds, ptxas): wkv6_bwd against autograd of
+     wkv6_plain in f64 (hs 16/32/64 x S 64 and 100, a final-state adjoint,
+     a log decay of about -20 at chunk 1, and (8, 512, 32, 64)), and
+     flash_attention_bwd against attention_backward_plain in f64 (GQA and
+     MHA, hd 64 and 128, causal and full, Sq < Sk, and (8, 512, 32 query /
+     8 KV heads, 128)), each gradient within 1e-4 of its largest
+     magnitude; at the full shapes the time per call of each (profiler),
+     of its plain version, of autograd's backward of SDPA (enable_gqa, the
+     library yardstick, for attention), and the bounds;
+  x. training through make_train_step at full width: rwkv6-1.6b (24
+     layers, 1.60 B parameters, batch 8 x 512) and minitron-8b's widths at
+     2 layers (2.45 B parameters, batch 4 x 512), AdamW: the whole model's
+     gradients on the kernels against the same model on their plain
+     versions in f64 (128 tokens), within 1e-3 of the norm or twice the
+     plain versions' in f32, a witness of the model's own sensitivity to
+     the mixer's rounding; per step the forward kernel
+     2 x n_layers times (forward and the checkpoint's recompute) and the
+     backward once per layer, loss and grad_norm finite; 3 steps, a
+     checkpoint, 3 steps, then the checkpoint restored and 3 steps again,
+     bit-identical to the straight run (minitron-8b; rwkv6-1.6b's through
+     the launcher below); step time, tokens/s, peak memory, a profiled
+     step's idle share, deterministic kernels on and off in turns; then,
+     in this process, python -m repro_torch.launch.train --arch
+     rwkv6-1.6b --full --batch 8 --seq 512 for 6 steps straight, for 4
+     with a checkpoint at step 4 (--ckpt-every 4 --ckpt DIR), and the
+     same to 6, which resumes and must end in the straight run's state
+     bit for bit.
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card.
 """
+import contextlib
 import json
 import os
 import re
@@ -173,6 +204,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+# training runs with deterministic kernels (repro_torch.train.train_step),
+# which need this before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -194,6 +229,9 @@ LANE_COUNTS = (1, 8, 32)
 # workloads at the RTX 3080 Ti's full width
 SWEEP_LANES = 8
 SWEEP_CASES = (("nn", 0.5), ("syrk", 0.16))
+# whose lanes phase s holds against solo runs (syrk@0.16's 8 solo runs
+# took ~59 s: phase t holds its lanes against solo runs, telemetry on)
+SWEEP_SOLO = (("nn", 0.5),)
 # phase l: the workload swept at every lane count of LANE_COUNTS
 LANES_CASE = ("syrk", 0.16)
 # phase t: the JAX package's full-width timelines (tests/
@@ -207,6 +245,9 @@ LOOP_LAUNCHES_PER_Q = {1: 325.8, 8: 371.9}
 TURN_QUANTA, TURNS = 64, 2
 # phase r: the JAX package's search (tests/test_torch_search.py --regen)
 SEARCH_GOLDEN = "torch_port_search.json"
+# rounds of the card-against-CPU search and of dse --search --check
+# (the CPU's verify sweeps and the solo reruns are the phase's slow part)
+SEARCH_CPU_ROUNDS = 1
 # phase v: the simulation server on the RTX 3080 Ti: the workloads of its
 # batch, the bundled traces uploaded as text, the lanes of its sample
 # grid; the soak's client threads, draws per client and seed; the
@@ -215,7 +256,7 @@ SEARCH_GOLDEN = "torch_port_search.json"
 SERVE_CASES = (("nn", 0.5), ("syrk", 0.16))
 SERVE_TRACES = ("vecadd", "mm_tile")
 SERVE_SAMPLE_LANES = 4
-SOAK_CLIENTS, SOAK_DRAWS, SOAK_SEED = 4, 4, 20261017
+SOAK_CLIENTS, SOAK_DRAWS, SOAK_SEED = 4, 2, 20261017
 CHILD_IDS = ("nn@0.5", "cfg", "vecadd", "mm_tile")
 SERVE_PROFILE_QUANTA = (16, 48)
 SERVE_CASES_TEXT = tuple(f"{b}@{s}" for b, s in SERVE_CASES)
@@ -253,14 +294,44 @@ CONSISTENCY_TOL = 1e-3           # of the largest logit
 # against 64 plus 64 decode steps, and the kernel against wkv6_plain in
 # the prefill.  Set from their readings, 6.2e-4 to 1.1e-3 (PERF.md, PR 12)
 MODEL_F32_TOL = 2e-3
-RWKV_REPEATS = 3                 # timing windows of phase d
+RWKV_REPEATS = 2                 # timing windows of phase d
 # flash attention: tests/test_kernels.py's tolerances by dtype
 FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 # (B, S, H, KV, hd) of phase h's prefill, where the main path launches it
 FLASH_FULL_SHAPE = (8, 512, 32, 8, 128)
 DENSE_ARCH = "minitron-8b"
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
-DENSE_REPEATS = 3                # timing windows of phase h
+DENSE_REPEATS = 2                # timing windows of phase h
+# phase k: the backward kernels, each gradient within BWD_TOL of its
+# largest magnitude from the plain backward in f64 (the CPU tests' bound
+# for the model's gradients); operations per state element and token of
+# wkv6's backward: the state recomputed (2), the adjoint (2), and the sums
+# of dr, dk, dv and dw (2 each)
+BWD_TOL = 1e-4
+WKV_BWD_OPS_PER_ELEMENT = 12
+# phase x: training at full width, (arch, layers or None for all, batch,
+# sequence, whether the restart is checked in this process: rwkv6-1.6b's
+# goes through the launcher, since a 19.2 GB checkpoint takes ~30 s each
+# way on that disk).  The whole model's gradients, on TRAIN_CMP_SEQ tokens
+# at full width and TRAIN_CMP_LAYERS layers, with the kernels against the
+# same model with the plain versions in f64: the norm of their difference
+# within TRAIN_GRAD_TOL of the gradient's norm.  At 24 layers a seeded
+# RWKV-6 cannot be held so: its gradient grows ~3,300-fold (d_model 512
+# on the CPU) to ~38,500-fold (full width) from the top layer to the
+# embedding and moves by percents to tens of percents of its norm when
+# only the wkv's rounding moves, in the stepwise form as in the chunked
+# one (scripts/rwkv_grad_sensitivity.py).  There every wkv6
+# call's gradients, as the autograd function gave them, are held within
+# BWD_TOL of autograd of the f64 plain form on that call's inputs and
+# output gradients, and the whole model's distances are readings.
+TRAIN_CASES = (("rwkv6-1.6b", None, 8, 512, False),
+               ("minitron-8b", 2, 4, 512, True))
+TRAIN_CMP_SEQ = 128
+TRAIN_CMP_LAYERS = 2
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_OPT = dict(peak_lr=1e-4, warmup_steps=2, total_steps=20)
+TRAIN_STEPS = 3
+TRAIN_DATA_SEED = 1234
 
 
 def check(cond, msg):
@@ -871,6 +942,498 @@ def phase_flash(torch, FA):
             "ops": n_ops}
 
 
+def grad_err(torch, got, want):
+    """(max abs err, worst max |g - w| / max |w|) over pairs of
+    gradients."""
+    err = worst = 0.0
+    for g, w in zip(got, want):
+        d = float((g.double() - w.double()).abs().max())
+        err = max(err, d)
+        worst = max(worst, d / max(float(w.double().abs().max()), 1e-30))
+    return err, worst
+
+
+def wkv_bwd_bound(b, s, h, hs):
+    """(bound_ms, bound_by, bytes, operations, cuda_core_ms) of one wkv
+    backward: r, k, v, w, do, u and the initial state read once, dr, dk,
+    dv, dw and du written once, against WKV_BWD_OPS_PER_ELEMENT operations
+    per token and state element, at the rate of three TF32 passes on the
+    tensor cores (the least time f32-exact products could take, as
+    flash_bound counts); the CUDA cores' f32 time last."""
+    n_bytes = 4 * (9 * b * s * h * hs + 2 * h * hs + b * h * hs * hs)
+    n_ops = WKV_BWD_OPS_PER_ELEMENT * b * s * h * hs * hs
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops,
+            n_ops / ALU_OPS_PER_S * 1e3)
+
+
+def flash_bwd_bound(b, sq, sk, h, kv, hd, causal):
+    """(bound_ms, bound_by, bytes, operations, cuda_core_ms) of one
+    attention backward: q, k, v, o, do and the rows' log-sum-exp read
+    once, dq, dk, dv written once, against the 10 hd operations (five
+    multiply-adds of hd: the scores, dP, dV, dK, dQ) of each (query, key)
+    pair, counted as flash_bound counts the forward's."""
+    n_bytes = 4 * (4 * b * sq * h * hd + 4 * b * sk * kv * hd + b * h * sq)
+    _, _, _, fwd_ops, _ = flash_bound(b, sq, sk, h, kv, hd, causal)
+    n_ops = fwd_ops // 4 * 10
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops,
+            n_ops / ALU_OPS_PER_S * 1e3)
+
+
+def phase_backward(torch, W, FA):
+    """The backward kernels against their plain versions on seeded cases:
+    wkv6_bwd against autograd of wkv6_plain in f64 (chunks of 1 under
+    strong decay, ROADMAP F5), flash_attention_bwd against
+    attention_backward_plain in f64; then each timed at the main path's
+    full-width shape beside its plain version (and, for attention,
+    autograd's backward of SDPA with enable_gqa, the library yardstick)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_plain)
+    rng = np.random.default_rng(20261020)
+    gen = torch.Generator(device="cuda").manual_seed(20261020)
+    out = {"wkv_cases": 0, "wkv_err": 0.0, "wkv_worst": 0.0,
+           "flash_cases": 0, "flash_err": 0.0, "flash_worst": 0.0}
+    # wkv6_bwd: hs 16/32/64 x S 64 (a multiple of 32) and 100 (not), with
+    # and without a final-state adjoint; strong decay; the full shape
+    wkv_cases = [(2, s, 4, hs, "random", s == 100)
+                 for hs in (16, 32, 64) for s in (64, 100)]
+    wkv_cases += [(2, 100, 4, 64, "strong", True),
+                  (*WKV_FULL_SHAPE, "random", False)]
+    for b, s, h, hs, decay, with_ds in wkv_cases:
+        args = wkv_case(rng, torch, b, s, h, hs, True, decay)
+        do = torch.randn((b, s, h, hs), generator=gen, device="cuda")
+        ds = (torch.randn((b, h, hs, hs), generator=gen, device="cuda")
+              if with_ds else None)
+        got = W.wkv6_bwd(*args, do, ds)
+        ins = [a.double().requires_grad_() for a in args[:5]]
+        chunk = 1 if decay == "strong" else min(s, 64) if s % 64 == 0 else s
+        o, st = W.wkv6_plain(*ins, args[5].double(), chunk=chunk)
+        want = torch.autograd.grad(
+            (o, st) if with_ds else (o,), ins,
+            (do.double(), ds.double()) if with_ds else (do.double(),))
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"wkv6_bwd at {(b, s, h, hs)}: gradients not finite")
+        e, w = grad_err(torch, got, want)
+        out["wkv_err"], out["wkv_worst"] = (max(out["wkv_err"], e),
+                                            max(out["wkv_worst"], w))
+        out["wkv_cases"] += 1
+        del ins, o, st, want
+    check(out["wkv_worst"] <= BWD_TOL, f"wkv6_bwd disagrees with autograd "
+          f"of wkv6_plain in f64: worst {out['wkv_worst']} of the largest "
+          f"magnitude (max abs err {out['wkv_err']})")
+    # timed at the full shape: device time by the profiler, beside the
+    # plain backward in f32 (the kernel's formulas, plain)
+    b, s, h, hs = WKV_FULL_SHAPE
+    args = wkv_case(rng, torch, b, s, h, hs, True)
+    do = torch.randn((b, s, h, hs), generator=gen, device="cuda")
+
+    def wkv_launches():
+        for _ in range(10):
+            W.wkv6_bwd(*args, do)
+    kern = kernel_us(torch, wkv_launches, "wkv6_bwd_kernel")
+    wrapper_ms = time_per_call(torch, lambda: W.wkv6_bwd(*args, do), 10)
+    out["wkv_ms"] = sum(kern) / len(kern) / 1e3 if kern else wrapper_ms
+    out["wkv_timed"] = bool(kern)
+    out["wkv_wrapper_ms"] = wrapper_ms
+    t0 = time.perf_counter()
+    W.wkv6_backward_plain(*args, do)
+    torch.cuda.synchronize()
+    out["wkv_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    (out["wkv_bound_ms"], out["wkv_bound_by"], out["wkv_bytes"],
+     out["wkv_ops"], out["wkv_cuda_core_ms"]) = wkv_bwd_bound(b, s, h, hs)
+    del args, do
+
+    # flash_attention_bwd: GQA 32/8-like groups and MHA, hd 64 and 128,
+    # causal and full, ragged tiles, and the full shape
+    b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
+    flash_cases = [(2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
+                   (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
+                   (b_, s_, s_, h_, kv_, hd_)]
+    for b, sq, sk, h, kv, hd in flash_cases:
+        q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
+        do = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
+        for causal in (True, False):
+            o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = attention_backward_plain(q.double(), k.double(),
+                                            v.double(), do.double(),
+                                            causal=causal)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"flash_attention_bwd at {(b, sq, sk, h, kv, hd)}: "
+                  "gradients not finite")
+            e, w = grad_err(torch, got, want)
+            out["flash_err"] = max(out["flash_err"], e)
+            out["flash_worst"] = max(out["flash_worst"], w)
+            out["flash_cases"] += 1
+            del want
+    check(out["flash_worst"] <= BWD_TOL, f"flash_attention_bwd disagrees "
+          f"with attention_backward_plain in f64: worst "
+          f"{out['flash_worst']} of the largest magnitude (max abs err "
+          f"{out['flash_err']})")
+    # timed at the full shape, causal: the three kernels of a call by the
+    # profiler; the plain backward; autograd's backward of SDPA (GQA)
+    q, k, v = flash_case(torch, gen, b_, s_, s_, h_, kv_, hd_, torch.float32)
+    do = torch.randn((b_, s_, h_, hd_), generator=gen, device="cuda")
+    o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
+
+    def flash_launches():
+        for _ in range(10):
+            FA.flash_attention_bwd(q, k, v, o, lse, do)
+    kern = []
+    for _ in range(3):
+        events, _ = profiled(torch, flash_launches)
+        kern = [us for ev, us in events if "flash_bwd" in ev]
+        if kern:
+            break
+    wrapper_ms = time_per_call(
+        torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do), 10)
+    out["flash_ms"] = sum(kern) / 10 / 1e3 if kern else wrapper_ms
+    out["flash_timed"] = bool(kern)
+    out["flash_wrapper_ms"] = wrapper_ms
+    out["flash_plain_ms"] = time_per_call(
+        torch, lambda: attention_backward_plain(q, k, v, do), 3)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    out["library_ms"] = time_per_call(
+        torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                           retain_graph=True), 10)
+    lib = torch.autograd.grad(sdpa, (qt, kt, vt), dot)
+    mine = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    out["library_err"] = grad_err(
+        torch, [x.transpose(1, 2) for x in lib], mine)[0]
+    (out["flash_bound_ms"], out["flash_bound_by"], out["flash_bytes"],
+     out["flash_ops"], out["flash_cuda_core_ms"]) = flash_bwd_bound(
+        b_, s_, s_, h_, kv_, hd_, True)
+    return out
+
+
+def _snapshot(state):
+    """A host copy of a train state's tensors, keyed by kind and name."""
+    snap = {("p", n): t.detach().cpu()
+            for n, t in state["params"].state_dict().items()}
+    for k in ("m", "v"):
+        snap.update({(k, n): t.cpu() for n, t in state["opt"][k].items()})
+    return snap
+
+
+def _same_as(torch, state, snap) -> list:
+    """The keys of a snapshot whose tensors differ from the state's."""
+    now = dict(state["params"].state_dict())
+    bad = []
+    for (kind, name), want in snap.items():
+        t = now[name] if kind == "p" else state["opt"][kind][name]
+        if not torch.equal(t.detach().cpu(), want):
+            bad.append(f"{kind}:{name}")
+    return bad
+
+
+def _grad_distance(got, want):
+    """(norm of the difference over the gradient's norm, worst leaf's max
+    |g - w| / max |w|, that leaf) of two {name: gradient} trees."""
+    num = den = 0.0
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        d = got[name].double() - w.double()
+        num += float((d * d).sum())
+        den += float((w.double() ** 2).sum())
+        r = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        if r > worst:
+            worst, worst_name = r, name
+    return (num / max(den, 1e-300)) ** 0.5, worst, worst_name
+
+
+def wkv_call_errors(torch, W, calls):
+    """Each wkv6 call's gradients, as WKV6Function handed them to
+    autograd, against autograd of wkv6_plain in f64 on that call's inputs
+    and output gradients: the worst max |g - w| / max |w| of a call."""
+    errs = []
+    for c in calls:
+        x = [t.double().requires_grad_(i < 5) for i, t in enumerate(c["x"])]
+        o, s = W.wkv6_plain(*x, chunk=64)
+        outs, gouts = [o], [c["go"][0].double()]
+        if c["go"][1] is not None:
+            outs.append(s)
+            gouts.append(c["go"][1].double())
+        want = torch.autograd.grad(outs, x[:5], gouts)
+        errs.append(grad_err(torch, c["gi"][:5], want)[1])
+    return errs
+
+
+def model_grads(torch, W, FA, model, cfg, batch, per_call=False):
+    """The whole model's gradients on ``batch`` with the kernels, and with
+    the mixer's plain versions in f32, against the same model with the
+    plain versions in f64 (``_grad_distance`` each), the mixer swapped by
+    rebinding the layer module's name as phase h does; for RWKV also the
+    plain form in f32 at chunk 1, the stepwise recurrence, which has no
+    rounding of the chunked form's (ROADMAP F5).  With ``per_call``,
+    every wkv6 call of the kernels' run is held by ``wkv_call_errors``."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models.layers import attention as attn_layers
+    from repro_torch.models.layers import rwkv6 as rwkv_layers
+    from repro_torch.train import train_step as TS
+
+    rwkv = cfg.family == "ssm"
+    dev = batch["labels"].device
+    calls = []
+
+    def wkv_f64(*a, chunk=64):
+        return tuple(x.float() for x in W.wkv6_plain(
+            *(t.double() for t in a), chunk=chunk))
+
+    def wkv_stepwise(*a, chunk=64):
+        return W.wkv6_plain(*a, chunk=1)
+
+    def attention_f64(q, k, v, *, causal=True):
+        return attention_plain(q.double(), k.double(), v.double(),
+                               causal=causal).float()
+
+    def wkv_spy(r, k, v, wlog, u, state, *, chunk=64):
+        """The kernel, with the call's inputs kept and a hook on its
+        autograd node that keeps the gradients it was given and gave.
+        The recompute's calls keep their inputs too; only the first
+        forward's node is ever run by the backward."""
+        o, s = W.wkv6(r, k, v, wlog, u, state, chunk=chunk)
+        if o.grad_fn is not None:
+            c = {"x": [t.detach().clone() for t in (r, k, v, wlog, u,
+                                                      state)]}
+            calls.append(c)
+
+            def keep(gi, go):
+                c["gi"] = [None if g is None else g.detach().clone()
+                           for g in gi]
+                c["go"] = [None if g is None else g.detach().clone()
+                           for g in go]
+            o.grad_fn.register_hook(keep)
+        return o, s
+
+    def grads_with(mixer):
+        if rwkv:
+            rwkv_layers.wkv6 = mixer
+        else:
+            attn_layers.flash_attention = mixer
+        try:
+            with TS.deterministic(dev):
+                return TS._grads(model, batch, cfg)
+        finally:
+            rwkv_layers.wkv6 = W.wkv6
+            attn_layers.flash_attention = FA.flash_attention
+
+    out = {}
+    loss_w, _, g_w = grads_with(wkv_f64 if rwkv else attention_f64)
+    witnesses = [("plain", W.wkv6_plain if rwkv else attention_plain)]
+    if rwkv:
+        witnesses.append(("stepwise", wkv_stepwise))
+    for key, mixer in witnesses:
+        _, _, g = grads_with(mixer)
+        out[key] = _grad_distance(g, g_w)
+        del g
+    loss_k, _, g = grads_with(wkv_spy if per_call else
+                              W.wkv6 if rwkv else FA.flash_attention)
+    out["kernel"] = _grad_distance(g, g_w)
+    out["loss"] = (loss_k.item(), loss_w.item())
+    by_layer = {}
+    for name, x in g_w.items():
+        parts = name.split(".")
+        key = parts[2] if parts[0] == "groups" else parts[0]
+        by_layer[key] = by_layer.get(key, 0.0) + float((x.double() ** 2)
+                                                       .sum())
+    out["grad_norm"] = sum(by_layer.values()) ** 0.5
+    # the norm of the gradient of the top layer, of layer 0 and of the
+    # embedding: where the gradient grows
+    out["layer_norms"] = tuple(by_layer.get(k, 0.0) ** 0.5 for k in (
+        str(cfg.n_layers - 1), "0", "embed"))
+    del g, g_w
+    if per_call:
+        ran = [c for c in calls if "gi" in c]
+        out["calls"] = len(calls)
+        out["call_errs"] = wkv_call_errors(torch, W, ran)
+        del calls[:], ran
+    return out
+
+
+def phase_train(torch, W, FA, arch, n_layers, batch, seq, restart):
+    """Training at full width through make_train_step: the gradients of
+    the model on its kernels against the same model on their plain
+    versions (``model_grads``: at TRAIN_CMP_LAYERS layers, a model of its
+    own where ``n_layers`` is deeper, and then the deep model call by
+    call); 2 x TRAIN_STEPS steps, with ``restart`` a checkpoint after
+    the first TRAIN_STEPS, then that checkpoint restored and TRAIN_STEPS
+    again, which must give the straight run's state bit for bit; per step
+    the kernels' forward and backward counts, wall, tokens/s; peak memory;
+    a profiled step's idle share; the step with deterministic kernels off
+    and on, in turns."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpointing.checkpoint import (latest_step, restore,
+                                                      save)
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.models import factory
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    rwkv = cfg.family == "ssm"
+    fwd, bwd = (W.wkv6, W.wkv6_bwd) if rwkv else (FA.flash_attention,
+                                                  FA.flash_attention_bwd)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = factory.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    out = {"cfg": cfg, "batch": batch, "seq": seq,
+           "init_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in model.parameters())}
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    state = TS.init_train_state(model, cfg, opt_cfg)
+
+    # the gradients: the whole model at full width and TRAIN_CMP_LAYERS
+    # layers within TRAIN_GRAD_TOL; for a deeper RWKV model, every wkv6
+    # call of the whole depth, and the whole model's readings
+    cmp = to_device(make_batch_np(cfg, ShapeSpec("x", TRAIN_CMP_SEQ, batch,
+                                                 "train"),
+                                  TRAIN_DATA_SEED, 10_000), dev)
+    if cfg.n_layers == TRAIN_CMP_LAYERS:
+        out["grad"] = model_grads(torch, W, FA, model, cfg, cmp)
+    else:
+        cfg_cut = dataclasses.replace(cfg, n_layers=TRAIN_CMP_LAYERS)
+        cut = factory.init_params(0, cfg_cut, device=dev).requires_grad_(True)
+        out["grad"] = model_grads(torch, W, FA, cut, cfg_cut, cmp)
+        del cut
+        torch.cuda.empty_cache()
+        out["grad_deep"] = model_grads(torch, W, FA, model, cfg, cmp,
+                                       per_call=rwkv)
+    torch.cuda.empty_cache()
+
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+    shape = ShapeSpec("x", seq, batch, "train")
+
+    def steps(start, n):
+        rows = []
+        for step in range(start, start + n):
+            b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED, step),
+                          dev)
+            torch.cuda.synchronize()
+            fwd.launches = bwd.launches = 0          # counts: just before
+            t = time.perf_counter()
+            _, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            rows.append({"step": step, "wall": time.perf_counter() - t,
+                         "fwd": fwd.launches, "bwd": bwd.launches,
+                         **{k: float(x) for k, x in m.items()}})
+        return rows
+
+    torch.cuda.reset_peak_memory_stats()
+    rows = steps(0, TRAIN_STEPS)
+    again, out["differ"] = [], []
+    if restart:
+        ckpt = tempfile.mkdtemp(prefix="train-ckpt-")
+        try:
+            t = time.perf_counter()
+            save(ckpt, TRAIN_STEPS, state, cfg)
+            out["save_s"] = time.perf_counter() - t
+            rows += steps(TRAIN_STEPS, TRAIN_STEPS)
+            snap = _snapshot(state)
+            check(latest_step(ckpt) == TRAIN_STEPS,
+                  "the checkpoint's manifest")
+            t = time.perf_counter()
+            restore(ckpt, TRAIN_STEPS, state, cfg)
+            out["restore_s"] = time.perf_counter() - t
+            check(state["step"] == TRAIN_STEPS,
+                  "restore did not set the step")
+            again = steps(TRAIN_STEPS, TRAIN_STEPS)
+            out["differ"] = _same_as(torch, state, snap)
+            del snap
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    else:
+        rows += steps(TRAIN_STEPS, TRAIN_STEPS)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["metrics_equal"] = all(
+        {k: r[k] for k in ("loss", "ce", "grad_norm")}
+        == {k: a[k] for k in ("loss", "ce", "grad_norm")}
+        for r, a in zip(rows[TRAIN_STEPS:], again))
+    out["rows"], out["again"] = rows, again
+    # where the time goes: one step under the profiler
+    step = 2 * TRAIN_STEPS
+    b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED, step), dev)
+    events, wall = profiled(torch, lambda: step_fn(state, b))
+    busy = sum(us for _, us in events) / 1e6
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    out["profile"] = {"wall": wall, "busy": busy, "n": len(events),
+                      "top": sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:4],
+                      "fwd_us": sum(us for n, us in events
+                                    if ("wkv6_kernel" if rwkv else
+                                        "flash_kernel") in n),
+                      "bwd_us": sum(us for n, us in events
+                                    if ("wkv6_bwd" if rwkv else
+                                        "flash_bwd") in n)}
+    # what deterministic kernels cost: steps with them on and off, in turns
+    turns = {True: [], False: []}
+    real = TS.deterministic
+    for i, on in enumerate((True, False, False, True)):
+        if not on:
+            TS.deterministic = lambda device: contextlib.nullcontext()
+        try:
+            turns[on] += [r["wall"] for r in steps(step + 1 + i, 1)]
+        finally:
+            TS.deterministic = real
+    out["det_turns"] = turns
+    return out
+
+
+def _train_launcher(torch, ckpt, batch, seq):
+    """launch/train.py at full width for rwkv6-1.6b in this process, batch
+    x seq tokens a step: 6 steps straight; 4 steps with a checkpoint at
+    step 4; the same command to 6 steps, which resumes from it and must
+    end in the straight run's state bit for bit.  The launcher's schedule
+    takes its total steps from --steps, and all four steps before the save
+    fall in its 5-step warmup, which does not read them: so this check
+    covers warmup steps only.  The restart witness after warmup is
+    phase_train's 3 + restore + 3 under the fixed TRAIN_OPT."""
+    import io
+
+    from repro_torch.launch import train as train_launcher
+    argv = ["--arch", RWKV_ARCH, "--full", "--batch", str(batch), "--seq",
+            str(seq)]
+    runs, snap = [], None
+    for n, with_ckpt in ((6, False), (4, True), (6, True)):
+        args = argv + ["--steps", str(n)] + (
+            ["--ckpt", ckpt, "--ckpt-every", "4"] if with_ckpt else [])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = train_launcher.main(args)
+        torch.cuda.synchronize()
+        run = {"argv": " ".join(args[len(argv):]).replace(ckpt, "DIR"),
+               "wall": time.perf_counter() - t,
+               "lines": buf.getvalue().strip().splitlines()}
+        if n == 6 and not with_ckpt:
+            snap = _snapshot(state)
+        elif n == 6:
+            run["differ"] = _same_as(torch, state, snap)
+        runs.append(run)
+        del state
+        torch.cuda.empty_cache()
+    return runs
+
+
 def phase_dense_reduced(torch, FA):
     """The reduced dense models on the card against the JAX package's
     golden results for the same seeded weights and prompts."""
@@ -1245,7 +1808,8 @@ def phase_sweep(torch, K, Q, full_golden):
         out["launches"] += fused
         out["issue"] += issue
         solo_wall, bad = 0.0, []
-        for i, cfg in enumerate(cfgs):
+        for i, cfg in enumerate(cfgs if (bench, scale) in SWEEP_SOLO
+                                else ()):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             solo = S.finalize(simulate(w, cfg, make_sm_runner(cfg, "vmap"),
@@ -1565,12 +2129,13 @@ def search_record(result):
 def phase_search(torch, K, Q):
     """The seeded analytic-prune search of SEARCH_GOLDEN's case (nn@0.5 on
     the RTX 3080 Ti, seed 0, 3 rounds of 256 candidates, top 8) with its
-    verify sweeps on the card: (a) equal, in full, to the same search on
-    the CPU in this process; (b) round 0's verified set equal to the JAX
+    verify sweeps on the card: (a) the case cut to SEARCH_CPU_ROUNDS
+    rounds on the card equal, in full, to the same on the CPU in this
+    process; (b) round 0's verified set equal to the JAX
     package's golden, and equal cycles on every vector both measured;
     then ``python -m repro_torch.launch.dse --base 3080ti --workload nn
-    --scale 0.5 --search --check``, in this process."""
-    import contextlib
+    --scale 0.5 --search --search-rounds 1 --check``, in this process."""
+    import dataclasses
     import io
 
     from repro_torch.core.plan import RunPlan
@@ -1593,12 +2158,18 @@ def phase_search(torch, K, Q):
     check(fused == steps > 0 and issue == 0,
           f"search: {fused} sm_quantum and {issue} sm_issue launches for "
           f"{steps} quanta")
+    # the card against the CPU in full, at SEARCH_CPU_ROUNDS rounds (the
+    # CPU's verify sweeps are the smoke's slowest part)
+    kw1 = dict(kw, plan=dataclasses.replace(
+        kw["plan"], search_rounds=SEARCH_CPU_ROUNDS))
+    card1, _, fused1, _, _ = _counted_run(
+        torch, K, Q, lambda: search(w, device="cuda", **kw1))
     t0 = time.perf_counter()
-    cpu = search(w, device="cpu", **kw)
+    cpu = search(w, device="cpu", **kw1)
     cpu_wall = time.perf_counter() - t0
     got, want = search_record(card), golden["result"]
-    check(got == search_record(cpu), "the search on the card differs from "
-          "the same search on the CPU")
+    check(search_record(card1) == search_record(cpu), "the search on the "
+          "card differs from the same search on the CPU")
     topk = case["topk"]
 
     def as_set(rows):
@@ -1612,7 +2183,7 @@ def phase_search(torch, K, Q):
     check(not bad, f"{len(bad)} vectors measured by both the card and "
           f"{SEARCH_GOLDEN} differ in cycles")
     out = {"wall": wall, "cpu_wall": cpu_wall, "steps": steps,
-           "launches": fused, "shared": len(shared),
+           "launches": fused + fused1, "shared": len(shared),
            "n_verified": len(got["verified"]), "equal_golden": got == want,
            "best": card.best_cycles, "golden_best": want["best_cycles"],
            "rounds": [{k: r[k] for k in ("round", "n_scored", "verify_s",
@@ -1620,7 +2191,8 @@ def phase_search(torch, K, Q):
                                          "best_measured")}
                       for r in card.rounds]}
     argv = ["--base", "3080ti", "--workload", case["workload"], "--scale",
-            str(case["scale"]), "--search", "--check"]
+            str(case["scale"]), "--search", "--search-rounds",
+            str(SEARCH_CPU_ROUNDS), "--check"]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         _, dse_wall, fused, issue, steps = _counted_run(
@@ -1940,7 +2512,6 @@ def mesh_loop(w, cfgs, mesh, n_q):
 def _launcher_run(main, argv):
     """A launcher's ``main(argv)`` with its stdout captured: (lines, error
     text or None)."""
-    import contextlib
     import io
     buf = io.StringIO()
     try:
@@ -2258,6 +2829,7 @@ def phase_serve(torch, K, Q, full_golden):
 
 def main():
     start = time.perf_counter()
+    marks = []                     # (phase, its start) for the time line
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -2278,14 +2850,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
 
+    marks.append(("1", time.perf_counter()))
     # 1. card and build: one nvcc per kernel source, started together
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = {name: pool.submit(mod.build) for name, mod in
-                  (("sm_issue", K), ("sm_quantum", Q), ("wkv6", W),
-                   ("flash_attention", FA))}
+    with ThreadPoolExecutor(6) as pool:
+        builds = {name: pool.submit(fn) for name, fn in
+                  (("sm_issue", K.build), ("sm_quantum", Q.build),
+                   ("wkv6", W.build), ("flash_attention", FA.build),
+                   ("wkv6_bwd", W.build_bwd),
+                   ("flash_attention_bwd", FA.build_bwd))}
         info = builds["sm_issue"].result()
         build_s = time.perf_counter() - t0
         q_info = builds["sm_quantum"].result()
@@ -2294,6 +2869,9 @@ def main():
         wkv_build_s = time.perf_counter() - t0
         fa_info = builds["flash_attention"].result()
         fa_build_s = time.perf_counter() - t0
+        bwd_info = {n: builds[n].result()
+                    for n in ("wkv6_bwd", "flash_attention_bwd")}
+        bwd_build_s = time.perf_counter() - t0
     print(f"[1 build] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; sm_issue built in {info['seconds']:.2f} s "
           f"(load {build_s:.2f} s); ptxas: {ptxas_lines(info['log'])}",
@@ -2302,6 +2880,7 @@ def main():
           f"the others (loaded {q_build_s:.2f} s after the start); ptxas: "
           f"{ptxas_lines(q_info['log'])}", flush=True)
 
+    marks.append(("2", time.perf_counter()))
     # 2. kernel vs plain version
     kr = phase_kernel(torch, K)
     print(f"[2 kernel] sm_issue == plain on {kr['cases']} cases "
@@ -2313,6 +2892,7 @@ def main():
           f"{kr['bound_ms'] * 1e3:.4f} us ({kr['bound_by']}, "
           f"{kr['bytes']} B)", flush=True)
 
+    marks.append(("q", time.perf_counter()))
     # q. the fused quantum against the eager SM phase, and its time
     qr = phase_quantum(torch, Q)
     widths = ", ".join(n for n, _ in QUANTUM_CASES)
@@ -2337,6 +2917,7 @@ def main():
               f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
               f"{row['bytes']} B, {row['ops']} integer ops)", flush=True)
 
+    marks.append(("3", time.perf_counter()))
     # 3. the TINY goldens: both modes, a trace, a run cut by its cap
     for bench, scale, mode, want_timeouts in TINY_CASES:
         key = f"{bench}@{scale}"
@@ -2356,6 +2937,7 @@ def main():
               f"{fused} sm_quantum launches, {issue} sm_issue, wall "
               f"{wall:.2f} s", flush=True)
 
+    marks.append(("4", time.perf_counter()))
     # 4. the main path at full width, then the eager SM phase as a witness
     main_launches = main_issue = 0
     walls = {}
@@ -2388,6 +2970,7 @@ def main():
           f"one's wall", flush=True)
     check(main_launches > 0, "the main path never launched sm_quantum")
 
+    marks.append(("5", time.perf_counter()))
     # 5. where the time goes: a profile of the first quanta of syrk@0.16
     n_q = 16
     events, wall = profiled(torch, lambda: run_case(
@@ -2415,18 +2998,21 @@ def main():
         print(f"[5 profile] the profiler saw no device activity: device "
               f"busy share not measured (wall {wall:.3f} s)", flush=True)
 
+    marks.append(("s", time.perf_counter()))
     # s. this slice's main path: lane-batched sweeps at full width
     sr = phase_sweep(torch, K, Q, full_golden)
     for key, d in sr["dse"].items():
+        solo = (f"every lane == its solo run on the card (timeouts "
+                f"{d['timeouts']}); the {SWEEP_LANES} solo walls sum to "
+                f"{d['solo_wall']:.3f} s ({d['solo_wall'] / d['wall']:.2f}x)"
+                if d["solo_wall"] else f"timeouts {d['timeouts']}, lanes "
+                "against solo runs in phase t")
         print(f"[s sweep] {key} RTX3080TI, dse default grid of "
-              f"{SWEEP_LANES} configs as {SWEEP_LANES} lanes: every lane == "
-              f"its solo run on the card (timeouts {d['timeouts']}), lanes "
+              f"{SWEEP_LANES} configs as {SWEEP_LANES} lanes: lanes "
               f"{d['plain']} (plain RTX 3080 Ti) == pinned stats; cycles "
               f"{d['cycles']}; sweep wall {d['wall']:.3f} s for {d['steps']} "
               f"quanta ({d['launches']} sm_quantum launches, one per "
-              f"quantum), the {SWEEP_LANES} solo walls sum to "
-              f"{d['solo_wall']:.3f} s ({d['solo_wall'] / d['wall']:.2f}x)",
-              flush=True)
+              f"quantum); {solo}", flush=True)
     g = sr["grid"]
     print(f"[s sweep] zoo grid {len(g['names'])} traces x 4 TINY configs "
           f"({', '.join(g['names'])}): --check OK, all {g['lanes']} lanes == "
@@ -2435,6 +3021,7 @@ def main():
     check(sr["launches"] > 0 and sr["issue"] == 0,
           "the sweep path never launched sm_quantum, or launched sm_issue")
 
+    marks.append(("l", time.perf_counter()))
     # l. lanes against wall time: one workload swept at 1, 8 and 32 lanes
     lr = phase_lanes(torch, K, Q)
     for row in lr:
@@ -2447,6 +3034,7 @@ def main():
               f"the quantum loop under the profiler: {profile_text(row)}",
               flush=True)
 
+    marks.append(("t", time.perf_counter()))
     # t. counter timelines at full width, and what they cost
     tr = phase_telemetry(torch, K, Q, full_golden)
     samples, every = tr["knobs"]
@@ -2491,11 +3079,13 @@ def main():
               f"{off:.4f} and {on:.4f} s ({on / off - 1:+.2%} with "
               f"telemetry)", flush=True)
 
+    marks.append(("r", time.perf_counter()))
     # r. the seeded analytic-prune search, verify sweeps on the card
     rr_ = phase_search(torch, K, Q)
-    print(f"[r search] {SEARCH_GOLDEN}'s case on the card == the same search "
-          f"on the CPU in full (card wall {rr_['wall']:.3f} s, CPU "
-          f"{rr_['cpu_wall']:.3f} s); round 0's verified set == the golden's,"
+    print(f"[r search] {SEARCH_GOLDEN}'s case on the card (wall "
+          f"{rr_['wall']:.3f} s); at {SEARCH_CPU_ROUNDS} round(s) == the "
+          f"same search on the CPU in full (CPU {rr_['cpu_wall']:.3f} s); "
+          f"round 0's verified set == the golden's,"
           f" equal cycles on all {rr_['shared']} of {rr_['n_verified']} "
           f"vectors both measured (whole search == golden: "
           f"{rr_['equal_golden']}); best {rr_['best']} cycles (golden "
@@ -2505,6 +3095,7 @@ def main():
           f"{rr_['dse_lines'][-1]} (wall {rr_['dse_wall']:.3f} s)",
           flush=True)
 
+    marks.append(("v", time.perf_counter()))
     # v. the simulation server at full width
     t_v = time.perf_counter()
     vr = phase_serve(torch, K, Q, full_golden)
@@ -2552,6 +3143,7 @@ def main():
           f"{c['selftest_s']:.3f} s: {' | '.join(c['selftest_lines'])}); "
           f"phase v {v_s:.1f} s", flush=True)
 
+    marks.append(("m", time.perf_counter()))
     # m. SM-axis sharding and the ('cfg','sm') mesh, every position on
     # this card: the readings first, then the checks
     t_m = time.perf_counter()
@@ -2599,6 +3191,7 @@ def main():
     print(f"[m mesh] phase m {m_s:.1f} s", flush=True)
     check(not mr["bad"], "phase m: " + "; ".join(mr["bad"]))
 
+    marks.append(("a", time.perf_counter()))
     # a. the wkv6 build
     print(f"[a build] wkv6 built in {wkv_info['seconds']:.2f} s beside "
           f"the others (loaded {wkv_build_s:.2f} s after the start); "
@@ -2606,6 +3199,7 @@ def main():
           f"{wkv_info['smem_bytes']} B; "
           f"ptxas: {ptxas_lines(wkv_info['log'])}", flush=True)
 
+    marks.append(("b", time.perf_counter()))
     # b. wkv6 against its plain version, and its time
     wr = phase_wkv6(torch, W)
     print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases "
@@ -2625,6 +3219,7 @@ def main():
           f"{wr['bound_ms'] * 1e3:.2f} us ({wr['bound_by']}: "
           f"{wr['bytes']} B, {wr['ops']} f32 ops)", flush=True)
 
+    marks.append(("c", time.perf_counter()))
     # c. the reduced model against the JAX package's golden result
     rr = phase_rwkv_reduced(torch, W)
     print(f"[c rwkv reduced] {RWKV_ARCH} reduced ({rr['cfg'].n_layers} "
@@ -2635,6 +3230,7 @@ def main():
           f"tokens equal), {rr['launches']} wkv6 launches in the prefill",
           flush=True)
 
+    marks.append(("d", time.perf_counter()))
     # d. the serving path at full width
     fr = phase_rwkv_full(torch, W, K)
     cfg = fr["cfg"]
@@ -2689,11 +3285,13 @@ def main():
     # the RWKV model is gone with phase d's frame: give its memory back
     torch.cuda.empty_cache()
 
+    marks.append(("e", time.perf_counter()))
     # e. the flash_attention build
     print(f"[e build] flash_attention built in {fa_info['seconds']:.2f} s "
           f"beside the others (loaded {fa_build_s:.2f} s after the "
           f"start); ptxas: {flash_ptxas(fa_info['log'])}", flush=True)
 
+    marks.append(("f", time.perf_counter()))
     # f. flash_attention against its plain version, and its time
     ar = phase_flash(torch, FA)
     b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
@@ -2731,6 +3329,7 @@ def main():
           f"{FLASH_F64_TOL} (max abs err "
           f"{ar['vs_f64']['flash_attention'][0]})")
 
+    marks.append(("g", time.perf_counter()))
     # g. the reduced dense models against the JAX package's golden results
     dr, dr_new = phase_dense_reduced(torch, FA)
     for arch, r in dr.items():
@@ -2745,6 +3344,7 @@ def main():
               f"equal), {r['launches']} flash_attention launches in the "
               f"prefill", flush=True)
 
+    marks.append(("h", time.perf_counter()))
     # h. the dense serving path at full width
     hr = phase_dense_full(torch, FA, W, K, Q)
     cfg = hr["cfg"]
@@ -2813,6 +3413,191 @@ def main():
           f"attention_plain inside the model: {hr['in_model']} > "
           f"{CONSISTENCY_TOL} of the largest logit")
 
+    # the RWKV and dense models are gone with their phases' frames
+    torch.cuda.empty_cache()
+
+    marks.append(("k", time.perf_counter()))
+    # k. the backward kernels against their plain versions, and their time
+    t_k = time.perf_counter()
+    for name, inf in bwd_info.items():
+        print(f"[k build] {name} built in {inf['seconds']:.2f} s beside the "
+              f"others (loaded {bwd_build_s:.2f} s after the start); ptxas: "
+              f"{ptxas_lines(inf['log'])}", flush=True)
+    kr_ = phase_backward(torch, W, FA)
+    b_, s_, h_, hs_ = WKV_FULL_SHAPE
+    print(f"[k backward] wkv6_bwd == autograd of wkv6_plain in f64 on "
+          f"{kr_['wkv_cases']} cases (hs 16/32/64 x S 64 and 100, a final-"
+          f"state adjoint at S 100, log decay ~-20 at chunk 1, and "
+          f"{WKV_FULL_SHAPE}): max abs err {kr_['wkv_err']:.3e}, worst "
+          f"{kr_['wkv_worst']:.3e} of each gradient's largest magnitude "
+          f"(limit {BWD_TOL}); at {WKV_FULL_SHAPE}: kernel "
+          f"{kr_['wkv_ms'] * 1e3:.2f} us/launch on the device "
+          f"({'profiler' if kr_['wkv_timed'] else 'not profiled: events'}), "
+          f"wrapper {kr_['wkv_wrapper_ms'] * 1e3:.2f} us/call, plain (f32) "
+          f"{kr_['wkv_plain_ms'] * 1e3:.2f} us/call, bound "
+          f"{kr_['wkv_bound_ms'] * 1e3:.2f} us ({kr_['wkv_bound_by']}: "
+          f"{kr_['wkv_bytes']} B, {kr_['wkv_ops']} ops in {TF32_PASSES} "
+          f"TF32 passes; on the CUDA cores "
+          f"{kr_['wkv_cuda_core_ms'] * 1e3:.2f} us)", flush=True)
+    print(f"[k backward] flash_attention_bwd == attention_backward_plain in "
+          f"f64 on {kr_['flash_cases']} cases (GQA 8/2, MHA 8/8, 4/1, "
+          f"Sq < Sk 70/130, hd 64 and 128, causal and full, and "
+          f"{FLASH_FULL_SHAPE}): max abs err {kr_['flash_err']:.3e}, worst "
+          f"{kr_['flash_worst']:.3e} of each gradient's largest magnitude "
+          f"(limit {BWD_TOL}); at (B {b_}, S {FLASH_FULL_SHAPE[1]}, H "
+          f"{FLASH_FULL_SHAPE[2]}, KV {FLASH_FULL_SHAPE[3]}, hd "
+          f"{FLASH_FULL_SHAPE[4]}), causal: kernels "
+          f"{kr_['flash_ms'] * 1e3:.2f} us/call on the device (three "
+          f"launches; "
+          f"{'profiler' if kr_['flash_timed'] else 'not profiled: events'}),"
+          f" wrapper {kr_['flash_wrapper_ms'] * 1e3:.2f} us/call, plain "
+          f"{kr_['flash_plain_ms'] * 1e3:.2f} us/call, autograd's backward "
+          f"of SDPA (enable_gqa) {kr_['library_ms'] * 1e3:.2f} us/call (max "
+          f"abs err {kr_['library_err']:.3e} from the kernels), bound "
+          f"{kr_['flash_bound_ms'] * 1e3:.2f} us ({kr_['flash_bound_by']}: "
+          f"{kr_['flash_ops']} ops in {TF32_PASSES} TF32 passes, "
+          f"{kr_['flash_bytes']} B; on the CUDA cores "
+          f"{kr_['flash_cuda_core_ms'] * 1e3:.2f} us); phase k "
+          f"{time.perf_counter() - t_k:.1f} s", flush=True)
+
+    marks.append(("x", time.perf_counter()))
+    # x. training at full width through make_train_step, then the launcher
+    t_x = time.perf_counter()
+    train = {}
+    for arch, n_layers, batch, seq, restart in TRAIN_CASES:
+        train[arch] = xr = phase_train(torch, W, FA, arch, n_layers, batch,
+                                       seq, restart)
+        torch.cuda.empty_cache()
+        c = xr["cfg"]
+        name = "wkv6" if c.family == "ssm" else "flash_attention"
+        walls = [r["wall"] for r in xr["rows"][1:]]
+        step_s = float(np.median(walls))
+        p = xr["profile"]
+        print(f"[x train] {arch} ({c.n_layers} layers, d_model {c.d_model}, "
+              f"vocab {c.vocab_size}; {xr['n_params']} f32 parameters, init "
+              f"{xr['init_s']:.2f} s), batch {batch} x seq {seq}, AdamW "
+              f"{TRAIN_OPT}, deterministic kernels: on {card}: step "
+              f"{step_s:.3f} s (median of steps 1-{2 * TRAIN_STEPS - 1}: "
+              f"{', '.join(f'{x:.3f}' for x in walls)}; step 0 "
+              f"{xr['rows'][0]['wall']:.3f} s) = "
+              f"{batch * seq / step_s:.1f} tokens/s; peak device memory "
+              f"{xr['peak'] / 2**30:.3f} GiB; per step {name} forward "
+              f"launches {[r['fwd'] for r in xr['rows']]}, backward calls "
+              f"{[r['bwd'] for r in xr['rows']]}; loss "
+              f"{[round(r['loss'], 4) for r in xr['rows']]}, grad_norm "
+              f"{[round(r['grad_norm'], 4) for r in xr['rows']]}", flush=True)
+        for key, depth in (("grad", TRAIN_CMP_LAYERS),
+                           ("grad_deep", c.n_layers)):
+            if key not in xr:
+                continue
+            g = xr[key]
+            held = (f"limit {TRAIN_GRAD_TOL}" if key == "grad" else
+                    "readings: no limit at this depth")
+            step_w = ("" if "stepwise" not in g else
+                      f"; the plain version in f32 at chunk 1 (stepwise) by "
+                      f"{g['stepwise'][0]:.3e} (worst leaf "
+                      f"{g['stepwise'][1]:.3e}, {g['stepwise'][2]})")
+            ln = g["layer_norms"]
+            print(f"[x train] {arch} at full width, {depth} layers: "
+                  f"gradients of the whole model (norm {g['grad_norm']:.4e}"
+                  f"; layer {depth - 1} {ln[0]:.4e}, layer 0 {ln[1]:.4e}, "
+                  f"embedding {ln[2]:.4e}), batch {batch} x {TRAIN_CMP_SEQ}, against the same "
+                  f"model with the plain versions in f64: the kernels' "
+                  f"differ by {g['kernel'][0]:.3e} of the gradient's norm "
+                  f"(worst leaf {g['kernel'][1]:.3e} of its largest "
+                  f"magnitude, {g['kernel'][2]}); the plain versions' in "
+                  f"f32 by {g['plain'][0]:.3e} (worst leaf "
+                  f"{g['plain'][1]:.3e}, {g['plain'][2]}){step_w}; {held}; "
+                  f"loss kernels {g['loss'][0]:.6f}, f64 {g['loss'][1]:.6f}",
+                  flush=True)
+            if "call_errs" in g:
+                e = g["call_errs"]
+                print(f"[x train] {arch} at full width, {depth} layers: "
+                      f"{len(e)} wkv6 calls' gradients as WKV6Function gave "
+                      f"them ({g['calls']} forward calls kept, the "
+                      f"recomputes included) against autograd of "
+                      f"wkv6_plain in f64 on each call's inputs and output "
+                      f"gradients: worst "
+                      f"{max(e, default=float('nan')):.3e} of each "
+                      f"gradient's largest magnitude (by call: "
+                      f"{', '.join(f'{x:.1e}' for x in e)}); limit "
+                      f"{BWD_TOL}", flush=True)
+        if xr["again"]:
+            print(f"[x train] {arch}: {TRAIN_STEPS} steps, save "
+                  f"({xr['save_s']:.2f} s), {TRAIN_STEPS} steps, restore "
+                  f"({xr['restore_s']:.2f} s), {TRAIN_STEPS} steps: state "
+                  f"bit-identical to the straight run: {not xr['differ']} "
+                  f"({len(xr['differ'])} tensors differ), metrics equal: "
+                  f"{xr['metrics_equal']}", flush=True)
+        print(f"[x train] {arch}: profile of one step: wall "
+              f"{p['wall']:.3f} s, device busy {p['busy']:.4f} s (idle share "
+              f"{1 - p['busy'] / p['wall']:.4f}), {p['n']} device "
+              f"activities, {name} forward {p['fwd_us'] / 1e3:.3f} ms, "
+              f"backward {p['bwd_us'] / 1e3:.3f} ms; top: " + "; ".join(
+                  f"{n[:50]} {us / 1e3:.2f} ms" for n, us in p["top"]),
+              flush=True)
+        on, off = (float(np.median(xr["det_turns"][k])) for k in (True,
+                                                                 False))
+        print(f"[x train] {arch}: step with deterministic kernels on "
+              f"{', '.join(f'{x:.3f}' for x in xr['det_turns'][True])} s, "
+              f"off {', '.join(f'{x:.3f}' for x in xr['det_turns'][False])}"
+              f" s (on/off/off/on; medians {on:.3f} / {off:.3f}, "
+              f"{on / off - 1:+.2%})", flush=True)
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="train-launcher-")
+    _, _, l_batch, l_seq, _ = TRAIN_CASES[0]
+    try:
+        lr_ = _train_launcher(torch, ckpt, l_batch, l_seq)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for run in lr_:
+        same = ("" if "differ" not in run else
+                f"; state bit-identical to the straight 6 steps: "
+                f"{not run['differ']} ({len(run['differ'])} tensors differ)")
+        print(f"[x train] launch/train.py --arch {RWKV_ARCH} --full --batch "
+              f"{l_batch} --seq {l_seq} {run['argv']}: wall "
+              f"{run['wall']:.2f} s; {' | '.join(run['lines'])}{same}",
+              flush=True)
+    print(f"[x train] phase x {time.perf_counter() - t_x:.1f} s", flush=True)
+    check(kr_["wkv_worst"] <= BWD_TOL and kr_["flash_worst"] <= BWD_TOL,
+          "a backward kernel disagrees with its plain version")
+    for arch, xr in train.items():
+        c = xr["cfg"]
+        for r in xr["rows"] + xr["again"]:
+            check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+                  f"{arch} step {r['step']}: loss or grad_norm not finite")
+            check(r["fwd"] == 2 * c.n_layers and r["bwd"] == c.n_layers,
+                  f"{arch} step {r['step']}: {r['fwd']} forward launches "
+                  f"and {r['bwd']} backward calls; {c.n_layers} layers")
+        g = xr["grad"]
+        check(g["kernel"][0] <= TRAIN_GRAD_TOL,
+              f"{arch} at {TRAIN_CMP_LAYERS} layers: the kernels' gradients "
+              f"differ from the f64 plain versions' by {g['kernel'][0]} of "
+              f"the gradient's norm")
+        if "call_errs" in xr.get("grad_deep", {}):
+            e = xr["grad_deep"]["call_errs"]
+            check(len(e) == c.n_layers and max(e) <= BWD_TOL,
+                  f"{arch}: {len(e)} wkv6 calls ran backward on "
+                  f"{c.n_layers} layers, worst {max(e, default=0.0)} from "
+                  f"the f64 plain form")
+        check(not xr["differ"] and xr["metrics_equal"], f"{arch}: 3 + "
+              f"restore + 3 differs from the straight run in "
+              f"{xr['differ'][:5]}")
+    _, first, second = lr_
+    check(any("[train] done: 4 steps" in ln for ln in first["lines"]) and
+          "[train] resumed from step 4" in second["lines"] and
+          any("[train] done: 2 steps, final loss" in ln
+              for ln in second["lines"]),
+          f"launch/train.py did not resume: {second['lines']}")
+    check(not second["differ"], f"{RWKV_ARCH}: launch/train.py's 4 + "
+          f"resume + 2 differs from its 6 straight in "
+          f"{second['differ'][:5]}")
+
+    marks.append(("end", time.perf_counter()))
+    print("[time] seconds by phase: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
+        flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} "
           "s, the builds included", flush=True)
     # 6. per-kernel numbers
@@ -2861,6 +3646,9 @@ def main():
         "bound_ms": wr["bound_ms"], "bound_by": wr["bound_by"],
         "library_ms": None, "wrapper_ms": wr["wrapper_ms"],
         "shape": list(WKV_FULL_SHAPE),
+        # the training path's (phase x, rwkv6-1.6b): the forward and the
+        # recompute of every step
+        "train_launches": sum(r["fwd"] for r in train[RWKV_ARCH]["rows"]),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2871,6 +3659,33 @@ def main():
         "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],
         "library_ms": ar["library_ms"], "wrapper_ms": ar["wrapper_ms"],
         "cuda_core_bound_ms": ar["cuda_core_ms"],
+        "shape": list(FLASH_FULL_SHAPE),
+        # the training path's (phase x, minitron-8b's widths at 2 layers):
+        # the forward and the recompute of every step
+        "train_launches": sum(r["fwd"] for r in train[DENSE_ARCH]["rows"]),
+    }, {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+        # a backward of the port's own: the TPU kernel it differentiates
+        "replaces": "src/repro/kernels/wkv6/kernel.py:65",
+        "launches": sum(r["bwd"] for r in train[RWKV_ARCH]["rows"]),
+        "max_abs_err": kr_["wkv_err"], "ms": kr_["wkv_ms"],
+        "plain_ms": kr_["wkv_plain_ms"], "bound_ms": kr_["wkv_bound_ms"],
+        "bound_by": kr_["wkv_bound_by"], "library_ms": None,
+        "wrapper_ms": kr_["wkv_wrapper_ms"],
+        "cuda_core_bound_ms": kr_["wkv_cuda_core_ms"],
+        "shape": list(WKV_FULL_SHAPE),
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
+        "launches": sum(r["bwd"] for r in train[DENSE_ARCH]["rows"]),
+        "max_abs_err": kr_["flash_err"], "ms": kr_["flash_ms"],
+        "plain_ms": kr_["flash_plain_ms"], "bound_ms": kr_["flash_bound_ms"],
+        "bound_by": kr_["flash_bound_by"], "library_ms": kr_["library_ms"],
+        "wrapper_ms": kr_["flash_wrapper_ms"],
+        "cuda_core_bound_ms": kr_["flash_cuda_core_ms"],
         "shape": list(FLASH_FULL_SHAPE),
     }]}))
     # 7. the result

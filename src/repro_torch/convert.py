@@ -207,6 +207,130 @@ def lm_params_to_torch(tree: dict, cfg: ArchConfig, device) -> dict:
     return state
 
 
+def _leaf_groups(params: dict, cfg: ArchConfig) -> dict:
+    """The port's parameters (or any dict keyed by parameter name, such as
+    an AdamW moment) grouped by the JAX package's tree path: {path tuple:
+    [tensor]} for a leaf outside the groups, {("groups", g, ...): [the
+    layers' tensors in order]} for a group's stacked leaf."""
+    plan = lm.group_plan(cfg)
+    out: dict = {}
+    layers: dict = {}
+    for key, t in params.items():
+        parts = key.split(".")
+        if parts[0] != "groups":
+            out[tuple(parts)] = [t]
+            continue
+        g, i = int(parts[1]), int(parts[2])
+        if g >= len(plan):
+            raise ValueError(f"{cfg.name}: parameter group {g}, the plan "
+                             f"has {len(plan)}")
+        layers.setdefault(("groups", g, *parts[3:]), {})[i] = t
+    for path, by_layer in layers.items():
+        count = plan[path[1]][1]
+        if sorted(by_layer) != list(range(count)):
+            raise ValueError(f"{cfg.name}: {'.'.join(map(str, path))} has "
+                             f"layers {sorted(by_layer)}, the plan {count}")
+        out[path] = [by_layer[i] for i in range(count)]
+    return out
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as a numpy array (bf16 as float32: numpy has no bf16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _leaf_array(path: tuple, tensors: list) -> np.ndarray:
+    if "groups" in path:                 # a group's layers, stacked
+        return np.stack([_host(t) for t in tensors])
+    return _host(tensors[0])
+
+
+def _nest(items) -> dict:
+    """((path tuple, value), ...) → nested dicts, the "groups" level a
+    list."""
+    tree: dict = {}
+    for path, value in items:
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    for node in _walk_dicts(tree):
+        if "groups" in node and isinstance(node["groups"], dict):
+            node["groups"] = [node["groups"][g]
+                              for g in range(len(node["groups"]))]
+    return tree
+
+
+def _walk_dicts(tree):
+    yield tree
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _walk_dicts(v)
+
+
+def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
+    """The port's parameters (a state dict, or any dict keyed by parameter
+    name, such as an AdamW moment) → the JAX package's LM parameter tree:
+    numpy leaves of the same dtype (bf16 as f32), each group's layers
+    stacked on axis 0.  The inverse of ``lm_params_to_torch``."""
+    return _nest((path, _leaf_array(path, ts))
+                 for path, ts in _leaf_groups(params, cfg).items())
+
+
+def _state_leaves(state: dict, cfg: ArchConfig) -> dict:
+    """A port train state's tensors by the JAX package's train-state path
+    ("params"/"opt", "m"/..., the parameter path)."""
+    out = {("params", *p): ts for p, ts in _leaf_groups(
+        state["params"].state_dict(), cfg).items()}
+    for k in ("m", "v"):
+        out.update({("opt", k, *p): ts for p, ts in
+                    _leaf_groups(state["opt"][k], cfg).items()})
+    return out
+
+
+def train_state_arrays(state: dict, cfg: ArchConfig):
+    """A port train state (``train.train_step.init_train_state``) as the
+    JAX package's train-state leaves, one at a time: ("params/groups/0/
+    attn/wq", numpy array with the layers stacked), ..., ("step", int32
+    scalar).  A checkpoint writes them as they come, so the host holds one
+    leaf at a time."""
+    for path, ts in _state_leaves(state, cfg).items():
+        yield "/".join(map(str, path)), _leaf_array(path, ts)
+    yield "step", np.asarray(state["step"], np.int32)
+
+
+def train_state_to_numpy(state: dict, cfg: ArchConfig) -> dict:
+    """A port train state → the JAX package's train-state tree:
+    {"params", "opt": {"m", "v"}, "step"}, each parameter tree in the
+    reference's layout, step an int32 scalar."""
+    def path(key):
+        return tuple(int(p) if p.isdigit() else p for p in key.split("/"))
+    return _nest((path(k), a) for k, a in train_state_arrays(state, cfg))
+
+
+@torch.no_grad()
+def load_train_state(arrays, state: dict, cfg: ArchConfig) -> dict:
+    """Copy the JAX package's train-state leaves into the port train state
+    ``state``, in place, in each tensor's dtype and device; returns
+    ``state``.  ``arrays`` maps "params/groups/0/attn/wq"-style keys to
+    arrays (an open ``.npz`` checkpoint, or a dict): each is read once,
+    and a group's stacked leaf fills its layers' tensors."""
+    for path, ts in _state_leaves(state, cfg).items():
+        arr = np.asarray(arrays["/".join(map(str, path))])
+        stacked = "groups" in path
+        if arr.shape != ((len(ts),) if stacked else ()) + tuple(ts[0].shape):
+            raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                             f"{arr.shape} does not fit the model")
+        for i, t in enumerate(ts):
+            t.copy_(torch.from_numpy(np.ascontiguousarray(
+                arr[i] if stacked else arr)))
+    state["step"] = int(np.asarray(arrays["step"]))
+    return state
+
+
 def lm_cache_to_torch(cache: dict, device) -> dict:
     """The JAX package's LM decode cache → the port's, on ``device``."""
     return {"len": to_torch(cache["len"], device),

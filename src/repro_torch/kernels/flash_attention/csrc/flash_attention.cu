@@ -145,8 +145,8 @@ __device__ __forceinline__ void cp_async_wait_1() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-    int KV, int causal, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int H, int KV, int causal, float scale) {
   using L = Tiles<T, HD>;
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte copy
@@ -386,11 +386,17 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) flash_kernel(
     if (row1 < Sq)
       store2(ob + (size_t)row1 * qstep + col, acc[n][2] / d1, acc[n][3] / d1);
   }
+  // the rows' log-sum-exp of the scaled scores, for the backward
+  if (lse != nullptr && tq == 0) {
+    float* lb = lse + ((size_t)b * H + h) * Sq;
+    if (row0 < Sq) lb[row0] = m0 + logf(l0);
+    if (row1 < Sq) lb[row1] = m1 + logf(l1);
+  }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int causal, float scale,
            cudaStream_t stream) {
   const int n_q = (Sq + BQ - 1) / BQ;
   if (B > MAX_GRID_YZ || n_q > MAX_GRID_YZ) return (int)cudaErrorInvalidValue;
@@ -401,24 +407,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, n_q);
   flash_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, causal,
-      scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, KV,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Sk, int H, int KV, int hd, int causal, float scale,
-             cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+             int causal, float scale, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+      return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale,
+                           st);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+      return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale,
+                           st);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+      return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale,
+                           st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+      return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                            scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -429,16 +439,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // cudaErrorInvalidValue for a head size without a kernel or a grid above
 // its limits.  bf16: 0 for f32 inputs and output, 1 for bf16.  scale:
 // hd^-0.5 rounded to f32, as the reference rounds it.  q, k, v and o are
-// 16-byte aligned.
+// 16-byte aligned.  lse, when not null, receives the rows' log-sum-exp of
+// the scaled scores, f32 (B, H, Sq): the backward (flash_attention_bwd.cu)
+// reads P = exp(s * scale - lse) from it.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int KV, int hd,
-                                      int causal, int bf16, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq, int Sk, int H, int KV,
+                                      int hd, int causal, int bf16,
+                                      float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  float* fl = (float*)lse;
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal,
-                                   scale, st);
-  return dispatch<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale,
+    return dispatch<__nv_bfloat16>(q, k, v, o, fl, B, Sq, Sk, H, KV, hd,
+                                   causal, scale, st);
+  return dispatch<float>(q, k, v, o, fl, B, Sq, Sk, H, KV, hd, causal, scale,
                          st);
 }

@@ -42,6 +42,16 @@ def attention_plain(q, k, v, *, causal: bool = True):
     """q: (B,Sq,H,hd); k, v: (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype."""
     check_shapes(q, k, v)
     b, sq, h, hd = q.shape
+    s, dt = _scores(q, k, causal)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(dt))
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _scores(q, k, causal: bool):
+    """Scaled, masked scores (B, KV, G, Sq, Sk) in f32 (f64 for f64
+    inputs), and that dtype."""
+    b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     dt = torch.promote_types(q.dtype, torch.float32)
     qg = q.to(dt).reshape(b, sq, kv, h // kv, hd)
@@ -50,6 +60,32 @@ def attention_plain(q, k, v, *, causal: bool = True):
         qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         kpos = torch.arange(sk, device=q.device)[None, :]
         s = torch.where(qpos >= kpos, s, NEG_INF)
+    return s, dt
+
+
+def attention_backward_plain(q, k, v, do, *, causal: bool = True):
+    """The gradient of ``attention_plain``, by explicit formulas
+    (FlashAttention-2's): P = softmax(s), dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO . O), dS = P (dP - D), dQ = scale dS K, dK = scale dS^T
+    Q, with dK and dV summed over each KV head's group of query heads.
+    Computed in f32 (f64 for f64 inputs); returns (dq, dk, dv) in q's,
+    k's and v's dtypes."""
+    check_shapes(q, k, v)
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    s, dt = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(dt))
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    vf, kf = v.to(dt), k.to(dt)
+    qg = q.to(dt).reshape(b, sq, kv, g, hd)
+    dog = do.to(dt).reshape(b, sq, kv, g, hd)
+    og = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    d_rows = (dog * og).sum(-1).permute(0, 2, 3, 1)          # (B,KV,G,Sq)
+    ds = p * (dp - d_rows[..., None])
+    scale = hd ** -0.5
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -1,5 +1,5 @@
-"""RWKV-6 wkv linear attention: the CUDA kernel's wrapper and its plain
-version.
+"""RWKV-6 wkv linear attention: the CUDA kernels' wrappers, their plain
+versions, and the autograd function over them.
 
 ``wkv6`` replaces ``repro/kernels/wkv6/kernel.py:wkv6_pallas``: for
 r, k, v, wlog (B, S, H, hs) and u (H, hs) it returns the output
@@ -11,8 +11,13 @@ On CUDA tensors the wrapper launches the kernel (built from
 ``csrc/wkv6.cu`` at first use: chunks of 32 tokens, the products in three
 TF32 passes on the tensor cores) or raises; on CPU tensors it runs
 ``wkv6_plain``, the chunked parallel form of the reference's
-``models/layers/rwkv6.py:wkv_chunked``.  ``wkv6.launches`` counts kernel
-launches.
+``models/layers/rwkv6.py:wkv_chunked``, and autograd runs through it.
+Where a gradient is asked for on CUDA, ``wkv6`` goes through
+``WKV6Function``, whose backward is the port's own kernel
+(``csrc/wkv6_bwd.cu``, wrapped by ``wkv6_bwd``; its plain version is
+``wkv6_backward_plain``): the TPU package has no backward kernel and
+trains through ``wkv_chunked``.  ``wkv6.launches`` counts forward kernel
+launches, ``wkv6_bwd.launches`` backward calls (one launch each).
 """
 from __future__ import annotations
 
@@ -24,22 +29,25 @@ import torch
 from repro_torch.kernels.build import build_library, once
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
 HEAD_SIZES = (16, 32, 64)
 
 
 def wkv6_plain(r, k, v, wlog, u, state, *, chunk: int = 64):
     """Chunked parallel form: intra-chunk pairwise decays (all exponents
     ≤ 0) plus an inter-chunk state scan.  r,k,v,wlog: (B,S,H,hs) (wlog =
-    log decay ≤ 0); u: (H,hs); state: (B,H,hs,hs).  Computed in f32;
-    returns (o (B,S,H,hs), new_state (B,H,hs,hs))."""
+    log decay ≤ 0); u: (H,hs); state: (B,H,hs,hs).  Computed in f32 (in
+    f64 for f64 r, so that the card can hold the kernels against an f64
+    truth); returns (o (B,S,H,hs), new_state (B,H,hs,hs))."""
     b, s, h, hs = r.shape
     c = min(chunk, s)
     assert s % c == 0, (s, c)
     nc = s // c
-    rc, kc, vc, wc = (a.reshape(b, nc, c, h, hs).float()
+    dt = torch.promote_types(r.dtype, torch.float32)
+    rc, kc, vc, wc = (a.reshape(b, nc, c, h, hs).to(dt)
                       for a in (r, k, v, wlog))
-    uf = u.float()
-    S = state.float()
+    uf = u.to(dt)
+    S = state.to(dt)
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                       -1)[None, :, :, None, None]
     outs = []
@@ -50,9 +58,12 @@ def wkv6_plain(r, k, v, wlog, u, state, *, chunk: int = 64):
         Lend = L[:, -1:]                     # (B,1,H,hs)
         # inter-chunk: o_t += (r_t ⊙ exp(Lprev_t)) @ S
         o_inter = torch.einsum("bthi,bhij->bthj", rr * torch.exp(Lprev), S)
-        # intra-chunk pairwise decays (t>s): exp(Lprev_t - L_s) ≤ 1
-        dexp = torch.where(mask, torch.exp(Lprev[:, :, None] - L[:, None, :]),
-                           0.0)              # (B,C,C,H,hs)
+        # intra-chunk pairwise decays (t>s): exp(Lprev_t - L_s) ≤ 1.  The
+        # mask goes inside the exponent: the reference masks exp's output,
+        # whose gradient is 0 x inf = NaN where a masked exponent overflows
+        # (ROADMAP §3, F7); the values are the same
+        dexp = torch.exp(torch.where(mask, Lprev[:, :, None] - L[:, None, :],
+                                     -torch.inf))    # (B,C,C,H,hs)
         scores = torch.einsum("bthi,bshi,btshi->bhts", rr, kk, dexp)
         o_intra = torch.einsum("bhts,bshj->bthj", scores, vv)
         # bonus diagonal
@@ -63,6 +74,38 @@ def wkv6_plain(r, k, v, wlog, u, state, *, chunk: int = 64):
         S = torch.exp(Lend)[:, 0, :, :, None] * S + \
             torch.einsum("bshi,bshj->bhij", kdec, vv)
     return torch.stack(outs, 1).reshape(b, s, h, hs), S
+
+
+def wkv6_backward_plain(r, k, v, wlog, u, state, do, dstate=None):
+    """The gradient of the wkv recurrence, plain: the kernel's step-by-step
+    reverse recurrence (``csrc/wkv6_bwd.cu`` states it) in f32, or in f64
+    when ``state`` is f64.  r, k, v, wlog, do: (B,S,H,hs); u: (H,hs);
+    state and dstate (the final state's adjoint, or None for zero):
+    (B,H,hs,hs).  Returns (dr, dk, dv, dwlog (B,S,H,hs), du (H,hs))."""
+    dt = torch.promote_types(state.dtype, torch.float32)
+    r, k, v, wlog, u, S, do = (a.to(dt) for a in (r, k, v, wlog, u, state,
+                                                   do))
+    w = torch.exp(wlog)
+    prev = []                                  # S_{t-1} for every t
+    for t in range(r.shape[1]):
+        prev.append(S)
+        S = w[:, t, :, :, None] * S + k[:, t, :, :, None] * v[:, t, :, None]
+    G = torch.zeros_like(S) if dstate is None else dstate.to(dt)
+    grads = {n: [None] * r.shape[1] for n in ("r", "k", "v", "w")}
+    du = torch.zeros_like(u)
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, wt, dot = r[:, t], k[:, t], v[:, t], w[:, t], do[:, t]
+        dov = (dot * vt).sum(-1, keepdim=True)             # (B,H,1)
+        rku = (rt * u * kt).sum(-1, keepdim=True)
+        grads["r"][t] = torch.einsum("bhij,bhj->bhi", prev[t], dot) \
+            + u * kt * dov
+        grads["k"][t] = torch.einsum("bhij,bhj->bhi", G, vt) + rt * u * dov
+        grads["v"][t] = torch.einsum("bhij,bhi->bhj", G, kt) + rku * dot
+        grads["w"][t] = wt * (G * prev[t]).sum(-1)
+        du = du + (rt * kt * dov).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dot[:, :, None]
+    return tuple(torch.stack(grads[n], 1) for n in ("r", "k", "v", "w")) \
+        + (du,)
 
 
 def _check(name, x, shape, device):
@@ -81,37 +124,9 @@ def _check(name, x, shape, device):
                          "(the kernel loads rows 16 bytes at a time)")
 
 
-@once
-def _launcher():
-    lib, info = build_library(SOURCE, "wkv6")
-    fn = lib.wkv6_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.wkv6_smem_bytes.argtypes = [ctypes.c_int]
-    lib.wkv6_smem_bytes.restype = ctypes.c_int
-    info = dict(info, smem_bytes={hs: lib.wkv6_smem_bytes(hs)
-                                  for hs in HEAD_SIZES})
-    return fn, info
-
-
-def build() -> dict:
-    """Build (or reuse) and load the kernel; returns the build record of
-    ``repro_torch.kernels.build.build_library``, with the dynamic shared
-    memory of one block per head size under ``smem_bytes``."""
-    return _launcher()[1]
-
-
-def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
-    """The wkv recurrence from ``state``: the CUDA kernel on CUDA tensors,
-    ``wkv6_plain`` on CPU tensors.  Same arguments and results as
-    ``wkv6_plain``; ``chunk`` is the plain version's chunk length, and the
-    kernel, whose chunk is fixed in its source, does not read it.  On CUDA
-    every input is f32, contiguous and 16-byte aligned, hs is 16, 32 or
-    64, and S may be any length."""
+def _check_inputs(r, k, v, wlog, u, state):
+    """(b, s, h, hs) of CUDA inputs the kernels take; raises otherwise."""
     device = r.device
-    if device.type == "cpu":
-        return wkv6_plain(r, k, v, wlog, u, state, chunk=chunk)
     if device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {device}")
     if r.dim() != 4:
@@ -126,14 +141,64 @@ def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
                            ("wlog", wlog, (b, s, h, hs)), ("u", u, (h, hs)),
                            ("state", state, (b, h, hs, hs))):
         _check(name, x, shape, device)
+    return b, s, h, hs
+
+
+@once
+def _launcher():
+    lib, info = build_library(SOURCE, "wkv6")
+    fn = lib.wkv6_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.wkv6_smem_bytes.argtypes = [ctypes.c_int]
+    lib.wkv6_smem_bytes.restype = ctypes.c_int
+    info = dict(info, smem_bytes={hs: lib.wkv6_smem_bytes(hs)
+                                  for hs in HEAD_SIZES})
+    return fn, info
+
+
+@once
+def _bwd_launcher():
+    lib, info = build_library(BWD_SOURCE, "wkv6_bwd")
+    fn = lib.wkv6_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = lib.wkv6_bwd_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 4
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch, info
+
+
+def build() -> dict:
+    """Build (or reuse) and load the forward kernel; returns the build
+    record of ``repro_torch.kernels.build.build_library``, with the dynamic
+    shared memory of one block per head size under ``smem_bytes``."""
+    return _launcher()[1]
+
+
+def build_bwd() -> dict:
+    """Build (or reuse) and load the backward kernel; its build record."""
+    return _bwd_launcher()[2]
+
+
+def _wkv6_kernel(r, k, v, wlog, u, state):
+    """One launch of the forward kernel on checked CUDA inputs."""
+    b, s, h, hs = _check_inputs(r, k, v, wlog, u, state)
+    device = r.device
     o = torch.empty((b, s, h, hs), dtype=torch.float32, device=device)
     s_out = torch.empty((b, h, hs, hs), dtype=torch.float32, device=device)
     if b * h == 0:
         return o, s_out
     fn, _ = _launcher()
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
-             u.data_ptr(), state.data_ptr(), o.data_ptr(), s_out.data_ptr(),
-             b, s, h, hs, torch.cuda.current_stream(device).cuda_stream)
+    # the launcher sets its shared-memory attribute and launches on the
+    # current device: make it the tensors' one
+    with torch.cuda.device(device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
+                 u.data_ptr(), state.data_ptr(), o.data_ptr(),
+                 s_out.data_ptr(), b, s, h, hs,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"wkv6: kernel launch failed with CUDA error "
                            f"{err}")
@@ -141,4 +206,85 @@ def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
     return o, s_out
 
 
+def wkv6_bwd(r, k, v, wlog, u, state, do, dstate=None):
+    """The gradient of ``wkv6`` on CUDA tensors, by the backward kernel:
+    the same results as ``wkv6_backward_plain`` (dr, dk, dv, dwlog, du).
+    ``do`` and ``dstate`` (None: zero) are made contiguous here, since
+    autograd hands them over in any layout; du is the kernel's per-(b, h)
+    partials summed over b."""
+    b, s, h, hs = _check_inputs(r, k, v, wlog, u, state)
+    device = r.device
+    do = do.contiguous()
+    _check("do", do, (b, s, h, hs), device)
+    if dstate is not None:
+        dstate = dstate.contiguous()
+        _check("dstate", dstate, (b, h, hs, hs), device)
+    grads = [torch.empty((b, s, h, hs), dtype=torch.float32, device=device)
+             for _ in range(4)]
+    du_part = torch.zeros((b, h, hs), dtype=torch.float32, device=device)
+    if b * h * s == 0:                 # every gradient but du is empty
+        return (*grads, du_part.sum(0))
+    fn, scratch_floats, _ = _bwd_launcher()
+    scratch = torch.empty(int(scratch_floats(b, s, h, hs)),
+                          dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
+                 u.data_ptr(), state.data_ptr(), do.data_ptr(),
+                 None if dstate is None else dstate.data_ptr(),
+                 *(g.data_ptr() for g in grads), du_part.data_ptr(),
+                 scratch.data_ptr(), b, s, h, hs,
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv6_bwd: kernel launch failed with CUDA error "
+                           f"{err}")
+    wkv6_bwd.launches += 1
+    return (*grads, du_part.sum(0))
+
+
+class WKV6Function(torch.autograd.Function):
+    """``wkv6`` with a gradient, on CUDA tensors: forward by the forward
+    kernel, backward by the backward kernel (``wkv6`` sends CPU tensors to
+    plain autograd through ``wkv6_plain`` and never here).  The gradient
+    of the final state is the reverse pass's initial adjoint.  No gradient
+    flows to ``state``: the reference trains from the zero state, and a
+    ``state`` that requires grad raises."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, wlog, u, state):
+        if state.requires_grad:
+            raise ValueError("wkv6: no gradient flows to the initial state "
+                             "(training starts from the zero state); "
+                             "detach it")
+        ctx.save_for_backward(r, k, v, wlog, u, state)
+        # an unused final state gives None, not zeros: no adjoint to load
+        ctx.set_materialize_grads(False)
+        return _wkv6_kernel(r, k, v, wlog, u, state)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        r, k, v, wlog, u, state = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        return (*wkv6_bwd(r, k, v, wlog, u, state, do, dstate), None)
+
+
+def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
+    """The wkv recurrence from ``state``: the CUDA kernel on CUDA tensors,
+    ``wkv6_plain`` on CPU tensors.  Same arguments and results as
+    ``wkv6_plain``; ``chunk`` is the plain version's chunk length, and the
+    kernel, whose chunk is fixed in its source, does not read it.  On CUDA
+    every input is f32, contiguous and 16-byte aligned, hs is 16, 32 or
+    64, and S may be any length; where grad mode is on and an input
+    requires grad the call goes through ``WKV6Function``, whose backward
+    is a kernel too (a ``state`` that requires grad raises)."""
+    device = r.device
+    if device.type == "cpu":
+        return wkv6_plain(r, k, v, wlog, u, state, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, wlog, u, state)):
+        return WKV6Function.apply(r, k, v, wlog, u, state)
+    return _wkv6_kernel(r, k, v, wlog, u, state)
+
+
 wkv6.launches = 0
+wkv6_bwd.launches = 0

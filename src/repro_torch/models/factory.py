@@ -2,6 +2,7 @@
 architectures the port runs (RWKV-6 and the dense GQA models so far).
 
   init_params(seed, cfg, dtype, device)           -> LM module
+  train_loss(model, batch, cfg)                   -> (loss, metrics)
   prefill(model, batch, cfg, max_len)             -> (logits, cache)
   decode(model, cache, batch, cfg)                -> (logits, cache)
   init_cache(cfg, batch, max_len, dtype, device)  -> zeroed cache
@@ -14,9 +15,10 @@ Random draws come from an explicit ``torch.Generator`` on the device,
 seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
 Sharding (``ctx``) comes with ROADMAP item 11d, on the simulator's mesh
-(core/distribute.py); ``train_loss`` with the training slice (11c); the
-caches and frontends of other families, and the arguments that size
-them, with their slices.
+(core/distribute.py); the caches and frontends of other families, and the
+arguments that size them, with their slices.  Serving (``prefill``,
+``decode``, ``generate``) records no autograd graph, so a model made
+trainable serves as a frozen one does.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.models.loss import chunked_cross_entropy
+
+AUX_WEIGHT = 0.01
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -55,6 +60,22 @@ def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
                            device=device).mul_(std)
 
     return lm.init_lm(draw, cfg, dtype, device)
+
+
+def train_loss(model: lm.LM, batch: dict, *, cfg: ArchConfig):
+    """(loss, {"loss", "ce", "aux"}) of a batch of ``tokens`` (or the
+    vision frontend's ``embeds``) and ``labels``: the chunked
+    cross-entropy of the head's logits plus AUX_WEIGHT times the MoE
+    balance loss, 0 for the ported kinds."""
+    _check_ported(cfg)
+    x = lm._inputs(model, batch)
+    b, s = x.shape[0], x.shape[1]
+    positions = lm.make_positions(cfg, b, s, device=x.device)
+    hidden, aux = lm.forward_hidden(model, x, cfg=cfg, positions=positions)
+    ce = chunked_cross_entropy(hidden, lm.head_weight(model, cfg),
+                               batch["labels"])
+    loss = ce + AUX_WEIGHT * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill(model: lm.LM, batch: dict, *, cfg: ArchConfig,
@@ -115,6 +136,7 @@ def make_decode_batch(seed: int, cfg: ArchConfig, batch: int, *,
     return {"tokens": _tokens(gen, cfg, (batch, 1), device)}
 
 
+@torch.no_grad()
 def generate(model: lm.LM, cfg: ArchConfig, prompts, *, max_new: int = 16):
     """prompts: (B, S) int32. Greedy decode max_new tokens; argmax ties go
     to the first index, as ``jnp.argmax``'s do."""

@@ -10,7 +10,8 @@ from torch import nn
 class ParamDict(nn.Module):
     """A module whose parameters are a flat dict of tensors, named as the
     leaves of the JAX package's parameter tree.  Serving needs no
-    gradients, so they are frozen."""
+    gradients, so they are frozen; ``train.train_step.init_train_state``
+    makes a model trainable with ``model.requires_grad_(True)``."""
 
     def __init__(self, params: dict):
         super().__init__()

@@ -1,5 +1,5 @@
-"""Decoder-LM assembly: the serving paths of the JAX package's
-``models/lm.py`` for the RWKV-6 and dense GQA families.
+"""Decoder-LM assembly: the training and serving paths of the JAX
+package's ``models/lm.py`` for the RWKV-6 and dense GQA families.
 
 An architecture is a list of *groups*; each group is `count` structurally
 identical blocks.  The JAX package stacks a group's parameters on a
@@ -13,14 +13,20 @@ KV, hd) for ``std:dense``, and ``len`` (B,) int32.
 
 The ``rwkv`` and ``std:dense`` group kinds are ported; the others raise
 ``NotImplementedError`` naming the ROADMAP slice that ports them.
-Decode is functional, as the reference's: a step returns a new cache and
-leaves the one it was given unchanged, so a dense step copies every
-layer's KV cache (``attention_decode``, then the stack of the layers).
+``forward_hidden`` is the training forward: each block runs under
+non-reentrant ``torch.utils.checkpoint``, as the reference's under
+``jax.checkpoint``, so its activations are recomputed in the backward.
+Prefill and decode run under ``torch.no_grad()``: a model made trainable
+records no graph while it serves.  Decode is functional, as the
+reference's: a step returns a new cache and leaves the one it was given
+unchanged, so a dense step copies every layer's KV cache
+(``attention_decode``, then the stack of the layers).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn
@@ -194,6 +200,50 @@ def make_positions(cfg: ArchConfig, b: int, s: int, offset=0, device=None):
 
 
 # ---------------------------------------------------------------------------
+# block apply — train (no cache)
+# ---------------------------------------------------------------------------
+
+def _block_train(blk, x, *, cfg: ArchConfig, positions):
+    """One block of the training forward, from the zero shift and wkv
+    states (the sequence start); returns x."""
+    nk, eps = cfg.norm, cfg.norm_eps
+    if isinstance(blk, DenseBlock):
+        x = x + attn.attention_train(
+            blk.attn.p, apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps),
+            cfg=cfg, positions=positions)
+        return x + apply_ffn(blk.mlp.p, apply_norm(blk.mlp_norm.p, x,
+                                                   kind=nk, eps=eps),
+                             act=cfg.act)
+    b, _, d = x.shape
+    h, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+    zshift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    zstate = torch.zeros((b, h, hs, hs), dtype=torch.float32,
+                         device=x.device)
+    y, _, _ = blk.tm(apply_norm(blk.ln1.p, x, kind=nk, eps=eps), zshift,
+                     zstate)
+    x = x + y
+    y, _ = blk.cm(apply_norm(blk.ln2.p, x, kind=nk, eps=eps), zshift)
+    return x + y
+
+
+def forward_hidden(model: LM, embeds, *, cfg: ArchConfig, positions):
+    """embeds: (B,S,d) -> (hidden (B,S,d) after the final norm, aux).
+    Each block is checkpointed (its forward runs again in the backward);
+    aux, the MoE balance loss of the reference, is 0 for the ported
+    kinds."""
+    x = embeds
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blocks in model.groups:
+        for blk in blocks:
+            # the blocks draw no random numbers: no RNG state to keep
+            x = checkpoint(_block_train, blk, x, cfg=cfg,
+                           positions=positions, use_reentrant=False,
+                           preserve_rng_state=False)
+    x = apply_norm(model.final_norm.p, x, kind=cfg.norm, eps=cfg.norm_eps)
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
@@ -292,6 +342,7 @@ def _inputs(model: LM, batch: dict):
     return embed_tokens(model, batch["tokens"])
 
 
+@torch.no_grad()
 def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
     """Run the full prompt, return (last-token logits, filled cache); the
     KV caches are sized for max_len tokens (the prompt's length if 0)."""
@@ -312,6 +363,7 @@ def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
     return _logits(model, x, cfg), cache
 
 
+@torch.no_grad()
 def lm_decode(model: LM, cache: dict, batch: dict, *, cfg: ArchConfig):
     """One decode step. batch['tokens'] or ['embeds']: (B,1)[,d].  Returns
     (logits, cache)."""

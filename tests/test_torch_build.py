@@ -108,3 +108,6 @@ def test_every_kernel_launcher_is_built_once():
     for mod in (fa, si, sq, wk):
         assert mod._launcher.__code__ is first, mod.__name__
         assert mod._launcher.__wrapped__.__module__ == mod.__name__
+    for mod in (fa, wk):          # the backward kernels' launchers
+        assert mod._bwd_launcher.__code__ is first, mod.__name__
+        assert mod._bwd_launcher.__wrapped__.__module__ == mod.__name__

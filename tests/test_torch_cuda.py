@@ -7,8 +7,12 @@ card against the same search on the CPU, the simulation server on the card
 against solo card runs and the golden stats, the first build of a kernel
 from two threads, SM-axis shards and a 2×2 ('cfg','sm') grid on a mesh
 that repeats the card, the simulator's kernels launched on a second card
-(skipped with one), and the reduced RWKV-6 and dense models on the card
-against their golden files.
+(skipped with one), the reduced RWKV-6 and dense models on the card
+against their golden files, the backward kernels (wkv6_bwd,
+flash_attention_bwd) against their plain versions in f64 and autograd,
+the autograd Functions over the kernels, and reduced models training on
+the card (launch counts, gradients against the plain versions, a
+checkpoint restart bit for bit).
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -39,7 +43,7 @@ from repro_torch.core.plan import RunPlan
 from repro_torch.core.search import SearchSpace, search
 from repro_torch.core.sweep import grid_sweep, sweep
 from repro_torch.kernels.flash_attention import kernel as FA
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ref import _scores, attention_plain
 from repro_torch.kernels.sm_issue import kernel as K
 from repro_torch.kernels.sm_quantum import kernel as Q
 from repro_torch.kernels.wkv6 import kernel as W
@@ -844,3 +848,219 @@ def test_dense_reduced_golden_on_card(cuda, arch):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
     assert toks.cpu().tolist() == g["tokens"]
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: wkv6_bwd and flash_attention_bwd
+# ---------------------------------------------------------------------------
+
+# of each gradient's largest magnitude (the CPU tests' tolerance for the
+# model's gradients)
+GRAD_TOL = 1e-4
+WKV_BWD_SHAPES = ((2, 64, 2, 16), (2, 37, 2, 32), (1, 100, 3, 64),
+                  (1, 8, 2, 64), (2, 1, 2, 16))
+
+
+def rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("decay", ["random", "strong"])
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES)
+def test_wkv6_bwd_matches_plain(cuda, shape, decay):
+    """The backward kernel against wkv6_backward_plain and autograd of
+    wkv6_plain, both in f64 (the latter in chunks of 1 under strong decay,
+    F5), with a final-state adjoint and without; one launch per call."""
+    args = wkv_inputs(np.random.default_rng(sum(shape) + 7), *shape, cuda,
+                      False, decay)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h, hs = shape
+    do = torch.randn((b, s, h, hs), generator=gen, device=cuda)
+    ds = torch.randn((b, h, hs, hs), generator=gen, device=cuda)
+    for dstate in (None, ds):
+        before = W.wkv6_bwd.launches
+        got = W.wkv6_bwd(*args, do, dstate)
+        assert W.wkv6_bwd.launches == before + 1
+        truth = W.wkv6_backward_plain(
+            *(a.double() for a in args), do.double(),
+            None if dstate is None else dstate.double())
+        ins = [a.double().requires_grad_() for a in args[:5]]
+        chunk = 1 if decay == "strong" else s
+        o, st = W.wkv6_plain(*ins, args[5].double(), chunk=chunk)
+        auto = torch.autograd.grad(
+            (o, st) if dstate is not None else (o,), ins,
+            (do.double(), dstate.double()) if dstate is not None
+            else (do.double(),))
+        torch.cuda.synchronize()
+        for g, t, a in zip(got, truth, auto):
+            assert torch.isfinite(g).all()
+            assert rel_err(g, t) <= GRAD_TOL
+            assert rel_err(g, a) <= GRAD_TOL
+
+
+def test_wkv6_autograd_on_card(cuda):
+    """wkv6 with inputs that require grad goes through WKV6Function: one
+    forward and one backward launch; a state that requires grad raises."""
+    args = wkv_inputs(np.random.default_rng(5), 2, 64, 2, 32, cuda, True)
+    ins = [a.clone().requires_grad_() for a in args[:5]]
+    f0, b0 = W.wkv6.launches, W.wkv6_bwd.launches
+    o, _ = W.wkv6(*ins, args[5])
+    (o * o).sum().backward()
+    assert (W.wkv6.launches, W.wkv6_bwd.launches) == (f0 + 1, b0 + 1)
+    ref = [a.clone().requires_grad_() for a in args[:5]]
+    o, _ = W.wkv6_plain(*ref, args[5])
+    (o * o).sum().backward()
+    for g, r in zip(ins, ref):
+        assert rel_err(g.grad, r.grad) <= GRAD_TOL
+    with pytest.raises(ValueError, match="initial state"):
+        W.wkv6(*ins, args[5].clone().requires_grad_())
+
+
+# (B, Sq, Sk, H, KV, hd): GQA and MHA, causal training shapes, ragged
+# tiles, Sq < Sk
+FLASH_BWD_SHAPES = ((2, 64, 64, 4, 1, 16), (2, 100, 100, 4, 2, 32),
+                    (1, 70, 130, 4, 4, 64), (1, 128, 128, 8, 2, 128),
+                    (2, 1, 9, 2, 2, 64))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+def test_flash_bwd_matches_plain(cuda, shape, causal):
+    """The backward kernels (from the forward's log-sum-exp) against
+    attention_backward_plain in f64 and autograd of attention_plain."""
+    q, k, v = flash_inputs(sum(shape) + 1, *shape, torch.float32, cuda)
+    do = flash_inputs(sum(shape) + 2, *shape, torch.float32, cuda)[0]
+    o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
+    scores, _ = _scores(q, k, causal)
+    torch.testing.assert_close(
+        lse, torch.logsumexp(scores, dim=-1).reshape(lse.shape), rtol=1e-5,
+        atol=1e-5)
+    before = FA.flash_attention_bwd.launches
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert FA.flash_attention_bwd.launches == before + 1
+    truth = FA.attention_backward_plain(q.double(), k.double(), v.double(),
+                                        do.double(), causal=causal)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(attention_plain(*ins, causal=causal), ins, do)
+    torch.cuda.synchronize()
+    for g, t, a in zip(got, truth, auto):
+        assert torch.isfinite(g).all()
+        assert rel_err(g, t) <= GRAD_TOL
+        assert rel_err(g, a) <= GRAD_TOL
+
+
+def test_flash_autograd_on_card(cuda):
+    """flash_attention with inputs that require grad goes through
+    FlashAttentionFunction (one forward and one backward call); bf16 raises
+    in the backward."""
+    q, k, v = flash_inputs(9, 2, 64, 64, 4, 2, 64, torch.float32, cuda)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    o = FA.flash_attention(*ins)
+    (o * o).sum().backward()
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    (attention_plain(*ref) ** 2).sum().backward()
+    for g, r in zip(ins, ref):
+        assert rel_err(g.grad, r.grad) <= GRAD_TOL
+    bf = [x.bfloat16().requires_grad_() for x in (q, k, v)]
+    with pytest.raises(TypeError, match="float32 only"):
+        FA.flash_attention(*bf).float().sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# training on the card: reduced models through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "minitron-8b"])
+def test_train_on_card(cuda, arch, tmp_path, monkeypatch):
+    """Reduced models train through the kernels: per step the forward
+    kernel twice per layer (forward and the checkpoint's recompute) and
+    the backward once; gradients within 1e-4 of the plain versions'
+    (leaf by leaf, of its largest magnitude); 2 steps, a save, 2 steps
+    equal 2, restore, 2 bit for bit."""
+    from repro_torch.checkpointing.checkpoint import restore, save
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.models.layers import attention as attn_layers
+    from repro_torch.models.layers import rwkv6 as rwkv_layers
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_reduced(arch)
+    rwkv = cfg.family == "ssm"
+    fwd, bwd = (W.wkv6, W.wkv6_bwd) if rwkv else (FA.flash_attention,
+                                                  FA.flash_attention_bwd)
+    tree = seeded_lm_params(cfg, 0)
+    opt_cfg = OptConfig(peak_lr=1e-2, warmup_steps=1, total_steps=8)
+    state = TS.init_train_state(
+        LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, cuda)), cfg,
+        opt_cfg)
+    shape = ShapeSpec("t", 64, 2, "train")
+
+    def batch(step):
+        return to_device(make_batch_np(cfg, shape, 3, step), cuda)
+
+    _, _, g_k = TS._grads(state["params"], batch(100), cfg)
+    if rwkv:
+        monkeypatch.setattr(rwkv_layers, "wkv6", W.wkv6_plain)
+    else:
+        monkeypatch.setattr(attn_layers, "flash_attention", attention_plain)
+    _, _, g_p = TS._grads(state["params"], batch(100), cfg)
+    monkeypatch.undo()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    for name in g_k:
+        assert rel_err(g_k[name], g_p[name]) <= GRAD_TOL, name
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+
+    def run(start, n):
+        for step in range(start, start + n):
+            f0, b0 = fwd.launches, bwd.launches
+            _, m = step_fn(state, batch(step))
+            assert (fwd.launches - f0, bwd.launches - b0) == (
+                2 * cfg.n_layers, cfg.n_layers)
+            assert torch.isfinite(m["loss"]) and torch.isfinite(
+                m["grad_norm"])
+
+    run(0, 2)
+    save(str(tmp_path), 2, state, cfg)
+    run(2, 2)
+    want = [t.clone() for t in state["params"].state_dict().values()]
+    restore(str(tmp_path), 2, state, cfg)
+    run(2, 2)
+    for a, b in zip(state["params"].state_dict().values(), want):
+        assert torch.equal(a, b)
+
+
+def test_lm_kernels_launch_on_their_tensors_device(cuda):
+    """wkv6 and flash_attention, forward and backward, on tensors of a
+    second card while the first is current: each launches on its tensors'
+    card and equals its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card: launches on cuda:1 while "
+                    "cuda:0 is current")
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        args = wkv_inputs(np.random.default_rng(12), 2, 64, 2, 64, other,
+                          True)
+        ins = [a.clone().requires_grad_() for a in args[:5]]
+        o, _ = W.wkv6(*ins, args[5])
+        (o * o).sum().backward()
+        ref = [a.clone().requires_grad_() for a in args[:5]]
+        o_ref, _ = W.wkv6_plain(*ref, args[5])
+        (o_ref * o_ref).sum().backward()
+        assert o.device == other
+        for g, r in zip(ins, ref):
+            assert g.grad.device == other
+            assert rel_err(g.grad, r.grad) <= GRAD_TOL
+        q, k, v = (x.requires_grad_() for x in flash_inputs(
+            13, 2, 64, 64, 4, 2, 128, torch.float32, other))
+        out = FA.flash_attention(q, k, v)
+        (out * out).sum().backward()
+        ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        (attention_plain(*ref) ** 2).sum().backward()
+        for g, r in zip((q, k, v), ref):
+            assert g.grad.device == other
+            assert rel_err(g.grad, r.grad) <= GRAD_TOL
