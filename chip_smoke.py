@@ -161,15 +161,18 @@ The dense GQA serving path (f32, TF32 off):
      device memory, and profiles of a prefill and of four decode steps.
      Every reading is printed before any is checked.
 Training (f32, TF32 off, deterministic kernels), this slice's main path:
-  k. the backward kernels (builds, ptxas): wkv6_bwd against autograd of
-     wkv6_plain in f64 (hs 16/32/64 x S 64 and 100, a final-state adjoint,
-     a log decay of about -20 at chunk 1, and (8, 512, 32, 64)), and
-     flash_attention_bwd against attention_backward_plain in f64 (GQA and
-     MHA, hd 64 and 128, causal and full, Sq < Sk, and (8, 512, 32 query /
-     8 KV heads, 128)), each gradient within 1e-4 of its largest
-     magnitude; at the full shapes the time per call of each (profiler),
-     of its plain version, of autograd's backward of SDPA (enable_gqa, the
-     library yardstick, for attention), and the bounds;
+  k. the backward kernels (builds; ptxas registers and spills of each
+     instance, none may spill): wkv6_bwd against autograd of wkv6_plain
+     in f64 (hs 16/32/64 x S 64 and 100, a final-state adjoint, a log
+     decay of about -20 at chunk 1, of about -1e-6, and (8, 512, 32,
+     64)), and flash_attention_bwd against attention_backward_plain in
+     f64 (GQA and MHA, hd 16/32/64/128, causal and full, Sq < Sk, a ragged
+     key block on the causal diagonal, and (8, 512, 32 query / 8 KV
+     heads, 128)), each gradient within 1e-4 of its largest magnitude;
+     two calls of each on the same inputs give the same bits; at the full
+     shapes the time per call of each (profiler; attention's two kernels
+     each), of its plain version, of autograd's backward of SDPA
+     (enable_gqa, the library yardstick, for attention), and the bounds;
   x. training through make_train_step at full width: rwkv6-1.6b (24
      layers, 1.60 B parameters, batch 8 x 512) and minitron-8b's widths at
      2 layers (2.45 B parameters, batch 4 x 512), AdamW: the whole model's
@@ -193,6 +196,9 @@ Then:
   7. the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card.
+Exit status: 0 when every phase passed; 1 when a check failed (its
+RuntimeError's traceback names it) or there is no card; 2 when the script
+stands outside a checkout (no src/repro_torch beside it).
 """
 import contextlib
 import json
@@ -337,6 +343,26 @@ TRAIN_DATA_SEED = 1234
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_spills(log, pattern):
+    """[(instance, registers, spill store bytes, spill load bytes)] of the
+    kernels whose mangled names match ``pattern`` (its groups, joined by
+    '/', name the instance) in an ``nvcc -Xptxas -v`` log."""
+    out, inst, spills = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(pattern, ln)
+        if m:
+            inst = "/".join(m.groups())
+        elif inst and "spill" in ln:
+            spills = tuple(int(re.search(rf"(\d+) bytes spill {w}",
+                                         ln).group(1))
+                           for w in ("stores", "loads"))
+        elif inst and "registers" in ln:
+            out.append((inst, int(re.search(r"(\d+) registers",
+                                            ln).group(1)), *spills))
+            inst, spills = None, (0, 0)
+    return out
 
 
 def ptxas_lines(log):
@@ -822,20 +848,15 @@ def phase_rwkv_full(torch, W, K):
 
 
 def flash_ptxas(log):
-    """'dtype/hd: N registers, S B spill stores, L B spill loads' for each
-    instance of the flash kernel in an ``nvcc -Xptxas -v`` log."""
-    out, inst = [], None
-    for ln in log.splitlines():
-        m = re.search(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E", ln)
-        if m:
-            inst = f"{'f32' if m.group(1) == 'f' else 'bf16'}/{m.group(2)}"
-            spills = ""
-        elif inst and "spill" in ln:
-            spills = ", ".join(x.strip() for x in ln.split(",")[1:])
-        elif inst and "registers" in ln:
-            regs = re.search(r"(\d+) registers", ln).group(1)
-            out.append(f"{inst}: {regs} registers, {spills}")
-            inst = None
+    """'dtype/hd: N registers, S bytes spill stores, L bytes spill loads'
+    for each instance of the flash kernel in an ``nvcc -Xptxas -v`` log."""
+    dtypes = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    out = []
+    for inst, regs, st, ld in ptxas_spills(
+            log, r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E"):
+        dtype, hd = inst.split("/")
+        out.append(f"{dtypes[dtype]}/{hd}: {regs} registers, {st} bytes "
+                   f"spill stores, {ld} bytes spill loads")
     return " | ".join(out)
 
 
@@ -1003,6 +1024,8 @@ def phase_backward(torch, W, FA):
     wkv_cases = [(2, s, 4, hs, "random", s == 100)
                  for hs in (16, 32, 64) for s in (64, 100)]
     wkv_cases += [(2, 100, 4, 64, "strong", True),
+                  (2, 37, 4, 32, "strong", False),
+                  (2, 64, 4, 16, "weak", True),
                   (*WKV_FULL_SHAPE, "random", False)]
     for b, s, h, hs, decay, with_ds in wkv_cases:
         args = wkv_case(rng, torch, b, s, h, hs, True, decay)
@@ -1028,10 +1051,15 @@ def phase_backward(torch, W, FA):
           f"of wkv6_plain in f64: worst {out['wkv_worst']} of the largest "
           f"magnitude (max abs err {out['wkv_err']})")
     # timed at the full shape: device time by the profiler, beside the
-    # plain backward in f32 (the kernel's formulas, plain)
+    # plain backward in f32 (the stepwise formulas, plain); two calls on the
+    # same inputs give the same bits
     b, s, h, hs = WKV_FULL_SHAPE
     args = wkv_case(rng, torch, b, s, h, hs, True)
     do = torch.randn((b, s, h, hs), generator=gen, device="cuda")
+    ds = torch.randn((b, h, hs, hs), generator=gen, device="cuda")
+    first, again = (W.wkv6_bwd(*args, do, ds) for _ in range(2))
+    out["wkv_same_bits"] = all(torch.equal(x, y) for x, y in zip(first, again))
+    del first, again, ds
 
     def wkv_launches():
         for _ in range(10):
@@ -1052,9 +1080,11 @@ def phase_backward(torch, W, FA):
     # flash_attention_bwd: GQA 32/8-like groups and MHA, hd 64 and 128,
     # causal and full, ragged tiles, and the full shape
     b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
+    # (100 keys: the ragged key block 64-99 sits on the causal diagonal)
     flash_cases = [(2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
                    (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
-                   (b_, s_, s_, h_, kv_, hd_)]
+                   (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
+                   (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_)]
     for b, sq, sk, h, kv, hd in flash_cases:
         q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
         do = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
@@ -1077,25 +1107,36 @@ def phase_backward(torch, W, FA):
           f"with attention_backward_plain in f64: worst "
           f"{out['flash_worst']} of the largest magnitude (max abs err "
           f"{out['flash_err']})")
-    # timed at the full shape, causal: the three kernels of a call by the
-    # profiler; the plain backward; autograd's backward of SDPA (GQA)
+    # timed at the full shape, causal: the two kernels of a call by the
+    # profiler, each on its own; the plain backward; autograd's backward of
+    # SDPA (GQA); two calls on the same inputs give the same bits
     q, k, v = flash_case(torch, gen, b_, s_, s_, h_, kv_, hd_, torch.float32)
     do = torch.randn((b_, s_, h_, hd_), generator=gen, device="cuda")
     o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
+    first, again = (FA.flash_attention_bwd(q, k, v, o, lse, do)
+                    for _ in range(2))
+    out["flash_same_bits"] = all(torch.equal(x, y)
+                                 for x, y in zip(first, again))
+    del first, again
 
     def flash_launches():
         for _ in range(10):
             FA.flash_attention_bwd(q, k, v, o, lse, do)
-    kern = []
+    kern = {}
     for _ in range(3):
         events, _ = profiled(torch, flash_launches)
-        kern = [us for ev, us in events if "flash_bwd" in ev]
-        if kern:
+        for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            kern[name] = [us for ev, us in events if name in ev]
+        if all(kern.values()):
             break
     wrapper_ms = time_per_call(
         torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do), 10)
-    out["flash_ms"] = sum(kern) / 10 / 1e3 if kern else wrapper_ms
-    out["flash_timed"] = bool(kern)
+    timed = all(kern.values())
+    out["flash_parts_ms"] = {n: sum(us) / len(us) / 1e3 if us else None
+                             for n, us in kern.items()}
+    out["flash_ms"] = (sum(out["flash_parts_ms"].values()) if timed
+                       else wrapper_ms)
+    out["flash_timed"] = timed
     out["flash_wrapper_ms"] = wrapper_ms
     out["flash_plain_ms"] = time_per_call(
         torch, lambda: attention_backward_plain(q, k, v, do), 3)
@@ -2835,6 +2876,10 @@ def main():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
               file=sys.stderr)
         return 1
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.sm_issue import kernel as K
@@ -3419,16 +3464,26 @@ def main():
     marks.append(("k", time.perf_counter()))
     # k. the backward kernels against their plain versions, and their time
     t_k = time.perf_counter()
+    bwd_regs = {}
     for name, inf in bwd_info.items():
+        bwd_regs[name] = regs = ptxas_spills(
+            inf["log"], r"(wkv6_bwd_kernel|flash_bwd_dq|flash_bwd_dkdv)"
+                        r"ILi(\d+)E")
         print(f"[k build] {name} built in {inf['seconds']:.2f} s beside the "
-              f"others (loaded {bwd_build_s:.2f} s after the start); ptxas: "
-              f"{ptxas_lines(inf['log'])}", flush=True)
+              f"others (loaded {bwd_build_s:.2f} s after the start); ptxas "
+              "(kernel/head size: registers, spill stores/loads in bytes): "
+              + " | ".join(f"{i}: {n} registers, spills {a}/{b}"
+                           for i, n, a, b in regs), flush=True)
+    check(all(regs and not any(a or b for _, _, a, b in regs)
+              for regs in bwd_regs.values()),
+          f"ptxas spilled registers in a backward kernel: {bwd_regs}")
     kr_ = phase_backward(torch, W, FA)
     b_, s_, h_, hs_ = WKV_FULL_SHAPE
     print(f"[k backward] wkv6_bwd == autograd of wkv6_plain in f64 on "
           f"{kr_['wkv_cases']} cases (hs 16/32/64 x S 64 and 100, a final-"
-          f"state adjoint at S 100, log decay ~-20 at chunk 1, and "
-          f"{WKV_FULL_SHAPE}): max abs err {kr_['wkv_err']:.3e}, worst "
+          f"state adjoint at S 100, log decay ~-20 at chunk 1 (S 100 and "
+          f"37), ~-1e-6, and {WKV_FULL_SHAPE}): max abs err "
+          f"{kr_['wkv_err']:.3e}, worst "
           f"{kr_['wkv_worst']:.3e} of each gradient's largest magnitude "
           f"(limit {BWD_TOL}); at {WKV_FULL_SHAPE}: kernel "
           f"{kr_['wkv_ms'] * 1e3:.2f} us/launch on the device "
@@ -3438,17 +3493,22 @@ def main():
           f"{kr_['wkv_bound_ms'] * 1e3:.2f} us ({kr_['wkv_bound_by']}: "
           f"{kr_['wkv_bytes']} B, {kr_['wkv_ops']} ops in {TF32_PASSES} "
           f"TF32 passes; on the CUDA cores "
-          f"{kr_['wkv_cuda_core_ms'] * 1e3:.2f} us)", flush=True)
+          f"{kr_['wkv_cuda_core_ms'] * 1e3:.2f} us); two calls with a "
+          f"final-state adjoint give the same bits: {kr_['wkv_same_bits']}",
+          flush=True)
     print(f"[k backward] flash_attention_bwd == attention_backward_plain in "
           f"f64 on {kr_['flash_cases']} cases (GQA 8/2, MHA 8/8, 4/1, "
-          f"Sq < Sk 70/130, hd 64 and 128, causal and full, and "
+          f"Sq < Sk 70/130 and 33/72, hd 16/32/64/128, the ragged key "
+          f"block 64-99 on the causal diagonal, causal and full, and "
           f"{FLASH_FULL_SHAPE}): max abs err {kr_['flash_err']:.3e}, worst "
           f"{kr_['flash_worst']:.3e} of each gradient's largest magnitude "
           f"(limit {BWD_TOL}); at (B {b_}, S {FLASH_FULL_SHAPE[1]}, H "
           f"{FLASH_FULL_SHAPE[2]}, KV {FLASH_FULL_SHAPE[3]}, hd "
           f"{FLASH_FULL_SHAPE[4]}), causal: kernels "
-          f"{kr_['flash_ms'] * 1e3:.2f} us/call on the device (three "
-          f"launches; "
+          f"{kr_['flash_ms'] * 1e3:.2f} us/call on the device (two "
+          f"launches: " + ", ".join(
+              f"{n} {'-' if t is None else f'{t * 1e3:.2f}'} us"
+              for n, t in kr_["flash_parts_ms"].items()) + "; "
           f"{'profiler' if kr_['flash_timed'] else 'not profiled: events'}),"
           f" wrapper {kr_['flash_wrapper_ms'] * 1e3:.2f} us/call, plain "
           f"{kr_['flash_plain_ms'] * 1e3:.2f} us/call, autograd's backward "
@@ -3457,8 +3517,11 @@ def main():
           f"{kr_['flash_bound_ms'] * 1e3:.2f} us ({kr_['flash_bound_by']}: "
           f"{kr_['flash_ops']} ops in {TF32_PASSES} TF32 passes, "
           f"{kr_['flash_bytes']} B; on the CUDA cores "
-          f"{kr_['flash_cuda_core_ms'] * 1e3:.2f} us); phase k "
+          f"{kr_['flash_cuda_core_ms'] * 1e3:.2f} us); two calls give the "
+          f"same bits: {kr_['flash_same_bits']}; phase k "
           f"{time.perf_counter() - t_k:.1f} s", flush=True)
+    check(kr_["wkv_same_bits"] and kr_["flash_same_bits"],
+          "a backward kernel gave other bits on a second call")
 
     marks.append(("x", time.perf_counter()))
     # x. training at full width through make_train_step, then the launcher
@@ -3533,7 +3596,9 @@ def main():
               f"{p['wall']:.3f} s, device busy {p['busy']:.4f} s (idle share "
               f"{1 - p['busy'] / p['wall']:.4f}), {p['n']} device "
               f"activities, {name} forward {p['fwd_us'] / 1e3:.3f} ms, "
-              f"backward {p['bwd_us'] / 1e3:.3f} ms; top: " + "; ".join(
+              f"backward {p['bwd_us'] / 1e3:.3f} ms (together "
+              f"{(p['fwd_us'] + p['bwd_us']) / 1e6 / p['wall']:.2%} of the "
+              f"step's wall); top: " + "; ".join(
                   f"{n[:50]} {us / 1e3:.2f} ms" for n, us in p["top"]),
               flush=True)
         on, off = (float(np.median(xr["det_turns"][k])) for k in (True,
@@ -3669,6 +3734,7 @@ def main():
         # a backward of the port's own: the TPU kernel it differentiates
         "replaces": "src/repro/kernels/wkv6/kernel.py:65",
         "launches": sum(r["bwd"] for r in train[RWKV_ARCH]["rows"]),
+        "launches_per_call": 1,
         "max_abs_err": kr_["wkv_err"], "ms": kr_["wkv_ms"],
         "plain_ms": kr_["wkv_plain_ms"], "bound_ms": kr_["wkv_bound_ms"],
         "bound_by": kr_["wkv_bound_by"], "library_ms": None,
@@ -3681,6 +3747,7 @@ def main():
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
         "launches": sum(r["bwd"] for r in train[DENSE_ARCH]["rows"]),
+        "launches_per_call": 2, "parts_ms": kr_["flash_parts_ms"],
         "max_abs_err": kr_["flash_err"], "ms": kr_["flash_ms"],
         "plain_ms": kr_["flash_plain_ms"], "bound_ms": kr_["flash_bound_ms"],
         "bound_by": kr_["flash_bound_by"], "library_ms": kr_["library_ms"],

@@ -18,7 +18,9 @@ plain version ``ref.attention_backward_plain``), f32 only: the TPU
 package has no backward kernel and trains through plain attention.
 Sq > Sk raises ValueError on both devices (ROADMAP §3, F4).
 ``flash_attention.launches`` counts forward kernel launches,
-``flash_attention_bwd.launches`` backward calls (three launches each).
+``flash_attention_bwd.launches`` backward calls (two launches each:
+``flash_bwd_dq``, which also writes D = rowsum(do . o), then
+``flash_bwd_dkdv``).
 """
 from __future__ import annotations
 

@@ -15,8 +15,10 @@ TF32 passes on the tensor cores) or raises; on CPU tensors it runs
 Where a gradient is asked for on CUDA, ``wkv6`` goes through
 ``WKV6Function``, whose backward is the port's own kernel
 (``csrc/wkv6_bwd.cu``, wrapped by ``wkv6_bwd``; its plain version is
-``wkv6_backward_plain``): the TPU package has no backward kernel and
-trains through ``wkv_chunked``.  ``wkv6.launches`` counts forward kernel
+``wkv6_backward_plain``, the stepwise recurrence, and
+``wkv6_backward_chunked_plain`` repeats the kernel's chunked formulas):
+the TPU package has no backward kernel and trains through
+``wkv_chunked``.  ``wkv6.launches`` counts forward kernel
 launches, ``wkv6_bwd.launches`` backward calls (one launch each).
 """
 from __future__ import annotations
@@ -106,6 +108,144 @@ def wkv6_backward_plain(r, k, v, wlog, u, state, do, dstate=None):
         G = wt[..., None] * G + rt[..., None] * dot[:, :, None]
     return tuple(torch.stack(grads[n], 1) for n in ("r", "k", "v", "w")) \
         + (du,)
+
+
+_SUB = 16                   # tokens per sub-chunk of the backward kernel
+
+
+def _decays(W):
+    """The chunk's decay products, as ``csrc/wkv6_bwd.cu`` forms them from
+    W = exp(w) (B,H,C,hs), C = 2 x 16: each an exclusive running product
+    inside a sub-chunk, so that no exponent is a difference of two long
+    sums.  Returns (cf = exp(Lp_t), cb = exp(L_end - L_t), rf, cend =
+    exp(L_end)), rf being exp(L_ref - L_s) on the first sub-chunk and
+    exp(Lp_t - L_ref) on the second, L_ref = L_15."""
+    W0, W1 = W[:, :, :_SUB], W[:, :, _SUB:]
+
+    def excl(x):                       # prod_{q < t}, left to right
+        return torch.cumprod(torch.cat([torch.ones_like(x[:, :, :1]),
+                                        x[:, :, :-1]], 2), 2)
+    f0, f1 = excl(W0), excl(W1)
+    b0, b1 = (excl(x.flip(2)).flip(2) for x in (W0, W1))
+    p0, p1 = f0[:, :, -1] * W0[:, :, -1], f1[:, :, -1] * W1[:, :, -1]
+    cf = torch.cat([f0, p0[:, :, None] * f1], 2)
+    cb = torch.cat([b0 * p1[:, :, None], b1], 2)
+    return cf, cb, torch.cat([b0, f1], 2), p0 * p1
+
+
+def wkv6_backward_chunked_plain(r, k, v, wlog, u, state, do, dstate=None):
+    """The gradient of the wkv recurrence in the backward kernel's chunked
+    form (``csrc/wkv6_bwd.cu`` derives it): chunks of 32 tokens in two
+    sub-chunks of 16, the inter-chunk products against the chunk-start
+    state S_c and the end-of-chunk adjoint G, the intra-chunk ones
+    through D = do v^T and the forward's scores A, the off-diagonal
+    16 x 16 block through the reference point L_15, the diagonal blocks
+    with exact decay products, and dw as the kernel sums it (no
+    difference of cumulative sums).  Same arguments and results as
+    ``wkv6_backward_plain``; f32, or f64 when ``state`` is f64; any S."""
+    dt = torch.promote_types(state.dtype, torch.float32)
+    b, s, h, n = r.shape
+    c = 2 * _SUB
+    nc = -(-s // c)
+    pad = nc * c - s
+
+    def chunks(x):               # (B,S,H,n) -> (nc, B, H, C, n), zero tail
+        x = torch.nn.functional.pad(x.to(dt), (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, nc, c, h, n).permute(1, 0, 3, 2, 4)
+    rc, kc, vc, wc, oc = (chunks(x) for x in (r, k, v, wlog, do))
+    Wc = torch.exp(wc)           # a padded token: w = 0, a decay of 1
+    uf = u.to(dt)[None, :, None, :]
+    dec = [_decays(Wc[i]) for i in range(nc)]
+    # pass 1: the state at every chunk's start
+    S = state.to(dt)
+    starts = []
+    for i in range(nc):
+        starts.append(S)
+        _, cb, _, cend = dec[i]
+        S = cend[..., None] * S + (kc[i] * cb).transpose(-1, -2) @ vc[i]
+    lo, hi = slice(0, _SUB), slice(_SUB, c)
+    tri = torch.ones((_SUB, _SUB), dtype=torch.bool, device=r.device)
+    strict = torch.tril(tri, -1)                               # s < t
+    m_idx = torch.arange(_SUB, device=r.device)
+    # (m, t, s): s < m < t, the pairs of a sub-chunk that straddle m
+    straddle = ((m_idx[None, None, :] < m_idx[:, None, None])
+                & (m_idx[:, None, None] < m_idx[None, :, None]))
+    G = (torch.zeros((b, h, n, n), dtype=dt, device=r.device)
+         if dstate is None else dstate.to(dt))
+    out = {x: [None] * nc for x in ("r", "k", "v", "w")}
+    du = torch.zeros((b, h, n), dtype=dt, device=r.device)
+    for i in reversed(range(nc)):
+        R, K, V, Wd, O, Sc = rc[i], kc[i], vc[i], Wc[i], oc[i], starts[i]
+        cf, cb, rf, cend = dec[i]
+        D = O @ V.transpose(-1, -2)                  # D[t, s] = do_t . v_s
+        diag_d = torch.diagonal(D, 0, -2, -1)[..., None]         # D_tt
+        # decay products of each sub-chunk's pairs s < t: prod_{s<q<t} W_q
+        E = torch.zeros((b, h, 2, _SUB, _SUB, n), dtype=dt, device=r.device)
+        for sc in range(2):
+            Ws = Wd[:, :, sc * _SUB:(sc + 1) * _SUB]
+            for s0 in range(_SUB - 1):
+                E[:, :, sc, s0 + 1:, s0] = torch.cumprod(torch.cat(
+                    [torch.ones_like(Ws[:, :, :1]), Ws[:, :, s0 + 1:-1]], 2),
+                    2)
+        Rs = R.reshape(b, h, 2, _SUB, n)
+        Ks = K.reshape(b, h, 2, _SUB, n)
+        Ds = torch.stack([D[:, :, lo, lo], D[:, :, hi, hi]], 2)
+        Dm = torch.where(strict, Ds, 0)[..., None] * E   # (b,h,2,t,s,n)
+        # the forward's scores A (the u bonus on the diagonal): the diagonal
+        # blocks exact, the off-diagonal one through L_ref
+        A = torch.zeros((b, h, c, c), dtype=dt, device=r.device)
+        ad = torch.einsum("bhxti,bhxsi,bhxtsi->bhxts", Rs, Ks,
+                          torch.where(strict[..., None], E, 0))
+        A[:, :, lo, lo], A[:, :, hi, hi] = ad[:, :, 0], ad[:, :, 1]
+        A = A + torch.diag_embed((R * uf * K).sum(-1))
+        A[:, :, hi, lo] = (R[:, :, hi] * rf[:, :, hi]) @ (
+            K[:, :, lo] * rf[:, :, lo]).transpose(-1, -2)
+        # inter-chunk parts, and the off-diagonal block's
+        drI = cf * (O @ Sc.transpose(-1, -2))
+        dkI = cb * (V @ G.transpose(-1, -2))
+        drX = rf[:, :, hi] * (D[:, :, hi, lo] @ (K[:, :, lo] * rf[:, :, lo]))
+        dkX = rf[:, :, lo] * (D[:, :, hi, lo].transpose(-1, -2)
+                              @ (R[:, :, hi] * rf[:, :, hi]))
+        # the diagonal blocks, exact: sum_{s<t} E_ts k_s D_ts and its twin
+        drD = torch.einsum("bhxtsi,bhxsi->bhxti", Dm, Ks).reshape(b, h, c, n)
+        dkD = torch.einsum("bhxtsi,bhxti->bhxsi", Dm, Rs).reshape(b, h, c, n)
+        zero = torch.zeros_like(drX)
+        dr = drI + torch.cat([zero, drX], 2) + drD + uf * K * diag_d
+        dk = dkI + torch.cat([dkX, zero], 2) + dkD + R * uf * diag_d
+        dv = (K * cb) @ G + A.transpose(-1, -2) @ O
+        # dw_m = W_m rowsum(G_m . S_{m-1}), expanded into its terms, each a
+        # product of decays: exp(L_end) rowsum(G . S_c); k_s . dk_s's
+        # inter part for s < m; r_t . dr_t's for t > m; the off-diagonal
+        # block's pairs (in dk for m in the first sub-chunk, in dr for m in
+        # the second); and the diagonal blocks' pairs s < m < t
+        P = K * dkI                                 # prefix terms, s < m
+        Q = R * drI                                 # suffix terms, t > m
+        P[:, :, lo] += K[:, :, lo] * dkX
+        Q[:, :, hi] += R[:, :, hi] * drX
+
+        def before(x):          # sum over the earlier tokens of a sub-chunk
+            return torch.cumsum(torch.cat([torch.zeros_like(x[:, :, :1]),
+                                           x[:, :, :-1]], 2), 2)
+        # each sub-chunk's running sums; across the sub-chunks the inter
+        # parts only, the off-diagonal block's pairs being counted inside
+        pre = torch.cat([before(P[:, :, lo]), before(P[:, :, hi]) + (
+            K[:, :, lo] * dkI[:, :, lo]).sum(2, keepdim=True)], 2)
+        suf = torch.cat([before(Q[:, :, lo].flip(2)).flip(2) + (
+            R[:, :, hi] * drI[:, :, hi]).sum(2, keepdim=True),
+            before(Q[:, :, hi].flip(2)).flip(2)], 2)
+        X = torch.einsum("mts,bhxtsi,bhxti,bhxsi->bhxmi", straddle.to(dt), Dm,
+                         Rs, Ks).reshape(b, h, c, n)
+        dw = (cend * (G * Sc).sum(-1))[:, :, None] + pre + suf + X
+        for key, val in (("r", dr), ("k", dk), ("v", dv), ("w", dw)):
+            out[key][i] = val
+        du = du + (R * K * diag_d).sum(2)
+        G = cend[..., None] * G + (R * cf).transpose(-1, -2) @ O
+
+    def unchunk(xs):            # nc x (B,H,C,n) -> (B,S,H,n)
+        return torch.stack(xs, 1).permute(0, 1, 3, 2, 4).reshape(
+            b, nc * c, h, n)[:, :s]
+    return tuple(unchunk(out[x]) for x in ("r", "k", "v", "w")) + (
+        du.sum(0),)
 
 
 def _check(name, x, shape, device):

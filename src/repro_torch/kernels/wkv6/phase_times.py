@@ -1,7 +1,13 @@
-"""Where the wkv6 kernel's time goes: the kernel with one phase cut out at a
+"""Where the wkv6 kernels' time goes: a kernel with one phase cut out at a
 time, each timed against the whole at the serving prefill's shape.
 
     PYTHONPATH=src python -m repro_torch.kernels.wkv6.phase_times
+    PYTHONPATH=src python -m repro_torch.kernels.wkv6.phase_times --backward
+
+The first cuts the forward kernel, the second the backward kernel
+(``csrc/wkv6_bwd.cu``, with a final-state adjoint; its cuts are
+``BWD_CUTS``: pass 1, the prefetches, and each stage's work of each half
+of the block).
 
 Needs one CUDA card.  Each variant is ``csrc/wkv6.cu`` with one block of
 the chunk loop skipped (its condition made false for any T > 0), built
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import BUILD_DIR, build_library
-from repro_torch.kernels.wkv6.kernel import SOURCE
+from repro_torch.kernels.wkv6.kernel import BWD_SOURCE, SOURCE
 
 SHAPE = (8, 512, 32, 64)
 # (variant, [(text in the source, its replacement)])
@@ -50,20 +56,65 @@ CUTS = {
                     "    if (T > 0) continue;\n")],
 }
 
+BWD_CUTS = {
+    "whole": [],
+    "pass1": [("    if (cuda_half) decays<HS>(smem, stg + Ly::w_off, ct);",
+               "    if (cuda_half && T < 0) decays<HS>(smem, stg + Ly::w_off,"
+               " ct);"),
+              ("    for (int q = warp; q < 2 * NMT; q += NW)\n"
+               "      step_back<HS, NJH>(Gs, stg",
+               "    for (int q = warp; T < 0 && q < 2 * NMT; q += NW)\n"
+               "      step_back<HS, NJH>(Gs, stg")],
+    "loads": [("    if (n + 1 < nc) load(n + 1, st ^ 1, false);",
+               "    if (n + 1 < nc && T < 0) load(n + 1, st ^ 1, false);"),
+              ("    if (n > 0) load(n - 1, st ^ 1, true);",
+               "    if (n > 0 && T < 0) load(n - 1, st ^ 1, true);")],
+    "s1_cuda": [("      decays<HS>(smem, Wst, ct);\n      if (own) {",
+                 "      decays<HS>(smem, Wst, ct);\n      if (own && T < 0) {"),
+                ("      if (wt < 3) {\n        const int tb",
+                 "      if (wt < 3 && T < 0) {\n        const int tb")],
+    "s1_products": [("    } else {\n      const int mt = wt & 1, j0",
+                     "    } else if (T < 0) {\n      const int mt = wt & 1, "
+                     "j0")],
+    "s2_diag_a": [("      {\n        const int s1 = da * SUB + dsp",
+                   "      if (T < 0) {\n        const int s1 = da * SUB + dsp")],
+    "s2_walk": [("      if (own) {\n        float rv[SUB]",
+                 "      if (own && T < 0) {\n        float rv[SUB]")],
+    "s2_products": [("    } else {\n      // A's off-diagonal block",
+                     "    } else if (T < 0) {\n      // A's off-diagonal block")],
+    "s3_cuda": [("      if (own) {\n        const float ui = us[ci];",
+                 "      if (own && T < 0) {\n        const float ui = us[ci];"),
+                ("      if (own) {\n        const float other",
+                 "      if (own && T < 0) {\n        const float other")],
+    "s3_products": [("    } else {\n      // dv = (k . cb) G + A^T do",
+                     "    } else if (T < 0) {\n      // dv = (k . cb) G + "
+                     "A^T do")],
+    "s3_g": [("    for (int q = warp; q < 2 * NMT; q += NW)\n"
+              "      step_back<HS, NJH>(Gs, R",
+              "    for (int q = warp; T < 0 && q < 2 * NMT; q += NW)\n"
+              "      step_back<HS, NJH>(Gs, R")],
+}
 
-def variant(name, cuts, text):
+
+def variant(name, cuts, text, backward=False):
+    stem = "wkv6_bwd" if backward else "wkv6"
     for old, new in cuts:
         if text.count(old) != 1:
             raise RuntimeError(f"phase_times: cut {name!r} does not match "
-                               f"csrc/wkv6.cu once: {old!r}")
+                               f"csrc/{stem}.cu once: {old!r}")
         text = text.replace(old, new)
-    path = BUILD_DIR / f"wkv6_cut_{name}.cu"
+    path = BUILD_DIR / f"{stem}_cut_{name}.cu"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
-    lib, _ = build_library(path, f"wkv6_cut_{name}")
-    fn = lib.wkv6_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    lib, _ = build_library(path, f"{stem}_cut_{name}")
+    if backward:
+        fn = lib.wkv6_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+    else:
+        fn = lib.wkv6_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -75,10 +126,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    text = SOURCE.read_text()
-    with ThreadPoolExecutor(len(CUTS)) as pool:
-        fns = dict(zip(CUTS, pool.map(lambda kv: variant(*kv, text),
-                                      CUTS.items())))
+    backward = "--backward" in sys.argv[1:]
+    cuts = BWD_CUTS if backward else CUTS
+    text = (BWD_SOURCE if backward else SOURCE).read_text()
+    with ThreadPoolExecutor(len(cuts)) as pool:
+        fns = dict(zip(cuts, pool.map(
+            lambda kv: variant(*kv, text, backward), cuts.items())))
     b, s, h, hs = SHAPE
     rng = np.random.default_rng(0)
     f = np.float32
@@ -86,9 +139,17 @@ def main() -> int:
     host += [(-np.exp(rng.standard_normal(SHAPE) - 1)).astype(f),
              (0.3 * rng.standard_normal((h, hs))).astype(f),
              np.zeros((b, h, hs, hs), f)]
+    if backward:        # do and the final state's adjoint
+        host += [rng.standard_normal(SHAPE).astype(f),
+                 rng.standard_normal((b, h, hs, hs)).astype(f)]
     args = [torch.as_tensor(x, device="cuda") for x in host]
-    o, s_out = torch.empty_like(args[0]), torch.empty_like(args[5])
-    ptrs = [a.data_ptr() for a in args] + [o.data_ptr(), s_out.data_ptr()]
+    if backward:
+        outs = [torch.empty_like(args[0]) for _ in range(4)]
+        outs += [torch.empty((b, h, hs), device="cuda"),
+                 torch.empty(b * h * -(-s // 32) * hs * hs, device="cuda")]
+    else:
+        outs = [torch.empty_like(args[0]), torch.empty_like(args[5])]
+    ptrs = [a.data_ptr() for a in args + outs]
     stream = torch.cuda.current_stream().cuda_stream
 
     def timed(fn, n=50):
@@ -107,10 +168,11 @@ def main() -> int:
 
     rounds = [{name: timed(fn) for name, fn in fns.items()}
               for _ in range(2)]
-    us = {name: min(r[name] for r in rounds) for name in CUTS}
-    print(json.dumps({"shape": list(SHAPE), "us_per_launch": us,
+    us = {name: min(r[name] for r in rounds) for name in cuts}
+    print(json.dumps({"kernel": "wkv6_bwd" if backward else "wkv6",
+                      "shape": list(SHAPE), "us_per_launch": us,
                       "without": {name: us["whole"] - us[name]
-                                  for name in CUTS if name != "whole"}}))
+                                  for name in cuts if name != "whole"}}))
     return 0
 
 

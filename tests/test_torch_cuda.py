@@ -950,6 +950,46 @@ def test_flash_bwd_matches_plain(cuda, shape, causal):
         assert rel_err(g, a) <= GRAD_TOL
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_ragged_key_block_on_the_diagonal(cuda, hd):
+    """Sq = Sk = 100, causal: flash_bwd_dkdv's second key block (keys 64-99,
+    ragged at 100) holds the diagonal, so its query tiles see it partly
+    masked and its last 28 keys are padding; GQA 4 over 2."""
+    shape = (1, 100, 100, 4, 2, hd)
+    q, k, v = flash_inputs(hd + 5, *shape, torch.float32, cuda)
+    do = flash_inputs(hd + 6, *shape, torch.float32, cuda)[0]
+    o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    truth = FA.attention_backward_plain(q.double(), k.double(), v.double(),
+                                        do.double())
+    torch.cuda.synchronize()
+    for g, t in zip(got, truth):
+        assert rel_err(g, t) <= GRAD_TOL
+    # the ragged block's own rows of dk and dv
+    for g, t in zip(got[1:], truth[1:]):
+        assert rel_err(g[:, 64:], t[:, 64:]) <= GRAD_TOL
+
+
+def test_bwd_kernels_repeat_bit_for_bit(cuda):
+    """Two calls of each backward kernel on the same inputs give the same
+    bits: no atomics, every sum in a fixed order (the trainer's restarts
+    rely on it)."""
+    args = wkv_inputs(np.random.default_rng(11), 2, 100, 3, 64, cuda, False,
+                      "random")
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    do = torch.randn((2, 100, 3, 64), generator=gen, device=cuda)
+    ds = torch.randn((2, 3, 64, 64), generator=gen, device=cuda)
+    first, again = (W.wkv6_bwd(*args, do, ds) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    shape = (2, 130, 130, 8, 2, 128)
+    q, k, v = flash_inputs(13, *shape, torch.float32, cuda)
+    do = flash_inputs(14, *shape, torch.float32, cuda)[0]
+    o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
+    first, again = (FA.flash_attention_bwd(q, k, v, o, lse, do)
+                    for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
 def test_flash_autograd_on_card(cuda):
     """flash_attention with inputs that require grad goes through
     FlashAttentionFunction (one forward and one backward call); bf16 raises
