@@ -197,7 +197,7 @@ Then:
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card.
 Exit status: 0 when every phase passed; 1 when a check failed (its
-RuntimeError's traceback names it) or there is no card; 2 when the script
+RuntimeError's traceback names it), there is no card, or the script
 stands outside a checkout (no src/repro_torch beside it).
 """
 import contextlib
@@ -2879,7 +2879,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
               "from a checkout of the repository", file=sys.stderr)
-        return 2
+        return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.sm_issue import kernel as K

@@ -68,8 +68,10 @@ def build_library(source: Path, name: str) -> tuple[ctypes.CDLL, dict]:
     library and a record of the build: the library path, the seconds
     ``nvcc`` took (0.0 when an earlier build was reused) and its
     output, which holds ``-Xptxas -v``'s register and memory counts.
-    Builds of one library are serialised; builds of different ones run
-    in parallel."""
+    The output is kept beside the library (``<library>.log``) and read
+    back when the build is reused, so the counts are there on every
+    run.  Builds of one library are serialised; builds of different
+    ones run in parallel."""
     digest = hashlib.sha1(source.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -79,7 +81,10 @@ def build_library(source: Path, name: str) -> tuple[ctypes.CDLL, dict]:
 
 def _build(source: Path, out: Path) -> tuple[ctypes.CDLL, dict]:
     info = {"path": str(out), "seconds": 0.0, "log": ""}
-    if not out.exists():
+    log = out.with_name(f"{out.name}.log")
+    if out.exists() and log.exists():
+        info["log"] = log.read_text()
+    else:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(
             f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
@@ -92,5 +97,8 @@ def _build(source: Path, out: Path) -> tuple[ctypes.CDLL, dict]:
             raise RuntimeError(
                 f"nvcc failed to build {source} (exit {proc.returncode}):\n"
                 f"{info['log']}")
-        os.replace(tmp, out)
+        tmp_log = tmp.with_name(f"{tmp.name}.log")
+        tmp_log.write_text(info["log"])
+        os.replace(tmp_log, log)        # the log first: a library found
+        os.replace(tmp, out)            # later always has its log
     return ctypes.CDLL(str(out)), info

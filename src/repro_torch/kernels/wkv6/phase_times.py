@@ -107,16 +107,20 @@ def variant(name, cuts, text, backward=False):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
     lib, _ = build_library(path, f"{stem}_cut_{name}")
+    scratch = None
     if backward:
         fn = lib.wkv6_bwd_launch
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
+        scratch = lib.wkv6_bwd_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 4
+        scratch.restype = ctypes.c_longlong
     else:
         fn = lib.wkv6_launch
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, scratch
 
 
 def main() -> int:
@@ -130,8 +134,9 @@ def main() -> int:
     cuts = BWD_CUTS if backward else CUTS
     text = (BWD_SOURCE if backward else SOURCE).read_text()
     with ThreadPoolExecutor(len(cuts)) as pool:
-        fns = dict(zip(cuts, pool.map(
+        built = dict(zip(cuts, pool.map(
             lambda kv: variant(*kv, text, backward), cuts.items())))
+    fns = {name: fn for name, (fn, _) in built.items()}
     b, s, h, hs = SHAPE
     rng = np.random.default_rng(0)
     f = np.float32
@@ -145,8 +150,10 @@ def main() -> int:
     args = [torch.as_tensor(x, device="cuda") for x in host]
     if backward:
         outs = [torch.empty_like(args[0]) for _ in range(4)]
+        floats = max(int(scratch(b, s, h, hs))      # as each cut sizes it
+                     for _, scratch in built.values())
         outs += [torch.empty((b, h, hs), device="cuda"),
-                 torch.empty(b * h * -(-s // 32) * hs * hs, device="cuda")]
+                 torch.empty(floats, device="cuda")]
     else:
         outs = [torch.empty_like(args[0]), torch.empty_like(args[5])]
     ptrs = [a.data_ptr() for a in args + outs]

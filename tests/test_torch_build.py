@@ -24,6 +24,7 @@ args = sys.argv[1:]
 out = args[args.index("-o") + 1]
 with open({{marker!r}}, "a") as f:
     f.write(out + "\\n")
+print("ptxas info    : Used 40 registers, 0 bytes spill stores")
 data = open({LIBRARY!r}, "rb").read()
 with open(out, "wb") as f:          # slowly, so a second writer would
     for i in range(0, len(data), len(data) // 8 + 1):    # interleave
@@ -73,7 +74,35 @@ def test_concurrent_first_build_installs_one_intact_library(tmp_path,
     assert sorted(info["seconds"] > 0 for _, info in results) == \
         [False, False, False, True]
     assert all(lib._name == path for lib, _ in results)
-    assert os.listdir(tmp_path / "kernels") == [os.path.basename(path)]
+    name = os.path.basename(path)
+    assert sorted(os.listdir(tmp_path / "kernels")) == [name, name + ".log"]
+
+
+def test_reused_build_returns_its_ptxas_log(tmp_path, monkeypatch):
+    """A library built by an earlier run comes back with the ``-Xptxas
+    -v`` output of its build, so a check of registers and spills reads
+    the same lines on a first and a later run; a library without its log
+    is built again."""
+    marker = tmp_path / "nvcc_runs.txt"
+    stub = tmp_path / "nvcc"
+    stub.write_text(STUB.format(marker=str(marker)))
+    stub.chmod(0o755)
+    source = tmp_path / "kept.cu"
+    source.write_text("// a kernel source\n")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(stub))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+
+    _, first = build.build_library(source, "kept")
+    _, again = build.build_library(source, "kept")
+    assert first["seconds"] > 0 and again["seconds"] == 0.0
+    assert "Used 40 registers" in first["log"]
+    assert again["log"] == first["log"]
+    assert len(marker.read_text().splitlines()) == 1
+
+    os.remove(first["path"] + ".log")
+    _, rebuilt = build.build_library(source, "kept")
+    assert rebuilt["seconds"] > 0 and rebuilt["log"] == first["log"]
+    assert len(marker.read_text().splitlines()) == 2
 
 
 def test_once_runs_its_function_once_across_threads():

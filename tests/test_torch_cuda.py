@@ -382,8 +382,9 @@ def test_threaded_server_on_card(cuda):
 
 def test_kernel_first_build_from_two_threads(cuda, tmp_path, monkeypatch):
     """Two threads reach sm_quantum's first build at once: nvcc runs once,
-    one library is installed and both threads load it; a launcher made
-    with ``build.once`` hands both threads the same one."""
+    one library is installed with its ptxas log beside it and both
+    threads load it; a launcher made with ``build.once`` hands both
+    threads the same one."""
     import threading
     from repro_torch.kernels import build
 
@@ -405,8 +406,10 @@ def test_kernel_first_build_from_two_threads(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "a")
     built = together(lambda: build.build_library(Q.SOURCE, "sm_quantum"))
     assert sorted(info["seconds"] > 0 for _, info in built) == [False, True]
-    assert os.listdir(tmp_path / "a") == [os.path.basename(
-        built[0][1]["path"])]
+    name = os.path.basename(built[0][1]["path"])
+    assert sorted(os.listdir(tmp_path / "a")) == [name, name + ".log"]
+    assert "registers" in built[0][1]["log"]
+    assert built[0][1]["log"] == built[1][1]["log"]
     assert all(hasattr(lib, "sm_quantum_launch") for lib, _ in built)
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "b")
@@ -414,7 +417,7 @@ def test_kernel_first_build_from_two_threads(cuda, tmp_path, monkeypatch):
                                                       "sm_quantum"))
     first = together(launcher)
     assert first[0] is first[1]
-    assert len(os.listdir(tmp_path / "b")) == 1
+    assert sorted(os.listdir(tmp_path / "b")) == [name, name + ".log"]
 
 
 SC4 = dict(n_sm=4, warps_per_sm=16, n_subcores=4, mshr_per_sm=6)
