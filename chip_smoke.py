@@ -144,7 +144,9 @@ The dense GQA serving path (f32, TF32 off):
      with torch's scaled_dot_product_attention on the repeated KV heads,
      the library yardstick the port never calls), of attention_plain, and
      both operation bounds: the CUDA cores' f32 rate and three TF32 passes
-     on the tensor cores;
+     on the tensor cores; and at arctic-480b's shape (8, 512, 56 query / 8
+     KV heads, 128), a GQA group of 7, against attention_plain and f64,
+     timed beside the plain version and SDPA;
   g. the reduced minitron-8b and qwen2-72b with seeded weights against
      tests/golden/torch_port_dense_reduced.json (the JAX package's
      prefill and decode logits within 1e-4, greedy tokens, the weights'
@@ -160,7 +162,28 @@ The dense GQA serving path (f32, TF32 off):
      two windows of prefill, decode and generate wall, tokens/s, peak
      device memory, and profiles of a prefill and of four decode steps.
      Every reading is printed before any is checked.
-Training (f32, TF32 off, deterministic kernels), this slice's main path:
+The MoE family (arctic-480b's std:moe; deepseek-v3-671b's mla:dense and
+mla:moe), f32, this slice's main path:
+  i. the reduced arctic-480b and deepseek-v3-671b with seeded weights
+     against tests/golden/torch_port_moe_reduced.json (the JAX package's
+     prefill and decode logits within 1e-4, greedy tokens, the weights'
+     fingerprint), flash_attention launched once per GQA layer of the
+     prefill (none for MLA);
+  o. arctic-480b (1 layer: d_model 7168, 56 query / 8 KV heads of 128,
+     128 experts top-2 of width 4864 beside the dense residual FFN of
+     4864, vocab 32,000; 14.07 B f32 parameters) and deepseek-v3-671b (its
+     3 dense-prefix layers of d_ff 18432 and 1 MoE layer: MLA with q_lora
+     1536 and kv_lora 512, 256 experts top-8 of width 2048 and 1 shared,
+     vocab 129,280; 15.11 B), each drawn on the card and freed after:
+     generate for batch 8, prompt 512, 32 new tokens (flash_attention
+     once per generate for arctic, never for deepseek's MLA), three timed
+     windows that must give the same tokens, cache consistency 32 + 32
+     and 63 + 1 steps of a 64-token prompt within 1e-3 of the largest
+     logit at the capacity factor E / top_k (no token can drop), the
+     kernel against attention_plain inside arctic on a 128-token prefill,
+     peak device memory, and profiles of a prefill and of four decode
+     steps;
+Training (f32, TF32 off, deterministic kernels):
   k. the backward kernels (builds; ptxas registers and spills of each
      instance, none may spill): wkv6_bwd against autograd of wkv6_plain
      in f64 (hs 16/32/64 x S 64 and 100, a final-state adjoint, a log
@@ -181,16 +204,23 @@ Training (f32, TF32 off, deterministic kernels), this slice's main path:
      plain versions' in f32, a witness of the model's own sensitivity to
      the mixer's rounding; per step the forward kernel
      2 x n_layers times (forward and the checkpoint's recompute) and the
-     backward once per layer, loss and grad_norm finite; 3 steps, a
-     checkpoint, 3 steps, then the checkpoint restored and 3 steps again,
-     bit-identical to the straight run (minitron-8b; rwkv6-1.6b's through
-     the launcher below); step time, tokens/s, peak memory, a profiled
+     backward once per layer, loss and grad_norm finite; 6 steps (the
+     restart is held by the launcher below at full width, and by phase y
+     on the MoE models; minitron-8b's 29.4 GB checkpoint round trip is
+     left out for time); step time, tokens/s, peak memory, a profiled
      step's idle share, deterministic kernels on and off in turns; then,
      in this process, python -m repro_torch.launch.train --arch
      rwkv6-1.6b --full --batch 8 --seq 512 for 6 steps straight, for 4
      with a checkpoint at step 4 (--ckpt-every 4 --ckpt DIR), and the
      same to 6, which resumes and must end in the straight run's state
-     bit for bit.
+     bit for bit;
+  y. the reduced arctic-480b and deepseek-v3-671b trained through
+     make_train_step under deterministic kernels: the loss of the
+     golden's batch within 1e-5 relative of the port's on the CPU and of
+     the JAX package's; 3 steps, a checkpoint, 3 steps, then the
+     checkpoint restored and 3 steps again, bit-identical to the straight
+     run; flash_attention's launches per step (2 per GQA layer forward,
+     1 backward).
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -308,6 +338,22 @@ FLASH_FULL_SHAPE = (8, 512, 32, 8, 128)
 DENSE_ARCH = "minitron-8b"
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
 DENSE_REPEATS = 2                # timing windows of phase h
+# phase f: arctic-480b's attention shape (B, S, H, KV, hd), a GQA group of
+# 7 query heads, which the MoE path (phase o) launches the kernel at
+FLASH_ARCTIC_SHAPE = (8, 512, 56, 8, 128)
+# phases i, o and y: the MoE family at its published widths, cut in depth
+# only: arctic-480b at 1 layer (14.07 B f32 parameters, 56.3 GB; two
+# would not fit the card), deepseek-v3-671b at its 3 dense-prefix layers
+# and 1 MoE layer (15.11 B, 60.4 GB)
+MOE_CASES = (("arctic-480b", 1), ("deepseek-v3-671b", 4))
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 512, 32
+MOE_REPEATS = 3                  # generate windows, the same tokens each
+# cache consistency at the capacity factor E / top_k, where C >= N and no
+# token can drop (64 for arctic, 32 for deepseek), on a prompt of 64
+# tokens: at 8 x 64 tokens the (E, C, d) buffer is 1.9 GB (arctic) and
+# 3.8 GB (deepseek) beside the weights; 512 would not fit
+MOE_CONS_CASES = ((64, 32), (64, 1))
+MOE_GOLDEN = "torch_port_moe_reduced.json"
 # phase k: the backward kernels, each gradient within BWD_TOL of its
 # largest magnitude from the plain backward in f64 (the CPU tests' bound
 # for the model's gradients); operations per state element and token of
@@ -318,7 +364,9 @@ WKV_BWD_OPS_PER_ELEMENT = 12
 # phase x: training at full width, (arch, layers or None for all, batch,
 # sequence, whether the restart is checked in this process: rwkv6-1.6b's
 # goes through the launcher, since a 19.2 GB checkpoint takes ~30 s each
-# way on that disk).  The whole model's gradients, on TRAIN_CMP_SEQ tokens
+# way on that disk; minitron-8b's 29.4 GB round trip, ~100 s, is left out
+# to keep the smoke within its time, and phase y restarts the reduced
+# MoE models).  The whole model's gradients, on TRAIN_CMP_SEQ tokens
 # at full width and TRAIN_CMP_LAYERS layers, with the kernels against the
 # same model with the plain versions in f64: the norm of their difference
 # within TRAIN_GRAD_TOL of the gradient's norm.  At 24 layers a seeded
@@ -331,7 +379,7 @@ WKV_BWD_OPS_PER_ELEMENT = 12
 # BWD_TOL of autograd of the f64 plain form on that call's inputs and
 # output gradients, and the whole model's distances are readings.
 TRAIN_CASES = (("rwkv6-1.6b", None, 8, 512, False),
-               ("minitron-8b", 2, 4, 512, True))
+               ("minitron-8b", 2, 4, 512, False))
 TRAIN_CMP_SEQ = 128
 TRAIN_CMP_LAYERS = 2
 TRAIN_GRAD_TOL = 1e-3
@@ -916,6 +964,12 @@ def phase_flash(torch, FA):
                         e, w = _err_over_tol(torch, got, want, tol)
                         max_err, worst = max(max_err, e), max(worst, w)
                         n_cases += 1
+    # arctic-480b's shape, a GQA group of 7 query heads: against the plain
+    # version and f64, timed beside the plain version and SDPA
+    arctic = _flash_timed_case(torch, FA, gen, FLASH_ARCTIC_SHAPE)
+    max_err = max(max_err, arctic["max_abs_err"])
+    worst = max(worst, arctic["worst"])
+    n_cases += 1
     # the shape the main path launches it at, which is also timed
     b, s, h, kv, hd = FLASH_FULL_SHAPE
     q, k, v = flash_case(torch, gen, b, s, s, h, kv, hd, torch.float32)
@@ -960,7 +1014,45 @@ def phase_flash(torch, FA):
             "device_timed": bool(kern), "plain_ms": plain_ms,
             "library_ms": library_ms, "library_err": library_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-            "ops": n_ops}
+            "ops": n_ops, "arctic": arctic}
+
+
+def _flash_timed_case(torch, FA, gen, shape):
+    """flash_attention at one causal f32 shape against attention_plain and
+    the same attention in f64; the kernel's time per launch (profiler),
+    the plain version's and SDPA's on the repeated KV heads (events), and
+    the bound."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    b, s, h, kv, hd = shape
+    q, k, v = flash_case(torch, gen, b, s, s, h, kv, hd, torch.float32)
+    got = FA.flash_attention(q, k, v)
+    want = attention_plain(q, k, v)
+    truth = attention_plain(q.double(), k.double(), v.double())
+    torch.cuda.synchronize()
+    e, w = _err_over_tol(torch, got, want, FLASH_TOLS["float32"])
+    f64 = _err_over_tol(torch, got, truth, FLASH_TOLS["float32"])[0]
+    del truth
+    plain_ms = time_per_call(torch, lambda: attention_plain(q, k, v), 5)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_per_call(torch, lambda: sdpa(qt, kt, vt,
+                                                   is_causal=True), 20)
+    wrapper_ms = time_per_call(torch, lambda: FA.flash_attention(q, k, v),
+                               20)
+
+    def launches():
+        for _ in range(10):
+            FA.flash_attention(q, k, v)
+    kern = kernel_us(torch, launches, "flash_kernel")
+    bound_ms, bound_by, _, _, _ = flash_bound(b, s, s, h, kv, hd, True)
+    return {"shape": list(shape), "max_abs_err": e, "worst": w,
+            "f64_err": f64, "device_timed": bool(kern),
+            "ms": sum(kern) / len(kern) / 1e3 if kern else wrapper_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def grad_err(torch, got, want):
@@ -1475,9 +1567,11 @@ def _train_launcher(torch, ckpt, batch, seq):
     return runs
 
 
-def phase_dense_reduced(torch, FA):
-    """The reduced dense models on the card against the JAX package's
-    golden results for the same seeded weights and prompts."""
+def phase_reduced_golden(torch, FA, name):
+    """The reduced models of a golden file (the dense or the MoE family's)
+    on the card against the JAX package's results for the same seeded
+    weights and prompts; flash_attention launched once per GQA layer of
+    the prefill."""
     from repro_torch.configs import get_reduced
     from repro_torch.convert import (jitter_constant_leaves,
                                      lm_params_to_torch, params_fingerprint,
@@ -1485,7 +1579,7 @@ def phase_dense_reduced(torch, FA):
     from repro_torch.models import factory
     from repro_torch.models.lm import LM
 
-    with open(os.path.join(GOLDEN, "torch_port_dense_reduced.json")) as f:
+    with open(os.path.join(GOLDEN, name)) as f:
         golden = json.load(f)
     out = {}
     for arch, g in golden["archs"].items():
@@ -1504,8 +1598,9 @@ def phase_dense_reduced(torch, FA):
         logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
                                         max_len=golden["max_len"])
         launches = FA.flash_attention.launches
-        check(launches == cfg.n_layers, f"{arch} reduced prefill launched "
-              f"flash_attention {launches} times for {cfg.n_layers} layers")
+        check(launches == std_layers(cfg), f"{arch} reduced prefill "
+              f"launched flash_attention {launches} times for "
+              f"{std_layers(cfg)} GQA layers")
         tok = torch.tensor(g["tokens"], dtype=torch.int32,
                            device="cuda")[:, :1]
         dec, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
@@ -1527,26 +1622,41 @@ def phase_dense_reduced(torch, FA):
     return out, golden["max_new"]
 
 
+def std_layers(cfg):
+    """The layers with GQA attention: flash_attention launches per
+    prefill."""
+    from repro_torch.models.lm import group_plan
+    return sum(n for kind, n in group_plan(cfg) if kind.startswith("std"))
+
+
 def dense_config():
     from repro_torch.configs import get_config
     return get_config(DENSE_ARCH)
 
 
-def phase_dense_full(torch, FA, W, K, Q):
-    """The dense GQA serving path at full width through factory.generate."""
+def phase_generate_full(torch, FA, W, K, Q, cfg, batch, prompt_len, new,
+                        repeats, cons_cases, cons_cfg=None):
+    """A model at full width through factory.generate (batch x prompt_len,
+    new tokens): the main path's launches; `repeats` timed windows of
+    prefill, decode steps and generate, whose tokens must agree; cache
+    consistency, a prefill of s tokens against s - steps tokens and
+    `steps` decode steps for each (s, steps) of cons_cases, run with
+    cons_cfg (the MoE models' no-drop capacity factor) or cfg; the kernel
+    against attention_plain inside the model on a 128-token prefill
+    (models with GQA layers); peak memory and profiles."""
     from repro_torch.kernels.flash_attention.ref import attention_plain
     from repro_torch.models import factory
     from repro_torch.models.layers import attention as attn_layers
 
-    cfg = dense_config()
     t0 = time.perf_counter()
     model = factory.init_params(0, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, dtype=torch.int32, device="cuda")
+    max_len = prompt_len + new
 
     # warm-up: cuBLAS handles, the caching allocator
     factory.generate(model, cfg, prompts, max_new=2)
@@ -1557,7 +1667,7 @@ def phase_dense_full(torch, FA, W, K, Q):
     W.wkv6.launches = 0
     K.issue_select.launches = 0
     Q.sm_quantum.launches = 0
-    toks = factory.generate(model, cfg, prompts, max_new=DENSE_NEW)
+    toks = factory.generate(model, cfg, prompts, max_new=new)
     torch.cuda.synchronize()
     launches = FA.flash_attention.launches
     others = (W.wkv6.launches, K.issue_select.launches,
@@ -1566,15 +1676,14 @@ def phase_dense_full(torch, FA, W, K, Q):
 
     times = {"prefill": [], "decode": [], "generate": []}
     agree = []
-    for _ in range(DENSE_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
-        logits, cache = _prefill(model, prompts, cfg,
-                                 DENSE_PROMPT + DENSE_NEW)
+        logits, cache = _prefill(model, prompts, cfg, max_len)
         torch.cuda.synchronize()
         times["prefill"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        for _ in range(DENSE_NEW - 1):
+        for _ in range(new - 1):
             step_logits, cache = factory.decode(model, cache,
                                                 {"tokens": tok}, cfg=cfg)
             tok = torch.argmax(step_logits, -1).to(torch.int32)[:, None]
@@ -1582,7 +1691,7 @@ def phase_dense_full(torch, FA, W, K, Q):
         times["decode"].append(time.perf_counter() - t0)
         del cache
         t0 = time.perf_counter()
-        again = factory.generate(model, cfg, prompts, max_new=DENSE_NEW)
+        again = factory.generate(model, cfg, prompts, max_new=new)
         torch.cuda.synchronize()
         times["generate"].append(time.perf_counter() - t0)
         agree.append(torch.equal(again, toks) and torch.equal(toks[:, -1:],
@@ -1590,32 +1699,133 @@ def phase_dense_full(torch, FA, W, K, Q):
     times["generate - prefill"] = [g - p for g, p in zip(
         times["generate"], times["prefill"])]
 
-    # cache consistency: a prefill of s tokens against s - steps tokens and
-    # `steps` decode steps, within CONSISTENCY_TOL of the largest logit
+    # cache consistency, within CONSISTENCY_TOL of the largest logit
+    cons_cfg = cons_cfg or cfg
     cons = []
-    for s, steps in ((DENSE_PROMPT, 64), (64, 1)):
-        full = _prefill(model, prompts[:, :s], cfg)[0]
-        dec = _decode_after(torch, model, cfg, prompts, s, steps)
+    for s, steps in cons_cases:
+        full = _prefill(model, prompts[:, :s], cons_cfg)[0]
+        dec = _decode_after(torch, model, cons_cfg, prompts, s, steps)
         cons.append((s, steps, float((full - dec).abs().max()),
                      float(full.abs().max()), bool(torch.isfinite(dec).all())))
+        del full, dec
+    torch.cuda.empty_cache()
     # the kernel against attention_plain inside the model, 128 tokens
-    full_k = _prefill(model, prompts[:, :128], cfg)[0]
-    attn_layers.flash_attention = attention_plain
-    try:
-        full_p = _prefill(model, prompts[:, :128], cfg)[0]
-    finally:
-        attn_layers.flash_attention = FA.flash_attention
-    in_model = float((full_k - full_p).abs().max()) / float(
-        full_p.abs().max())
+    in_model = None
+    if std_layers(cfg):
+        full_k = _prefill(model, prompts[:, :128], cfg)[0]
+        attn_layers.flash_attention = attention_plain
+        try:
+            full_p = _prefill(model, prompts[:, :128], cfg)[0]
+        finally:
+            attn_layers.flash_attention = FA.flash_attention
+        in_model = float((full_k - full_p).abs().max()) / float(
+            full_p.abs().max())
 
-    windows = _windows(torch, model, cfg, prompts, toks,
-                       DENSE_PROMPT + DENSE_NEW)
+    windows = _windows(torch, model, cfg, prompts, toks, max_len)
     return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
             "times": {k: _spread(v) for k, v in times.items()},
             "launches": launches, "others": others, "peak": peak,
             "cons": cons, "in_model": in_model, "windows": windows,
             "agree": agree, "toks": toks, "logits": logits,
             "sample": toks[0, :8].tolist()}
+
+
+def moe_config(arch, n_layers):
+    """The published config of an MoE model cut to n_layers (deepseek's
+    dense prefix kept)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def no_drop(cfg):
+    """cfg at the capacity factor E / top_k, where no token can drop."""
+    import dataclasses
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def phase_moe_train(torch, FA):
+    """The reduced MoE models trained on the card through make_train_step
+    under deterministic kernels: the loss of the golden's batch against
+    the JAX package's and the port's on the CPU; TRAIN_STEPS steps, a
+    checkpoint, TRAIN_STEPS more, then the checkpoint restored and
+    TRAIN_STEPS again, which must end in the straight run's state bit for
+    bit; flash_attention's forward (forward and recompute) and backward
+    launches per step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpointing.checkpoint import restore, save
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.convert import (jitter_constant_leaves,
+                                     lm_params_to_torch, seeded_lm_params)
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.models import factory
+    from repro_torch.models.lm import LM
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    with open(os.path.join(GOLDEN, MOE_GOLDEN)) as f:
+        golden = json.load(f)
+    b, s = golden["train_shape"]
+    shape = ShapeSpec("y", s, b, "train")
+    out = {}
+    for arch, g in golden["archs"].items():
+        cfg = get_reduced(arch)
+        tree = jitter_constant_leaves(
+            seeded_lm_params(cfg, golden["weight_seed"]),
+            golden["jitter_seed"])
+        batch = make_batch_np(cfg, shape, golden["data_seed"], 0)
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg,
+                                                               dev))
+            with torch.no_grad():
+                losses[dev] = float(factory.train_loss(
+                    model, to_device(batch, dev), cfg=cfg)[0])
+        opt_cfg = OptConfig(**TRAIN_OPT)
+        step_fn = TS.make_train_step(cfg, opt_cfg)
+        model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, "cuda"))
+        state = TS.init_train_state(model, cfg, opt_cfg)
+        fwd, bwd = FA.flash_attention, FA.flash_attention_bwd
+
+        def steps(start, n):
+            rows = []
+            for step in range(start, start + n):
+                bt = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED,
+                                             step), "cuda")
+                fwd.launches = bwd.launches = 0      # counts: just before
+                _, m = step_fn(state, bt)
+                torch.cuda.synchronize()
+                rows.append({"step": step, "fwd": fwd.launches,
+                             "bwd": bwd.launches,
+                             **{k: float(x) for k, x in m.items()}})
+            return rows
+
+        ckpt = tempfile.mkdtemp(prefix="moe-ckpt-")
+        try:
+            rows = steps(0, TRAIN_STEPS)
+            save(ckpt, TRAIN_STEPS, state, cfg)
+            rows += steps(TRAIN_STEPS, TRAIN_STEPS)
+            snap = _snapshot(state)
+            restore(ckpt, TRAIN_STEPS, state, cfg)
+            again = steps(TRAIN_STEPS, TRAIN_STEPS)
+            differ = _same_as(torch, state, snap)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        out[arch] = {"cfg": cfg, "losses": losses, "jax": g["train_loss"],
+                     "rows": rows, "again": again, "differ": differ,
+                     "gqa": std_layers(cfg),
+                     "metrics_equal": all(
+                         {k: r[k] for k in ("loss", "ce", "aux",
+                                            "grad_norm")}
+                         == {k: a[k] for k in ("loss", "ce", "aux",
+                                               "grad_norm")}
+                         for r, a in zip(rows[TRAIN_STEPS:], again))}
+    return out, shape
 
 
 def _state_bytes(args):
@@ -3366,9 +3576,23 @@ def main():
           f"{ar['bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us; on the CUDA "
           f"cores at {ALU_OPS_PER_S / 1e12:.0f} TFLOP/s "
           f"{ar['cuda_core_ms'] * 1e3:.2f} us)", flush=True)
+    a_ = ar["arctic"]
+    print(f"[f flash] at arctic-480b's shape {FLASH_ARCTIC_SHAPE} (GQA "
+          f"group of 7), causal, f32: flash_attention vs attention_plain max "
+          f"abs err {a_['max_abs_err']:.3e} (err/tol {a_['worst']:.4f} at "
+          f"{FLASH_TOLS['float32']}), vs f64 {a_['f64_err']:.3e}; kernel "
+          f"{a_['ms'] * 1e3:.2f} us/launch on the device "
+          f"({'profiler' if a_['device_timed'] else 'not profiled: events'})"
+          f", wrapper {a_['wrapper_ms'] * 1e3:.2f} us/call, plain "
+          f"{a_['plain_ms'] * 1e3:.2f} us/call, SDPA on the repeated KV "
+          f"heads {a_['library_ms'] * 1e3:.2f} us/call, bound "
+          f"{a_['bound_ms'] * 1e3:.2f} us ({a_['bound_by']})", flush=True)
     check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
           f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
           f"{ar['worst']})")
+    check(a_["f64_err"] <= FLASH_F64_TOL, f"flash_attention at "
+          f"{FLASH_ARCTIC_SHAPE} disagrees with attention in f64 beyond "
+          f"{FLASH_F64_TOL} (max abs err {a_['f64_err']})")
     check(ar["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
           f"flash_attention disagrees with attention in f64 beyond "
           f"{FLASH_F64_TOL} (max abs err "
@@ -3376,7 +3600,8 @@ def main():
 
     marks.append(("g", time.perf_counter()))
     # g. the reduced dense models against the JAX package's golden results
-    dr, dr_new = phase_dense_reduced(torch, FA)
+    dr, dr_new = phase_reduced_golden(torch, FA,
+                                      "torch_port_dense_reduced.json")
     for arch, r in dr.items():
         c = r["cfg"]
         print(f"[g dense reduced] {arch} reduced ({c.n_layers} layers, "
@@ -3391,7 +3616,9 @@ def main():
 
     marks.append(("h", time.perf_counter()))
     # h. the dense serving path at full width
-    hr = phase_dense_full(torch, FA, W, K, Q)
+    hr = phase_generate_full(torch, FA, W, K, Q, dense_config(), DENSE_BATCH,
+                             DENSE_PROMPT, DENSE_NEW, DENSE_REPEATS,
+                             ((DENSE_PROMPT, 64), (64, 1)))
     cfg = hr["cfg"]
     t = hr["times"]
     n_pre, n_dec = DENSE_BATCH * DENSE_PROMPT, DENSE_BATCH * (DENSE_NEW - 1)
@@ -3460,6 +3687,110 @@ def main():
 
     # the RWKV and dense models are gone with their phases' frames
     torch.cuda.empty_cache()
+
+    marks.append(("i", time.perf_counter()))
+    # i. the reduced MoE models against the JAX package's golden results
+    ir, ir_new = phase_reduced_golden(torch, FA, MOE_GOLDEN)
+    for arch, r in ir.items():
+        c = r["cfg"]
+        print(f"[i moe reduced] {arch} reduced ({c.n_layers} layers, d_model "
+              f"{c.d_model}, {c.moe.n_experts} experts top-{c.moe.top_k}"
+              f"{', MLA' if c.mla else ''}), prompt {r['shape']}: golden OK "
+              f"(prefill logits max abs err "
+              f"{r['errs']['prefill_logits']:.3e}, decode "
+              f"{r['errs']['decode_logits']:.3e}; {ir_new} greedy tokens "
+              f"equal), {r['launches']} flash_attention launches in the "
+              f"prefill", flush=True)
+
+    marks.append(("o", time.perf_counter()))
+    # o. the MoE family at full width, one model at a time
+    moe = {}
+    for arch, n_layers in MOE_CASES:
+        cfg = moe_config(arch, n_layers)
+        moe[arch] = orr = phase_generate_full(
+            torch, FA, W, K, Q, cfg, MOE_BATCH, MOE_PROMPT, MOE_NEW,
+            MOE_REPEATS, MOE_CONS_CASES, no_drop(cfg))
+        torch.cuda.empty_cache()
+        cfg, t, m = orr["cfg"], orr["times"], orr["cfg"].moe
+        n_pre, n_dec = MOE_BATCH * MOE_PROMPT, MOE_BATCH * (MOE_NEW - 1)
+        mixer = ("MLA q_lora {} kv_lora {}".format(cfg.mla.q_lora_rank,
+                                                   cfg.mla.kv_lora_rank)
+                 if cfg.mla else f"{cfg.n_heads} query / {cfg.n_kv_heads} "
+                 f"KV heads of {cfg.resolved_head_dim}")
+        print(f"[o moe full] {arch} cut to {cfg.n_layers} layers "
+              f"({cfg.n_dense_prefix} dense-prefix), d_model {cfg.d_model}, "
+              f"{mixer}, {m.n_experts} experts top-{m.top_k} of width "
+              f"{m.d_ff_expert} (shared {m.n_shared_experts}, dense residual "
+              f"{m.dense_residual}), capacity factor {m.capacity_factor}, "
+              f"vocab {cfg.vocab_size}; {orr['n_params']} parameters f32, "
+              f"init {orr['init_s']:.2f} s; on {card}: generate batch "
+              f"{MOE_BATCH}, prompt {MOE_PROMPT}, {MOE_NEW} new, medians of "
+              f"{MOE_REPEATS} windows: generate wall "
+              f"{orr['times']['generate'][0]:.3f} s (range "
+              f"{t['generate'][1]:.3f}-{t['generate'][2]:.3f}); prefill "
+              f"{t['prefill'][0]:.3f} s = {n_pre / t['prefill'][0]:.1f} "
+              f"tok/s; decode inside generate "
+              f"{t['generate - prefill'][0]:.3f} s = "
+              f"{n_dec / t['generate - prefill'][0]:.1f} tok/s, "
+              f"{t['generate - prefill'][0] * 1e3 / (MOE_NEW - 1):.2f} ms "
+              f"per step; the {MOE_NEW - 1} decode steps timed alone "
+              f"{t['decode'][0] * 1e3 / (MOE_NEW - 1):.2f} ms per step "
+              f"(range {t['decode'][1] * 1e3 / (MOE_NEW - 1):.2f}-"
+              f"{t['decode'][2] * 1e3 / (MOE_NEW - 1):.2f}); peak device "
+              f"memory {orr['peak'] / 2**30:.3f} GiB; {orr['launches']} "
+              f"flash_attention launches per generate (wkv6, sm_issue, "
+              f"sm_quantum: {orr['others']}); {MOE_REPEATS} repeats give "
+              f"the same tokens: {orr['agree']}; sample {orr['sample']}",
+              flush=True)
+        for s_, steps, diff, scale, finite in orr["cons"]:
+            print(f"[o moe full] {arch} cache consistency at capacity "
+                  f"factor {no_drop(cfg).moe.capacity_factor} (no drops): "
+                  f"prefill of {s_} "
+                  f"tokens vs {s_ - steps} + {steps} decode steps: max "
+                  f"|diff| {diff:.3e}, max |logit| {scale:.3f} (ratio "
+                  f"{diff / scale:.3e}, limit {CONSISTENCY_TOL}), finite "
+                  f"{finite}", flush=True)
+        if orr["in_model"] is not None:
+            print(f"[o moe full] {arch} flash_attention vs attention_plain "
+                  f"inside the model, prefill of 128 tokens: max |diff| / "
+                  f"max |logit| {orr['in_model']:.3e} (limit "
+                  f"{CONSISTENCY_TOL})", flush=True)
+        for name, w in orr["windows"].items():
+            print(f"[o moe full] {arch} profile of {name}: wall "
+                  f"{w['wall']:.3f} s, device busy {w['busy']:.4f} s (idle "
+                  f"share {1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
+                  f"activities; top: " + "; ".join(
+                      f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
+                  flush=True)
+    for arch, orr in moe.items():
+        cfg, toks = orr["cfg"], orr["toks"]
+        check(orr["launches"] == std_layers(cfg), f"{arch}: generate "
+              f"launched flash_attention {orr['launches']} times; the "
+              f"prefill has {std_layers(cfg)} GQA layers")
+        check(orr["others"] == (0, 0, 0), f"{arch}: generate launched wkv6,"
+              f" sm_issue or sm_quantum: {orr['others']}")
+        check(tuple(toks.shape) == (MOE_BATCH, MOE_NEW),
+              f"{arch}: generate returned {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"{arch}: generate returned tokens outside the vocabulary")
+        check(bool(torch.isfinite(orr["logits"]).all()),
+              f"{arch}: prefill logits not finite")
+        check(torch.equal(toks[:, 0],
+                          torch.argmax(orr["logits"], -1).int()),
+              f"{arch}: generate's first token is not the prefill's argmax")
+        check(all(orr["agree"]), f"{arch}: generate's tokens differ across "
+              "repeats, or from the separately timed decode steps'")
+        for s_, steps, diff, scale, finite in orr["cons"]:
+            check(finite and diff <= CONSISTENCY_TOL * scale,
+                  f"{arch} cache consistency at {s_} tokens ({s_ - steps} "
+                  f"+ {steps} steps): max |diff| {diff} > {CONSISTENCY_TOL}"
+                  f" x max |logit| {scale}, or not finite")
+        if orr["in_model"] is not None:
+            check(orr["in_model"] <= CONSISTENCY_TOL, f"{arch}: "
+                  f"flash_attention vs attention_plain inside the model: "
+                  f"{orr['in_model']} > {CONSISTENCY_TOL}")
+    check(moe["arctic-480b"]["launches"] > 0,
+          "the MoE path never launched flash_attention")
 
     marks.append(("k", time.perf_counter()))
     # k. the backward kernels against their plain versions, and their time
@@ -3659,6 +3990,46 @@ def main():
           f"resume + 2 differs from its 6 straight in "
           f"{second['differ'][:5]}")
 
+    marks.append(("y", time.perf_counter()))
+    # y. the reduced MoE models trained on the card, restarted bit for bit
+    yr, y_shape = phase_moe_train(torch, FA)
+    for arch, r in yr.items():
+        c = r["cfg"]
+        card_loss, cpu_loss = r["losses"]["cuda"], r["losses"]["cpu"]
+        print(f"[y moe train] {arch} reduced ({c.n_layers} layers, "
+              f"{c.moe.n_experts} experts top-{c.moe.top_k}), batch "
+              f"{y_shape.global_batch} x {y_shape.seq_len}, deterministic "
+              f"kernels: loss of the golden's batch on the card "
+              f"{card_loss:.7f}, the port on the CPU {cpu_loss:.7f} "
+              f"(rel {abs(card_loss / cpu_loss - 1):.2e}), the JAX package "
+              f"{r['jax']:.7f} (rel {abs(card_loss / r['jax'] - 1):.2e}); "
+              f"{TRAIN_STEPS} steps, save, {TRAIN_STEPS} steps, restore, "
+              f"{TRAIN_STEPS} steps: state bit-identical to the straight "
+              f"run: {not r['differ']} ({len(r['differ'])} tensors differ), "
+              f"metrics equal: {r['metrics_equal']}; per step "
+              f"flash_attention forward launches "
+              f"{[x['fwd'] for x in r['rows']]}, backward calls "
+              f"{[x['bwd'] for x in r['rows']]}; loss "
+              f"{[round(x['loss'], 4) for x in r['rows']]}, aux "
+              f"{[round(x['aux'], 4) for x in r['rows']]}", flush=True)
+    for arch, r in yr.items():
+        card_loss = r["losses"]["cuda"]
+        check(abs(card_loss / r["losses"]["cpu"] - 1) <= 1e-5
+              and abs(card_loss / r["jax"] - 1) <= 1e-5,
+              f"{arch} reduced: the card's loss {card_loss} is not within "
+              f"1e-5 of the CPU port's {r['losses']['cpu']} and the JAX "
+              f"package's {r['jax']}")
+        for x in r["rows"] + r["again"]:
+            check(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]),
+                  f"{arch} reduced step {x['step']}: not finite")
+            check(x["fwd"] == 2 * r["gqa"] and x["bwd"] == r["gqa"],
+                  f"{arch} reduced step {x['step']}: {x['fwd']} forward "
+                  f"launches and {x['bwd']} backward calls for {r['gqa']} "
+                  f"GQA layers")
+        check(not r["differ"] and r["metrics_equal"], f"{arch} reduced: 3 + "
+              f"restore + 3 differs from the straight run in "
+              f"{r['differ'][:5]}")
+
     marks.append(("end", time.perf_counter()))
     print("[time] seconds by phase: " + ", ".join(
         f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
@@ -3728,6 +4099,12 @@ def main():
         # the training path's (phase x, minitron-8b's widths at 2 layers):
         # the forward and the recompute of every step
         "train_launches": sum(r["fwd"] for r in train[DENSE_ARCH]["rows"]),
+        # the MoE path's (phase o): one generate of each model
+        "moe_launches": {arch: r["launches"] for arch, r in moe.items()},
+        # at arctic-480b's shape (phase f)
+        "arctic_shape": {k: ar["arctic"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
     }, {
         "name": "wkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",

@@ -175,7 +175,9 @@ def random_lane_inputs(rng, scfg, n_lanes, ragged=False):
 
 # ---------------------------------------------------------------------------
 # LM parameters and cache.  The JAX tree stacks each group's layers on a
-# leading axis: params["groups"][g][...] has shape (n_layers_of_g, ...).
+# leading axis: params["groups"][g][...] has shape (n_layers_of_g, ...);
+# nested leaves (an MLA layer's norms, an MoE layer's shared and dense
+# FFNs) keep their path, and an MoE group's experts stack to (n, E, d, f).
 # ---------------------------------------------------------------------------
 
 def _flatten(prefix: str, node, out: dict, take) -> None:

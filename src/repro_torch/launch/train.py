@@ -4,6 +4,12 @@ JAX package's ``launch/train.py``.
   python -m repro_torch.launch.train --device cpu             # reduced codeqwen
   python -m repro_torch.launch.train --arch rwkv6-1.6b --full --steps 4 \\
       --ckpt-every 4 --ckpt /path/to/dir
+  python -m repro_torch.launch.train --arch deepseek-v3-671b --device cpu
+
+``--arch`` takes every family the port runs (RWKV-6, the dense GQA
+models, arctic-480b and deepseek-v3-671b); the MoE models train at their
+reduced size: at full width one layer's training state (~16 bytes a
+parameter) does not fit one card, which waits for the sharded step.
 
 Runs on the CUDA device unless ``--device`` names another.  On restart
 with the same ``--ckpt`` it resumes from the latest checkpoint (written by
@@ -11,7 +17,7 @@ either package: the file format is the reference's) and replays the
 deterministic pipeline, so the run continues bit for bit.  Weights are
 random, from a ``torch.Generator`` seeded with 0 (not the reference's
 draws).  ``--mesh single|multi`` (the production-sharded step) comes with
-slice 11d.  Prints the reference's lines.
+slice 11d.5.  Prints the reference's lines.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ def main(argv=None):
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the production-sharded train step is not "
-            "ported to repro_torch yet; ROADMAP slice 11d")
+            "ported to repro_torch yet; ROADMAP slice 11d.5")
     # deterministic cuBLAS, read when CUDA starts (train_step.deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 

@@ -1,5 +1,6 @@
 """Model factory: the JAX package's ``models/factory.py`` API for the
-architectures the port runs (RWKV-6 and the dense GQA models so far).
+architectures the port runs (RWKV-6, the dense GQA models, arctic-480b's
+MoE and deepseek-v3-671b's MLA + MoE so far).
 
   init_params(seed, cfg, dtype, device)           -> LM module
   train_loss(model, batch, cfg)                   -> (loss, metrics)
@@ -14,7 +15,7 @@ Entry points run on the CUDA card unless the caller names another device.
 Random draws come from an explicit ``torch.Generator`` on the device,
 seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
-Sharding (``ctx``) comes with ROADMAP item 11d, on the simulator's mesh
+Sharding (``ctx``) comes with ROADMAP slice 11d.5, on the simulator's mesh
 (core/distribute.py); the caches and frontends of other families, and the
 arguments that size them, with their slices.  Serving (``prefill``,
 ``decode``, ``generate``) records no autograd graph, so a model made
@@ -38,8 +39,7 @@ def _check_ported(cfg: ArchConfig) -> None:
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder model is not ported to "
-            "repro_torch yet; ROADMAP slice 11d (MoE, MLA, Mamba and "
-            "Whisper)")
+            "repro_torch yet; ROADMAP slice 11d.4 (Whisper)")
     lm.group_plan(cfg)
 
 
@@ -66,7 +66,7 @@ def train_loss(model: lm.LM, batch: dict, *, cfg: ArchConfig):
     """(loss, {"loss", "ce", "aux"}) of a batch of ``tokens`` (or the
     vision frontend's ``embeds``) and ``labels``: the chunked
     cross-entropy of the head's logits plus AUX_WEIGHT times the MoE
-    balance loss, 0 for the ported kinds."""
+    layers' balance loss (0 without MoE)."""
     _check_ported(cfg)
     x = lm._inputs(model, batch)
     b, s = x.shape[0], x.shape[1]

@@ -8,19 +8,28 @@ from torch import nn
 
 
 class ParamDict(nn.Module):
-    """A module whose parameters are a flat dict of tensors, named as the
-    leaves of the JAX package's parameter tree.  Serving needs no
-    gradients, so they are frozen; ``train.train_step.init_train_state``
-    makes a model trainable with ``model.requires_grad_(True)``."""
+    """A module whose parameters are a dict of tensors, named as the
+    leaves of the JAX package's parameter tree; a nested dict (an MLA
+    norm, an MoE layer's shared FFN) becomes a child ``ParamDict`` of its
+    key.  Serving needs no gradients, so they are frozen;
+    ``train.train_step.init_train_state`` makes a model trainable with
+    ``model.requires_grad_(True)``."""
 
     def __init__(self, params: dict):
         super().__init__()
         for name, t in params.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, dict):
+                self.add_module(name, ParamDict(t))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
 
     @property
     def p(self) -> dict:
-        return dict(self.named_parameters(recurse=False))
+        """The parameters as the reference's (nested) dict."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update((name, child.p) for name, child in self.named_children())
+        return out
 
 
 def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> dict:

@@ -1,0 +1,140 @@
+"""Multi-head Latent Attention (DeepSeek-V3), the JAX package's
+``models/layers/mla.py``.
+
+The training and prefill path materializes per-head K/V from the KV
+latent; the decode path uses the *absorbed* form: scores are taken
+directly against the cached latent (c_kv, k_rope), so the KV cache holds
+only kv_lora_rank + qk_rope_head_dim floats per token.
+
+Queries and keys have head size qk_nope_head_dim + qk_rope_head_dim (192
+at full width), values v_head_dim (128).  That is outside the
+flash-attention kernel's contract (one head size for q, k and v), and
+the reference's MLA runs the plain ``chunked_attention``, not its Pallas
+kernel: so does the port.  MLA launches no kernel of the port, and there
+is no fallback from the flash-attention kernel to it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers.attention import NEG_INF, chunked_attention
+from repro_torch.models.layers.common import apply_norm, init_norm
+from repro_torch.models.layers.rope import apply_rope
+
+
+def init_mla(draw, cfg: ArchConfig, dtype=torch.float32, device=None) -> dict:
+    """draw(shape, std) returns f32 normal draws times std; scales, names
+    and draw order are the reference's."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim
+    s = d ** -0.5
+    p = {"wdq": draw((d, m.q_lora_rank), s).to(dtype),
+         "q_norm": init_norm("rmsnorm", m.q_lora_rank, dtype, device)}
+    p["wuq"] = draw((m.q_lora_rank, h, qk + m.qk_rope_head_dim),
+                    m.q_lora_rank ** -0.5).to(dtype)
+    p["wdkv"] = draw((d, m.kv_lora_rank + m.qk_rope_head_dim), s).to(dtype)
+    p["kv_norm"] = init_norm("rmsnorm", m.kv_lora_rank, dtype, device)
+    p["wuk"] = draw((m.kv_lora_rank, h, qk), m.kv_lora_rank ** -0.5).to(dtype)
+    p["wuv"] = draw((m.kv_lora_rank, h, m.v_head_dim),
+                    m.kv_lora_rank ** -0.5).to(dtype)
+    p["wo"] = draw((h, m.v_head_dim, d), (h * m.v_head_dim) ** -0.5).to(dtype)
+    return p
+
+
+def _up(c, w):
+    """c (B,S,r) @ w (r, H, k) -> (B,S,H,k)."""
+    b, s, _ = c.shape
+    return (c @ w.to(c.dtype).reshape(w.shape[0], -1)).reshape(
+        b, s, w.shape[1], w.shape[2])
+
+
+def _out(p, o):
+    """o (B,S,H,dv) @ wo (H,dv,d) -> (B,S,d)."""
+    b, s, h, dv = o.shape
+    return o.reshape(b, s, h * dv) @ p["wo"].to(o.dtype).reshape(h * dv, -1)
+
+
+def _queries(p, x, cfg: ArchConfig, positions):
+    m = cfg.mla
+    cq = x @ p["wdq"].to(x.dtype)
+    cq = apply_norm(p["q_norm"], cq, kind="rmsnorm", eps=cfg.norm_eps)
+    q = _up(cq, p["wuq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        theta=cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _latents(p, x, cfg: ArchConfig, positions):
+    m = cfg.mla
+    ckr = x @ p["wdkv"].to(x.dtype)                     # (B,S,dc+rope)
+    ckv = apply_norm(p["kv_norm"], ckr[..., :m.kv_lora_rank],
+                     kind="rmsnorm", eps=cfg.norm_eps)
+    k_rope = apply_rope(ckr[..., None, m.kv_lora_rank:], positions,
+                        theta=cfg.rope_theta)[..., 0, :]   # (B,S,rope)
+    return ckv, k_rope
+
+
+def mla_train(p, x, *, cfg: ArchConfig, positions, chunk: int = 1024,
+              return_cache: bool = False):
+    """Full-sequence causal MLA.  x: (B,S,d); with ``return_cache`` also
+    the latent cache entries (ckv (B,S,kv_lora), k_rope (B,S,rope))."""
+    m = cfg.mla
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    ckv, k_rope = _latents(p, x, cfg, positions)
+    k_nope = _up(ckv, p["wuk"])
+    v = _up(ckv, p["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, chunk_q=chunk, chunk_k=chunk)
+    out = _out(p, o)
+    if return_cache:
+        return out, (ckv, k_rope)
+    return out
+
+
+def init_latent_cache(cfg: ArchConfig, n_layers: int, batch: int,
+                      max_len: int, dtype=torch.float32, device=None) -> dict:
+    """The zeroed latent cache of a group of MLA layers: ckv (n, B,
+    max_len, kv_lora_rank) and kr (n, B, max_len, qk_rope_head_dim)."""
+    m = cfg.mla
+    lead = (n_layers, batch, max_len)
+    return {"ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dtype,
+                              device=device)}
+
+
+def mla_decode(p, x, cache_ckv, cache_krope, *, cfg: ArchConfig, cache_len):
+    """Absorbed one-token decode.  x: (B,1,d); cache_ckv: (B,Smax,dc);
+    cache_krope: (B,Smax,rope); cache_len: (B,) int32.  Returns (out,
+    new_ckv, new_krope); the caches passed in are not changed (one write
+    per row at cache_len[b], a distinct index per row)."""
+    m = cfg.mla
+    b, smax = cache_ckv.shape[0], cache_ckv.shape[1]
+    positions = cache_len[:, None]
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    ckv_new, krope_new = _latents(p, x, cfg, positions)
+    rows = (torch.arange(b, device=x.device), cache_len.long())
+    cache_ckv = cache_ckv.index_put(rows, ckv_new[:, 0].to(cache_ckv.dtype))
+    cache_krope = cache_krope.index_put(rows,
+                                        krope_new[:, 0].to(cache_krope.dtype))
+    # absorb W_uk into q:  q_c = q_nope @ W_uk^T  -> (B,1,H,dc)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"].to(x.dtype))
+    s = torch.einsum("bshr,btr->bhst", q_c.float(),
+                     cache_ckv.to(x.dtype).float())
+    s = s + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                         cache_krope.to(x.dtype).float())
+    s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    valid = (torch.arange(smax, device=x.device)[None, :]
+             <= cache_len[:, None])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhst,btr->bshr", prob.to(x.dtype),
+                       cache_ckv.to(x.dtype))          # (B,1,H,dc)
+    o = torch.einsum("bshr,rhk->bshk", o_c, p["wuv"].to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache_ckv, cache_krope

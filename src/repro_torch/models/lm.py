@@ -1,5 +1,6 @@
 """Decoder-LM assembly: the training and serving paths of the JAX
-package's ``models/lm.py`` for the RWKV-6 and dense GQA families.
+package's ``models/lm.py`` for the RWKV-6, dense GQA, MoE (arctic) and
+MLA + MoE (deepseek-v3) families.
 
 An architecture is a list of *groups*; each group is `count` structurally
 identical blocks.  The JAX package stacks a group's parameters on a
@@ -9,13 +10,18 @@ parameters keep the JAX names (state-dict keys such as
 ``groups.0.3.tm.mu_x`` for layer 3's ``params["groups"][0]["tm"]["mu_x"]``).
 The decode cache keeps the JAX layout: per group ``S`` (n, B, H, hs, hs)
 f32 and ``tm``/``cm`` (n, B, d) for ``rwkv``, ``k``/``v`` (n, B, max_len,
-KV, hd) for ``std:dense``, and ``len`` (B,) int32.
+KV, hd) for ``std:*``, ``ckv`` (n, B, max_len, kv_lora_rank) and ``kr``
+(n, B, max_len, qk_rope_head_dim) for ``mla:*``, and ``len`` (B,) int32.
 
-The ``rwkv`` and ``std:dense`` group kinds are ported; the others raise
-``NotImplementedError`` naming the ROADMAP slice that ports them.
+The ``rwkv``, ``std:dense``, ``std:moe``, ``mla:dense`` and ``mla:moe``
+group kinds are ported; ``period`` (jamba) raises
+``NotImplementedError`` naming the ROADMAP slice that ports it.
 ``forward_hidden`` is the training forward: each block runs under
 non-reentrant ``torch.utils.checkpoint``, as the reference's under
-``jax.checkpoint``, so its activations are recomputed in the backward.
+``jax.checkpoint``, so its activations are recomputed in the backward;
+the MoE layers' balance losses are summed through the blocks, as the
+reference's scan carries them.  Serving drops them, as the reference
+does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -30,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import mla as mla_mod
+from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rwkv6 as rwkv
 from repro_torch.models.layers.common import ParamDict, apply_norm, init_norm
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
@@ -38,12 +46,7 @@ from repro_torch.models.layers.rope import text_mrope_positions
 VOCAB_PAD = 32
 
 # group kinds of the reference that later slices port (ROADMAP §1)
-_LATER_SLICE = {
-    "std:moe": "slice 11d (MoE, MLA, Mamba and Whisper)",
-    "mla:dense": "slice 11d (MoE, MLA, Mamba and Whisper)",
-    "mla:moe": "slice 11d (MoE, MLA, Mamba and Whisper)",
-    "period": "slice 11d (MoE, MLA, Mamba and Whisper)",
-}
+_LATER_SLICE = {"period": "slice 11d.3 (Mamba and the jamba period)"}
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +73,7 @@ def group_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
     """The reference's group plan; raises for a kind not ported yet."""
     plan = _reference_plan(cfg)
     for kind, _ in plan:
-        if kind not in ("rwkv", "std:dense"):
+        if kind in _LATER_SLICE:
             raise NotImplementedError(
                 f"{cfg.name}: group kind {kind!r} is not ported to "
                 f"repro_torch yet; ROADMAP {_LATER_SLICE[kind]}")
@@ -89,12 +92,17 @@ def _init_block(draw, kind: str, cfg: ArchConfig, dtype, device) -> dict:
             "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device),
             "cm": rwkv.init_channel_mix(draw, cfg, dtype, device),
         }
-    assert kind == "std:dense", kind
+    attn_kind, mlp_kind = kind.split(":")
+    # the reference's keys; the mixer draws first, then the FFN
+    mixer = (mla_mod.init_mla(draw, cfg, dtype, device) if attn_kind == "mla"
+             else attn.init_attention(draw, cfg, dtype, device))
+    mlp = (moe_mod.init_moe(draw, cfg, dtype) if mlp_kind == "moe"
+           else init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.act, dtype))
     return {
         "attn_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
-        "attn": attn.init_attention(draw, cfg, dtype, device),
+        ("attn" if attn_kind == "std" else "mla"): mixer,
         "mlp_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
-        "mlp": init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.act, dtype),
+        ("moe" if mlp_kind == "moe" else "mlp"): mlp,
     }
 
 
@@ -125,18 +133,19 @@ class RWKVBlock(nn.Module):
         self.cm = rwkv.ChannelMix(cfg, p["cm"])
 
 
-class DenseBlock(nn.Module):
-    """GQA attention and a dense FFN, each after its norm."""
+class AttnBlock(nn.Module):
+    """The ``std:*`` and ``mla:*`` kinds: GQA attention (``attn``) or MLA
+    (``mla``), then a dense FFN (``mlp``) or an MoE layer (``moe``), each
+    after its norm."""
 
     def __init__(self, cfg: ArchConfig, p: dict):
         super().__init__()
-        self.attn_norm = ParamDict(p["attn_norm"])
-        self.attn = ParamDict(p["attn"])
-        self.mlp_norm = ParamDict(p["mlp_norm"])
-        self.mlp = ParamDict(p["mlp"])
+        for name, leaves in p.items():
+            self.add_module(name, ParamDict(leaves))
 
 
-_BLOCKS = {"rwkv": RWKVBlock, "std:dense": DenseBlock}
+_BLOCKS = {"rwkv": RWKVBlock, "std:dense": AttnBlock, "std:moe": AttnBlock,
+           "mla:dense": AttnBlock, "mla:moe": AttnBlock}
 
 
 class LM(nn.Module):
@@ -203,17 +212,35 @@ def make_positions(cfg: ArchConfig, b: int, s: int, offset=0, device=None):
 # block apply — train (no cache)
 # ---------------------------------------------------------------------------
 
-def _block_train(blk, x, *, cfg: ArchConfig, positions):
+def _mixer(blk: AttnBlock, h, *, cfg: ArchConfig, positions,
+           return_cache: bool = False):
+    """The block's attention (GQA or MLA) on its normed input."""
+    if hasattr(blk, "mla"):
+        return mla_mod.mla_train(blk.mla.p, h, cfg=cfg, positions=positions,
+                                 return_cache=return_cache)
+    return attn.attention_train(blk.attn.p, h, cfg=cfg, positions=positions,
+                                return_kv=return_cache)
+
+
+def _mlp_or_moe(blk: AttnBlock, h, *, cfg: ArchConfig):
+    """(y, aux): the block's FFN on its normed input, and the MoE
+    layer's balance loss (None for a dense FFN)."""
+    if hasattr(blk, "moe"):
+        return moe_mod.apply_moe(blk.moe.p, h, cfg=cfg)
+    return apply_ffn(blk.mlp.p, h, act=cfg.act), None
+
+
+def _block_train(blk, x, aux, *, cfg: ArchConfig, positions):
     """One block of the training forward, from the zero shift and wkv
-    states (the sequence start); returns x."""
+    states (the sequence start); returns (x, aux plus the block's MoE
+    balance loss)."""
     nk, eps = cfg.norm, cfg.norm_eps
-    if isinstance(blk, DenseBlock):
-        x = x + attn.attention_train(
-            blk.attn.p, apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps),
-            cfg=cfg, positions=positions)
-        return x + apply_ffn(blk.mlp.p, apply_norm(blk.mlp_norm.p, x,
-                                                   kind=nk, eps=eps),
-                             act=cfg.act)
+    if isinstance(blk, AttnBlock):
+        x = x + _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
+                                       eps=eps), cfg=cfg, positions=positions)
+        y, a = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
+                                           eps=eps), cfg=cfg)
+        return x + y, aux if a is None else aux + a
     b, _, d = x.shape
     h, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     zshift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -223,22 +250,21 @@ def _block_train(blk, x, *, cfg: ArchConfig, positions):
                      zstate)
     x = x + y
     y, _ = blk.cm(apply_norm(blk.ln2.p, x, kind=nk, eps=eps), zshift)
-    return x + y
+    return x + y, aux
 
 
 def forward_hidden(model: LM, embeds, *, cfg: ArchConfig, positions):
     """embeds: (B,S,d) -> (hidden (B,S,d) after the final norm, aux).
     Each block is checkpointed (its forward runs again in the backward);
-    aux, the MoE balance loss of the reference, is 0 for the ported
-    kinds."""
+    aux is the sum of the MoE layers' balance losses, 0 without MoE."""
     x = embeds
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blocks in model.groups:
         for blk in blocks:
             # the blocks draw no random numbers: no RNG state to keep
-            x = checkpoint(_block_train, blk, x, cfg=cfg,
-                           positions=positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_block_train, blk, x, aux, cfg=cfg,
+                                positions=positions, use_reentrant=False,
+                                preserve_rng_state=False)
     x = apply_norm(model.final_norm.p, x, kind=cfg.norm, eps=cfg.norm_eps)
     return x, aux
 
@@ -253,9 +279,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     not grow with the sequence and ignores it)."""
     groups = []
     for kind, n in group_plan(cfg):
-        if kind == "std:dense":
+        if kind.startswith("std"):
             groups.append(attn.init_kv_cache(cfg, n, batch, max_len, dtype,
                                              device))
+            continue
+        if kind.startswith("mla"):
+            groups.append(mla_mod.init_latent_cache(cfg, n, batch, max_len,
+                                                    dtype, device))
             continue
         h = cfg.d_model // cfg.rwkv.head_size
         hs = cfg.rwkv.head_size
@@ -282,15 +312,16 @@ def _pad_seq(a, max_len: int):
 def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
     """Returns (x, cache_entry) matching init_cache leaf layout (minus n)."""
     nk, eps = cfg.norm, cfg.norm_eps
-    if isinstance(blk, DenseBlock):
-        y, (kc, vc) = attn.attention_train(
-            blk.attn.p, apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps),
-            cfg=cfg, positions=positions, return_kv=True)
-        entry = {"k": _pad_seq(kc, max_len).to(x.dtype),
-                 "v": _pad_seq(vc, max_len).to(x.dtype)}
+    if isinstance(blk, AttnBlock):
+        y, cache = _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
+                                          eps=eps), cfg=cfg,
+                          positions=positions, return_cache=True)
+        names = ("ckv", "kr") if hasattr(blk, "mla") else ("k", "v")
+        entry = {n: _pad_seq(c, max_len).to(x.dtype)
+                 for n, c in zip(names, cache)}
         x = x + y
-        y = apply_ffn(blk.mlp.p, apply_norm(blk.mlp_norm.p, x, kind=nk,
-                                            eps=eps), act=cfg.act)
+        y, _ = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
+                                           eps=eps), cfg=cfg)
         return x + y, entry
     b, _, d = x.shape
     h, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -307,14 +338,22 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
 
 def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len):
     nk, eps = cfg.norm, cfg.norm_eps
-    if isinstance(blk, DenseBlock):
-        y, kc, vc = attn.attention_decode(
-            blk.attn.p, apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps),
-            cache["k"], cache["v"], cfg=cfg, cache_len=cache_len)
+    if isinstance(blk, AttnBlock):
+        h = apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps)
+        if hasattr(blk, "mla"):
+            y, ckv, kr = mla_mod.mla_decode(blk.mla.p, h, cache["ckv"],
+                                            cache["kr"], cfg=cfg,
+                                            cache_len=cache_len)
+            entry = {"ckv": ckv, "kr": kr}
+        else:
+            y, kc, vc = attn.attention_decode(blk.attn.p, h, cache["k"],
+                                              cache["v"], cfg=cfg,
+                                              cache_len=cache_len)
+            entry = {"k": kc, "v": vc}
         x = x + y
-        y = apply_ffn(blk.mlp.p, apply_norm(blk.mlp_norm.p, x, kind=nk,
-                                            eps=eps), act=cfg.act)
-        return x + y, {"k": kc, "v": vc}
+        y, _ = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
+                                           eps=eps), cfg=cfg)
+        return x + y, entry
     y, tm_shift, S = blk.tm.decode(
         apply_norm(blk.ln1.p, x, kind=nk, eps=eps),
         cache["tm"].to(x.dtype), cache["S"])

@@ -3,7 +3,7 @@
 Logits are never materialized for the full sequence: the head product
 and log-sum-exp run per sequence chunk (peak activation B x chunk x V
 instead of B x S x V).  Labels == -1 are masked out.  The vocab-parallel
-sharding of the reference comes with slice 11d.
+sharding of the reference comes with slice 11d.5.
 """
 from __future__ import annotations
 

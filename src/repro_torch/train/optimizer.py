@@ -8,7 +8,7 @@ in bf16; the update maths always runs in f32, in the reference's order of
 operations.  The update works in place, where the reference returns new
 arrays: parameters and moments are overwritten and the gradients are
 scaled by the clip factor, so a step at full width holds one copy of each.
-ZeRO-1 sharding of the moments comes with slice 11d.
+ZeRO-1 sharding of the moments comes with slice 11d.5.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ checkpoint continues bit for bit (the reference's contract,
 setting makes cuBLAS raise unless ``CUBLAS_WORKSPACE_CONFIG`` is
 ``:4096:8`` or ``:16:8`` before CUDA starts; the step raises first,
 naming it.  The wkv6 and flash-attention kernels, forward and backward,
-use no atomics.  Sharding (``ctx``) comes with slice 11d.
+use no atomics; the MoE layer's dispatch and combine are gathers, whose
+backward sums PyTorch then orders deterministically.  Sharding (``ctx``)
+comes with slice 11d.5.
 """
 from __future__ import annotations
 

@@ -68,6 +68,8 @@ SIM_GOLDENS = {TINY: "determinism_tiny.json",
                RTX3080TI: "torch_port_rtx3080ti.json"}
 DENSE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
                             "torch_port_dense_reduced.json")
+MOE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
+                          "torch_port_moe_reduced.json")
 
 
 @pytest.fixture
@@ -843,6 +845,37 @@ def test_dense_reduced_golden_on_card(cuda, arch):
     logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
                                     max_len=golden["max_len"])
     assert FA.flash_attention.launches == before + cfg.n_layers
+    want = torch.tensor(g["prefill_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    tok = torch.tensor(g["tokens"], dtype=torch.int32, device=cuda)[:, :1]
+    logits, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
+    want = torch.tensor(g["decode_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
+    assert toks.cpu().tolist() == g["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+def test_moe_reduced_golden_on_card(cuda, arch):
+    """The reduced MoE models (arctic's std:moe; deepseek's MLA, which
+    launches no kernel) against the JAX package's golden logits and
+    tokens."""
+    with open(MOE_GOLDEN) as f:
+        golden = json.load(f)
+    g = golden["archs"][arch]
+    cfg = get_reduced(arch)
+    tree = jitter_constant_leaves(
+        seeded_lm_params(cfg, golden["weight_seed"]), golden["jitter_seed"])
+    assert params_fingerprint(tree) == pytest.approx(g["weights_sum"],
+                                                   rel=1e-9)
+    model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, cuda))
+    prompts = torch.tensor(golden["prompt"][arch], dtype=torch.int32,
+                           device=cuda)
+    before = FA.flash_attention.launches
+    logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
+                                    max_len=golden["max_len"])
+    gqa = 0 if cfg.mla is not None else cfg.n_layers
+    assert FA.flash_attention.launches == before + gqa
     want = torch.tensor(g["prefill_logits"], device=cuda)
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     tok = torch.tensor(g["tokens"], dtype=torch.int32, device=cuda)[:, :1]
