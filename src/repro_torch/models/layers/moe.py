@@ -19,10 +19,11 @@ the same:
     breaks ties as JAX does.
   · Dispatch: the reference writes every dropped entry into one dead row
     (``buf.at[slot].set`` with duplicate indices there) and discards it.
-    Here a slot -> token index is filled from the kept entries only, whose
-    slots are distinct, and the buffer is a gather of the tokens, an empty
-    slot reading an appended zero row: the same buffer, with no duplicate
-    writes and no dependence on their order.
+    Here each slot computes its token from the sorted order (slot p of
+    expert e holds the e-th run's p-th entry while p is below the run's
+    length), and the buffer is a gather of the tokens, an empty slot
+    reading an appended zero row: the same buffer, with no writes to
+    order and no wait for the host.
   · Combine: the reference scatter-adds each entry's weighted output into
     its token (``y.at[order // k].add``), in the sorted order, which for
     one token is its experts in ascending id.  Here each token gathers its
@@ -92,11 +93,14 @@ def _dispatch(tokens, top_idx, n_experts: int, capacity: int):
     keep = pos < capacity
     slot = torch.where(keep, sorted_e * capacity + pos,
                        n_experts * capacity)
-    # slot -> source token, written by kept entries only (distinct slots);
-    # an empty slot reads row n, a zero row
-    src = torch.full((n_experts * capacity,), n, device=dev,
-                     dtype=torch.long)
-    src[slot[keep]] = order[keep] // k
+    # slot -> source token: slot e*C + p holds sorted entry starts[e] + p
+    # while p is below expert e's count; an empty slot reads row n, a zero
+    # row.  Computed, not scattered: no duplicate writes, no host wait
+    ends = torch.cat([starts[1:], starts.new_full((1,), n * k)])
+    at = starts[:, None] + torch.arange(capacity, device=dev)   # (E, C)
+    src = torch.where(at < ends[:, None],
+                      order[torch.clamp(at, max=n * k - 1)] // k,
+                      n).reshape(-1)
     padded = torch.cat([tokens, tokens.new_zeros((1, tokens.shape[1]))])
     buf = padded[src].reshape(n_experts, capacity, -1)
     return buf, slot, keep, order

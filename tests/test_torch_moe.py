@@ -125,6 +125,25 @@ def test_dispatch_buffer_equals_jax(case):
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", ["arctic", "shared8"])
+def test_dispatch_buffer_with_empty_experts_equals_jax(case):
+    """Every token routed to experts 0..k-1 (a tied router): those overflow
+    and drop, the others (the last one included) get no token; the buffer
+    still equals the reference's."""
+    pc, _, _, x = setup(case, 1.25)
+    m = pc.moe
+    t = torch.from_numpy(x).reshape(-1, pc.d_model)
+    idx = torch.arange(m.top_k).expand(t.shape[0], m.top_k).contiguous()
+    cap = PM._capacity(t.shape[0], m.top_k, m.n_experts, m.capacity_factor)
+    buf, _, keep, _ = PM._dispatch(t, idx, m.n_experts, cap)
+    jbuf, _, jkeep, _ = JM._dispatch_one_group(
+        jnp.asarray(t.numpy()), jnp.asarray(idx.numpy().astype(np.int32)),
+        m.n_experts, cap)
+    assert not bool(keep.all()) and not buf[m.top_k:].any()
+    assert np.array_equal(buf.numpy(), np.asarray(jbuf))
+    assert np.array_equal(keep.numpy(), np.asarray(jkeep))
+
+
 def test_capacity_matches_jax():
     for n in (1, 7, 48, 512, 4096):
         for k, e in ((2, 4), (2, 128), (8, 16), (8, 256)):
