@@ -146,7 +146,12 @@ The dense GQA serving path (f32, TF32 off):
      both operation bounds: the CUDA cores' f32 rate and three TF32 passes
      on the tensor cores; and at arctic-480b's shape (8, 512, 56 query / 8
      KV heads, 128), a GQA group of 7, against attention_plain and f64,
-     timed beside the plain version and SDPA;
+     timed beside the plain version and SDPA; at whisper-base's shapes,
+     non-causal: the encoder's (8, 1500, 8 / 8 heads, 64) over its own
+     1,500 frames and the cross attention's 448 queries over them, each
+     against attention_plain and f64, timed beside the plain version and
+     SDPA; and (2, 300, 8 / 8, 64) over 100 keys (non-causal Sq > Sk)
+     against both, with causal Sq > Sk refused (ROADMAP §3, F4);
   g. the reduced minitron-8b and qwen2-72b with seeded weights against
      tests/golden/torch_port_dense_reduced.json (the JAX package's
      prefill and decode logits within 1e-4, greedy tokens, the weights'
@@ -183,6 +188,32 @@ mla:moe), f32, this slice's main path:
      kernel against attention_plain inside arctic on a 128-token prefill,
      peak device memory, and profiles of a prefill and of four decode
      steps;
+The hybrid and encoder-decoder families (jamba's period kind; Whisper),
+f32:
+  j. the reduced jamba-v0.1-52b (one period) and whisper-base with seeded
+     weights (and Whisper's frames from a numpy seed) against
+     tests/golden/torch_port_hybrid_reduced.json (the JAX package's
+     prefill and first decode logits within 1e-4, greedy tokens, the
+     weights' fingerprint), flash_attention launched once per period of
+     a jamba prefill and n_enc + 2 n_dec times per Whisper prefill;
+  p. jamba-v0.1-52b at full width cut to 1 of its 4 periods (8 layers:
+     7 Mamba mixers of d_inner 8192, one attention of 32 query / 8 KV
+     heads of 128 without positions, 4 dense SwiGLU FFNs of 14336 and 4
+     MoE layers of 16 experts top-2; 13.30 B f32 parameters), drawn on
+     the card and freed after, as phase o serves the MoE models: generate
+     for batch 8, prompt 512, 32 new tokens (flash_attention once per
+     generate), three windows that give the same tokens, cache
+     consistency 32 + 32 and 63 + 1 steps of a 64-token prompt at the
+     capacity factor E / top_k, the kernel against attention_plain
+     inside the model on a 128-token prefill, peak memory, profiles;
+  w. whisper-base at full size (6 + 6 layers, d_model 512, 8 heads of
+     64, vocab 51,865): factory.prefill of batch 8 over 1,500 seeded
+     frames with a 32-token prompt, then 127 greedy factory.decode steps;
+     flash_attention 18 times per prefill (6 encoder, 6 self, 6 cross
+     attention), three windows that give the same tokens, cache
+     consistency of a 64-token prefill against 32 + 32 steps, the kernel
+     against attention_plain inside the model, decode ms per step, peak
+     memory, profiles of a prefill and of four decode steps;
 Training (f32, TF32 off, deterministic kernels):
   k. the backward kernels (builds; ptxas registers and spills of each
      instance, none may spill): wkv6_bwd against autograd of wkv6_plain
@@ -196,15 +227,21 @@ Training (f32, TF32 off, deterministic kernels):
      shapes the time per call of each (profiler; attention's two kernels
      each), of its plain version, of autograd's backward of SDPA
      (enable_gqa, the library yardstick, for attention), and the bounds;
+     flash_attention_bwd also at Whisper's encoder shape (8, 1500, 8 / 8,
+     64) and at (2, 300, 8 / 8, 64) over 100 keys, non-causal, within
+     1e-4 of f64, the encoder's bits equal from call to call, its time;
   x. training through make_train_step at full width: rwkv6-1.6b (24
      layers, 1.60 B parameters, batch 8 x 512) and minitron-8b's widths at
-     2 layers (2.45 B parameters, batch 4 x 512), AdamW: the whole model's
-     gradients on the kernels against the same model on their plain
-     versions in f64 (128 tokens), within 1e-3 of the norm or twice the
-     plain versions' in f32, a witness of the model's own sensitivity to
-     the mixer's rounding; per step the forward kernel
-     2 x n_layers times (forward and the checkpoint's recompute) and the
-     backward once per layer, loss and grad_norm finite; 6 steps (the
+     2 layers (2.45 B parameters, batch 4 x 512) and whisper-base whole
+     (batch 8 x 448 decoder tokens over 1,500 frames: flash_attention
+     forward and backward non-causal in a real step), AdamW: the whole
+     model's gradients on the kernels against the same model on their
+     plain versions in f64 (128 tokens), within 1e-3 of the norm or twice
+     the plain versions' in f32, a witness of the model's own sensitivity
+     to the mixer's rounding; per step the forward kernel twice per call
+     of a forward (forward and the checkpoint's recompute: one call per
+     layer, 18 for Whisper) and the backward once per call, loss and
+     grad_norm finite; 6 steps (the
      restart is held by the launcher below at full width, and by phase y
      on the MoE models; minitron-8b's 29.4 GB checkpoint round trip is
      left out for time); step time, tokens/s, peak memory, a profiled
@@ -214,8 +251,9 @@ Training (f32, TF32 off, deterministic kernels):
      with a checkpoint at step 4 (--ckpt-every 4 --ckpt DIR), and the
      same to 6, which resumes and must end in the straight run's state
      bit for bit;
-  y. the reduced arctic-480b and deepseek-v3-671b trained through
-     make_train_step under deterministic kernels: the loss of the
+  y. the reduced arctic-480b, deepseek-v3-671b, jamba-v0.1-52b and
+     whisper-base trained through make_train_step under deterministic
+     kernels (the Mamba scan's backward through autograd): the loss of the
      golden's batch within 1e-5 relative of the port's on the CPU and of
      the JAX package's; 3 steps, a checkpoint, 3 steps, then the
      checkpoint restored and 3 steps again, bit-identical to the straight
@@ -224,8 +262,8 @@ Training (f32, TF32 off, deterministic kernels):
      ce and aux within MOE_TRAIN_METRIC_TOL relative, grad_norm within
      MOE_TRAIN_GRAD_TOL relative, the parameters after them within
      MOE_TRAIN_PARAM_TOL of each leaf's largest magnitude;
-     flash_attention's launches per step (2 per GQA layer forward, 1
-     backward).
+     flash_attention's launches per step (2 per attention call of the
+     forward, 1 backward).
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -346,6 +384,15 @@ DENSE_REPEATS = 2                # timing windows of phase h
 # phase f: arctic-480b's attention shape (B, S, H, KV, hd), a GQA group of
 # 7 query heads, which the MoE path (phase o) launches the kernel at
 FLASH_ARCTIC_SHAPE = (8, 512, 56, 8, 128)
+# phase f: Whisper's shapes ((B, Sq, H, KV, hd), Sk), non-causal, where
+# whisper-base launches the kernel (phases w and x): the encoder's
+# self-attention over its 1,500 frames (a ragged last tile: 1500 = 23 x 64
+# + 28) and the decoder's cross attention of 448 queries over them; and a
+# reduced case with more queries than keys (B, Sq, H, KV, hd, Sk), which
+# only non-causal attention takes (ROADMAP §3, F4)
+WHISPER_FLASH_CASES = {"encoder": ((8, 1500, 8, 8, 64), 1500),
+                       "cross": ((8, 448, 8, 8, 64), 1500)}
+FLASH_WIDE_CASE = (2, 300, 8, 8, 64, 100)
 # phases i, o and y: the MoE family at its published widths, cut in depth
 # only: arctic-480b at 1 layer (14.07 B f32 parameters, 56.3 GB; two
 # would not fit the card), deepseek-v3-671b at its 3 dense-prefix layers
@@ -359,6 +406,19 @@ MOE_REPEATS = 3                  # generate windows, the same tokens each
 # 3.8 GB (deepseek) beside the weights; 512 would not fit
 MOE_CONS_CASES = ((64, 32), (64, 1))
 MOE_GOLDEN = "torch_port_moe_reduced.json"
+# phases j, p, w and y: jamba-v0.1-52b (arXiv:2403.19887) at its published
+# widths cut to 1 of its 4 periods of 8 layers (13.30 B f32 parameters with
+# the embedding and head, 53.2 GB), served as the MoE models are; and
+# whisper-base (arXiv:2212.04356, 72.8 M parameters) whole: batch 8 over
+# the encoder's 1,500 frames, a prompt of 32 decoder tokens, 128 new by a
+# greedy prefill + decode loop, repeated windows that must give the same
+# tokens, cache consistency of a 64-token prefill against 32 + 32 steps
+HYBRID_GOLDEN = "torch_port_hybrid_reduced.json"
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 8, 32, 128
+WHISPER_REPEATS = 3
+WHISPER_CONS = (64, 32)
 # phase k: the backward kernels, each gradient within BWD_TOL of its
 # largest magnitude from the plain backward in f64 (the CPU tests' bound
 # for the model's gradients); operations per state element and token of
@@ -383,7 +443,8 @@ WKV_BWD_OPS_PER_ELEMENT = 12
 # BWD_TOL of autograd of the f64 plain form on that call's inputs and
 # output gradients, and the whole model's distances are readings.
 TRAIN_CASES = (("rwkv6-1.6b", None, 8, 512),
-               ("minitron-8b", 2, 4, 512))
+               ("minitron-8b", 2, 4, 512),
+               ("whisper-base", None, 8, 448))
 TRAIN_CMP_SEQ = 128
 TRAIN_CMP_LAYERS = 2
 TRAIN_GRAD_TOL = 1e-3
@@ -725,20 +786,24 @@ def phase_rwkv_reduced(torch, W):
             "shape": tuple(prompts.shape), "new": golden["max_new"]}
 
 
-def _prefill(model, tokens, cfg, max_len=0):
+def _prefill(model, tokens, cfg, max_len=0, frames=None):
+    """factory.prefill of token prompts (and Whisper's frames)."""
     from repro_torch.models import factory
-    return factory.prefill(model, {"tokens": tokens}, cfg=cfg,
-                           max_len=max_len)
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    return factory.prefill(model, batch, cfg=cfg, max_len=max_len)
 
 
-def _decode_after(torch, model, cfg, prompts, s, steps, noise=None):
+def _decode_after(torch, model, cfg, prompts, s, steps, noise=None,
+                  frames=None):
     """Logits for prompts[:, :s] as a prefill of s - steps tokens (a KV
     cache sized for s) followed by `steps` decode steps.  noise: a
     generator that scales every wkv state of the prefill's cache by
     (1 + 2^-23 N(0, 1)), one f32 rounding of the state, before the
     steps."""
     from repro_torch.models import factory
-    dec, cache = _prefill(model, prompts[:, :s - steps], cfg, s)
+    dec, cache = _prefill(model, prompts[:, :s - steps], cfg, s, frames)
     if noise is not None:
         for g in cache["groups"]:
             g["S"] = g["S"] * (1 + 2.0 ** -23 * torch.randn(
@@ -749,14 +814,14 @@ def _decode_after(torch, model, cfg, prompts, s, steps, noise=None):
     return dec
 
 
-def _windows(torch, model, cfg, prompts, toks, max_len):
+def _windows(torch, model, cfg, prompts, toks, max_len, frames=None):
     """Device time by kernel over a prefill (its KV cache sized for
     max_len), then over four decode steps."""
     from repro_torch.models import factory
     windows, state = {}, {}
 
     def prefill_window():
-        state["cache"] = _prefill(model, prompts, cfg, max_len)[1]
+        state["cache"] = _prefill(model, prompts, cfg, max_len, frames)[1]
 
     def decode_window():
         cache, tok = state["cache"], toks[:, :1]
@@ -981,52 +1046,80 @@ def phase_flash(torch, FA):
     # timed beside the plain version and SDPA
     arctic = _flash_timed_case(torch, FA, gen, FLASH_ARCTIC_SHAPE)
     full = _flash_timed_case(torch, FA, gen, FLASH_FULL_SHAPE)
-    for r in (arctic, full):
+    # Whisper's (phases w and x): the encoder's self-attention over its
+    # 1,500 frames and the decoder's cross attention, both non-causal;
+    # then a reduced non-causal case with more queries than keys
+    whisper = {name: _flash_timed_case(torch, FA, gen, shape, causal=False,
+                                       sk=sk)
+               for name, (shape, sk) in WHISPER_FLASH_CASES.items()}
+    b, sq, h, kv, hd, sk = FLASH_WIDE_CASE
+    q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
+    wide = {"shape": list(FLASH_WIDE_CASE)}
+    got = FA.flash_attention(q, k, v, causal=False)
+    wide["max_abs_err"], wide["worst"] = _err_over_tol(
+        torch, got, attention_plain(q, k, v, causal=False),
+        FLASH_TOLS["float32"])
+    wide["vs_f64"] = _err_over_tol(torch, got, attention_plain(
+        q.double(), k.double(), v.double(), causal=False),
+        FLASH_TOLS["float32"])
+    try:
+        FA.flash_attention(q, k, v, causal=True)
+        wide["causal_refused"] = False
+    except ValueError:
+        wide["causal_refused"] = True
+    for r in (arctic, full, *whisper.values(), wide):
         max_err = max(max_err, r["max_abs_err"])
         worst = max(worst, r["worst"])
         n_cases += 1
     return {**full, "cases": n_cases, "max_abs_err": max_err,
-            "worst": worst, "arctic": arctic}
+            "worst": worst, "arctic": arctic, "whisper": whisper,
+            "wide": wide}
 
 
-def _flash_timed_case(torch, FA, gen, shape):
-    """flash_attention at one causal f32 shape against attention_plain and
-    the same attention in f64; the kernel's time per launch (profiler),
-    the plain version's, and the wrapper's in turns with SDPA on the
-    repeated KV heads (events: kernel, SDPA, SDPA, kernel); the bound."""
+def _flash_timed_case(torch, FA, gen, shape, causal=True, sk=None):
+    """flash_attention at one f32 shape (B, Sq, H, KV, hd), over sk keys
+    (Sq if None), against attention_plain and the same attention in f64;
+    the kernel's time per launch (profiler), the plain version's, and the
+    wrapper's in turns with SDPA on the repeated KV heads (events: kernel,
+    SDPA, SDPA, kernel); the bound."""
     from repro_torch.kernels.flash_attention.ref import attention_plain
     b, s, h, kv, hd = shape
-    q, k, v = flash_case(torch, gen, b, s, s, h, kv, hd, torch.float32)
-    got = FA.flash_attention(q, k, v)
-    want = attention_plain(q, k, v)
-    truth = attention_plain(q.double(), k.double(), v.double())
+    sk = s if sk is None else sk
+    q, k, v = flash_case(torch, gen, b, s, sk, h, kv, hd, torch.float32)
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    truth = attention_plain(q.double(), k.double(), v.double(),
+                            causal=causal)
     torch.cuda.synchronize()
     e, w = _err_over_tol(torch, got, want, FLASH_TOLS["float32"])
     vs_f64 = {name: _err_over_tol(torch, out, truth, FLASH_TOLS["float32"])
               for name, out in (("flash_attention", got),
                                 ("attention_plain", want))}
     del truth
-    plain_ms = time_per_call(torch, lambda: attention_plain(q, k, v), 5)
+    plain_ms = time_per_call(
+        torch, lambda: attention_plain(q, k, v, causal=causal), 5)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
               for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     turns = {"kernel": [], "sdpa": []}
     for who in ("kernel", "sdpa", "sdpa", "kernel"):
-        fn = ((lambda: FA.flash_attention(q, k, v)) if who == "kernel"
-              else (lambda: sdpa(qt, kt, vt, is_causal=True)))
+        fn = ((lambda: FA.flash_attention(q, k, v, causal=causal))
+              if who == "kernel"
+              else (lambda: sdpa(qt, kt, vt, is_causal=causal)))
         turns[who].append(time_per_call(torch, fn, 20))
     wrapper_ms = sum(turns["kernel"]) / 2
-    library_err = float((sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    library_err = float((sdpa(qt, kt, vt, is_causal=causal).transpose(1, 2)
                          - want).abs().max())
 
     def launches():
         for _ in range(10):
-            FA.flash_attention(q, k, v)
+            FA.flash_attention(q, k, v, causal=causal)
     kern = kernel_us(torch, launches, "flash_kernel")
     bound_ms, bound_by, n_bytes, n_ops, cuda_core_ms = flash_bound(
-        b, s, s, h, kv, hd, True)
-    return {"shape": list(shape), "max_abs_err": e, "worst": w,
+        b, s, sk, h, kv, hd, causal)
+    return {"shape": list(shape), "sk": sk, "causal": causal,
+            "max_abs_err": e, "worst": w,
             "vs_f64": vs_f64, "device_timed": bool(kern),
             "ms": sum(kern) / len(kern) / 1e3 if kern else wrapper_ms,
             "wrapper_ms": wrapper_ms, "turns": turns, "plain_ms": plain_ms,
@@ -1153,14 +1246,19 @@ def phase_backward(torch, W, FA):
     # causal and full, ragged tiles, and the full shape
     b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
     # (100 keys: the ragged key block 64-99 sits on the causal diagonal)
+    # Whisper's encoder shape (non-causal, 1,500 frames) and a non-causal
+    # case with more queries than keys (causal refuses it, F4)
+    (eb, es, eh, ekv, ehd), _ = WHISPER_FLASH_CASES["encoder"]
+    wb, wsq, wh, wkv, whd, wsk = FLASH_WIDE_CASE
     flash_cases = [(2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
                    (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
                    (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
-                   (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_)]
+                   (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_),
+                   (eb, es, es, eh, ekv, ehd), (wb, wsq, wsk, wh, wkv, whd)]
     for b, sq, sk, h, kv, hd in flash_cases:
         q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
         do = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
-        for causal in (True, False):
+        for causal in (False,) if sq > sk else (True, False):
             o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
             got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             want = attention_backward_plain(q.double(), k.double(),
@@ -1227,6 +1325,29 @@ def phase_backward(torch, W, FA):
     (out["flash_bound_ms"], out["flash_bound_by"], out["flash_bytes"],
      out["flash_ops"], out["flash_cuda_core_ms"]) = flash_bwd_bound(
         b_, s_, s_, h_, kv_, hd_, True)
+    # Whisper's encoder shape, non-causal: the same bits twice, the time
+    # of a call (profiler), its bound
+    del q, k, v, do, o, lse, sdpa, lib, mine, qt, kt, vt, dot
+    q, k, v = flash_case(torch, gen, eb, es, es, eh, ekv, ehd, torch.float32)
+    do = torch.randn((eb, es, eh, ehd), generator=gen, device="cuda")
+    o, lse = FA._flash_kernel(q, k, v, False, with_lse=True)
+    first, again = (FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=False) for _ in range(2))
+    enc = {"same_bits": all(torch.equal(x, y) for x, y in zip(first,
+                                                              again))}
+    del first, again
+
+    def enc_launches():
+        for _ in range(10):
+            FA.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    parts = kernel_us(torch, enc_launches, "flash_bwd")
+    enc["ms"] = (sum(parts) / 10 / 1e3 if parts else time_per_call(
+        torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=False), 10))
+    enc["timed"] = bool(parts)
+    enc["bound_ms"], enc["bound_by"], *_ = flash_bwd_bound(
+        eb, es, es, eh, ekv, ehd, False)
+    out["flash_encoder"] = enc
     return out
 
 
@@ -1357,7 +1478,9 @@ def model_grads(torch, W, FA, model, cfg, batch, per_call=False):
     by_layer = {}
     for name, x in g_w.items():
         parts = name.split(".")
-        key = parts[2] if parts[0] == "groups" else parts[0]
+        # a layer of the groups (or of Whisper's decoder) by its index
+        key = (parts[2] if parts[0] == "groups" else
+               parts[1] if parts[0] == "dec_blocks" else parts[0])
         by_layer[key] = by_layer.get(key, 0.0) + float((x.double() ** 2)
                                                        .sum())
     out["grad_norm"] = sum(by_layer.values()) ** 0.5
@@ -1522,17 +1645,38 @@ def _train_launcher(torch, ckpt, batch, seq):
     return runs
 
 
+def golden_frames(torch, golden, cfg, batch):
+    """Whisper's frames of a golden file: (batch, ENC_LEN, d_model) f32
+    from its numpy seed (tests/_hybrid.py draws them so), on the card."""
+    from repro_torch.models.whisper import ENC_LEN
+    return torch.from_numpy(np.random.default_rng(
+        golden["frames_seed"]).standard_normal(
+        (batch, ENC_LEN, cfg.d_model), dtype=np.float32)).to("cuda")
+
+
+def _greedy(torch, model, cfg, batch, max_len, new):
+    """Greedy tokens (B, new) by factory.prefill and decode steps: what
+    generate does, for a batch with Whisper's frames too."""
+    from repro_torch.models import factory
+    logits, cache = factory.prefill(model, batch, cfg=cfg, max_len=max_len)
+    toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    for _ in range(new - 1):
+        logits, cache = factory.decode(model, cache, {"tokens": toks[-1]},
+                                       cfg=cfg)
+        toks.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+    return torch.cat(toks, 1)
+
+
 def phase_reduced_golden(torch, FA, name):
-    """The reduced models of a golden file (the dense or the MoE family's)
-    on the card against the JAX package's results for the same seeded
-    weights and prompts; flash_attention launched once per GQA layer of
-    the prefill."""
+    """The reduced models of a golden file (the dense, the MoE or the
+    hybrid family's) on the card against the JAX package's results for
+    the same seeded weights and prompts (and Whisper's seeded frames);
+    flash_attention launched flash_calls(cfg) times in the prefill."""
     from repro_torch.configs import get_reduced
     from repro_torch.convert import (jitter_constant_leaves,
                                      lm_params_to_torch, params_fingerprint,
                                      seeded_lm_params)
     from repro_torch.models import factory
-    from repro_torch.models.lm import LM
 
     with open(os.path.join(GOLDEN, name)) as f:
         golden = json.load(f)
@@ -1540,22 +1684,28 @@ def phase_reduced_golden(torch, FA, name):
     for arch, g in golden["archs"].items():
         cfg = get_reduced(arch)
         tree = jitter_constant_leaves(
-            seeded_lm_params(cfg, golden["weight_seed"]),
+            seeded_lm_params(cfg, golden["weight_seed"],
+                             max_seq=golden.get("max_seq", 4096)),
             golden["jitter_seed"])
         fp = params_fingerprint(tree)
         check(abs(fp - g["weights_sum"]) <= 1e-9 * g["weights_sum"],
               f"{arch}: seeded weights differ from the golden's (sum |w| "
               f"{fp} vs {g['weights_sum']}): numpy's random stream changed")
-        model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg, "cuda"))
+        model = factory.from_state_dict(cfg, lm_params_to_torch(tree, cfg,
+                                                                "cuda"))
         prompts = torch.tensor(golden["prompt"][arch], dtype=torch.int32,
                                device="cuda")
+        batch = {"tokens": prompts}
+        if cfg.enc_dec:
+            batch["frames"] = golden_frames(torch, golden, cfg,
+                                            prompts.shape[0])
         FA.flash_attention.launches = 0
-        logits, cache = factory.prefill(model, {"tokens": prompts}, cfg=cfg,
+        logits, cache = factory.prefill(model, batch, cfg=cfg,
                                         max_len=golden["max_len"])
         launches = FA.flash_attention.launches
-        check(launches == std_layers(cfg), f"{arch} reduced prefill "
-              f"launched flash_attention {launches} times for "
-              f"{std_layers(cfg)} GQA layers")
+        check(launches == flash_calls(cfg), f"{arch} reduced prefill "
+              f"launched flash_attention {launches} times, not "
+              f"{flash_calls(cfg)}")
         tok = torch.tensor(g["tokens"], dtype=torch.int32,
                            device="cuda")[:, :1]
         dec, _ = factory.decode(model, cache, {"tokens": tok}, cfg=cfg)
@@ -1567,21 +1717,33 @@ def phase_reduced_golden(torch, FA, name):
             check(bool((err <= WKV_TOL + WKV_TOL * want.abs()).all()),
                   f"{arch} reduced {key} differ from the golden by up to "
                   f"{errs[key]} (rtol = atol = {WKV_TOL})")
-        toks = factory.generate(model, cfg, prompts,
-                                max_new=golden["max_new"])
+        toks = (_greedy(torch, model, cfg, batch, golden["max_len"],
+                        golden["max_new"]) if cfg.enc_dec else
+                factory.generate(model, cfg, prompts,
+                                 max_new=golden["max_new"]))
         check(toks.cpu().tolist() == g["tokens"],
               f"{arch} reduced greedy tokens {toks.cpu().tolist()} differ "
               f"from the golden {g['tokens']}")
         out[arch] = {"errs": errs, "launches": launches, "cfg": cfg,
-                     "shape": tuple(prompts.shape)}
+                     "shape": tuple(prompts.shape), "weights_sum": fp}
     return out, golden["max_new"]
 
 
-def std_layers(cfg):
-    """The layers with GQA attention: flash_attention launches per
-    prefill."""
+def flash_calls(cfg):
+    """flash_attention launches of one prefill (and of one training
+    forward): one per GQA layer (none for MLA), one per attention
+    sublayer of a jamba period, and for Whisper one per encoder layer
+    and two per decoder layer (self and cross attention)."""
     from repro_torch.models.lm import group_plan
-    return sum(n for kind, n in group_plan(cfg) if kind.startswith("std"))
+    if cfg.enc_dec:
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    n = 0
+    for kind, count in group_plan(cfg):
+        if kind.startswith("std"):
+            n += count
+        elif kind == "period":
+            n += count * cfg.block_pattern.count("attn")
+    return n
 
 
 def dense_config():
@@ -1666,7 +1828,7 @@ def phase_generate_full(torch, FA, W, K, Q, cfg, batch, prompt_len, new,
     torch.cuda.empty_cache()
     # the kernel against attention_plain inside the model, 128 tokens
     in_model = None
-    if std_layers(cfg):
+    if flash_calls(cfg):
         full_k = _prefill(model, prompts[:, :128], cfg)[0]
         attn_layers.flash_attention = attention_plain
         try:
@@ -1677,6 +1839,92 @@ def phase_generate_full(torch, FA, W, K, Q, cfg, batch, prompt_len, new,
             full_p.abs().max())
 
     windows = _windows(torch, model, cfg, prompts, toks, max_len)
+    return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
+            "times": {k: _spread(v) for k, v in times.items()},
+            "launches": launches, "others": others, "peak": peak,
+            "cons": cons, "in_model": in_model, "windows": windows,
+            "agree": agree, "toks": toks, "logits": logits,
+            "sample": toks[0, :8].tolist()}
+
+
+def phase_whisper_full(torch, FA, W, K, Q):
+    """whisper-base at full size through factory.prefill and a greedy
+    factory.decode loop (batch WHISPER_BATCH over ENC_LEN seeded frames,
+    a prompt of WHISPER_PROMPT tokens, WHISPER_NEW new): the main path's
+    launches; WHISPER_REPEATS timed windows of prefill and decode steps,
+    whose tokens must agree; cache consistency; the kernel against
+    attention_plain inside the model; peak memory and profiles."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models import factory
+    from repro_torch.models.layers import attention as attn_layers
+    from repro_torch.models.whisper import ENC_LEN
+
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = factory.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((WHISPER_BATCH, ENC_LEN, cfg.d_model),
+                         generator=gen, device="cuda")
+    cons_len = WHISPER_CONS[0]
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, cons_len),
+                           generator=gen, dtype=torch.int32, device="cuda")
+    prompts = tokens[:, :WHISPER_PROMPT]
+    max_len = WHISPER_PROMPT + WHISPER_NEW
+
+    def greedy(new, times=None):
+        t = time.perf_counter()
+        logits, cache = _prefill(model, prompts, cfg, max_len, frames)
+        first = logits
+        if times is not None:
+            torch.cuda.synchronize()
+            times["prefill"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+        toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+        for _ in range(new - 1):
+            logits, cache = factory.decode(model, cache,
+                                           {"tokens": toks[-1]}, cfg=cfg)
+            toks.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+        if times is not None:
+            torch.cuda.synchronize()
+            times["decode"].append(time.perf_counter() - t)
+        return torch.cat(toks, 1), first
+
+    greedy(2)                        # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0 just before, read just after
+    FA.flash_attention.launches = 0
+    W.wkv6.launches = 0
+    K.issue_select.launches = 0
+    Q.sm_quantum.launches = 0
+    toks, logits = greedy(WHISPER_NEW)
+    torch.cuda.synchronize()
+    launches = FA.flash_attention.launches
+    others = (W.wkv6.launches, K.issue_select.launches,
+              Q.sm_quantum.launches)
+    peak = torch.cuda.max_memory_allocated()
+    times = {"prefill": [], "decode": []}
+    agree = [torch.equal(greedy(WHISPER_NEW, times)[0], toks)
+             for _ in range(WHISPER_REPEATS)]
+    # cache consistency: a prefill of 64 tokens against 32 + 32 steps
+    s, steps = WHISPER_CONS
+    full = _prefill(model, tokens, cfg, 0, frames)[0]
+    dec = _decode_after(torch, model, cfg, tokens, s, steps, frames=frames)
+    cons = (s, steps, float((full - dec).abs().max()),
+            float(full.abs().max()), bool(torch.isfinite(dec).all()))
+    # the kernel against attention_plain inside the model
+    attn_layers.flash_attention = attention_plain
+    try:
+        plain = _prefill(model, prompts, cfg, max_len, frames)[0]
+    finally:
+        attn_layers.flash_attention = FA.flash_attention
+    in_model = float((logits - plain).abs().max()) / float(
+        plain.abs().max())
+    windows = _windows(torch, model, cfg, prompts, toks, max_len, frames)
     return {"cfg": cfg, "n_params": n_params, "init_s": init_s,
             "times": {k: _spread(v) for k, v in times.items()},
             "launches": launches, "others": others, "peak": peak,
@@ -1702,10 +1950,11 @@ def no_drop(cfg):
         m, capacity_factor=m.n_experts / m.top_k))
 
 
-def phase_moe_train(torch, FA):
-    """The reduced MoE models trained on the card through make_train_step
-    under deterministic kernels: the loss of the golden's batch against
-    the JAX package's and the port's on the CPU; TRAIN_STEPS steps, a
+def phase_reduced_train(torch, FA, name):
+    """The reduced models of a golden file (the MoE family's, or jamba's
+    and Whisper's) trained on the card through make_train_step under
+    deterministic kernels: the loss of the golden's batch against the JAX
+    package's and the port's on the CPU; TRAIN_STEPS steps, a
     checkpoint, TRAIN_STEPS more, then the checkpoint restored and
     TRAIN_STEPS again, which must end in the straight run's state bit for
     bit; the straight 2 x TRAIN_STEPS steps against the same steps by the
@@ -1721,11 +1970,10 @@ def phase_moe_train(torch, FA):
                                      lm_params_to_torch, seeded_lm_params)
     from repro_torch.data.pipeline import make_batch_np, to_device
     from repro_torch.models import factory
-    from repro_torch.models.lm import LM
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import OptConfig
 
-    with open(os.path.join(GOLDEN, MOE_GOLDEN)) as f:
+    with open(os.path.join(GOLDEN, name)) as f:
         golden = json.load(f)
     b, s = golden["train_shape"]
     shape = ShapeSpec("y", s, b, "train")
@@ -1735,13 +1983,14 @@ def phase_moe_train(torch, FA):
     for arch, g in golden["archs"].items():
         cfg = get_reduced(arch)
         tree = jitter_constant_leaves(
-            seeded_lm_params(cfg, golden["weight_seed"]),
+            seeded_lm_params(cfg, golden["weight_seed"],
+                             max_seq=golden.get("max_seq", 4096)),
             golden["jitter_seed"])
         batch = make_batch_np(cfg, shape, golden["data_seed"], 0)
         losses, states = {}, {}
         for side, dev in (("card", "cuda"), ("cpu", "cpu")):
-            model = LM.from_state_dict(cfg, lm_params_to_torch(tree, cfg,
-                                                               dev))
+            model = factory.from_state_dict(
+                cfg, lm_params_to_torch(tree, cfg, dev))
             with torch.no_grad():
                 losses[side] = float(factory.train_loss(
                     model, to_device(batch, dev), cfg=cfg)[0])
@@ -1753,7 +2002,7 @@ def phase_moe_train(torch, FA):
             return train_steps(torch, step_fn, st, cfg, shape, dev, fwd,
                                bwd, start, n)
 
-        ckpt = tempfile.mkdtemp(prefix="moe-ckpt-")
+        ckpt = tempfile.mkdtemp(prefix="reduced-ckpt-")
         try:
             rows = steps(state, "cuda", 0, TRAIN_STEPS)
             save(ckpt, TRAIN_STEPS, state, cfg)
@@ -1766,8 +2015,8 @@ def phase_moe_train(torch, FA):
             shutil.rmtree(ckpt, ignore_errors=True)
         # the same straight steps by the port on the CPU
         cpu_rows = steps(states["cpu"], "cpu", 0, 2 * TRAIN_STEPS)
-        vs_cpu = {k: max(abs(r[k] / c[k] - 1) for r, c in zip(rows,
-                                                               cpu_rows))
+        vs_cpu = {k: max(abs(r[k] - c[k]) / (abs(c[k]) or 1.0)
+                         for r, c in zip(rows, cpu_rows))
                   for k in ("loss", "ce", "aux", "grad_norm")}
         cpu_params = states["cpu"]["params"].state_dict()
         vs_cpu["params"] = max(
@@ -1777,7 +2026,7 @@ def phase_moe_train(torch, FA):
         out[arch] = {"cfg": cfg, "losses": losses, "jax": g["train_loss"],
                      "rows": rows, "again": again, "differ": differ,
                      "cpu_rows": cpu_rows, "vs_cpu": vs_cpu,
-                     "gqa": std_layers(cfg),
+                     "calls": flash_calls(cfg),
                      "metrics_equal": all(
                          {k: r[k] for k in ("loss", "ce", "aux",
                                             "grad_norm")}
@@ -3552,6 +3801,36 @@ def main():
           f"us/call (max abs err {a_['library_err']:.3e} from plain); plain "
           f"{a_['plain_ms'] * 1e3:.2f} us/call; bound "
           f"{a_['bound_ms'] * 1e3:.2f} us ({a_['bound_by']})", flush=True)
+    for name, w_ in ar["whisper"].items():
+        print(f"[f flash] at whisper-base's {name} shape {w_['shape']} over "
+              f"{w_['sk']} keys, non-causal, f32: flash_attention vs "
+              f"attention_plain max abs err {w_['max_abs_err']:.3e} (err/tol "
+              f"{w_['worst']:.4f} at {FLASH_TOLS['float32']}), vs f64 "
+              f"{w_['vs_f64']['flash_attention'][0]:.3e} (attention_plain "
+              f"{w_['vs_f64']['attention_plain'][0]:.3e}); kernel "
+              f"{w_['ms'] * 1e3:.2f} us/launch on the device ("
+              + ("profiler" if w_["device_timed"] else "not profiled: events")
+              + f"); in turns with SDPA: wrapper "
+              f"{', '.join(f'{x * 1e3:.2f}' for x in w_['turns']['kernel'])} "
+              f"us/call, SDPA "
+              f"{', '.join(f'{x * 1e3:.2f}' for x in w_['turns']['sdpa'])} "
+              f"us/call (max abs err {w_['library_err']:.3e} from plain); "
+              f"plain {w_['plain_ms'] * 1e3:.2f} us/call; bound "
+              f"{w_['bound_ms'] * 1e3:.2f} us ({w_['bound_by']}: {w_['ops']} "
+              f"ops in {TF32_PASSES} TF32 passes; {w_['bytes']} B)",
+              flush=True)
+    wd = ar["wide"]
+    print(f"[f flash] non-causal, more queries than keys {FLASH_WIDE_CASE} "
+          f"(B, Sq, H, KV, hd, Sk): vs attention_plain max abs err "
+          f"{wd['max_abs_err']:.3e} (err/tol {wd['worst']:.4f}), vs f64 "
+          f"{wd['vs_f64'][0]:.3e}; causal refused (F4): "
+          f"{wd['causal_refused']}", flush=True)
+    check(wd["causal_refused"], "flash_attention took causal Sq > Sk")
+    check(all(w_["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL
+              for w_ in ar["whisper"].values())
+          and wd["vs_f64"][0] <= FLASH_F64_TOL,
+          f"flash_attention at Whisper's shapes disagrees with attention in "
+          f"f64 beyond {FLASH_F64_TOL}")
     check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
           f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
           f"{ar['worst']})")
@@ -3730,9 +4009,9 @@ def main():
                   flush=True)
     for arch, orr in moe.items():
         cfg, toks = orr["cfg"], orr["toks"]
-        check(orr["launches"] == std_layers(cfg), f"{arch}: generate "
+        check(orr["launches"] == flash_calls(cfg), f"{arch}: generate "
               f"launched flash_attention {orr['launches']} times; the "
-              f"prefill has {std_layers(cfg)} GQA layers")
+              f"prefill has {flash_calls(cfg)} attention layers")
         check(orr["others"] == (0, 0, 0), f"{arch}: generate launched wkv6,"
               f" sm_issue or sm_quantum: {orr['others']}")
         check(tuple(toks.shape) == (MOE_BATCH, MOE_NEW),
@@ -3757,6 +4036,160 @@ def main():
                   f"{orr['in_model']} > {CONSISTENCY_TOL}")
     check(moe["arctic-480b"]["launches"] > 0,
           "the MoE path never launched flash_attention")
+    torch.cuda.empty_cache()
+
+    marks.append(("j", time.perf_counter()))
+    # j. the reduced jamba and whisper-base against the JAX package's golden
+    jr, jr_new = phase_reduced_golden(torch, FA, HYBRID_GOLDEN)
+    for arch, r in jr.items():
+        c = r["cfg"]
+        kind = (f"{c.n_enc_layers} encoder / {c.n_layers} decoder layers"
+                if c.enc_dec else f"{c.n_layers // len(c.block_pattern)} "
+                f"period of {c.block_pattern}, {c.moe.n_experts} experts "
+                f"top-{c.moe.top_k}")
+        print(f"[j hybrid reduced] {arch} reduced ({kind}, d_model "
+              f"{c.d_model}), prompt {r['shape']}: golden OK (weights sum "
+              f"|w| {r['weights_sum']:.6f}; prefill logits max abs err "
+              f"{r['errs']['prefill_logits']:.3e}, decode "
+              f"{r['errs']['decode_logits']:.3e}; {jr_new} greedy tokens "
+              f"equal), {r['launches']} flash_attention launches in the "
+              f"prefill", flush=True)
+
+    marks.append(("p", time.perf_counter()))
+    # p. jamba-v0.1-52b at full width, one period of its four
+    cfg = moe_config(JAMBA_ARCH, JAMBA_LAYERS)
+    pr = phase_generate_full(torch, FA, W, K, Q, cfg, MOE_BATCH, MOE_PROMPT,
+                             MOE_NEW, MOE_REPEATS, MOE_CONS_CASES,
+                             no_drop(cfg))
+    torch.cuda.empty_cache()
+    t, m = pr["times"], cfg.moe
+    n_pre, n_dec = MOE_BATCH * MOE_PROMPT, MOE_BATCH * (MOE_NEW - 1)
+    print(f"[p jamba full] {JAMBA_ARCH} cut to {cfg.n_layers} layers (1 of "
+          f"4 periods {cfg.block_pattern}), d_model {cfg.d_model}, Mamba "
+          f"d_inner {cfg.ssm.expand * cfg.d_model} d_state "
+          f"{cfg.ssm.d_state} dt_rank {cfg.ssm.dt_rank} conv "
+          f"{cfg.ssm.d_conv}, attention {cfg.n_heads} query / "
+          f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+          f"{m.n_experts} experts top-{m.top_k} of width {m.d_ff_expert} on "
+          f"odd sublayers, d_ff {cfg.d_ff}, capacity factor "
+          f"{m.capacity_factor}, vocab {cfg.vocab_size}; {pr['n_params']} "
+          f"parameters f32, init {pr['init_s']:.2f} s; on {card}: generate "
+          f"batch {MOE_BATCH}, prompt {MOE_PROMPT}, {MOE_NEW} new, medians "
+          f"of {MOE_REPEATS} windows: generate wall {t['generate'][0]:.3f} s "
+          f"(range {t['generate'][1]:.3f}-{t['generate'][2]:.3f}); prefill "
+          f"{t['prefill'][0]:.3f} s = {n_pre / t['prefill'][0]:.1f} tok/s; "
+          f"decode inside generate {t['generate - prefill'][0]:.3f} s = "
+          f"{n_dec / t['generate - prefill'][0]:.1f} tok/s, "
+          f"{t['generate - prefill'][0] * 1e3 / (MOE_NEW - 1):.2f} ms per "
+          f"step; the {MOE_NEW - 1} decode steps timed alone "
+          f"{t['decode'][0] * 1e3 / (MOE_NEW - 1):.2f} ms per step (range "
+          f"{t['decode'][1] * 1e3 / (MOE_NEW - 1):.2f}-"
+          f"{t['decode'][2] * 1e3 / (MOE_NEW - 1):.2f}); peak device memory "
+          f"{pr['peak'] / 2**30:.3f} GiB; {pr['launches']} flash_attention "
+          f"launches per generate (wkv6, sm_issue, sm_quantum: "
+          f"{pr['others']}); {MOE_REPEATS} repeats give the same tokens: "
+          f"{pr['agree']}; sample {pr['sample']}", flush=True)
+    for s_, steps, diff, scale, finite in pr["cons"]:
+        print(f"[p jamba full] cache consistency at capacity factor "
+              f"{no_drop(cfg).moe.capacity_factor} (no drops): prefill of "
+              f"{s_} tokens vs {s_ - steps} + {steps} decode steps: max "
+              f"|diff| {diff:.3e}, max |logit| {scale:.3f} (ratio "
+              f"{diff / scale:.3e}, limit {CONSISTENCY_TOL}), finite "
+              f"{finite}", flush=True)
+    print(f"[p jamba full] flash_attention vs attention_plain inside the "
+          f"model, prefill of 128 tokens: max |diff| / max |logit| "
+          f"{pr['in_model']:.3e} (limit {CONSISTENCY_TOL})", flush=True)
+    for name, w in pr["windows"].items():
+        print(f"[p jamba full] profile of {name}: wall {w['wall']:.3f} s, "
+              f"device busy {w['busy']:.4f} s (idle share "
+              f"{1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
+              f"activities; top: " + "; ".join(
+                  f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
+              flush=True)
+
+    marks.append(("w", time.perf_counter()))
+    # w. whisper-base at full size: prefill and a greedy decode loop
+    wr_ = phase_whisper_full(torch, FA, W, K, Q)
+    torch.cuda.empty_cache()
+    c, t = wr_["cfg"], wr_["times"]
+    n_dec = WHISPER_BATCH * (WHISPER_NEW - 1)
+    print(f"[w whisper full] {WHISPER_ARCH} ({c.n_enc_layers} encoder and "
+          f"{c.n_layers} decoder layers, d_model {c.d_model}, {c.n_heads} "
+          f"heads of {c.resolved_head_dim}, d_ff {c.d_ff}, vocab "
+          f"{c.vocab_size}; {wr_['n_params']} parameters f32, init "
+          f"{wr_['init_s']:.2f} s; on {card}): batch {WHISPER_BATCH} x "
+          f"1500 frames, prompt {WHISPER_PROMPT}, {WHISPER_NEW} new, medians "
+          f"of {WHISPER_REPEATS} windows: prefill {t['prefill'][0]:.4f} s "
+          f"(range {t['prefill'][1]:.4f}-{t['prefill'][2]:.4f}), "
+          f"{WHISPER_NEW - 1} decode steps {t['decode'][0]:.3f} s = "
+          f"{n_dec / t['decode'][0]:.1f} tok/s, "
+          f"{t['decode'][0] * 1e3 / (WHISPER_NEW - 1):.3f} ms per step "
+          f"(range {t['decode'][1] * 1e3 / (WHISPER_NEW - 1):.3f}-"
+          f"{t['decode'][2] * 1e3 / (WHISPER_NEW - 1):.3f}); peak device "
+          f"memory {wr_['peak'] / 2**30:.3f} GiB; {wr_['launches']} "
+          f"flash_attention launches per prefill + decode loop (wkv6, "
+          f"sm_issue, sm_quantum: {wr_['others']}); windows give the same "
+          f"tokens: {wr_['agree']}; sample {wr_['sample']}", flush=True)
+    s_, steps, diff, scale, finite = wr_["cons"]
+    print(f"[w whisper full] cache consistency: prefill of {s_} tokens vs "
+          f"{s_ - steps} + {steps} decode steps: max |diff| {diff:.3e}, max "
+          f"|logit| {scale:.3f} (ratio {diff / scale:.3e}, limit "
+          f"{CONSISTENCY_TOL}), finite {finite}; flash_attention vs "
+          f"attention_plain inside the model (prefill of {WHISPER_PROMPT}): "
+          f"max |diff| / max |logit| {wr_['in_model']:.3e}", flush=True)
+    for name, w in wr_["windows"].items():
+        print(f"[w whisper full] profile of {name}: wall {w['wall']:.4f} s, "
+              f"device busy {w['busy']:.4f} s (idle share "
+              f"{1 - w['busy'] / w['wall']:.4f}), {w['n']} device "
+              f"activities; top: " + "; ".join(
+                  f"{n[:60]} {us / 1e3:.2f} ms" for n, us in w["top"]),
+              flush=True)
+    for arch, r in jr.items():
+        check(r["launches"] == flash_calls(r["cfg"]), f"{arch} reduced: "
+              f"{r['launches']} flash_attention launches in the prefill")
+    toks = pr["toks"]
+    check(pr["launches"] == flash_calls(cfg) == 1, f"{JAMBA_ARCH}: "
+          f"generate launched flash_attention {pr['launches']} times; the "
+          f"period has one attention sublayer")
+    check(pr["others"] == (0, 0, 0) and wr_["others"] == (0, 0, 0),
+          f"jamba or whisper launched wkv6, sm_issue or sm_quantum: "
+          f"{pr['others']}, {wr_['others']}")
+    check(tuple(toks.shape) == (MOE_BATCH, MOE_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{JAMBA_ARCH}: generate returned {tuple(toks.shape)} or tokens "
+          "outside the vocabulary")
+    check(bool(torch.isfinite(pr["logits"]).all()) and torch.equal(
+        toks[:, 0], torch.argmax(pr["logits"], -1).int()),
+        f"{JAMBA_ARCH}: prefill logits not finite, or generate's first "
+        "token is not their argmax")
+    check(all(pr["agree"]), f"{JAMBA_ARCH}: generate's tokens differ "
+          "across repeats, or from the separately timed decode steps'")
+    for s_, steps, diff, scale, finite in pr["cons"]:
+        check(finite and diff <= CONSISTENCY_TOL * scale,
+              f"{JAMBA_ARCH} cache consistency at {s_} tokens ({s_ - steps}"
+              f" + {steps} steps): max |diff| {diff} > {CONSISTENCY_TOL} x "
+              f"max |logit| {scale}, or not finite")
+    check(pr["in_model"] <= CONSISTENCY_TOL, f"{JAMBA_ARCH}: "
+          f"flash_attention vs attention_plain inside the model: "
+          f"{pr['in_model']} > {CONSISTENCY_TOL}")
+    c, toks = wr_["cfg"], wr_["toks"]
+    check(wr_["launches"] == flash_calls(c), f"{WHISPER_ARCH}: "
+          f"{wr_['launches']} flash_attention launches per prefill, not "
+          f"{flash_calls(c)}")
+    check(tuple(toks.shape) == (WHISPER_BATCH, WHISPER_NEW)
+          and bool(((toks >= 0) & (toks < c.vocab_size)).all())
+          and bool(torch.isfinite(wr_["logits"]).all()),
+          f"{WHISPER_ARCH}: greedy tokens {tuple(toks.shape)} outside the "
+          "vocabulary, or logits not finite")
+    check(all(wr_["agree"]), f"{WHISPER_ARCH}: the windows' tokens differ")
+    s_, steps, diff, scale, finite = wr_["cons"]
+    check(finite and diff <= CONSISTENCY_TOL * scale, f"{WHISPER_ARCH} "
+          f"cache consistency at {s_} tokens ({s_ - steps} + {steps} "
+          f"steps): max |diff| {diff} > {CONSISTENCY_TOL} x max |logit| "
+          f"{scale}, or not finite")
+    check(wr_["in_model"] <= CONSISTENCY_TOL, f"{WHISPER_ARCH}: "
+          f"flash_attention vs attention_plain inside the model: "
+          f"{wr_['in_model']} > {CONSISTENCY_TOL}")
 
     marks.append(("k", time.perf_counter()))
     # k. the backward kernels against their plain versions, and their time
@@ -3796,8 +4229,11 @@ def main():
     print(f"[k backward] flash_attention_bwd == attention_backward_plain in "
           f"f64 on {kr_['flash_cases']} cases (GQA 8/2, MHA 8/8, 4/1, "
           f"Sq < Sk 70/130 and 33/72, hd 16/32/64/128, the ragged key "
-          f"block 64-99 on the causal diagonal, causal and full, and "
-          f"{FLASH_FULL_SHAPE}): max abs err {kr_['flash_err']:.3e}, worst "
+          f"block 64-99 on the causal diagonal, causal and full, "
+          f"{FLASH_FULL_SHAPE}, Whisper's encoder "
+          f"{WHISPER_FLASH_CASES['encoder'][0]} and, non-causal only, "
+          f"{FLASH_WIDE_CASE[1]} queries over {FLASH_WIDE_CASE[5]} keys): "
+          f"max abs err {kr_['flash_err']:.3e}, worst "
           f"{kr_['flash_worst']:.3e} of each gradient's largest magnitude "
           f"(limit {BWD_TOL}); at (B {b_}, S {FLASH_FULL_SHAPE[1]}, H "
           f"{FLASH_FULL_SHAPE[2]}, KV {FLASH_FULL_SHAPE[3]}, hd "
@@ -3817,7 +4253,18 @@ def main():
           f"{kr_['flash_cuda_core_ms'] * 1e3:.2f} us); two calls give the "
           f"same bits: {kr_['flash_same_bits']}; phase k "
           f"{time.perf_counter() - t_k:.1f} s", flush=True)
-    check(kr_["wkv_same_bits"] and kr_["flash_same_bits"],
+    fe = kr_["flash_encoder"]
+    how = "profiler" if fe["timed"] else "not profiled: events"
+    print(f"[k backward] flash_attention_bwd at whisper-base's encoder "
+          f"shape {WHISPER_FLASH_CASES['encoder'][0]} over 1500 keys, "
+          f"non-causal (held above with the others, and at the non-causal "
+          f"Sq > Sk case {FLASH_WIDE_CASE}): kernels {fe['ms'] * 1e3:.2f} "
+          f"us/call on the device ({how}), bound "
+          f"{fe['bound_ms'] * 1e3:.2f} us "
+          f"({fe['bound_by']}); two calls give the same bits: "
+          f"{fe['same_bits']}", flush=True)
+    check(kr_["wkv_same_bits"] and kr_["flash_same_bits"]
+          and fe["same_bits"],
           "a backward kernel gave other bits on a second call")
 
     marks.append(("x", time.perf_counter()))
@@ -3919,12 +4366,13 @@ def main():
           "a backward kernel disagrees with its plain version")
     for arch, xr in train.items():
         c = xr["cfg"]
+        calls = c.n_layers if c.family == "ssm" else flash_calls(c)
         for r in xr["rows"]:
             check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
                   f"{arch} step {r['step']}: loss or grad_norm not finite")
-            check(r["fwd"] == 2 * c.n_layers and r["bwd"] == c.n_layers,
+            check(r["fwd"] == 2 * calls and r["bwd"] == calls,
                   f"{arch} step {r['step']}: {r['fwd']} forward launches "
-                  f"and {r['bwd']} backward calls; {c.n_layers} layers")
+                  f"and {r['bwd']} backward calls; {calls} a forward")
         g = xr["grad"]
         check(g["kernel"][0] <= TRAIN_GRAD_TOL,
               f"{arch} at {TRAIN_CMP_LAYERS} layers: the kernels' gradients "
@@ -3947,13 +4395,22 @@ def main():
           f"{second['differ'][:5]}")
 
     marks.append(("y", time.perf_counter()))
-    # y. the reduced MoE models trained on the card, restarted bit for bit
-    yr, y_shape = phase_moe_train(torch, FA)
+    # y. the reduced MoE models, jamba and whisper-base trained on the
+    # card, restarted bit for bit
+    yr, y_shapes = {}, {}
+    for name in (MOE_GOLDEN, HYBRID_GOLDEN):
+        got, y_shape = phase_reduced_train(torch, FA, name)
+        yr.update(got)
+        y_shapes.update({arch: y_shape for arch in got})
     for arch, r in yr.items():
-        c = r["cfg"]
+        c, y_shape = r["cfg"], y_shapes[arch]
         card_loss, cpu_loss = r["losses"]["card"], r["losses"]["cpu"]
-        print(f"[y moe train] {arch} reduced ({c.n_layers} layers, "
-              f"{c.moe.n_experts} experts top-{c.moe.top_k}), batch "
+        desc = ", ".join(x for x in (
+            f"{c.n_layers} layers",
+            c.moe and f"{c.moe.n_experts} experts top-{c.moe.top_k}",
+            c.block_pattern and "Mamba and attention periods",
+            c.enc_dec and f"{c.n_enc_layers} encoder layers") if x)
+        print(f"[y train reduced] {arch} reduced ({desc}), batch "
               f"{y_shape.global_batch} x {y_shape.seq_len}, deterministic "
               f"kernels: loss of the golden's batch on the card "
               f"{card_loss:.7f}, the port on the CPU {cpu_loss:.7f} "
@@ -3969,7 +4426,7 @@ def main():
               f"{[round(x['loss'], 4) for x in r['rows']]}, aux "
               f"{[round(x['aux'], 4) for x in r['rows']]}", flush=True)
         v = r["vs_cpu"]
-        print(f"[y moe train] {arch} reduced: the straight "
+        print(f"[y train reduced] {arch} reduced: the straight "
               f"{2 * TRAIN_STEPS} steps on the card against the same steps "
               f"by the port on the CPU: worst relative difference loss "
               f"{v['loss']:.2e}, ce {v['ce']:.2e}, aux {v['aux']:.2e} "
@@ -3990,10 +4447,10 @@ def main():
         for x in r["rows"] + r["again"]:
             check(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]),
                   f"{arch} reduced step {x['step']}: not finite")
-            check(x["fwd"] == 2 * r["gqa"] and x["bwd"] == r["gqa"],
+            check(x["fwd"] == 2 * r["calls"] and x["bwd"] == r["calls"],
                   f"{arch} reduced step {x['step']}: {x['fwd']} forward "
-                  f"launches and {x['bwd']} backward calls for {r['gqa']} "
-                  f"GQA layers")
+                  f"launches and {x['bwd']} backward calls for {r['calls']} "
+                  f"attention calls a forward")
         check(not r["differ"] and r["metrics_equal"], f"{arch} reduced: 3 + "
               f"restore + 3 differs from the straight run in "
               f"{r['differ'][:5]}")
@@ -4079,6 +4536,18 @@ def main():
         "arctic_shape": {k: ar["arctic"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
+        # the hybrid path's (phase p: one generate of jamba's period) and
+        # Whisper's (phase w: one prefill and decode loop; phase x: the
+        # forward and the recompute of every step)
+        "jamba_launches": pr["launches"],
+        "whisper_launches": wr_["launches"],
+        "whisper_train_launches": sum(
+            r["fwd"] for r in train[WHISPER_ARCH]["rows"]),
+        # at Whisper's shapes, non-causal (phase f)
+        "whisper_shapes": {name: {k: w_[k] for k in (
+            "shape", "sk", "causal", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for name, w_ in ar["whisper"].items()},
     }, {
         "name": "wkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
@@ -4098,6 +4567,12 @@ def main():
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
         "launches": sum(r["bwd"] for r in train[DENSE_ARCH]["rows"]),
+        "whisper_train_launches": sum(
+            r["bwd"] for r in train[WHISPER_ARCH]["rows"]),
+        # at Whisper's encoder shape, non-causal (phase k)
+        "whisper_encoder": {"shape": list(WHISPER_FLASH_CASES["encoder"][0]),
+                            **{k: fe[k] for k in ("ms", "bound_ms",
+                                                  "bound_by")}},
         "launches_per_call": 2, "parts_ms": kr_["flash_parts_ms"],
         "max_abs_err": kr_["flash_err"], "ms": kr_["flash_ms"],
         "plain_ms": kr_["flash_plain_ms"], "bound_ms": kr_["flash_bound_ms"],

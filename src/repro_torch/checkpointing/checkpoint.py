@@ -2,7 +2,8 @@
 JAX package's ``checkpointing/checkpoint.py``, in its file format.
 
 A checkpoint is a flat ``.npz`` file keyed by the reference's tree paths
-(``params/groups/0/tm/mu_x``, each group's layers stacked on axis 0;
+(``params/groups/0/tm/mu_x``, each group's layers stacked on axis 0, or
+Whisper's ``params/dec_blocks/cross_attn/wq``, its stacks likewise;
 ``opt/m/...``, ``opt/v/...``, ``step``) plus a JSON manifest, so a
 checkpoint written by either package resumes in the other
 (``repro_torch.convert.train_state_arrays`` and ``load_train_state``

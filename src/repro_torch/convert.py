@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.sim.config import N_CLASSES, N_UNITS, DynConfig
 from repro_torch.sim.trace import gen_address
 
@@ -174,11 +174,30 @@ def random_lane_inputs(rng, scfg, n_lanes, ragged=False):
 
 
 # ---------------------------------------------------------------------------
-# LM parameters and cache.  The JAX tree stacks each group's layers on a
-# leading axis: params["groups"][g][...] has shape (n_layers_of_g, ...);
-# nested leaves (an MLA layer's norms, an MoE layer's shared and dense
-# FFNs) keep their path, and an MoE group's experts stack to (n, E, d, f).
+# LM and Whisper parameters and cache.  The JAX tree stacks each group's
+# layers on a leading axis: params["groups"][g][...] has shape
+# (n_layers_of_g, ...); nested leaves (an MLA layer's norms, an MoE
+# layer's shared and dense FFNs, a jamba period's sub{i} sublayers) keep
+# their path, and an MoE group's experts stack to (n, E, d, f).  Whisper's
+# tree stacks its "enc_blocks" and "dec_blocks" the same way.
 # ---------------------------------------------------------------------------
+
+# the JAX trees' stacks of layers: a leaf under one of these keys has a
+# leading layer axis
+STACKS = ("groups", "enc_blocks", "dec_blocks")
+
+
+def _stacked(path: tuple) -> bool:
+    return any(p in STACKS for p in path)
+
+
+def _stack_counts(cfg: ArchConfig) -> dict:
+    """{top-level stack key: layers} of a config's tree; the groups'
+    counts come from the group plan."""
+    if cfg.enc_dec:
+        return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+    return {"groups": [count for _, count in lm.group_plan(cfg)]}
+
 
 def _flatten(prefix: str, node, out: dict, take) -> None:
     if isinstance(node, dict):
@@ -189,46 +208,60 @@ def _flatten(prefix: str, node, out: dict, take) -> None:
 
 
 def lm_params_to_torch(tree: dict, cfg: ArchConfig, device) -> dict:
-    """The JAX package's LM parameter tree → the port's state dict
-    (``repro_torch.models.lm.LM.state_dict()`` keys), on ``device``."""
+    """The JAX package's LM or Whisper parameter tree → the port's state
+    dict (``LM.state_dict()`` or ``Whisper.state_dict()`` keys), on
+    ``device``."""
     def copy(a):
         return torch.tensor(np.asarray(a), device=device)
 
+    counts = _stack_counts(cfg)
     state: dict = {}
     for key, node in tree.items():
-        if key != "groups":
+        if key not in counts:
             _flatten(key, node, state, copy)
-    plan = lm.group_plan(cfg)
-    if len(tree["groups"]) != len(plan):
-        raise ValueError(f"{cfg.name}: {len(tree['groups'])} parameter "
-                         f"groups, the plan has {len(plan)}")
-    for g, (stacked, (_, count)) in enumerate(zip(tree["groups"], plan)):
-        for i in range(count):
-            _flatten(f"groups.{g}.{i}", stacked, state,
-                     lambda a, i=i: copy(np.asarray(a)[i]))
+    for key, count in counts.items():
+        if key == "groups":
+            if len(tree["groups"]) != len(count):
+                raise ValueError(f"{cfg.name}: {len(tree['groups'])} "
+                                 f"parameter groups, the plan has "
+                                 f"{len(count)}")
+            stacks = [(f"groups.{g}", t, n)
+                      for g, (t, n) in enumerate(zip(tree["groups"], count))]
+        else:
+            stacks = [(key, tree[key], count)]
+        for prefix, stacked, n in stacks:
+            for i in range(n):
+                _flatten(f"{prefix}.{i}", stacked, state,
+                         lambda a, i=i: copy(np.asarray(a)[i]))
     return state
 
 
 def _leaf_groups(params: dict, cfg: ArchConfig) -> dict:
     """The port's parameters (or any dict keyed by parameter name, such as
     an AdamW moment) grouped by the JAX package's tree path: {path tuple:
-    [tensor]} for a leaf outside the groups, {("groups", g, ...): [the
-    layers' tensors in order]} for a group's stacked leaf."""
-    plan = lm.group_plan(cfg)
+    [tensor]} for a leaf outside the stacks, {("groups", g, ...) or
+    ("enc_blocks", ...): [the layers' tensors in order]} for a stacked
+    leaf."""
+    counts = _stack_counts(cfg)
     out: dict = {}
     layers: dict = {}
     for key, t in params.items():
         parts = key.split(".")
-        if parts[0] != "groups":
+        if parts[0] not in counts:
             out[tuple(parts)] = [t]
             continue
-        g, i = int(parts[1]), int(parts[2])
-        if g >= len(plan):
-            raise ValueError(f"{cfg.name}: parameter group {g}, the plan "
-                             f"has {len(plan)}")
-        layers.setdefault(("groups", g, *parts[3:]), {})[i] = t
+        if parts[0] == "groups":
+            g, i = int(parts[1]), int(parts[2])
+            if g >= len(counts["groups"]):
+                raise ValueError(f"{cfg.name}: parameter group {g}, the "
+                                 f"plan has {len(counts['groups'])}")
+            path = ("groups", g, *parts[3:])
+        else:
+            i, path = int(parts[1]), (parts[0], *parts[2:])
+        layers.setdefault(path, {})[i] = t
     for path, by_layer in layers.items():
-        count = plan[path[1]][1]
+        count = (counts["groups"][path[1]] if path[0] == "groups"
+                 else counts[path[0]])
         if sorted(by_layer) != list(range(count)):
             raise ValueError(f"{cfg.name}: {'.'.join(map(str, path))} has "
                              f"layers {sorted(by_layer)}, the plan {count}")
@@ -245,7 +278,7 @@ def _host(t) -> np.ndarray:
 
 
 def _leaf_array(path: tuple, tensors: list) -> np.ndarray:
-    if "groups" in path:                 # a group's layers, stacked
+    if _stacked(path):                   # a stack's layers, stacked
         return np.stack([_host(t) for t in tensors])
     return _host(tensors[0])
 
@@ -322,7 +355,7 @@ def load_train_state(arrays, state: dict, cfg: ArchConfig) -> dict:
     and a group's stacked leaf fills its layers' tensors."""
     for path, ts in _state_leaves(state, cfg).items():
         arr = np.asarray(arrays["/".join(map(str, path))])
-        stacked = "groups" in path
+        stacked = _stacked(path)
         if arr.shape != ((len(ts),) if stacked else ()) + tuple(ts[0].shape):
             raise ValueError(f"{'/'.join(map(str, path))}: shape "
                              f"{arr.shape} does not fit the model")
@@ -334,21 +367,30 @@ def load_train_state(arrays, state: dict, cfg: ArchConfig) -> dict:
 
 
 def lm_cache_to_torch(cache: dict, device) -> dict:
-    """The JAX package's LM decode cache → the port's, on ``device``."""
+    """The JAX package's LM decode cache ({"len", "groups": [...]}) or
+    Whisper's ({"len", "k", "v", "ck", "cv"}) → the port's, on
+    ``device``."""
+    if "groups" not in cache:
+        return to_torch(cache, device)
     return {"len": to_torch(cache["len"], device),
             "groups": [to_torch(g, device) for g in cache["groups"]]}
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:
-    """The port's LM decode cache → numpy arrays in the same layout."""
+    """The port's LM or Whisper decode cache → numpy arrays in the same
+    layout."""
+    if "groups" not in cache:
+        return to_numpy(cache)
     return {"len": to_numpy(cache["len"]),
             "groups": [to_numpy(g) for g in cache["groups"]]}
 
 
-def seeded_lm_params(cfg: ArchConfig, seed: int) -> dict:
+def seeded_lm_params(cfg: ArchConfig, seed: int,
+                     max_seq: int = 4096) -> dict:
     """Seeded weights in the JAX package's parameter layout (numpy f32
     leaves, layers stacked on axis 0), drawn with numpy's generator at the
-    reference's init scales.  Needs no JAX: the CPU tests feed the tree
+    reference's init scales; Whisper's decoder positions sized for max_seq
+    tokens, as the factory's.  Needs no JAX: the CPU tests feed the tree
     to both packages, and the chip smoke feeds it to the port."""
     rng = np.random.default_rng(seed)
 
@@ -356,21 +398,29 @@ def seeded_lm_params(cfg: ArchConfig, seed: int) -> dict:
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                 * np.float32(std))
 
-    tree = lm.init_lm_tree(draw, cfg, torch.float32, "cpu")
-
     def stack(layers):
         if isinstance(layers[0], dict):
             return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
         return np.stack([t.numpy() for t in layers])
 
-    out = to_numpy({k: v for k, v in tree.items() if k != "groups"})
-    out["groups"] = [stack(g) for g in tree["groups"]]
+    if cfg.enc_dec:
+        tree = whisper.init_whisper_tree(draw, cfg, torch.float32, "cpu",
+                                         max_dec_len=max_seq)
+    else:
+        tree = lm.init_lm_tree(draw, cfg, torch.float32, "cpu")
+    out = to_numpy({k: v for k, v in tree.items() if k not in STACKS})
+    for key in STACKS:
+        if key in tree:
+            out[key] = ([stack(g) for g in tree[key]] if key == "groups"
+                        else stack(tree[key]))
     return out
 
 
 # leaves that the reference initialises to a constant: norm scales and
-# biases, and the QKV biases
-CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+# biases, the QKV biases, and a Mamba layer's conv bias, dt bias and skip
+# weight D
+CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv", "conv_b", "dt_bias",
+                   "D")
 
 
 def jitter_constant_leaves(tree, seed: int, std: float = 0.1):

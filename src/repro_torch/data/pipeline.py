@@ -18,10 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-
-# the Whisper encoder's frames per clip (the reference's
-# models/whisper.py: ENC_LEN), so that enc-dec batches draw the same bytes
-ENC_LEN = 1500
+from repro_torch.models.whisper import ENC_LEN
 
 
 @dataclass

@@ -9,9 +9,11 @@
 // key position Sk - Sq + i) and sets masked scores to -1e30; the result is
 // acc / max(l, 1e-30) in q's dtype.  Inputs are f32 or bf16 in the JAX
 // layout: q (B, Sq, H, hd), k and v (B, Sk, KV, hd), read as they are, so
-// the caller never materialises the repeated KV heads.  Any Sq <= Sk (the
-// wrapper refuses Sq > Sk), hd in {16, 32, 64, 128}; ragged tile edges are
-// masked here, where the Pallas kernel asserts that S divides into blocks.
+// the caller never materialises the repeated KV heads.  Causal: any
+// Sq <= Sk (the wrapper refuses Sq > Sk); not causal: any Sq and Sk, the
+// Sk - Sq offset being read only under the mask.  hd in {16, 32, 64, 128};
+// ragged tile edges are masked here, where the Pallas kernel asserts that
+// S divides into blocks.
 //
 // Bound: at the serving prefill's shape, B = 8, Sq = Sk = 512, 32 query
 // heads over 8 KV heads, hd = 128, causal, the function needs 17.2 G

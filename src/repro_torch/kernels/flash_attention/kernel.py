@@ -16,7 +16,9 @@ writes the rows' log-sum-exp, and its backward the port's own kernels
 (``csrc/flash_attention_bwd.cu``, wrapped by ``flash_attention_bwd``;
 plain version ``ref.attention_backward_plain``), f32 only: the TPU
 package has no backward kernel and trains through plain attention.
-Sq > Sk raises ValueError on both devices (ROADMAP §3, F4).
+Causal Sq > Sk raises ValueError on both devices (ROADMAP §3, F4);
+non-causal Sq > Sk is taken (the kernels' full path reads no Sk - Sq
+offset).
 ``flash_attention.launches`` counts forward kernel launches,
 ``flash_attention_bwd.launches`` backward calls (two launches each:
 ``flash_bwd_dq``, which also writes D = rowsum(do . o), then
@@ -56,13 +58,13 @@ def _check(name, x, dtype, device):
                          "(the kernel copies rows in 16-byte pieces)")
 
 
-def _check_inputs(q, k, v):
+def _check_inputs(q, k, v, causal: bool):
     """(b, sq, sk, h, kv, hd) of CUDA inputs the kernels take; raises
     otherwise."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
-    check_shapes(q, k, v)
+    check_shapes(q, k, v, causal)
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
@@ -113,7 +115,7 @@ def build_bwd() -> dict:
 
 def _flash_kernel(q, k, v, causal: bool, with_lse: bool):
     """One launch of the forward kernel: (o, lse (B, H, Sq) f32 or None)."""
-    b, sq, sk, h, kv, hd = _check_inputs(q, k, v)
+    b, sq, sk, h, kv, hd = _check_inputs(q, k, v, causal)
     device = q.device
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=device)
@@ -144,7 +146,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: q has dtype {q.dtype}; the "
                         "backward kernels take torch.float32 only")
-    b, sq, sk, h, kv, hd = _check_inputs(q, k, v)
+    b, sq, sk, h, kv, hd = _check_inputs(q, k, v, causal)
     device = q.device
     do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
@@ -198,8 +200,9 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Attention of q (B,Sq,H,hd) over k, v (B,Sk,KV,hd), Sq <= Sk: the
-    CUDA kernel on CUDA tensors, ``attention_plain`` on CPU tensors.
+    """Attention of q (B,Sq,H,hd) over k, v (B,Sk,KV,hd), Sq <= Sk where
+    causal: the CUDA kernel on CUDA tensors, ``attention_plain`` on CPU
+    tensors.
     Returns (B,Sq,H,hd) in q's dtype.  On CUDA q, k and v are contiguous,
     all f32 or all bf16, and hd is 16, 32, 64 or 128; where grad mode is on
     and an input requires grad the call goes through

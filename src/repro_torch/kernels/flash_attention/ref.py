@@ -16,11 +16,14 @@ import torch
 NEG_INF = -1e30
 
 
-def check_shapes(q, k, v) -> None:
+def check_shapes(q, k, v, causal: bool = True) -> None:
     """Raise ValueError unless q (B, Sq, H, hd), k and v (B, Sk, KV, hd)
-    fit together with H % KV == 0 and Sq <= Sk.  Sq > Sk is outside the
-    contract: the Pallas kernel skips whole k-blocks there and disagrees
-    with its own oracle on rows that see no key (ROADMAP §3, F4)."""
+    fit together with H % KV == 0, and Sq <= Sk where causal.  Causal
+    Sq > Sk is outside the contract: its first Sq - Sk rows see no key,
+    and there the Pallas kernel (which skips their k-blocks) and its
+    oracle disagree (ROADMAP §3, F4).  Without the mask every row sees
+    every key, so non-causal Sq > Sk (Whisper's cross attention over its
+    1,500 frames) is taken."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} must be (B, S, heads, hd)")
@@ -33,14 +36,15 @@ def check_shapes(q, k, v) -> None:
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} query heads do not split "
                          f"into groups over {kv} KV heads")
-    if sq > sk:
+    if causal and sq > sk:
         raise ValueError(f"flash_attention: Sq = {sq} > Sk = {sk}; the "
-                         "kernel's contract is Sq <= Sk")
+                         "kernel's contract is Sq <= Sk for causal "
+                         "attention")
 
 
 def attention_plain(q, k, v, *, causal: bool = True):
     """q: (B,Sq,H,hd); k, v: (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype."""
-    check_shapes(q, k, v)
+    check_shapes(q, k, v, causal)
     b, sq, h, hd = q.shape
     s, dt = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
@@ -70,7 +74,7 @@ def attention_backward_plain(q, k, v, do, *, causal: bool = True):
     Q, with dK and dV summed over each KV head's group of query heads.
     Computed in f32 (f64 for f64 inputs); returns (dq, dk, dv) in q's,
     k's and v's dtypes."""
-    check_shapes(q, k, v)
+    check_shapes(q, k, v, causal)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv

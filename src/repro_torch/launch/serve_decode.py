@@ -7,15 +7,21 @@ sampling, report tokens/s — the port's counterpart of
   python -m repro_torch.launch.serve_decode --arch minitron-8b --full
   python -m repro_torch.launch.serve_decode --arch minitron-8b --device cpu
   python -m repro_torch.launch.serve_decode --arch arctic-480b --device cpu
+  python -m repro_torch.launch.serve_decode --arch jamba-v0.1-52b --device cpu
 
 Runs on the CUDA device unless ``--device`` names another; ``--full``
 takes the published configuration in place of the reduced one (f32
 weights: 6.4 GB for rwkv6-1.6b, 30.9 GB for minitron-8b).  ``--arch``
-takes the ported families: rwkv6-1.6b, the dense GQA models
-(minitron-8b, qwen2-72b, codeqwen1.5-7b, phi3-medium-14b, qwen2-vl-2b)
-and the MoE models arctic-480b and deepseek-v3-671b, whose published
-configs do not fit one card (the chip smoke serves them at full width
-cut in depth).
+takes the decoder families that serve token prompts: rwkv6-1.6b, the
+dense GQA models (minitron-8b, qwen2-72b, codeqwen1.5-7b,
+phi3-medium-14b, qwen2-vl-2b), the MoE models arctic-480b and
+deepseek-v3-671b, and jamba-v0.1-52b.  The published MoE and jamba
+configs do not fit one card (jamba's 32 layers are 52 B parameters,
+~208 GB in f32; one of its four 8-layer periods at full width is 13.30 B
+with the embedding and head, 53.2 GB): the chip smoke serves them at
+full width cut in depth.  whisper-base, whose prefill needs audio
+frames, is served through ``factory.prefill`` and ``decode`` (chip_smoke
+phase w).
 Weights are random, from ``--seed``.
 """
 from __future__ import annotations

@@ -5,11 +5,15 @@ JAX package's ``launch/train.py``.
   python -m repro_torch.launch.train --arch rwkv6-1.6b --full --steps 4 \\
       --ckpt-every 4 --ckpt /path/to/dir
   python -m repro_torch.launch.train --arch deepseek-v3-671b --device cpu
+  python -m repro_torch.launch.train --arch whisper-base --full --seq 448
 
-``--arch`` takes every family the port runs (RWKV-6, the dense GQA
-models, arctic-480b and deepseek-v3-671b); the MoE models train at their
-reduced size: at full width one layer's training state (~16 bytes a
-parameter) does not fit one card, which waits for the sharded step.
+``--arch`` takes every family: RWKV-6, the dense GQA models,
+arctic-480b and deepseek-v3-671b, jamba-v0.1-52b (Mamba and attention
+periods) and whisper-base (its batches carry 1,500 frames beside the
+decoder tokens); ``--full`` trains the published config, which fits one
+card for rwkv6-1.6b and whisper-base; at full width one MoE layer's or
+jamba period's training state (~16 bytes a parameter) does not, and waits
+for the sharded step.
 
 Runs on the CUDA device unless ``--device`` names another.  On restart
 with the same ``--ckpt`` it resumes from the latest checkpoint (written by

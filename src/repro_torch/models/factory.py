@@ -1,8 +1,10 @@
-"""Model factory: the JAX package's ``models/factory.py`` API for the
-architectures the port runs (RWKV-6, the dense GQA models, arctic-480b's
-MoE and deepseek-v3-671b's MLA + MoE so far).
+"""Model factory: the JAX package's ``models/factory.py`` API for every
+architecture: the decoder LMs (RWKV-6, the dense GQA models, the MoE and
+MLA + MoE models, jamba's hybrid periods) and Whisper's
+encoder-decoder.
 
-  init_params(seed, cfg, dtype, device)           -> LM module
+  init_params(seed, cfg, dtype, device, max_seq)  -> LM or Whisper module
+  from_state_dict(cfg, state)                     -> the same, given weights
   train_loss(model, batch, cfg)                   -> (loss, metrics)
   prefill(model, batch, cfg, max_len)             -> (logits, cache)
   decode(model, cache, batch, cfg)                -> (logits, cache)
@@ -15,11 +17,12 @@ Entry points run on the CUDA card unless the caller names another device.
 Random draws come from an explicit ``torch.Generator`` on the device,
 seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
-Sharding (``ctx``) comes with ROADMAP slice 11d.5, on the simulator's mesh
-(core/distribute.py); the caches and frontends of other families, and the
-arguments that size them, with their slices.  Serving (``prefill``,
-``decode``, ``generate``) records no autograd graph, so a model made
-trainable serves as a frozen one does.
+Whisper's batches carry ``frames`` (B, ENC_LEN, d), the stubbed audio
+frontend's output, beside ``tokens``; ``generate`` takes token prompts
+only, as the reference's does.  Sharding (``ctx``) comes with ROADMAP
+slice 11d.5, on the simulator's mesh (core/distribute.py).  Serving
+(``prefill``, ``decode``, ``generate``) records no autograd graph, so a
+model made trainable serves as a frozen one does.
 """
 from __future__ import annotations
 
@@ -27,20 +30,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.loss import chunked_cross_entropy
 
 AUX_WEIGHT = 0.01
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP slice, for a family
-    the port does not run yet."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported to "
-            "repro_torch yet; ROADMAP slice 11d.4 (Whisper)")
-    lm.group_plan(cfg)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -48,10 +41,10 @@ def _generator(seed: int, device) -> torch.Generator:
 
 
 def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
-                device=None) -> lm.LM:
+                device=None, max_seq: int = 4096) -> lm.LM | whisper.Whisper:
     """Random weights at the JAX package's init scales, drawn on the
-    device from a ``torch.Generator`` seeded with ``seed``."""
-    _check_ported(cfg)
+    device from a ``torch.Generator`` seeded with ``seed``; Whisper's
+    learned decoder positions are sized for max_seq tokens."""
     device = resolve_device(device)
     gen = _generator(seed, device)
 
@@ -59,47 +52,71 @@ def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
         return torch.randn(shape, generator=gen, dtype=torch.float32,
                            device=device).mul_(std)
 
+    if cfg.enc_dec:
+        return whisper.init_whisper(draw, cfg, dtype, device,
+                                    max_dec_len=max_seq)
     return lm.init_lm(draw, cfg, dtype, device)
 
 
-def train_loss(model: lm.LM, batch: dict, *, cfg: ArchConfig):
+def from_state_dict(cfg: ArchConfig, state: dict):
+    """The model (``LM``, or ``Whisper`` for the encoder-decoder) whose
+    ``state_dict()`` is ``state``: the weights ``convert`` carries over
+    from the JAX package's tree."""
+    cls = whisper.Whisper if cfg.enc_dec else lm.LM
+    return cls.from_state_dict(cfg, state)
+
+
+def train_loss(model, batch: dict, *, cfg: ArchConfig):
     """(loss, {"loss", "ce", "aux"}) of a batch of ``tokens`` (or the
-    vision frontend's ``embeds``) and ``labels``: the chunked
-    cross-entropy of the head's logits plus AUX_WEIGHT times the MoE
-    layers' balance loss (0 without MoE)."""
-    _check_ported(cfg)
-    x = lm._inputs(model, batch)
-    b, s = x.shape[0], x.shape[1]
-    positions = lm.make_positions(cfg, b, s, device=x.device)
-    hidden, aux = lm.forward_hidden(model, x, cfg=cfg, positions=positions)
-    ce = chunked_cross_entropy(hidden, lm.head_weight(model, cfg),
-                               batch["labels"])
+    vision frontend's ``embeds``; for Whisper ``frames`` and decoder
+    ``tokens``) and ``labels``: the chunked cross-entropy of the head's
+    logits plus AUX_WEIGHT times the MoE layers' balance loss (0 without
+    MoE)."""
+    if cfg.enc_dec:
+        enc_out = whisper.encode(model, batch["frames"], cfg=cfg)
+        hidden = whisper.decoder_train(model, batch["tokens"], enc_out,
+                                       cfg=cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        w = model.embed.emb.T
+    else:
+        x = lm._inputs(model, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = lm.make_positions(cfg, b, s, device=x.device)
+        hidden, aux = lm.forward_hidden(model, x, cfg=cfg,
+                                        positions=positions)
+        w = lm.head_weight(model, cfg)
+    ce = chunked_cross_entropy(hidden, w, batch["labels"])
     loss = ce + AUX_WEIGHT * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
-def prefill(model: lm.LM, batch: dict, *, cfg: ArchConfig,
-            max_len: int = 0):
+def prefill(model, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
+    if cfg.enc_dec:
+        return whisper.whisper_prefill(model, batch, cfg=cfg,
+                                       max_len=max_len)
     return lm.lm_prefill(model, batch, cfg=cfg, max_len=max_len)
 
 
-def decode(model: lm.LM, cache: dict, batch: dict, *, cfg: ArchConfig):
+def decode(model, cache: dict, batch: dict, *, cfg: ArchConfig):
+    if cfg.enc_dec:
+        return whisper.whisper_decode(model, cache, batch, cfg=cfg)
     return lm.lm_decode(model, cache, batch, cfg=cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.float32, *, device=None) -> dict:
-    _check_ported(cfg)
-    return lm.init_cache(cfg, batch, max_len, dtype, resolve_device(device))
+    device = resolve_device(device)
+    if cfg.enc_dec:
+        return whisper.init_whisper_cache(cfg, batch, max_len, dtype, device)
+    return lm.init_cache(cfg, batch, max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------
 # batches
 # ---------------------------------------------------------------------------
 
-def _draws(seed: int, cfg: ArchConfig, device):
+def _draws(seed: int, device):
     """(generator, device) for a batch's random draws."""
-    _check_ported(cfg)
     device = resolve_device(device)
     return _generator(seed, device), device
 
@@ -118,9 +135,14 @@ def make_batch(seed: int, cfg: ArchConfig, shape: ShapeSpec, *,
                device=None) -> dict:
     """Random token ids (or, for the vision frontend, f32 patch embeddings
     (global_batch, seq_len, d_model)) and labels, each (global_batch,
-    seq_len) int32."""
-    gen, device = _draws(seed, cfg, device)
+    seq_len) int32; for Whisper also f32 frames (global_batch, ENC_LEN,
+    d_model)."""
+    gen, device = _draws(seed, device)
     b, s = shape.global_batch, shape.seq_len
+    if cfg.enc_dec:
+        frames = _embeds(gen, (b, whisper.ENC_LEN, cfg.d_model), device)
+        toks = _tokens(gen, cfg, (2, b, s), device)
+        return {"frames": frames, "tokens": toks[0], "labels": toks[1]}
     if cfg.frontend == "vision":
         return {"embeds": _embeds(gen, (b, s, cfg.d_model), device),
                 "labels": _tokens(gen, cfg, (b, s), device)}
@@ -130,16 +152,18 @@ def make_batch(seed: int, cfg: ArchConfig, shape: ShapeSpec, *,
 
 def make_decode_batch(seed: int, cfg: ArchConfig, batch: int, *,
                       device=None) -> dict:
-    gen, device = _draws(seed, cfg, device)
+    gen, device = _draws(seed, device)
     if cfg.frontend == "vision":
         return {"embeds": _embeds(gen, (batch, 1, cfg.d_model), device)}
     return {"tokens": _tokens(gen, cfg, (batch, 1), device)}
 
 
 @torch.no_grad()
-def generate(model: lm.LM, cfg: ArchConfig, prompts, *, max_new: int = 16):
+def generate(model, cfg: ArchConfig, prompts, *, max_new: int = 16):
     """prompts: (B, S) int32. Greedy decode max_new tokens; argmax ties go
-    to the first index, as ``jnp.argmax``'s do."""
+    to the first index, as ``jnp.argmax``'s do.  A token-prompt batch
+    only, as the reference's: Whisper's prefill needs frames (drive it
+    through ``prefill`` and ``decode``)."""
     b, s = prompts.shape
     logits, cache = prefill(model, {"tokens": prompts}, cfg=cfg,
                             max_len=s + max_new)

@@ -12,8 +12,13 @@ kernel on the card, ``attention_plain`` on the CPU.  The reference's
 ``direct_attention`` and ``chunked_attention`` (the block-pair
 online-softmax scan over repeated KV) are kept as plain functions for the
 tests.  Decode is plain PyTorch, as the reference's is plain jnp.
-Sequence-parallel attention (tensor-parallel ctx) and cross attention
-(Whisper) come with later slices.
+
+Cross attention (Whisper's decoder over the encoder's output):
+``cross_attention_train`` projects the encoder's keys and values and
+sends the full-sequence attention through the same wrapper, non-causal
+(the kernel on the card); ``cross_attention_decode`` attends one step's
+query over the cached encoder keys, plain.  Sequence-parallel attention
+(a tensor-parallel ctx) comes with slice 11d.5.
 """
 from __future__ import annotations
 
@@ -245,3 +250,28 @@ def attention_decode(p, x, cache_k, cache_v, *, cfg: ArchConfig, cache_len):
     o = gqa_decode_attention(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                              kv_valid)
     return _out(p, o), cache_k, cache_v
+
+
+def cross_attention_train(p, x, enc, *, cfg: ArchConfig,
+                          return_kv: bool = False):
+    """Encoder-decoder cross attention (Whisper).  x: (B,Sd,d) decoder
+    states; enc: (B,Senc,d) encoder output.  Every query sees every key:
+    the flash-attention wrapper non-causal, Sd > Senc allowed.  With
+    return_kv, also the projected (k, v) (B,Senc,KV,hd): the decode
+    cache's cross entries."""
+    q = _project_q(p, x)
+    k, v = _project_kv(p, enc)
+    out = _out(p, flash_attention(q, k, v, causal=False))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def cross_attention_decode(p, x, cross_k, cross_v, *, cfg: ArchConfig):
+    """Decode-time cross attention of x (B,S,d) over the precomputed
+    encoder keys and values (B,Senc,KV,hd), plain (``direct_attention``
+    on the repeated KV heads, as the reference's)."""
+    q = _project_q(p, x)
+    k = repeat_kv(cross_k.to(x.dtype), cfg.n_heads)
+    v = repeat_kv(cross_v.to(x.dtype), cfg.n_heads)
+    return _out(p, direct_attention(q, k, v, causal=False))

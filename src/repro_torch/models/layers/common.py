@@ -1,8 +1,12 @@
 """Shared layer primitives: norms.  Params: {'scale': (d,)} (+ {'bias':
 (d,)} for layernorm), as in the JAX package's ``models/layers/common.py``;
-and ``ParamDict``, the module that holds a leaf dict of parameters."""
+the sinusoidal position table; and ``ParamDict``, the module that holds
+a leaf dict of parameters."""
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +34,19 @@ class ParamDict(nn.Module):
         out = dict(self.named_parameters(recurse=False))
         out.update((name, child.p) for name, child in self.named_children())
         return out
+
+
+def nest_state_dict(state: dict) -> dict:
+    """A state dict's dotted keys as nested dicts: {"a.b.c": t} ->
+    {"a": {"b": {"c": t}}} (a module list's entries keyed "0", "1", ...)."""
+    tree: dict = {}
+    for key, t in state.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
 
 
 def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
@@ -65,3 +82,21 @@ def group_norm_heads(x, scale, bias, *, eps: float = 64e-5):
     x = (x - mu) * torch.rsqrt(var + eps)
     x = x * scale.float() + bias.float()
     return x.to(dt)
+
+
+@lru_cache(maxsize=8)
+def _sinusoid_table(length: int, dim: int) -> np.ndarray:
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    table.flags.writeable = False
+    return table
+
+
+def sinusoidal_embedding(length: int, dim: int, dtype=torch.float32,
+                         device=None):
+    """(length, dim) table [sin | cos] of position / 10000^(2i/dim),
+    computed in float64 with numpy and cast last, as the reference's."""
+    return torch.from_numpy(np.array(_sinusoid_table(length, dim))).to(
+        device=device, dtype=dtype)

@@ -1,27 +1,31 @@
 """Decoder-LM assembly: the training and serving paths of the JAX
-package's ``models/lm.py`` for the RWKV-6, dense GQA, MoE (arctic) and
-MLA + MoE (deepseek-v3) families.
+package's ``models/lm.py`` for every decoder family: RWKV-6, the dense
+GQA models, the MoE (arctic) and MLA + MoE (deepseek-v3) families, and
+jamba's hybrid period.
 
 An architecture is a list of *groups*; each group is `count` structurally
 identical blocks.  The JAX package stacks a group's parameters on a
 leading layer axis and runs it with ``lax.scan``; here a group is an
 ``nn.ModuleList`` of blocks run by a Python loop, and a block's
 parameters keep the JAX names (state-dict keys such as
-``groups.0.3.tm.mu_x`` for layer 3's ``params["groups"][0]["tm"]["mu_x"]``).
+``groups.0.3.tm.mu_x`` for layer 3's ``params["groups"][0]["tm"]["mu_x"]``,
+``groups.0.1.sub4.attn.wq`` for a period's sublayer 4).
 The decode cache keeps the JAX layout: per group ``S`` (n, B, H, hs, hs)
 f32 and ``tm``/``cm`` (n, B, d) for ``rwkv``, ``k``/``v`` (n, B, max_len,
 KV, hd) for ``std:*``, ``ckv`` (n, B, max_len, kv_lora_rank) and ``kr``
-(n, B, max_len, qk_rope_head_dim) for ``mla:*``, and ``len`` (B,) int32.
+(n, B, max_len, qk_rope_head_dim) for ``mla:*``, ``k``/``v`` beside ``h``
+(n, n_mamba, B, di, ds) f32 and ``conv`` (n, n_mamba, B, K-1, di) for
+``period``, and ``len`` (B,) int32.
 
-The ``rwkv``, ``std:dense``, ``std:moe``, ``mla:dense`` and ``mla:moe``
-group kinds are ported; ``period`` (jamba) raises
-``NotImplementedError`` naming the ROADMAP slice that ports it.
-``forward_hidden`` is the training forward: each block runs under
-non-reentrant ``torch.utils.checkpoint``, as the reference's under
-``jax.checkpoint``, so its activations are recomputed in the backward;
-the MoE layers' balance losses are summed through the blocks, as the
-reference's scan carries them.  Serving drops them, as the reference
-does.
+Group kinds: ``rwkv``, ``std:dense``, ``std:moe``, ``mla:dense``,
+``mla:moe`` and ``period`` (jamba: 8 sublayers, attention at index 4 of
+its pattern and Mamba elsewhere, an MoE layer on every odd sublayer).
+``forward_hidden`` is the training forward: each block (a whole period
+for ``period``) runs under non-reentrant ``torch.utils.checkpoint``, as
+the reference's under ``jax.checkpoint``, so its activations are
+recomputed in the backward; the MoE layers' balance losses are summed
+through the blocks, as the reference's scan carries them.  Serving drops
+them, as the reference does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -36,24 +40,24 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import mamba as mam
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rwkv6 as rwkv
-from repro_torch.models.layers.common import ParamDict, apply_norm, init_norm
+from repro_torch.models.layers.common import (ParamDict, apply_norm,
+                                              init_norm, nest_state_dict)
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
 from repro_torch.models.layers.rope import text_mrope_positions
 
 VOCAB_PAD = 32
-
-# group kinds of the reference that later slices port (ROADMAP §1)
-_LATER_SLICE = {"period": "slice 11d.3 (Mamba and the jamba period)"}
 
 
 # ---------------------------------------------------------------------------
 # architecture -> group plan
 # ---------------------------------------------------------------------------
 
-def _reference_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
+def group_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """[(group kind, blocks), ...], the reference's plan."""
     if cfg.block_pattern is not None:
         period = len(cfg.block_pattern)
         assert cfg.n_layers % period == 0
@@ -69,17 +73,6 @@ def _reference_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
     return [(f"{attn_kind}:moe", cfg.n_layers)]
 
 
-def group_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
-    """The reference's group plan; raises for a kind not ported yet."""
-    plan = _reference_plan(cfg)
-    for kind, _ in plan:
-        if kind in _LATER_SLICE:
-            raise NotImplementedError(
-                f"{cfg.name}: group kind {kind!r} is not ported to "
-                f"repro_torch yet; ROADMAP {_LATER_SLICE[kind]}")
-    return plan
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -92,6 +85,25 @@ def _init_block(draw, kind: str, cfg: ArchConfig, dtype, device) -> dict:
             "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device),
             "cm": rwkv.init_channel_mix(draw, cfg, dtype, device),
         }
+    if kind == "period":
+        # per sublayer the mixer draws first, then the FFN
+        p = {}
+        for i, sub in enumerate(cfg.block_pattern):
+            mixer = (attn.init_attention(draw, cfg, dtype, device)
+                     if sub == "attn"
+                     else mam.init_mamba(draw, cfg, dtype, device))
+            # MoE on odd sublayers, whatever the MoE config's layer_mode
+            is_moe = cfg.moe is not None and i % 2 == 1
+            mlp = (moe_mod.init_moe(draw, cfg, dtype) if is_moe
+                   else init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.act,
+                                 dtype))
+            p[f"sub{i}"] = {
+                "norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
+                ("attn" if sub == "attn" else "mamba"): mixer,
+                "mlp_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
+                ("moe" if is_moe else "mlp"): mlp,
+            }
+        return p
     attn_kind, mlp_kind = kind.split(":")
     # the reference's keys; the mixer draws first, then the FFN
     mixer = (mla_mod.init_mla(draw, cfg, dtype, device) if attn_kind == "mla"
@@ -144,8 +156,30 @@ class AttnBlock(nn.Module):
             self.add_module(name, ParamDict(leaves))
 
 
+class PeriodSub(nn.Module):
+    """A period's sublayer: ``norm``, its mixer (``attn``, GQA, or
+    ``mamba``), ``mlp_norm`` and its FFN (``moe`` or ``mlp``)."""
+
+    def __init__(self, cfg: ArchConfig, p: dict):
+        super().__init__()
+        for name, leaves in p.items():
+            self.add_module(name, mam.Mamba(cfg, leaves) if name == "mamba"
+                            else ParamDict(leaves))
+
+
+class PeriodBlock(nn.Module):
+    """The ``period`` kind (jamba): sublayers ``sub0`` ... ``sub{n-1}``
+    of ``cfg.block_pattern``, its children in that order."""
+
+    def __init__(self, cfg: ArchConfig, p: dict):
+        super().__init__()
+        for i in range(len(cfg.block_pattern)):
+            self.add_module(f"sub{i}", PeriodSub(cfg, p[f"sub{i}"]))
+
+
 _BLOCKS = {"rwkv": RWKVBlock, "std:dense": AttnBlock, "std:moe": AttnBlock,
-           "mla:dense": AttnBlock, "mla:moe": AttnBlock}
+           "mla:dense": AttnBlock, "mla:moe": AttnBlock,
+           "period": PeriodBlock}
 
 
 class LM(nn.Module):
@@ -172,13 +206,7 @@ class LM(nn.Module):
     @classmethod
     def from_state_dict(cls, cfg: ArchConfig, state: dict) -> "LM":
         """The model whose ``state_dict()`` is ``state``."""
-        tree: dict = {}
-        for key, t in state.items():
-            node = tree
-            *path, leaf = key.split(".")
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = t
+        tree = nest_state_dict(state)
         tree["groups"] = [[g[str(i)] for i in range(len(g))]
                           for _, g in sorted(tree["groups"].items(),
                                              key=lambda kv: int(kv[0]))]
@@ -230,11 +258,74 @@ def _mlp_or_moe(blk: AttnBlock, h, *, cfg: ArchConfig):
     return apply_ffn(blk.mlp.p, h, act=cfg.act), None
 
 
-def _block_train(blk, x, aux, *, cfg: ArchConfig, positions):
-    """One block of the training forward, from the zero shift and wkv
-    states (the sequence start); returns (x, aux plus the block's MoE
-    balance loss)."""
+def _zero_mamba_states(cfg: ArchConfig, x):
+    """The sequence start's conv state (B, K-1, di) in x's dtype and SSM
+    state (B, di, ds) f32."""
+    b = x.shape[0]
+    di = cfg.ssm.expand * cfg.d_model
+    return (torch.zeros((b, cfg.ssm.d_conv - 1, di), dtype=x.dtype,
+                        device=x.device),
+            torch.zeros((b, di, cfg.ssm.d_state), dtype=torch.float32,
+                        device=x.device))
+
+
+def _period(blk: PeriodBlock, x, *, cfg: ArchConfig, positions, max_len=0,
+            cache: dict | None = None, cache_len=None, aux=None):
+    """A period's sublayers in order.  Training and prefill (``cache``
+    None) start every Mamba from the zero states and attention from
+    position 0; prefill (max_len > 0) also returns the cache entry
+    {"k", "v", "h", "conv"} with k/v padded to max_len.  Decode steps
+    from ``cache``.  Returns (x, aux plus the MoE layers' balance losses,
+    cache entry or None)."""
     nk, eps = cfg.norm, cfg.norm_eps
+    hs, convs, kv = [], [], None
+    midx = 0
+    for sp in blk.children():
+        h = apply_norm(sp.norm.p, x, kind=nk, eps=eps)
+        if hasattr(sp, "attn"):
+            if cache is not None:
+                y, kc, vc = attn.attention_decode(
+                    sp.attn.p, h, cache["k"], cache["v"], cfg=cfg,
+                    cache_len=cache_len)
+                kv = (kc, vc)
+            elif max_len:
+                y, (kc, vc) = attn.attention_train(
+                    sp.attn.p, h, cfg=cfg, positions=positions,
+                    return_kv=True)
+                kv = (_pad_seq(kc, max_len).to(x.dtype),
+                      _pad_seq(vc, max_len).to(x.dtype))
+            else:
+                y = attn.attention_train(sp.attn.p, h, cfg=cfg,
+                                         positions=positions)
+        else:
+            if cache is not None:
+                y, conv_s, h_s = sp.mamba.decode(
+                    h, cache["conv"][midx].to(x.dtype), cache["h"][midx])
+            else:
+                y, conv_s, h_s = sp.mamba(h, *_zero_mamba_states(cfg, x))
+            hs.append(h_s)
+            convs.append(conv_s.to(x.dtype))
+            midx += 1
+        x = x + y
+        y, a = _mlp_or_moe(sp, apply_norm(sp.mlp_norm.p, x, kind=nk,
+                                          eps=eps), cfg=cfg)
+        x = x + y
+        if a is not None and aux is not None:
+            aux = aux + a
+    if cache is None and not max_len:
+        return x, aux, None
+    return x, aux, {"k": kv[0], "v": kv[1], "h": torch.stack(hs),
+                    "conv": torch.stack(convs)}
+
+
+def _block_train(blk, x, aux, *, cfg: ArchConfig, positions):
+    """One block of the training forward, from the zero shift, wkv, conv
+    and SSM states (the sequence start); returns (x, aux plus the
+    block's MoE balance losses)."""
+    nk, eps = cfg.norm, cfg.norm_eps
+    if isinstance(blk, PeriodBlock):
+        x, aux, _ = _period(blk, x, cfg=cfg, positions=positions, aux=aux)
+        return x, aux
     if isinstance(blk, AttnBlock):
         x = x + _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
                                        eps=eps), cfg=cfg, positions=positions)
@@ -279,6 +370,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     not grow with the sequence and ignores it)."""
     groups = []
     for kind, n in group_plan(cfg):
+        if kind == "period":
+            nm = sum(sub == "mamba" for sub in cfg.block_pattern)
+            di = cfg.ssm.expand * cfg.d_model
+            g = attn.init_kv_cache(cfg, n, batch, max_len, dtype, device)
+            g["h"] = torch.zeros((n, nm, batch, di, cfg.ssm.d_state),
+                                 dtype=torch.float32, device=device)
+            g["conv"] = torch.zeros((n, nm, batch, cfg.ssm.d_conv - 1, di),
+                                    dtype=dtype, device=device)
+            groups.append(g)
+            continue
         if kind.startswith("std"):
             groups.append(attn.init_kv_cache(cfg, n, batch, max_len, dtype,
                                              device))
@@ -312,6 +413,10 @@ def _pad_seq(a, max_len: int):
 def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
     """Returns (x, cache_entry) matching init_cache leaf layout (minus n)."""
     nk, eps = cfg.norm, cfg.norm_eps
+    if isinstance(blk, PeriodBlock):
+        x, _, entry = _period(blk, x, cfg=cfg, positions=positions,
+                              max_len=max_len)
+        return x, entry
     if isinstance(blk, AttnBlock):
         y, cache = _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
                                           eps=eps), cfg=cfg,
@@ -338,6 +443,10 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
 
 def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len):
     nk, eps = cfg.norm, cfg.norm_eps
+    if isinstance(blk, PeriodBlock):
+        x, _, entry = _period(blk, x, cfg=cfg, positions=None, cache=cache,
+                              cache_len=cache_len)
+        return x, entry
     if isinstance(blk, AttnBlock):
         h = apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps)
         if hasattr(blk, "mla"):

@@ -1,11 +1,11 @@
 """Train-step construction, the JAX package's ``train/train_step.py``:
 gradients of ``factory.train_loss`` by autograd, then AdamW.
 
-A train state is {"params": the ``LM`` (trainable), "opt": {"m", "v"}
-moments keyed by parameter name, "step": the count of steps taken}.  A
-step updates the state in place and returns it with its metrics
-(``loss``, ``ce``, ``aux``, ``grad_norm``, 0-d f32 tensors on the
-model's device).
+A train state is {"params": the ``LM`` or ``Whisper`` (trainable),
+"opt": {"m", "v"} moments keyed by parameter name, "step": the count of
+steps taken}.  A step updates the state in place and returns it with
+its metrics (``loss``, ``ce``, ``aux``, ``grad_norm``, 0-d f32 tensors
+on the model's device).
 
 On CUDA a step runs under ``torch.use_deterministic_algorithms(True)``,
 so that training is the same bits from run to run and a restart from a
@@ -16,8 +16,10 @@ setting makes cuBLAS raise unless ``CUBLAS_WORKSPACE_CONFIG`` is
 ``:4096:8`` or ``:16:8`` before CUDA starts; the step raises first,
 naming it.  The wkv6 and flash-attention kernels, forward and backward,
 use no atomics; the MoE layer's dispatch and combine are gathers, whose
-backward sums PyTorch then orders deterministically.  Sharding (``ctx``)
-comes with slice 11d.5.
+backward sums PyTorch then orders deterministically; Mamba's scan is
+products, sums and concatenations, whose backward has no scatter, and
+Whisper's learned positions are read by slices (prefill, training).
+Sharding (``ctx``) comes with slice 11d.5.
 """
 from __future__ import annotations
 
@@ -25,10 +27,10 @@ import os
 from contextlib import contextmanager
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import factory
-from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          init_opt_state)
 
@@ -37,10 +39,10 @@ CUBLAS_CONFIGS = (":4096:8", ":16:8")
 
 def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,
                      dtype=torch.float32, *, device=None) -> dict:
-    """A train state over ``model``, an ``LM`` (made trainable here), or
-    over fresh weights ``factory.init_params(model, cfg, ...)`` when it is
-    an int seed; zero moments and step 0."""
-    if not isinstance(model, LM):
+    """A train state over ``model``, an ``LM`` or a ``Whisper`` (made
+    trainable here), or over fresh weights ``factory.init_params(model,
+    cfg, ...)`` when it is an int seed; zero moments and step 0."""
+    if not isinstance(model, nn.Module):
         model = factory.init_params(model, cfg, dtype, device=device)
     model.requires_grad_(True)
     return {"params": model,
@@ -68,7 +70,7 @@ def deterministic(device: torch.device):
         torch.use_deterministic_algorithms(was)
 
 
-def _grads(model: LM, batch: dict, cfg: ArchConfig):
+def _grads(model: nn.Module, batch: dict, cfg: ArchConfig):
     """(loss, metrics, {name: grad}) of one batch."""
     params = dict(model.named_parameters())
     loss, metrics = factory.train_loss(model, batch, cfg=cfg)
@@ -116,7 +118,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
 def make_eval_step(cfg: ArchConfig):
     """eval_step(model, batch) -> metrics, with no graph recorded."""
     @torch.no_grad()
-    def eval_step(model: LM, batch: dict):
+    def eval_step(model: nn.Module, batch: dict):
         _, metrics = factory.train_loss(model, batch, cfg=cfg)
         return metrics
     return eval_step

@@ -12,7 +12,9 @@ against their golden files, the backward kernels (wkv6_bwd,
 flash_attention_bwd) against their plain versions in f64 and autograd,
 the autograd Functions over the kernels, and reduced models training on
 the card (launch counts, gradients against the plain versions, a
-checkpoint restart bit for bit).
+checkpoint restart bit for bit), the reduced jamba and whisper-base
+against their golden file, and non-causal attention with more queries
+than keys.
 
 Every test here carries the `cuda` marker and skips without a CUDA card.
 This file imports neither jax nor repro, so it also runs where only the
@@ -70,6 +72,8 @@ DENSE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
                             "torch_port_dense_reduced.json")
 MOE_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
                           "torch_port_moe_reduced.json")
+HYBRID_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
+                             "torch_port_hybrid_reduced.json")
 
 
 @pytest.fixture
@@ -818,6 +822,30 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
     assert FA.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("kv", [1, 8])
+@pytest.mark.parametrize("sq,sk", [(8, 4), (100, 30), (448, 130)])
+def test_flash_non_causal_more_queries_than_keys(cuda, sq, sk, kv):
+    """Non-causal Sq > Sk (Whisper's cross attention when the decoder
+    prompt outgrows the frames): forward and backward kernels against
+    their plain versions; causal Sq > Sk still raises (F4)."""
+    q, k, v = flash_inputs(sq + sk, 2, sq, sk, 8, kv, 64, torch.float32,
+                           cuda)
+    got = FA.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(got, attention_plain(q, k, v, causal=False),
+                               rtol=2e-5, atol=2e-5)
+    do = torch.randn_like(q)
+    o, lse = FA._flash_kernel(q, k, v, False, with_lse=True)
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = FA.attention_backward_plain(q.double(), k.double(),
+                                       v.double(), do.double(),
+                                       causal=False)
+    for g, w in zip(grads, want):
+        err = (g.double() - w).abs().max() / w.abs().max()
+        assert float(err) <= 1e-4
+    with pytest.raises(ValueError, match=f"Sq = {sq} > Sk = {sk}"):
+        FA.flash_attention(q, k, v, causal=True)
+
+
 def test_flash_counts_kernel_launches_only(cuda):
     q, k, v = flash_inputs(2, 1, 16, 16, 2, 2, 16, torch.float32, cuda)
     before = FA.flash_attention.launches
@@ -884,6 +912,51 @@ def test_moe_reduced_golden_on_card(cuda, arch):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     toks = factory.generate(model, cfg, prompts, max_new=golden["max_new"])
     assert toks.cpu().tolist() == g["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-base"])
+def test_hybrid_reduced_golden_on_card(cuda, arch):
+    """The reduced jamba (one period: Mamba, attention at sublayer 4, MoE
+    on odd sublayers) and whisper-base (frames drawn from the golden's
+    numpy seed) against the JAX package's golden logits and tokens;
+    flash_attention once per period of a jamba prefill, n_enc + 2 n_dec
+    times per Whisper prefill."""
+    with open(HYBRID_GOLDEN) as f:
+        golden = json.load(f)
+    g = golden["archs"][arch]
+    cfg = get_reduced(arch)
+    tree = jitter_constant_leaves(
+        seeded_lm_params(cfg, golden["weight_seed"],
+                         max_seq=golden["max_seq"]), golden["jitter_seed"])
+    assert params_fingerprint(tree) == pytest.approx(g["weights_sum"],
+                                                   rel=1e-9)
+    model = factory.from_state_dict(cfg, lm_params_to_torch(tree, cfg,
+                                                            cuda))
+    prompts = torch.tensor(golden["prompt"][arch], dtype=torch.int32,
+                           device=cuda)
+    batch = {"tokens": prompts}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(np.random.default_rng(
+            golden["frames_seed"]).standard_normal(
+            (prompts.shape[0], 1500, cfg.d_model),
+            dtype=np.float32)).to(cuda)
+    before = FA.flash_attention.launches
+    logits, cache = factory.prefill(model, batch, cfg=cfg,
+                                    max_len=golden["max_len"])
+    calls = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.enc_dec
+             else cfg.n_layers // len(cfg.block_pattern))
+    assert FA.flash_attention.launches == before + calls
+    want = torch.tensor(g["prefill_logits"], device=cuda)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    toks = [torch.argmax(logits, -1).int()[:, None]]
+    for i in range(golden["max_new"] - 1):
+        logits, cache = factory.decode(model, cache, {"tokens": toks[-1]},
+                                       cfg=cfg)
+        if i == 0:
+            want = torch.tensor(g["decode_logits"], device=cuda)
+            torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+        toks.append(torch.argmax(logits, -1).int()[:, None])
+    assert torch.cat(toks, 1).cpu().tolist() == g["tokens"]
 
 
 # ---------------------------------------------------------------------------

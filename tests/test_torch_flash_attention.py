@@ -8,8 +8,9 @@ the same numpy-seeded inputs.
     tolerances, 2e-5 for f32 and 2e-2 for bf16;
   · GQA (KV heads 1 and 2 under 4 query heads), ragged S and Sq < Sk
     against ``attention_ref`` on the KV heads repeated on the JAX side;
-  · Sq > Sk raises ValueError (ROADMAP §3, F4: there the Pallas kernel and
-    its oracle disagree);
+  · causal Sq > Sk raises ValueError (ROADMAP §3, F4: there the Pallas
+    kernel and its oracle disagree); non-causal Sq > Sk (Whisper's cross
+    attention) is taken, and the wrapper equals ``attention_ref`` there;
   · the wrapper runs ``attention_plain`` on CPU tensors and counts no
     launch.
 
@@ -105,6 +106,23 @@ def test_more_queries_than_keys_raise(fn):
     (q, k, v), _ = inputs(0, 1, 8, 4, 2, 1, 16, "float32")
     with pytest.raises(ValueError, match="Sq = 8 > Sk = 4"):
         fn(q, k, v)
+
+
+@pytest.mark.parametrize("kv", [1, 4])
+@pytest.mark.parametrize("sq,sk", [(8, 4), (100, 30)])
+def test_non_causal_more_queries_than_keys(sq, sk, kv):
+    """Without the mask every query sees every key, so Sq > Sk is in the
+    contract: the wrapper on CPU tensors runs attention_plain, which
+    equals the oracle; causal Sq > Sk still raises (F4)."""
+    (q, k, v), (jq, jk, jv) = inputs(sq + sk + kv, 2, sq, sk, 4, kv, 16,
+                                     "float32")
+    before = K.flash_attention.launches
+    got = K.flash_attention(q, k, v, causal=False)
+    assert K.flash_attention.launches == before
+    assert got.shape == q.shape
+    check(got, attention_ref(jq, jk, jv, causal=False), "float32")
+    with pytest.raises(ValueError, match=f"Sq = {sq} > Sk = {sk}"):
+        K.flash_attention(q, k, v, causal=True)
 
 
 def test_bad_head_grouping_raises():

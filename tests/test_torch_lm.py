@@ -229,21 +229,6 @@ def test_cache_consistency(case, s, steps):
     assert float((full - dec).abs().max()) < 2e-3
 
 
-def test_unported_families_raise():
-    """jamba's ``period`` group kind (slice 11d.3) and whisper's
-    encoder-decoder (slice 11d.4) raise at every entry point."""
-    for arch, where in (("jamba-v0.1-52b", "slice 11d.3"),
-                        ("whisper-base", "slice 11d.4")):
-        cfg = get_reduced(arch)
-        with pytest.raises(NotImplementedError, match=where):
-            PF.init_params(0, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=where):
-            PF.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match=where):
-            PF.make_batch(0, cfg, ShapeSpec("p", 8, 2, "prefill"),
-                          device="cpu")
-
-
 def test_entry_points_need_a_device_or_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
