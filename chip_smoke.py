@@ -263,7 +263,21 @@ Training (f32, TF32 off, deterministic kernels):
      MOE_TRAIN_GRAD_TOL relative, the parameters after them within
      MOE_TRAIN_PARAM_TOL of each leaf's largest magnitude;
      flash_attention's launches per step (2 per attention call of the
-     forward, 1 backward).
+     forward, 1 backward); then arctic-480b, deepseek-v3-671b and
+     jamba-v0.1-52b the same way by the sharded step
+     (make_train_step(cfg, opt_cfg, ctx)) on a (2, 1) ('data', 'model')
+     mesh whose positions are this card, against the same sharded step
+     on a mesh of the CPU;
+  z. qwen2-vl-2b whole at its published widths (28 layers, 1.78 B f32
+     parameters), trained by the sharded step on a (4, 1) mesh repeating
+     this card, batch 8 x 512 (2 rows per position): 3 steps, the same 3
+     again (bit-identical), and 3 unsharded steps from the same seed,
+     held within phase y's limits, and each leaf's change over the 3
+     steps within SHARD_UPDATE_TOL of the unsharded change (a step that
+     moved nothing reads 1); step time, tokens/s, peak memory, a
+     profiled sharded and unsharded step's idle share, flash_attention's
+     launches per step (phases f and k hold it and its backward at the
+     per-position shape, a GQA group of 6).
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -384,6 +398,9 @@ DENSE_REPEATS = 2                # timing windows of phase h
 # phase f: arctic-480b's attention shape (B, S, H, KV, hd), a GQA group of
 # 7 query heads, which the MoE path (phase o) launches the kernel at
 FLASH_ARCTIC_SHAPE = (8, 512, 56, 8, 128)
+# phases f, k and z: qwen2-vl-2b's attention on one position's rows of the
+# sharded step (B, S, H, KV, hd), a GQA group of 6
+FLASH_QWEN_VL_SHAPE = (2, 512, 12, 2, 128)
 # phase f: Whisper's shapes ((B, Sq, H, KV, hd), Sk), non-causal, where
 # whisper-base launches the kernel (phases w and x): the encoder's
 # self-attention over its 1,500 frames (a ragged last tile: 1500 = 23 x 64
@@ -456,9 +473,30 @@ TRAIN_DATA_SEED = 1234
 # by at most 8e-7 (loss, ce, aux), 2.1e-6 (grad_norm) and 1.4e-5 (a
 # leaf after 6 steps) on the CPU (both models; the two sides' rounding
 # alone moved the golden batch's loss by ~7e-8 on the card).
+# phase y also runs the reduced MoE models and jamba by the sharded step on
+# a mesh of this shape, every position on the card (and on the CPU for the
+# comparison)
+SHARD_Y_MESH = (2, 1)
+SHARD_Y_ARCHS = ("arctic-480b", "deepseek-v3-671b", "jamba-v0.1-52b")
+# phase z: qwen2-vl-2b (arXiv:2409.12191) whole, 28 layers at its published
+# widths (1.54 B f32 parameters, a ~25 GB train state), trained by the
+# sharded step on a (4, 1) ('data', 'model') mesh repeating this card: 2
+# rows of 512 tokens per position, so K3' runs at FLASH_QWEN_VL_SHAPE, a
+# GQA group of 6 query heads
+SHARD_ARCH = "qwen2-vl-2b"
+SHARD_MESH = (4, 1)
+SHARD_BATCH, SHARD_SEQ = 8, 512
 MOE_TRAIN_METRIC_TOL = 1e-5
 MOE_TRAIN_GRAD_TOL = 1e-4
 MOE_TRAIN_PARAM_TOL = 1e-3
+# phase z: each leaf's change over the steps, sharded against unsharded,
+# in L2 over the unsharded change's L2.  A sharded step that moved no
+# parameter reads 1.  On the CPU (scripts/shard_update_cpu.py: reduced
+# qwen2-vl-2b, 8 x 64 and 8 x 256, mesh (4, 1)) the worst leaf read
+# 6.9e-4 and 7.2e-4, a key bias: under M-RoPE its gradient is a sum that
+# mostly cancels, and AdamW's normalised first steps turn its rounding
+# into a share of the update.
+SHARD_UPDATE_TOL = 5e-2
 
 
 def check(cond, msg):
@@ -572,12 +610,12 @@ def device_events(prof):
 
 def profiled(torch, fn):
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    sync_cards(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_cards(torch)
         wall = time.perf_counter() - t0
     return device_events(prof), wall
 
@@ -1045,6 +1083,7 @@ def phase_flash(torch, FA):
     # group of 7 query heads): each against the plain version and f64,
     # timed beside the plain version and SDPA
     arctic = _flash_timed_case(torch, FA, gen, FLASH_ARCTIC_SHAPE)
+    qwen_vl = _flash_timed_case(torch, FA, gen, FLASH_QWEN_VL_SHAPE)
     full = _flash_timed_case(torch, FA, gen, FLASH_FULL_SHAPE)
     # Whisper's (phases w and x): the encoder's self-attention over its
     # 1,500 frames and the decoder's cross attention, both non-causal;
@@ -1067,13 +1106,13 @@ def phase_flash(torch, FA):
         wide["causal_refused"] = False
     except ValueError:
         wide["causal_refused"] = True
-    for r in (arctic, full, *whisper.values(), wide):
+    for r in (arctic, qwen_vl, full, *whisper.values(), wide):
         max_err = max(max_err, r["max_abs_err"])
         worst = max(worst, r["worst"])
         n_cases += 1
     return {**full, "cases": n_cases, "max_abs_err": max_err,
-            "worst": worst, "arctic": arctic, "whisper": whisper,
-            "wide": wide}
+            "worst": worst, "arctic": arctic, "qwen_vl": qwen_vl,
+            "whisper": whisper, "wide": wide}
 
 
 def _flash_timed_case(torch, FA, gen, shape, causal=True, sk=None):
@@ -1250,7 +1289,8 @@ def phase_backward(torch, W, FA):
     # case with more queries than keys (causal refuses it, F4)
     (eb, es, eh, ekv, ehd), _ = WHISPER_FLASH_CASES["encoder"]
     wb, wsq, wh, wkv, whd, wsk = FLASH_WIDE_CASE
-    flash_cases = [(2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
+    qb, qs, qh, qkv, qhd = FLASH_QWEN_VL_SHAPE
+    flash_cases = [(qb, qs, qs, qh, qkv, qhd), (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
                    (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
                    (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
                    (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_),
@@ -1351,24 +1391,25 @@ def phase_backward(torch, W, FA):
     return out
 
 
+def _state_tensors(state):
+    """((kind, name), tensor) of a (plain) train state, kind "p" for a
+    parameter, "m" or "v" for a moment, without copies."""
+    for n, t in state["params"].state_dict().items():
+        yield ("p", n), t.detach()
+    for k in ("m", "v"):
+        for n, t in state["opt"][k].items():
+            yield (k, n), t
+
+
 def _snapshot(state):
     """A host copy of a train state's tensors, keyed by kind and name."""
-    snap = {("p", n): t.detach().cpu()
-            for n, t in state["params"].state_dict().items()}
-    for k in ("m", "v"):
-        snap.update({(k, n): t.cpu() for n, t in state["opt"][k].items()})
-    return snap
+    return {key: t.cpu() for key, t in _state_tensors(state)}
 
 
 def _same_as(torch, state, snap) -> list:
     """The keys of a snapshot whose tensors differ from the state's."""
-    now = dict(state["params"].state_dict())
-    bad = []
-    for (kind, name), want in snap.items():
-        t = now[name] if kind == "p" else state["opt"][kind][name]
-        if not torch.equal(t.detach().cpu(), want):
-            bad.append(f"{kind}:{name}")
-    return bad
+    return [f"{k}:{n}" for (k, n), t in _state_tensors(state)
+            if not torch.equal(t.cpu(), snap[k, n])]
 
 
 def _grad_distance(got, want):
@@ -1497,6 +1538,12 @@ def model_grads(torch, W, FA, model, cfg, batch, per_call=False):
     return out
 
 
+def sync_cards(torch):
+    """Wait for every CUDA card of this machine."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def train_steps(torch, step_fn, state, cfg, shape, dev, fwd, bwd, start,
                 n):
     """Steps start .. start + n - 1 of ``step_fn`` on the seeded batches of
@@ -1507,11 +1554,11 @@ def train_steps(torch, step_fn, state, cfg, shape, dev, fwd, bwd, start,
     rows = []
     for step in range(start, start + n):
         b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED, step), dev)
-        torch.cuda.synchronize()
+        sync_cards(torch)
         fwd.launches = bwd.launches = 0              # counts: just before
         t = time.perf_counter()
         _, m = step_fn(state, b)
-        torch.cuda.synchronize()
+        sync_cards(torch)
         rows.append({"step": step, "wall": time.perf_counter() - t,
                      "fwd": fwd.launches, "bwd": bwd.launches,
                      **{k: float(x) for k, x in m.items()}})
@@ -1950,17 +1997,19 @@ def no_drop(cfg):
         m, capacity_factor=m.n_experts / m.top_k))
 
 
-def phase_reduced_train(torch, FA, name):
+def phase_reduced_train(torch, FA, name, mesh_shape=None, archs=None):
     """The reduced models of a golden file (the MoE family's, or jamba's
-    and Whisper's) trained on the card through make_train_step under
-    deterministic kernels: the loss of the golden's batch against the JAX
-    package's and the port's on the CPU; TRAIN_STEPS steps, a
-    checkpoint, TRAIN_STEPS more, then the checkpoint restored and
-    TRAIN_STEPS again, which must end in the straight run's state bit for
-    bit; the straight 2 x TRAIN_STEPS steps against the same steps by the
-    port on the CPU (metrics per step, parameters after them);
-    flash_attention's forward (forward and recompute) and backward
-    launches per step."""
+    and Whisper's; only ``archs`` where given) trained on the card through
+    make_train_step under deterministic kernels: the loss of the golden's
+    batch against the JAX package's and the port's on the CPU;
+    TRAIN_STEPS steps, a checkpoint, TRAIN_STEPS more, then the checkpoint
+    restored and TRAIN_STEPS again, which must end in the straight run's
+    state bit for bit; the straight 2 x TRAIN_STEPS steps against the same
+    steps by the port on the CPU (metrics per step, parameters after
+    them); flash_attention's forward (forward and recompute) and backward
+    launches per step.  With ``mesh_shape`` both sides run the sharded
+    step on a mesh of that shape (train/train_step.py), every position
+    on the card or on the CPU."""
     import shutil
     import tempfile
 
@@ -1969,6 +2018,7 @@ def phase_reduced_train(torch, FA, name):
     from repro_torch.convert import (jitter_constant_leaves,
                                      lm_params_to_torch, seeded_lm_params)
     from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
     from repro_torch.models import factory
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import OptConfig
@@ -1979,38 +2029,44 @@ def phase_reduced_train(torch, FA, name):
     shape = ShapeSpec("y", s, b, "train")
     opt_cfg = OptConfig(**TRAIN_OPT)
     fwd, bwd = FA.flash_attention, FA.flash_attention_bwd
+    sides = (("card", "cuda:0"), ("cpu", "cpu"))
+    kws = {side: {} if mesh_shape is None else {"ctx": make_ctx(
+        make_train_mesh(mesh_shape, device=dev))} for side, dev in sides}
     out = {}
     for arch, g in golden["archs"].items():
+        if archs is not None and arch not in archs:
+            continue
         cfg = get_reduced(arch)
         tree = jitter_constant_leaves(
             seeded_lm_params(cfg, golden["weight_seed"],
                              max_seq=golden.get("max_seq", 4096)),
             golden["jitter_seed"])
         batch = make_batch_np(cfg, shape, golden["data_seed"], 0)
-        losses, states = {}, {}
-        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        losses, states, step_fns = {}, {}, {}
+        for side, dev in sides:
             model = factory.from_state_dict(
                 cfg, lm_params_to_torch(tree, cfg, dev))
             with torch.no_grad():
                 losses[side] = float(factory.train_loss(
                     model, to_device(batch, dev), cfg=cfg)[0])
-            states[side] = TS.init_train_state(model, cfg, opt_cfg)
-        step_fn = TS.make_train_step(cfg, opt_cfg)
+            states[side] = TS.init_train_state(model, cfg, opt_cfg,
+                                               **kws[side])
+            step_fns[side] = TS.make_train_step(cfg, opt_cfg, **kws[side])
         state = states["card"]
 
-        def steps(st, dev, start, n):
-            return train_steps(torch, step_fn, st, cfg, shape, dev, fwd,
-                               bwd, start, n)
+        def steps(st, side, start, n):
+            return train_steps(torch, step_fns[side], st, cfg, shape,
+                               dict(sides)[side], fwd, bwd, start, n)
 
         ckpt = tempfile.mkdtemp(prefix="reduced-ckpt-")
         try:
-            rows = steps(state, "cuda", 0, TRAIN_STEPS)
+            rows = steps(state, "card", 0, TRAIN_STEPS)
             save(ckpt, TRAIN_STEPS, state, cfg)
-            rows += steps(state, "cuda", TRAIN_STEPS, TRAIN_STEPS)
-            snap = _snapshot(state)
+            rows += steps(state, "card", TRAIN_STEPS, TRAIN_STEPS)
+            snap = _snapshot(TS.plain_state(state))
             restore(ckpt, TRAIN_STEPS, state, cfg)
-            again = steps(state, "cuda", TRAIN_STEPS, TRAIN_STEPS)
-            differ = _same_as(torch, state, snap)
+            again = steps(state, "card", TRAIN_STEPS, TRAIN_STEPS)
+            differ = _same_as(torch, TS.plain_state(state), snap)
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
         # the same straight steps by the port on the CPU
@@ -2027,6 +2083,8 @@ def phase_reduced_train(torch, FA, name):
                      "rows": rows, "again": again, "differ": differ,
                      "cpu_rows": cpu_rows, "vs_cpu": vs_cpu,
                      "calls": flash_calls(cfg),
+                     "positions": 1 if mesh_shape is None else int(
+                         np.prod(mesh_shape)),
                      "metrics_equal": all(
                          {k: r[k] for k in ("loss", "ce", "aux",
                                             "grad_norm")}
@@ -2034,6 +2092,224 @@ def phase_reduced_train(torch, FA, name):
                                                "grad_norm")}
                          for r, a in zip(rows[TRAIN_STEPS:], again))}
     return out, shape
+
+
+def jitter_constants(torch, model, seed, std=0.1):
+    """Seeded N(0, std) noise added, on the model's device, to every
+    parameter that the init sets to a constant (norm scales and biases,
+    QKV biases; repro_torch.convert.CONSTANT_LEAVES), as the CPU tests
+    jitter their seeded weights (``convert.jitter_constant_leaves``), so
+    that no leaf starts at zero and a leaf's largest magnitude is a scale
+    of its own, not its first update."""
+    from repro_torch.convert import CONSTANT_LEAVES
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in CONSTANT_LEAVES:
+                p.add_(std * torch.randn(p.shape, generator=gen,
+                                         device=p.device, dtype=p.dtype))
+
+
+def phase_shard_train(torch, FA, devices=None):
+    """qwen2-vl-2b whole, trained by the sharded step (train/train_step.py)
+    on a SHARD_MESH ('data', 'model') mesh of ``devices`` (by default every
+    position on cuda:0), SHARD_BATCH x SHARD_SEQ tokens a step:
+    TRAIN_STEPS sharded steps, the same steps sharded again (bit for bit),
+    one more profiled, then TRAIN_STEPS unsharded steps on cuda:0 from the
+    same seed and one more profiled; each run from weights drawn on cuda:0
+    from seed 0 (its constant leaves jittered, ``jitter_constants``), one
+    state at a time, the first run's initial parameters and final state
+    kept on the card for the comparisons.  Per run: step walls, K3'
+    forward launches and backward calls per step, and its peak memory on
+    each card over what was held there before it began."""
+    import gc
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(SHARD_ARCH)
+    dev = torch.device("cuda:0")
+    if devices is None:
+        devices = [dev] * int(np.prod(SHARD_MESH))
+    cards = sorted({torch.device(d).index or 0 for d in devices} | {0})
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    shape = ShapeSpec("z", SHARD_SEQ, SHARD_BATCH, "train")
+    ctx = make_ctx(make_train_mesh(SHARD_MESH, devices=devices))
+    fwd, bwd = FA.flash_attention, FA.flash_attention_bwd
+    out = {"cfg": cfg, "positions": ctx.dp_size, "calls": flash_calls(cfg),
+           "cards": cards}
+    snap = init = None
+    for name, kw in (("sharded", {"ctx": ctx}), ("again", {"ctx": ctx}),
+                     ("unsharded", {})):
+        gc.collect()
+        held = {}
+        for i in cards:
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(i)
+            held[i] = torch.cuda.memory_allocated(i)
+        t0 = time.perf_counter()
+        model = factory.init_params(0, cfg, device=dev)
+        jitter_constants(torch, model, 1)
+        if init is None:
+            init = {n: t.detach().clone()
+                    for n, t in model.state_dict().items()}
+        state = TS.init_train_state(model, cfg, opt_cfg, **kw)
+        del model
+        sync_cards(torch)
+        run = {"init_s": time.perf_counter() - t0,
+               "n_params": sum(p.numel()
+                               for p in state["params"].parameters())}
+        step_fn = TS.make_train_step(cfg, opt_cfg, **kw)
+        run["rows"] = train_steps(torch, step_fn, state, cfg, shape, dev,
+                                  fwd, bwd, 0, TRAIN_STEPS)
+        run["peak"] = [torch.cuda.max_memory_allocated(i) - held[i]
+                       for i in cards]
+        plain = TS.plain_state(state)
+        if name == "sharded":
+            snap = {key: t.clone() for key, t in _state_tensors(plain)}
+        elif name == "again":
+            run["differ"] = [f"{k}:{n}" for (k, n), t in
+                             _state_tensors(plain)
+                             if not torch.equal(t, snap[k, n])]
+            # the unsharded run needs the parameters only
+            snap = {key: t for key, t in snap.items() if key[0] == "p"}
+        else:
+            params = plain["params"].state_dict()
+            run["params"] = max(
+                float((t.detach() - snap["p", n]).abs().max()
+                      / snap["p", n].abs().max().clamp(min=1e-30))
+                for n, t in params.items())
+            # each leaf's change: sharded against unsharded, in L2 over the
+            # unsharded change (0 where neither moved, inf where only the
+            # sharded one did)
+            update = {}
+            for n, t in params.items():
+                moved = float((t.detach() - init[n]).norm())
+                apart = float((t.detach() - snap["p", n]).norm())
+                update[n] = (apart / moved if moved else
+                             0.0 if not apart else float("inf"))
+            run["update"] = update
+            run["still"] = sorted(n for n, t in params.items()
+                                  if torch.equal(t.detach(), init[n]))
+        if name != "sharded":
+            # where the time goes: one more step under the profiler
+            b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED,
+                                        TRAIN_STEPS), dev)
+            events, wall = profiled(torch, lambda: step_fn(state, b))
+            by_name = {}
+            for ev, us in events:
+                by_name[ev] = by_name.get(ev, 0.0) + us
+            run["profile"] = {
+                "wall": wall, "busy": sum(us for _, us in events) / 1e6,
+                "n": len(events),
+                "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
+                "fwd_us": sum(us for ev, us in events if "flash_kernel" in ev),
+                "bwd_us": sum(us for ev, us in events if "flash_bwd" in ev)}
+        out[name] = run
+        del state, step_fn, plain
+    del snap, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, flat = out["sharded"]["rows"], out["unsharded"]["rows"]
+    out["vs_unsharded"] = {k: max(abs(r[k] - c[k]) / (abs(c[k]) or 1.0)
+                                  for r, c in zip(rows, flat))
+                           for k in ("loss", "ce", "aux", "grad_norm")}
+    out["metrics_equal"] = all(
+        {k: r[k] for k in ("loss", "ce", "aux", "grad_norm")}
+        == {k: a[k] for k in ("loss", "ce", "aux", "grad_norm")}
+        for r, a in zip(rows, out["again"]["rows"]))
+    return out
+
+
+def report_shard_train(zr, card, where):
+    """Print phase z's lines for ``zr`` (``phase_shard_train``) on a mesh
+    described by ``where``, and hold it: finite metrics, K3' launches per
+    step, two sharded runs bit-identical, and the sharded run against the
+    unsharded one within MOE_TRAIN_METRIC_TOL / MOE_TRAIN_GRAD_TOL /
+    MOE_TRAIN_PARAM_TOL and every leaf's change within SHARD_UPDATE_TOL,
+    no leaf left where it started."""
+    c, calls, npos = zr["cfg"], zr["calls"], zr["positions"]
+    for name in ("sharded", "again", "unsharded"):
+        run = zr[name]
+        walls = [r["wall"] for r in run["rows"]]
+        step_s = float(np.median(walls[1:]))
+        peaks = {i: round(x / 2**30, 3)
+                 for i, x in zip(zr["cards"], run["peak"])}
+        on = (f"{SHARD_MESH} ('data', 'model') mesh of {where}, "
+              f"{SHARD_BATCH // npos} rows per position"
+              if name != "unsharded" else "cuda:0, no mesh")
+        print(f"[z shard train] {SHARD_ARCH} whole ({c.n_layers} layers, "
+              f"d_model {c.d_model}, {c.n_heads} q / {c.n_kv_heads} KV heads "
+              f"of {c.resolved_head_dim}, d_ff {c.d_ff}, vocab "
+              f"{c.vocab_size}; {run['n_params']} f32 parameters, init "
+              f"{run['init_s']:.2f} s), {name} run, {on}, batch "
+              f"{SHARD_BATCH} x {SHARD_SEQ}, AdamW {TRAIN_OPT}, "
+              f"deterministic kernels, on {card}: step {step_s:.3f} s "
+              f"(median of steps 1-{TRAIN_STEPS - 1}: "
+              f"{', '.join(f'{x:.3f}' for x in walls[1:])}; step 0 "
+              f"{walls[0]:.3f} s) = {SHARD_BATCH * SHARD_SEQ / step_s:.1f} "
+              f"tokens/s; peak device memory GiB by card {peaks} over "
+              f"what the run found held; "
+              f"per step flash_attention forward launches "
+              f"{[r['fwd'] for r in run['rows']]}, backward calls "
+              f"{[r['bwd'] for r in run['rows']]}; loss "
+              f"{[round(r['loss'], 6) for r in run['rows']]}, grad_norm "
+              f"{[round(r['grad_norm'], 6) for r in run['rows']]}",
+              flush=True)
+    for name, what in (("again", "sharded"), ("unsharded", "unsharded")):
+        p = zr[name]["profile"]
+        print(f"[z shard train] {SHARD_ARCH}: profile of one {what} step: "
+              f"wall {p['wall']:.3f} s, device busy {p['busy']:.4f} s (idle "
+              f"share {1 - p['busy'] / p['wall']:.4f}), {p['n']} device "
+              f"activities, flash_attention forward {p['fwd_us'] / 1e3:.3f} "
+              f"ms, backward {p['bwd_us'] / 1e3:.3f} ms (together "
+              f"{(p['fwd_us'] + p['bwd_us']) / 1e6 / p['wall']:.2%} of the "
+              f"step's wall); top: " + "; ".join(
+                  f"{n[:50]} {us / 1e3:.2f} ms" for n, us in p["top"]),
+              flush=True)
+    v, un = zr["vs_unsharded"], zr["unsharded"]
+    upd = sorted(un["update"].items(), key=lambda kv: -kv[1])
+    print(f"[z shard train] {SHARD_ARCH}: the sharded run again: state "
+          f"bit-identical: {not zr['again']['differ']} "
+          f"({len(zr['again']['differ'])} tensors differ), metrics equal: "
+          f"{zr['metrics_equal']}; sharded against unsharded: worst "
+          f"relative difference loss {v['loss']:.2e}, ce {v['ce']:.2e}, aux "
+          f"{v['aux']:.2e} (limit {MOE_TRAIN_METRIC_TOL}), grad_norm "
+          f"{v['grad_norm']:.2e} (limit {MOE_TRAIN_GRAD_TOL}); parameters "
+          f"after {TRAIN_STEPS} steps {un['params']:.2e} of a leaf's largest "
+          f"magnitude (limit {MOE_TRAIN_PARAM_TOL}); each leaf's change in "
+          f"L2 over the unsharded change: worst {upd[0][1]:.2e} "
+          f"({upd[0][0]}), median {upd[len(upd) // 2][1]:.2e}, next "
+          + ", ".join(f"{n} {x:.2e}" for n, x in upd[1:4])
+          + f" (limit {SHARD_UPDATE_TOL}); leaves the unsharded steps left "
+          f"where they started: {un['still']}", flush=True)
+    for name in ("sharded", "again", "unsharded"):
+        n = calls * (npos if name != "unsharded" else 1)
+        for r in zr[name]["rows"]:
+            check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+                  f"{SHARD_ARCH} {name} step {r['step']}: not finite")
+            check(r["fwd"] == 2 * n and r["bwd"] == n,
+                  f"{SHARD_ARCH} {name} step {r['step']}: {r['fwd']} "
+                  f"forward launches and {r['bwd']} backward calls; {n} a "
+                  "forward")
+    check(not zr["again"]["differ"] and zr["metrics_equal"],
+          f"{SHARD_ARCH}: two sharded runs differ in "
+          f"{zr['again']['differ'][:5]}")
+    check(max(v["loss"], v["ce"], v["aux"]) <= MOE_TRAIN_METRIC_TOL
+          and v["grad_norm"] <= MOE_TRAIN_GRAD_TOL
+          and un["params"] <= MOE_TRAIN_PARAM_TOL,
+          f"{SHARD_ARCH}: the sharded step departs from the unsharded one "
+          f"({v}, parameters {un['params']})")
+    check(upd[0][1] <= SHARD_UPDATE_TOL and not un["still"],
+          f"{SHARD_ARCH}: the sharded steps changed the parameters otherwise "
+          f"than the unsharded ones ({upd[:3]}), or these left "
+          f"{un['still'][:5]} unchanged")
 
 
 def _state_bytes(args):
@@ -3785,22 +4061,25 @@ def main():
           f"{ar['bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us; on the CUDA "
           f"cores at {ALU_OPS_PER_S / 1e12:.0f} TFLOP/s "
           f"{ar['cuda_core_ms'] * 1e3:.2f} us)", flush=True)
-    a_ = ar["arctic"]
-    print(f"[f flash] at arctic-480b's shape {FLASH_ARCTIC_SHAPE} (GQA "
-          f"group of 7), causal, f32: flash_attention vs attention_plain max "
-          f"abs err {a_['max_abs_err']:.3e} (err/tol {a_['worst']:.4f} at "
-          f"{FLASH_TOLS['float32']}), vs f64 "
-          f"{a_['vs_f64']['flash_attention'][0]:.3e} (attention_plain "
-          f"{a_['vs_f64']['attention_plain'][0]:.3e}); kernel "
-          f"{a_['ms'] * 1e3:.2f} us/launch on the device "
-          f"({'profiler' if a_['device_timed'] else 'not profiled: events'})"
-          f"; in turns with SDPA on the repeated KV heads: wrapper "
-          f"{', '.join(f'{x * 1e3:.2f}' for x in a_['turns']['kernel'])} "
-          f"us/call, SDPA "
-          f"{', '.join(f'{x * 1e3:.2f}' for x in a_['turns']['sdpa'])} "
-          f"us/call (max abs err {a_['library_err']:.3e} from plain); plain "
-          f"{a_['plain_ms'] * 1e3:.2f} us/call; bound "
-          f"{a_['bound_ms'] * 1e3:.2f} us ({a_['bound_by']})", flush=True)
+    for model, a_ in (("arctic-480b", ar["arctic"]),
+                      ("qwen2-vl-2b", ar["qwen_vl"])):
+        sh = a_["shape"]
+        print(f"[f flash] at {model}'s shape {tuple(sh)} (GQA group of "
+              f"{sh[2] // sh[3]}), causal, f32: flash_attention vs "
+              f"attention_plain max "
+              f"abs err {a_['max_abs_err']:.3e} (err/tol {a_['worst']:.4f} at "
+              f"{FLASH_TOLS['float32']}), vs f64 "
+              f"{a_['vs_f64']['flash_attention'][0]:.3e} (attention_plain "
+              f"{a_['vs_f64']['attention_plain'][0]:.3e}); kernel "
+              f"{a_['ms'] * 1e3:.2f} us/launch on the device "
+              f"({'profiler' if a_['device_timed'] else 'not profiled: events'})"
+              f"; in turns with SDPA on the repeated KV heads: wrapper "
+              f"{', '.join(f'{x * 1e3:.2f}' for x in a_['turns']['kernel'])} "
+              f"us/call, SDPA "
+              f"{', '.join(f'{x * 1e3:.2f}' for x in a_['turns']['sdpa'])} "
+              f"us/call (max abs err {a_['library_err']:.3e} from plain); plain "
+              f"{a_['plain_ms'] * 1e3:.2f} us/call; bound "
+              f"{a_['bound_ms'] * 1e3:.2f} us ({a_['bound_by']})", flush=True)
     for name, w_ in ar["whisper"].items():
         print(f"[f flash] at whisper-base's {name} shape {w_['shape']} over "
               f"{w_['sk']} keys, non-causal, f32: flash_attention vs "
@@ -3834,10 +4113,11 @@ def main():
     check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
           f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
           f"{ar['worst']})")
-    check(a_["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
-          f"flash_attention at {FLASH_ARCTIC_SHAPE} disagrees with "
-          f"attention in f64 beyond {FLASH_F64_TOL} (max abs err "
-          f"{a_['vs_f64']['flash_attention'][0]})")
+    for a_ in (ar["arctic"], ar["qwen_vl"]):
+        check(a_["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
+              f"flash_attention at {tuple(a_['shape'])} disagrees with "
+              f"attention in f64 beyond {FLASH_F64_TOL} (max abs err "
+              f"{a_['vs_f64']['flash_attention'][0]})")
     check(ar["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
           f"flash_attention disagrees with attention in f64 beyond "
           f"{FLASH_F64_TOL} (max abs err "
@@ -4230,7 +4510,8 @@ def main():
           f"f64 on {kr_['flash_cases']} cases (GQA 8/2, MHA 8/8, 4/1, "
           f"Sq < Sk 70/130 and 33/72, hd 16/32/64/128, the ragged key "
           f"block 64-99 on the causal diagonal, causal and full, "
-          f"{FLASH_FULL_SHAPE}, Whisper's encoder "
+          f"{FLASH_FULL_SHAPE}, qwen2-vl-2b's {FLASH_QWEN_VL_SHAPE} (GQA "
+          f"12/2), Whisper's encoder "
           f"{WHISPER_FLASH_CASES['encoder'][0]} and, non-causal only, "
           f"{FLASH_WIDE_CASE[1]} queries over {FLASH_WIDE_CASE[5]} keys): "
           f"max abs err {kr_['flash_err']:.3e}, worst "
@@ -4396,12 +4677,22 @@ def main():
 
     marks.append(("y", time.perf_counter()))
     # y. the reduced MoE models, jamba and whisper-base trained on the
-    # card, restarted bit for bit
+    # card, restarted bit for bit; then the MoE models and jamba by the
+    # sharded step on a SHARD_Y_MESH mesh of the card, against the same on
+    # the CPU
     yr, y_shapes = {}, {}
+    mesh_text = "x".join(map(str, SHARD_Y_MESH))
     for name in (MOE_GOLDEN, HYBRID_GOLDEN):
         got, y_shape = phase_reduced_train(torch, FA, name)
         yr.update(got)
         y_shapes.update({arch: y_shape for arch in got})
+    for name in (MOE_GOLDEN, HYBRID_GOLDEN):
+        got, y_shape = phase_reduced_train(torch, FA, name, SHARD_Y_MESH,
+                                           SHARD_Y_ARCHS)
+        yr.update({f"{arch} on a {mesh_text} mesh": r
+                   for arch, r in got.items()})
+        y_shapes.update({f"{arch} on a {mesh_text} mesh": y_shape
+                         for arch in got})
     for arch, r in yr.items():
         c, y_shape = r["cfg"], y_shapes[arch]
         card_loss, cpu_loss = r["losses"]["card"], r["losses"]["cpu"]
@@ -4447,10 +4738,12 @@ def main():
         for x in r["rows"] + r["again"]:
             check(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]),
                   f"{arch} reduced step {x['step']}: not finite")
-            check(x["fwd"] == 2 * r["calls"] and x["bwd"] == r["calls"],
+            n = r["calls"] * r["positions"]
+            check(x["fwd"] == 2 * n and x["bwd"] == n,
                   f"{arch} reduced step {x['step']}: {x['fwd']} forward "
                   f"launches and {x['bwd']} backward calls for {r['calls']} "
-                  f"attention calls a forward")
+                  f"attention calls a forward on each of {r['positions']} "
+                  f"position(s)")
         check(not r["differ"] and r["metrics_equal"], f"{arch} reduced: 3 + "
               f"restore + 3 differs from the straight run in "
               f"{r['differ'][:5]}")
@@ -4460,6 +4753,15 @@ def main():
               and v["params"] <= MOE_TRAIN_PARAM_TOL,
               f"{arch} reduced: the card's training departs from the CPU "
               f"port's ({v})")
+
+    marks.append(("z", time.perf_counter()))
+    # z. qwen2-vl-2b whole, trained by the sharded step on a (4, 1) mesh
+    # repeating this card, against the unsharded step
+    t_z = time.perf_counter()
+    zr = phase_shard_train(torch, FA)
+    report_shard_train(zr, card, "cuda:0")
+    print(f"[z shard train] phase z {time.perf_counter() - t_z:.1f} s",
+          flush=True)
 
     marks.append(("end", time.perf_counter()))
     print("[time] seconds by phase: " + ", ".join(
@@ -4536,6 +4838,13 @@ def main():
         "arctic_shape": {k: ar["arctic"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
+        # the sharded training path's (phase z: qwen2-vl-2b on a (4, 1)
+        # mesh of the card): the forward and the recompute of every
+        # position's rows, every step; at its shape, a GQA group of 6
+        "shard_train_launches": sum(r["fwd"] for r in zr["sharded"]["rows"]),
+        "qwen_vl_shape": {k: ar["qwen_vl"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
         # the hybrid path's (phase p: one generate of jamba's period) and
         # Whisper's (phase w: one prefill and decode loop; phase x: the
         # forward and the recompute of every step)
@@ -4569,6 +4878,8 @@ def main():
         "launches": sum(r["bwd"] for r in train[DENSE_ARCH]["rows"]),
         "whisper_train_launches": sum(
             r["bwd"] for r in train[WHISPER_ARCH]["rows"]),
+        # the sharded training path's (phase z)
+        "shard_train_launches": sum(r["bwd"] for r in zr["sharded"]["rows"]),
         # at Whisper's encoder shape, non-causal (phase k)
         "whisper_encoder": {"shape": list(WHISPER_FLASH_CASES["encoder"][0]),
                             **{k: fe[k] for k in ("ms", "bound_ms",

@@ -10,7 +10,11 @@ checkpoint written by either package resumes in the other
 carry the port's state across, one leaf at a time).  Writes go to a temp file and an atomic
 rename; ``AsyncSaver`` overlaps the write with the next step.
 ``latest_step`` with the replayable data pipeline gives a restart that
-continues bit for bit (tests/test_torch_checkpoint.py).
+continues bit for bit (tests/test_torch_checkpoint.py).  A sharded state
+(``init_train_state(..., ctx=...)``) is gathered first
+(``train_step.plain_state``), so it writes the same files, byte for
+byte, as the same state unsharded; a restore into one scatters the
+moments back by its specs (``train_step.scatter_state``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import load_train_state, train_state_arrays
+from repro_torch.train.train_step import plain_state, scatter_state
 
 
 def _write(path: str, step: int, items) -> str:
@@ -50,7 +55,7 @@ def _write(path: str, step: int, items) -> str:
 
 def save(path: str, step: int, state: dict, cfg: ArchConfig) -> str:
     """Save a port train state at ``step``, leaf by leaf."""
-    return _write(path, step, train_state_arrays(state, cfg))
+    return _write(path, step, train_state_arrays(plain_state(state), cfg))
 
 
 class AsyncSaver:
@@ -64,7 +69,7 @@ class AsyncSaver:
     def save_async(self, path: str, step: int, state: dict,
                    cfg: ArchConfig):
         self.wait()
-        items = list(train_state_arrays(state, cfg))      # sync copy
+        items = list(train_state_arrays(plain_state(state), cfg))  # sync
         self._thread = threading.Thread(
             target=_write, args=(path, step, items), daemon=True)
         self._thread.start()
@@ -87,5 +92,7 @@ def restore(path: str, step: int, state: dict, cfg: ArchConfig) -> dict:
     """Fill the port train state ``state`` from the checkpoint at
     ``step``, written by either package, in place, reading one array at a
     time; returns it."""
+    plain = plain_state(state)
     with np.load(os.path.join(path, f"step-{step:08d}.npz")) as data:
-        return load_train_state(data, state, cfg)
+        load_train_state(data, plain, cfg)
+    return scatter_state(plain, state)

@@ -20,8 +20,10 @@ with the same ``--ckpt`` it resumes from the latest checkpoint (written by
 either package: the file format is the reference's) and replays the
 deterministic pipeline, so the run continues bit for bit.  Weights are
 random, from a ``torch.Generator`` seeded with 0 (not the reference's
-draws).  ``--mesh single|multi`` (the production-sharded step) comes with
-slice 11d.5.  Prints the reference's lines.
+draws).  ``--mesh single|multi`` refuses: the sharded step's data axes
+are ported (``launch/mesh.py:make_ctx``, ``make_train_step(cfg, opt,
+ctx)``), but both production meshes have a model axis of 16, and tensor
+parallelism waits for slice 11d.5b.  Prints the reference's lines.
 """
 from __future__ import annotations
 
@@ -56,8 +58,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production-sharded train step is not "
-            "ported to repro_torch yet; ROADMAP slice 11d.5")
+            f"--mesh {args.mesh}: the production mesh has a model axis of "
+            "16; the sharded step's data axes are ported (make_ctx and "
+            "make_train_step(cfg, opt_cfg, ctx) on a mesh whose model axis "
+            "is 1), and tensor parallelism waits for ROADMAP slice 11d.5b")
     # deterministic cuBLAS, read when CUDA starts (train_step.deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 

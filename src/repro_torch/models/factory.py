@@ -6,6 +6,10 @@ encoder-decoder.
   init_params(seed, cfg, dtype, device, max_seq)  -> LM or Whisper module
   from_state_dict(cfg, state)                     -> the same, given weights
   train_loss(model, batch, cfg)                   -> (loss, metrics)
+  loss_parts(model, batch, cfg, moe_groups)       -> a batch's CE sum and
+                                                     count, MoE statistics
+  combine_parts([parts, ...], cfg)                -> (loss, metrics)
+  param_shapes(cfg, dtype, max_seq)               -> {name: shape}
   prefill(model, batch, cfg, max_len)             -> (logits, cache)
   decode(model, cache, batch, cfg)                -> (logits, cache)
   init_cache(cfg, batch, max_len, dtype, device)  -> zeroed cache
@@ -19,8 +23,11 @@ seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
 Whisper's batches carry ``frames`` (B, ENC_LEN, d), the stubbed audio
 frontend's output, beside ``tokens``; ``generate`` takes token prompts
-only, as the reference's does.  Sharding (``ctx``) comes with ROADMAP
-slice 11d.5, on the simulator's mesh (core/distribute.py).  Serving
+only, as the reference's does.  The reference's ``ctx`` is not an
+argument here: the sharded train step (train/train_step.py) runs
+``loss_parts`` on each data position's rows and combines them with
+``combine_parts``, which is what ``train_loss`` does for one batch.
+Serving
 (``prefill``, ``decode``, ``generate``) records no autograd graph, so a
 model made trainable serves as a frozen one does.
 """
@@ -31,6 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import lm, whisper
+from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.loss import chunked_cross_entropy
 
 AUX_WEIGHT = 0.01
@@ -66,28 +74,80 @@ def from_state_dict(cfg: ArchConfig, state: dict):
     return cls.from_state_dict(cfg, state)
 
 
+def param_shapes(cfg: ArchConfig, dtype=torch.float32, *,
+                 max_seq: int = 4096) -> dict:
+    """{parameter name: shape} of the model ``init_params`` builds, from
+    a model on the ``meta`` device: no memory and no random draws, so the
+    published configs of every size fit."""
+    def draw(shape, std):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    dev = torch.device("meta")
+    model = (whisper.init_whisper(draw, cfg, dtype, dev, max_dec_len=max_seq)
+             if cfg.enc_dec else lm.init_lm(draw, cfg, dtype, dev))
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def loss_parts(model, batch: dict, *, cfg: ArchConfig,
+               moe_groups: int = 1) -> dict:
+    """The pieces of ``train_loss`` of one batch, to be combined over
+    data positions by ``combine_parts``: {"ce": the cross-entropy summed
+    over the valid labels (0-d f32), "count": their number (0-d int32),
+    "stats": the MoE layers' router statistics in layer order (each (2,
+    E) f32; none without MoE), "tokens": the batch's B·S}.  The MoE
+    layers split the tokens into ``moe_groups`` groups."""
+    if cfg.enc_dec:
+        enc_out = whisper.encode(model, batch["frames"], cfg=cfg)
+        hidden = whisper.decoder_train(model, batch["tokens"], enc_out,
+                                       cfg=cfg)
+        stats = []
+        w = model.embed.emb.T
+    else:
+        x = lm._inputs(model, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = lm.make_positions(cfg, b, s, device=x.device)
+        hidden, stats = lm.forward_hidden(model, x, cfg=cfg,
+                                          positions=positions,
+                                          moe_groups=moe_groups)
+        w = lm.head_weight(model, cfg)
+    labels = batch["labels"]
+    ce, count = chunked_cross_entropy(hidden, w, labels)
+    return {"ce": ce, "count": count, "stats": stats,
+            "tokens": labels.shape[0] * labels.shape[1]}
+
+
+def combine_parts(parts: list, *, cfg: ArchConfig):
+    """(loss, {"loss", "ce", "aux"}) of ``loss_parts`` of one or more
+    data positions, on the first one's device: ce the sum of their CE
+    sums over the sum of their counts (at least 1), aux the sum over the
+    MoE layers of each layer's balance loss from its statistics summed
+    over the positions (0 without MoE).  Sums run in position order."""
+    home = parts[0]["ce"].device
+
+    def total(xs):
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x.to(home)
+        return acc
+
+    ce = (total([p["ce"] for p in parts])
+          / torch.clamp(total([p["count"] for p in parts]), min=1).float())
+    aux = torch.zeros((), dtype=torch.float32, device=home)
+    n = sum(p["tokens"] for p in parts)
+    for layer in zip(*(p["stats"] for p in parts)):
+        aux = aux + moe_mod.balance_loss(total(list(layer)), n,
+                                         cfg.moe.n_experts)
+    loss = ce + AUX_WEIGHT * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
 def train_loss(model, batch: dict, *, cfg: ArchConfig):
     """(loss, {"loss", "ce", "aux"}) of a batch of ``tokens`` (or the
     vision frontend's ``embeds``; for Whisper ``frames`` and decoder
     ``tokens``) and ``labels``: the chunked cross-entropy of the head's
     logits plus AUX_WEIGHT times the MoE layers' balance loss (0 without
     MoE)."""
-    if cfg.enc_dec:
-        enc_out = whisper.encode(model, batch["frames"], cfg=cfg)
-        hidden = whisper.decoder_train(model, batch["tokens"], enc_out,
-                                       cfg=cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        w = model.embed.emb.T
-    else:
-        x = lm._inputs(model, batch)
-        b, s = x.shape[0], x.shape[1]
-        positions = lm.make_positions(cfg, b, s, device=x.device)
-        hidden, aux = lm.forward_hidden(model, x, cfg=cfg,
-                                        positions=positions)
-        w = lm.head_weight(model, cfg)
-    ce = chunked_cross_entropy(hidden, w, batch["labels"])
-    loss = ce + AUX_WEIGHT * aux
-    return loss, {"loss": loss, "ce": ce, "aux": aux}
+    return combine_parts([loss_parts(model, batch, cfg=cfg)], cfg=cfg)
 
 
 def prefill(model, batch: dict, *, cfg: ArchConfig, max_len: int = 0):

@@ -17,8 +17,10 @@ Cross attention (Whisper's decoder over the encoder's output):
 ``cross_attention_train`` projects the encoder's keys and values and
 sends the full-sequence attention through the same wrapper, non-causal
 (the kernel on the card); ``cross_attention_decode`` attends one step's
-query over the cached encoder keys, plain.  Sequence-parallel attention
-(a tensor-parallel ctx) comes with slice 11d.5.
+query over the cached encoder keys, plain.  ``head_axes`` gives the
+sharding rules (``parallelism/sharding.py``) the tensor-parallel entries
+of the (H, hd) dims; the layer itself runs whole on each device, since
+tensor parallelism and sequence-parallel attention are slice 11d.5b.
 """
 from __future__ import annotations
 
@@ -27,8 +29,20 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
+from repro_torch.parallelism.ctx import ShardCtx
 
 NEG_INF = -1e30
+
+
+def head_axes(ctx: ShardCtx, n_heads: int, head_dim: int):
+    """(head_axis, head_dim_axis) spec entries for (H, hd) dims."""
+    if ctx.tp_axis is None or ctx.tp_size <= 1:
+        return None, None
+    if n_heads % ctx.tp_size == 0:
+        return ctx.tp_axis, None
+    if head_dim % ctx.tp_size == 0:
+        return None, ctx.tp_axis
+    return None, None
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,17 @@ the same:
     atomics: deterministic on the card.  With k = 2 this is the
     reference's sum bit for bit; with deepseek-v3's k = 8 it is the same
     sequence of f32 additions, and the CPU tests hold it within 1e-5.
-  · The token-group axis G of the reference (one group per data shard,
-    ``ctx.dp_size``) is 1 without a mesh; the sharded step of ROADMAP
-    slice 11d.5 sets it.
+  · Token groups: the reference splits the N tokens into G groups (one
+    per data shard, ``moe_groups``), each with its own capacity and
+    dispatch.  ``groups`` here does the same in one dispatch: group g's
+    expert e is dispatched as expert g·E + e, and a stable sort of those
+    ids orders each group's entries as the group's own sort does.  The
+    sharded train step runs each data position's rows with one group, or
+    a replicated batch with G groups (train/train_step.py).
+  · Balance loss: the reference takes it over all groups, from the top-1
+    counts and the mean router probability.  ``moe_layer`` returns those
+    statistics, (2, E) f32, so that the sharded step can sum them over
+    the data positions before ``balance_loss`` forms the loss.
 
 The expert products are plain batched ``torch.bmm`` over the expert axis,
 as the reference's are ``jnp.einsum`` outside any Pallas kernel.
@@ -127,13 +135,33 @@ def _combine(out_buf, slot, keep, order, top_idx, top_w):
     return y
 
 
-def apply_moe(p: dict, x, *, cfg: ArchConfig):
-    """x: (B,S,d). Returns (y, aux_loss), aux a 0-d f32 tensor."""
+def moe_groups(dp: int, n_tokens: int, top_k: int) -> int:
+    """The reference's token groups for ``n_tokens`` tokens on ``dp``
+    data shards: dp when it divides them and each shard holds at least
+    top_k, else 1."""
+    return dp if dp > 1 and n_tokens % dp == 0 and n_tokens >= dp * top_k \
+        else 1
+
+
+def balance_loss(stats, n_tokens: int, n_experts: int):
+    """The switch-style load-balance loss of router statistics (2, E)
+    (top-1 counts, summed probabilities) over ``n_tokens`` tokens:
+    E · Σ_e (count_e / N) · (probability_e / N)."""
+    return n_experts * torch.sum((stats[0] / n_tokens)
+                                 * (stats[1] / n_tokens))
+
+
+def moe_layer(p: dict, x, *, cfg: ArchConfig, groups: int = 1):
+    """x: (B,S,d), its B·S tokens in ``groups`` equal groups.  Returns (y,
+    stats): stats (2, E) f32, the tokens' top-1 counts and the sum of
+    their router probabilities (``balance_loss``)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
     n = b * s
-    cap = _capacity(n, k, e, m.capacity_factor)
+    if n % groups:
+        raise ValueError(f"{n} tokens do not split into {groups} groups")
+    cap = _capacity(n // groups, k, e, m.capacity_factor)
     tokens = x.reshape(n, d)
 
     # ---- router (f32) ----------------------------------------------------
@@ -141,22 +169,31 @@ def apply_moe(p: dict, x, *, cfg: ArchConfig):
     probs = torch.softmax(logits, dim=-1)
     top_w, top_idx = top_k_experts(probs, k)                 # (N, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    # switch-style load-balance aux loss from the top-1 counts
     counts = (top_idx[:, :1] == torch.arange(e, device=x.device)).sum(
         0, dtype=torch.float32)
-    aux = e * torch.sum((counts / n) * probs.mean(dim=0))
+    stats = torch.stack([counts, probs.sum(0)])
 
     # ---- dispatch, experts, combine --------------------------------------
-    buf, slot, keep, order = _dispatch(tokens, top_idx, e, cap)
+    if groups > 1:                  # group g's expert e as id g * E + e
+        top_idx = top_idx + (torch.arange(n, device=x.device)
+                             // (n // groups) * e)[:, None]
+    buf, slot, keep, order = _dispatch(tokens, top_idx, groups * e, cap)
+    if groups > 1:                  # (G*E, C, d) -> (E, G*C, d)
+        buf = buf.reshape(groups, e, cap, d).transpose(0, 1).reshape(
+            e, groups * cap, d)
     h = (F.silu(torch.bmm(buf, p["wi_gate"].to(x.dtype)))
          * torch.bmm(buf, p["wi_up"].to(x.dtype)))
     del buf
     out_buf = torch.bmm(h, p["wo"].to(x.dtype))
     del h
+    if groups > 1:
+        out_buf = out_buf.reshape(e, groups, cap, d).transpose(0, 1).reshape(
+            groups * e, cap, d)
     y = _combine(out_buf, slot, keep, order, top_idx, top_w).reshape(b, s, d)
 
     if "shared" in p:
         y = y + apply_ffn(p["shared"], x, act=cfg.act)
     if "dense" in p:
         y = y + apply_ffn(p["dense"], x, act=cfg.act)
-    return y, aux.float()
+    return y, stats
+

@@ -23,9 +23,11 @@ its pattern and Mamba elsewhere, an MoE layer on every odd sublayer).
 ``forward_hidden`` is the training forward: each block (a whole period
 for ``period``) runs under non-reentrant ``torch.utils.checkpoint``, as
 the reference's under ``jax.checkpoint``, so its activations are
-recomputed in the backward; the MoE layers' balance losses are summed
-through the blocks, as the reference's scan carries them.  Serving drops
-them, as the reference does.
+recomputed in the backward; it returns the MoE layers' router
+statistics layer by layer (``moe.moe_layer``), which the factory turns
+into the balance loss, summed over the layers as the reference's scan
+carries it, after the sharded step has summed them over its data
+positions.  Serving drops them, as the reference does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -250,11 +252,11 @@ def _mixer(blk: AttnBlock, h, *, cfg: ArchConfig, positions,
                                 return_kv=return_cache)
 
 
-def _mlp_or_moe(blk: AttnBlock, h, *, cfg: ArchConfig):
-    """(y, aux): the block's FFN on its normed input, and the MoE
-    layer's balance loss (None for a dense FFN)."""
+def _mlp_or_moe(blk: AttnBlock, h, *, cfg: ArchConfig, moe_groups=1):
+    """(y, stats): the block's FFN on its normed input, and the MoE
+    layer's router statistics (None for a dense FFN)."""
     if hasattr(blk, "moe"):
-        return moe_mod.apply_moe(blk.moe.p, h, cfg=cfg)
+        return moe_mod.moe_layer(blk.moe.p, h, cfg=cfg, groups=moe_groups)
     return apply_ffn(blk.mlp.p, h, act=cfg.act), None
 
 
@@ -270,13 +272,14 @@ def _zero_mamba_states(cfg: ArchConfig, x):
 
 
 def _period(blk: PeriodBlock, x, *, cfg: ArchConfig, positions, max_len=0,
-            cache: dict | None = None, cache_len=None, aux=None):
+            cache: dict | None = None, cache_len=None, stats=None,
+            moe_groups=1):
     """A period's sublayers in order.  Training and prefill (``cache``
     None) start every Mamba from the zero states and attention from
     position 0; prefill (max_len > 0) also returns the cache entry
     {"k", "v", "h", "conv"} with k/v padded to max_len.  Decode steps
-    from ``cache``.  Returns (x, aux plus the MoE layers' balance losses,
-    cache entry or None)."""
+    from ``cache``.  The MoE layers' router statistics are appended to
+    ``stats`` when it is a list.  Returns (x, cache entry or None)."""
     nk, eps = cfg.norm, cfg.norm_eps
     hs, convs, kv = [], [], None
     midx = 0
@@ -307,31 +310,35 @@ def _period(blk: PeriodBlock, x, *, cfg: ArchConfig, positions, max_len=0,
             convs.append(conv_s.to(x.dtype))
             midx += 1
         x = x + y
-        y, a = _mlp_or_moe(sp, apply_norm(sp.mlp_norm.p, x, kind=nk,
-                                          eps=eps), cfg=cfg)
+        y, st = _mlp_or_moe(sp, apply_norm(sp.mlp_norm.p, x, kind=nk,
+                                           eps=eps), cfg=cfg,
+                            moe_groups=moe_groups)
         x = x + y
-        if a is not None and aux is not None:
-            aux = aux + a
+        if st is not None and stats is not None:
+            stats.append(st)
     if cache is None and not max_len:
-        return x, aux, None
-    return x, aux, {"k": kv[0], "v": kv[1], "h": torch.stack(hs),
-                    "conv": torch.stack(convs)}
+        return x, None
+    return x, {"k": kv[0], "v": kv[1], "h": torch.stack(hs),
+               "conv": torch.stack(convs)}
 
 
-def _block_train(blk, x, aux, *, cfg: ArchConfig, positions):
+def _block_train(blk, x, *, cfg: ArchConfig, positions, moe_groups=1):
     """One block of the training forward, from the zero shift, wkv, conv
-    and SSM states (the sequence start); returns (x, aux plus the
-    block's MoE balance losses)."""
+    and SSM states (the sequence start); returns (x, the block's MoE
+    router statistics as a tuple, empty without MoE)."""
     nk, eps = cfg.norm, cfg.norm_eps
     if isinstance(blk, PeriodBlock):
-        x, aux, _ = _period(blk, x, cfg=cfg, positions=positions, aux=aux)
-        return x, aux
+        stats = []
+        x, _ = _period(blk, x, cfg=cfg, positions=positions, stats=stats,
+                       moe_groups=moe_groups)
+        return x, tuple(stats)
     if isinstance(blk, AttnBlock):
         x = x + _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
                                        eps=eps), cfg=cfg, positions=positions)
-        y, a = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
-                                           eps=eps), cfg=cfg)
-        return x + y, aux if a is None else aux + a
+        y, st = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
+                                            eps=eps), cfg=cfg,
+                            moe_groups=moe_groups)
+        return x + y, () if st is None else (st,)
     b, _, d = x.shape
     h, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     zshift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -341,23 +348,28 @@ def _block_train(blk, x, aux, *, cfg: ArchConfig, positions):
                      zstate)
     x = x + y
     y, _ = blk.cm(apply_norm(blk.ln2.p, x, kind=nk, eps=eps), zshift)
-    return x + y, aux
+    return x + y, ()
 
 
-def forward_hidden(model: LM, embeds, *, cfg: ArchConfig, positions):
-    """embeds: (B,S,d) -> (hidden (B,S,d) after the final norm, aux).
+def forward_hidden(model: LM, embeds, *, cfg: ArchConfig, positions,
+                   moe_groups: int = 1):
+    """embeds: (B,S,d) -> (hidden (B,S,d) after the final norm, stats).
     Each block is checkpointed (its forward runs again in the backward);
-    aux is the sum of the MoE layers' balance losses, 0 without MoE."""
+    stats lists the MoE layers' router statistics in layer order, each
+    (2, E) f32 (``moe.moe_layer``, its tokens in ``moe_groups`` groups),
+    and is empty without MoE."""
     x = embeds
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = []
     for blocks in model.groups:
         for blk in blocks:
             # the blocks draw no random numbers: no RNG state to keep
-            x, aux = checkpoint(_block_train, blk, x, aux, cfg=cfg,
-                                positions=positions, use_reentrant=False,
-                                preserve_rng_state=False)
+            x, st = checkpoint(_block_train, blk, x, cfg=cfg,
+                               positions=positions, moe_groups=moe_groups,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+            stats.extend(st)
     x = apply_norm(model.final_norm.p, x, kind=cfg.norm, eps=cfg.norm_eps)
-    return x, aux
+    return x, stats
 
 
 # ---------------------------------------------------------------------------
@@ -414,8 +426,8 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
     """Returns (x, cache_entry) matching init_cache leaf layout (minus n)."""
     nk, eps = cfg.norm, cfg.norm_eps
     if isinstance(blk, PeriodBlock):
-        x, _, entry = _period(blk, x, cfg=cfg, positions=positions,
-                              max_len=max_len)
+        x, entry = _period(blk, x, cfg=cfg, positions=positions,
+                           max_len=max_len)
         return x, entry
     if isinstance(blk, AttnBlock):
         y, cache = _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
@@ -444,8 +456,8 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
 def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len):
     nk, eps = cfg.norm, cfg.norm_eps
     if isinstance(blk, PeriodBlock):
-        x, _, entry = _period(blk, x, cfg=cfg, positions=None, cache=cache,
-                              cache_len=cache_len)
+        x, entry = _period(blk, x, cfg=cfg, positions=None, cache=cache,
+                           cache_len=cache_len)
         return x, entry
     if isinstance(blk, AttnBlock):
         h = apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps)

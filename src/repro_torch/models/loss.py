@@ -2,8 +2,11 @@
 
 Logits are never materialized for the full sequence: the head product
 and log-sum-exp run per sequence chunk (peak activation B x chunk x V
-instead of B x S x V).  Labels == -1 are masked out.  The vocab-parallel
-sharding of the reference comes with slice 11d.5.
+instead of B x S x V).  Labels == -1 are masked out.  It returns the
+sum of the cross-entropy and the count of valid labels, so that the
+train step forms the mean over all its data positions as the
+reference's ``tot / max(cnt, 1)`` (``factory.combine_parts``).  The
+reference's vocab-parallel sharding is slice 11d.5b.
 """
 from __future__ import annotations
 
@@ -12,9 +15,9 @@ import torch
 
 def chunked_cross_entropy(hidden, head_w, labels, *, chunk: int = 512):
     """hidden: (B,S,d); head_w: (d,V); labels: (B,S) int (-1 = pad).
-    Returns the mean cross-entropy over the valid labels, f32.  Chunks of
-    ``chunk`` tokens; a length they do not divide runs in one shot, as in
-    the reference."""
+    Returns the pair (the cross-entropy summed over the valid labels, f32;
+    their count, int32).  Chunks of ``chunk`` tokens; a length they do not
+    divide runs in one shot, as in the reference."""
     b, s, d = hidden.shape
     v = head_w.shape[1]
     c = min(chunk, s)
@@ -33,4 +36,4 @@ def chunked_cross_entropy(hidden, head_w, labels, *, chunk: int = 512):
         valid = lab >= 0
         tot = tot + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum(dtype=torch.int32)
-    return tot / torch.clamp(cnt, min=1).float()
+    return tot, cnt

@@ -8,7 +8,10 @@ in bf16; the update maths always runs in f32, in the reference's order of
 operations.  The update works in place, where the reference returns new
 arrays: parameters and moments are overwritten and the gradients are
 scaled by the clip factor, so a step at full width holds one copy of each.
-ZeRO-1 sharding of the moments comes with slice 11d.5.
+The update is elementwise past the global norm, so ``adamw_leaf`` may
+run on any slice of a parameter: the sharded train step updates each
+ZeRO-1 block of the moments, and the parameter's matching slice, on its
+own (train/train_step.py), with the same bits as a whole update.
 """
 from __future__ import annotations
 
@@ -81,6 +84,51 @@ def _decay_mask(name: str) -> bool:
     return name.rsplit(".", 1)[-1] not in _NO_DECAY
 
 
+def clip_scale(cfg: OptConfig, gnorm) -> torch.Tensor:
+    """The factor that clips a gradient of global norm ``gnorm``."""
+    return torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+
+
+def scaled(g, scale) -> torch.Tensor:
+    """A gradient times the clip factor, in f32: in place where it is f32
+    already."""
+    return g.mul_(scale) if g.dtype == _F32 else g.to(_F32).mul_(scale)
+
+
+def step_constants(cfg: OptConfig, step) -> tuple[float, float, float]:
+    """(learning rate, first and second bias corrections) of ``step``."""
+    t = _f32(float(step) + 1.0)
+    return (float(lr_schedule(cfg, step)),
+            float(1.0 - torch.pow(_f32(cfg.b1), t)),
+            float(1.0 - torch.pow(_f32(cfg.b2), t)))
+
+
+@torch.no_grad()
+def adamw_leaf(name: str, p, g, m, v, cfg: OptConfig,
+               consts: tuple[float, float, float]) -> None:
+    """AdamW on one parameter (or a slice of one), in place: ``g`` its
+    clipped f32 gradient, ``m`` and ``v`` its moments, ``consts`` from
+    ``step_constants``; ``name`` the parameter's, for the decay mask."""
+    lr, c1, c2 = consts
+    m32 = m if m.dtype == _F32 else m.to(_F32)
+    v32 = v if v.dtype == _F32 else v.to(_F32)
+    m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+    delta = torch.sqrt(v32 / c2).add_(cfg.eps)
+    delta = torch.div(m32 / c1, delta)
+    if _decay_mask(name):
+        delta.add_(cfg.weight_decay * p.to(_F32))
+    delta.mul_(lr)
+    if p.dtype == _F32:
+        p.sub_(delta)
+    else:
+        p.copy_(p.to(_F32) - delta)
+    if m32 is not m:
+        m.copy_(m32)
+        v.copy_(v32)
+
+
 @torch.no_grad()
 def adamw_update(grads: dict, opt: dict, params: dict, cfg: OptConfig,
                  step):
@@ -89,30 +137,9 @@ def adamw_update(grads: dict, opt: dict, params: dict, cfg: OptConfig,
     the gradients' global norm before clipping.  ``grads`` is consumed:
     each is scaled by the clip factor in place."""
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    lr = float(lr_schedule(cfg, step))
-    t = _f32(float(step) + 1.0)
-    c1 = float(1.0 - torch.pow(_f32(cfg.b1), t))
-    c2 = float(1.0 - torch.pow(_f32(cfg.b2), t))
+    scale = clip_scale(cfg, gnorm)
+    consts = step_constants(cfg, step)
     for name, p in params.items():
-        g = grads[name]
-        g = g.mul_(scale) if g.dtype == _F32 else g.to(_F32).mul_(scale)
-        m, v = opt["m"][name], opt["v"][name]
-        m32 = m if m.dtype == _F32 else m.to(_F32)
-        v32 = v if v.dtype == _F32 else v.to(_F32)
-        m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        delta = torch.sqrt(v32 / c2).add_(cfg.eps)
-        delta = torch.div(m32 / c1, delta)
-        if _decay_mask(name):
-            delta.add_(cfg.weight_decay * p.to(_F32))
-        delta.mul_(lr)
-        if p.dtype == _F32:
-            p.sub_(delta)
-        else:
-            p.copy_(p.to(_F32) - delta)
-        if m32 is not m:
-            m.copy_(m32)
-            v.copy_(v32)
+        adamw_leaf(name, p, scaled(grads[name], scale), opt["m"][name],
+                   opt["v"][name], cfg, consts)
     return params, opt, gnorm

@@ -1,5 +1,7 @@
 """``repro_torch.models.loss.chunked_cross_entropy`` against the JAX
-package's on the same numpy-seeded hidden states, head and labels: chunks
+package's on the same numpy-seeded hidden states, head and labels (the
+port's sum over its count of valid labels, at least 1, against the
+reference's mean): chunks
 of the default 512 and of 8, lengths the chunk divides and odd ones (the
 single-shot fallback), labels of -1 masked, all labels masked; the value
 within 1e-6 relative and its gradients within 1e-5 of their largest
@@ -32,9 +34,11 @@ def test_chunked_cross_entropy_matches_jax(s, chunk, masked):
         lambda h, w: jce(h, w, jnp.asarray(labels), chunk=chunk),
         argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(w))
     th, tw = (torch.from_numpy(x).requires_grad_() for x in (hidden, w))
-    got = chunked_cross_entropy(th, tw, torch.from_numpy(labels),
-                                chunk=chunk)
-    assert got.dtype == torch.float32
+    tot, cnt = chunked_cross_entropy(th, tw, torch.from_numpy(labels),
+                                     chunk=chunk)
+    assert tot.dtype == torch.float32 and cnt.dtype == torch.int32
+    assert cnt.item() == int((labels >= 0).sum())
+    got = tot / max(cnt.item(), 1)
     if masked == 1.0:
         assert got.item() == float(want) == 0.0
         return

@@ -2,7 +2,9 @@
 package's ``models/layers/moe.py``, on the same numpy-seeded f32 weights
 and inputs:
 
-  · ``apply_moe`` (output and balance loss) on the reduced arctic-480b
+  · the layer's output and balance loss (``moe_layer`` and
+    ``balance_loss``) against the reference's ``apply_moe`` on the reduced
+    arctic-480b
     (4 experts top-2, dense residual FFN) and on a reduced config with a
     shared expert and top-8 of 16 experts, at capacity factors 1.25 (some
     tokens dropped, asserted) and 8.0 (none dropped), rtol/atol 1e-5;
@@ -11,7 +13,7 @@ and inputs:
   · ties: with a zero router every probability is equal, and the experts
     chosen are ``jax.lax.top_k``'s (the lower ids), where ``torch.topk``
     chooses others;
-  · the gradients of ``apply_moe`` (input, router, experts, FFNs) against
+  · the gradients of output and loss (input, router, experts, FFNs) against
     ``jax.grad``, within 1e-4 of each leaf's largest magnitude."""
 import dataclasses
 
@@ -28,6 +30,13 @@ from repro_torch.configs import get_reduced
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = 1e-4
+
+
+def apply_moe(p, x, cfg):
+    """The port's layer as the reference's ``apply_moe``: (y, aux)."""
+    y, stats = PM.moe_layer(p, x, cfg=cfg)
+    return y, PM.balance_loss(stats, x.shape[0] * x.shape[1],
+                              cfg.moe.n_experts)
 SHAPE = (2, 24)                        # batch, sequence: 48 tokens
 
 
@@ -101,7 +110,7 @@ def test_apply_moe_matches_jax(case, cf):
     pc, jc, p, x = setup(case, cf)
     share = kept_share(pc, p, x)
     assert (share < 1.0) if cf == 1.25 else (share == 1.0), share
-    y, aux = PM.apply_moe(p, torch.from_numpy(x), cfg=pc)
+    y, aux = apply_moe(p, torch.from_numpy(x), pc)
     jy, jaux = JM.apply_moe(to_jax(p), jnp.asarray(x), cfg=jc)
     assert y.shape == SHAPE + (pc.d_model,) and y.dtype == torch.float32
     close(y, jy)
@@ -154,7 +163,7 @@ def test_capacity_matches_jax():
 @pytest.mark.parametrize("case", ["arctic", "shared8"])
 def test_tied_router_takes_the_lower_experts(case):
     """A zero router gives every expert the same probability: the port
-    routes as jax.lax.top_k does (experts 0..k-1), and apply_moe's output
+    routes as jax.lax.top_k does (experts 0..k-1), and the layer's output
     matches the reference's."""
     pc, jc, p, x = setup(case, 1.25)
     p["router"] = torch.zeros_like(p["router"])
@@ -164,7 +173,7 @@ def test_tied_router_takes_the_lower_experts(case):
     _, jidx = jax.lax.top_k(jnp.asarray(probs.numpy()), k)
     assert np.array_equal(idx.numpy(), np.asarray(jidx))
     assert (idx == torch.arange(k)).all()
-    y, aux = PM.apply_moe(p, torch.from_numpy(x), cfg=pc)
+    y, aux = apply_moe(p, torch.from_numpy(x), pc)
     jy, jaux = JM.apply_moe(to_jax(p), jnp.asarray(x), cfg=jc)
     close(y, jy)
     close(aux, jaux, dict(rtol=1e-6, atol=0))
@@ -196,7 +205,7 @@ def test_apply_moe_grads_match_jax(case):
     leaves = jax.tree_util.tree_map(
         lambda t: t.clone().requires_grad_(True), p)
     xt = torch.from_numpy(x).requires_grad_(True)
-    y, aux = PM.apply_moe(leaves, xt, cfg=pc)
+    y, aux = apply_moe(leaves, xt, pc)
     (torch.sum(y * torch.from_numpy(r)) + aux).backward()
     got = [("x", xt.grad)] + [
         (jax.tree_util.keystr(path), t.grad) for path, t in
