@@ -379,6 +379,7 @@ FLASH_F64_TOL = 5e-6             # the kernel against f64 at full width
 WKV_OPS_PER_ELEMENT = 5
 WKV_TOL = 1e-4                   # tests/test_kernels.py's wkv6 tolerance
 WKV_FULL_SHAPE = (8, 512, 32, 64)        # (B, S, H, hs) of phase d's prefill
+WKV_TP_SHAPE = (4, 512, 16, 64)          # a model position's in phase z
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 32
 CONSISTENCY_TOL = 1e-3           # of the largest logit
@@ -399,8 +400,10 @@ DENSE_REPEATS = 2                # timing windows of phase h
 # 7 query heads, which the MoE path (phase o) launches the kernel at
 FLASH_ARCTIC_SHAPE = (8, 512, 56, 8, 128)
 # phases f, k and z: qwen2-vl-2b's attention on one position's rows of the
-# sharded step (B, S, H, KV, hd), a GQA group of 6
+# sharded step (B, S, H, KV, hd), a GQA group of 6: on the (4, 1) mesh,
+# and on the (2, 2) mesh's model positions (half the heads each)
 FLASH_QWEN_VL_SHAPE = (2, 512, 12, 2, 128)
+FLASH_QWEN_VL_TP_SHAPE = (4, 512, 6, 1, 128)
 # phase f: Whisper's shapes ((B, Sq, H, KV, hd), Sk), non-causal, where
 # whisper-base launches the kernel (phases w and x): the encoder's
 # self-attention over its 1,500 frames (a ragged last tile: 1500 = 23 x 64
@@ -480,12 +483,18 @@ SHARD_Y_MESH = (2, 1)
 SHARD_Y_ARCHS = ("arctic-480b", "deepseek-v3-671b", "jamba-v0.1-52b")
 # phase z: qwen2-vl-2b (arXiv:2409.12191) whole, 28 layers at its published
 # widths (1.54 B f32 parameters, a ~25 GB train state), trained by the
-# sharded step on a (4, 1) ('data', 'model') mesh repeating this card: 2
+# sharded step on ('data', 'model') meshes repeating this card: (4, 1), 2
 # rows of 512 tokens per position, so K3' runs at FLASH_QWEN_VL_SHAPE, a
-# GQA group of 6 query heads
+# GQA group of 6 query heads; and (2, 2), 4 rows per data position, each
+# model position on half the heads, so K3' runs at FLASH_QWEN_VL_TP_SHAPE
 SHARD_ARCH = "qwen2-vl-2b"
-SHARD_MESH = (4, 1)
+SHARD_MESHES = ((4, 1), (2, 2))
 SHARD_BATCH, SHARD_SEQ = 8, 512
+# phase z: rwkv6-1.6b at its published widths and 2 layers (phase x's
+# depth for a gradient held to a limit), 4 x 512 tokens, on a (1, 2) mesh:
+# the embedding split over d_model and K2 on half the heads, at
+# WKV_TP_SHAPE; (arch, layers, batch, meshes)
+SHARD_RWKV = ("rwkv6-1.6b", 2, 4, ((1, 2),))
 MOE_TRAIN_METRIC_TOL = 1e-5
 MOE_TRAIN_GRAD_TOL = 1e-4
 MOE_TRAIN_PARAM_TOL = 1e-3
@@ -723,7 +732,9 @@ def phase_wkv6(torch, W):
     # a log decay of about -20 and of about -1e-6 on every token
     cases += [((2, s, 4, hs), s == 37, decay) for decay in ("strong", "weak")
               for hs in (16, 32, 64) for s in (37, 512)]
-    # last, the shape the main path launches it at, which is also timed
+    # a model position's in phase z; last, the shape the main path
+    # launches it at, which is also timed
+    cases.append((WKV_TP_SHAPE, True, "random"))
     cases.append((WKV_FULL_SHAPE, True, "random"))
     for shape, zero_state, decay in cases:
         args = wkv_case(rng, torch, *shape, zero_state, decay)
@@ -1084,6 +1095,7 @@ def phase_flash(torch, FA):
     # timed beside the plain version and SDPA
     arctic = _flash_timed_case(torch, FA, gen, FLASH_ARCTIC_SHAPE)
     qwen_vl = _flash_timed_case(torch, FA, gen, FLASH_QWEN_VL_SHAPE)
+    qwen_vl_tp = _flash_timed_case(torch, FA, gen, FLASH_QWEN_VL_TP_SHAPE)
     full = _flash_timed_case(torch, FA, gen, FLASH_FULL_SHAPE)
     # Whisper's (phases w and x): the encoder's self-attention over its
     # 1,500 frames and the decoder's cross attention, both non-causal;
@@ -1106,12 +1118,13 @@ def phase_flash(torch, FA):
         wide["causal_refused"] = False
     except ValueError:
         wide["causal_refused"] = True
-    for r in (arctic, qwen_vl, full, *whisper.values(), wide):
+    for r in (arctic, qwen_vl, qwen_vl_tp, full, *whisper.values(), wide):
         max_err = max(max_err, r["max_abs_err"])
         worst = max(worst, r["worst"])
         n_cases += 1
     return {**full, "cases": n_cases, "max_abs_err": max_err,
             "worst": worst, "arctic": arctic, "qwen_vl": qwen_vl,
+            "qwen_vl_tp": qwen_vl_tp,
             "whisper": whisper, "wide": wide}
 
 
@@ -1230,6 +1243,7 @@ def phase_backward(torch, W, FA):
     wkv_cases += [(2, 100, 4, 64, "strong", True),
                   (2, 37, 4, 32, "strong", False),
                   (2, 64, 4, 16, "weak", True),
+                  (*WKV_TP_SHAPE, "random", False),
                   (*WKV_FULL_SHAPE, "random", False)]
     for b, s, h, hs, decay, with_ds in wkv_cases:
         args = wkv_case(rng, torch, b, s, h, hs, True, decay)
@@ -1290,7 +1304,9 @@ def phase_backward(torch, W, FA):
     (eb, es, eh, ekv, ehd), _ = WHISPER_FLASH_CASES["encoder"]
     wb, wsq, wh, wkv, whd, wsk = FLASH_WIDE_CASE
     qb, qs, qh, qkv, qhd = FLASH_QWEN_VL_SHAPE
-    flash_cases = [(qb, qs, qs, qh, qkv, qhd), (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
+    tb, ts, th, tkv, thd = FLASH_QWEN_VL_TP_SHAPE
+    flash_cases = [(qb, qs, qs, qh, qkv, qhd), (tb, ts, ts, th, tkv, thd),
+                   (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
                    (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
                    (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
                    (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_),
@@ -2111,18 +2127,22 @@ def jitter_constants(torch, model, seed, std=0.1):
                                          device=p.device, dtype=p.dtype))
 
 
-def phase_shard_train(torch, FA, devices=None):
-    """qwen2-vl-2b whole, trained by the sharded step (train/train_step.py)
-    on a SHARD_MESH ('data', 'model') mesh of ``devices`` (by default every
-    position on cuda:0), SHARD_BATCH x SHARD_SEQ tokens a step:
-    TRAIN_STEPS sharded steps, the same steps sharded again (bit for bit),
-    one more profiled, then TRAIN_STEPS unsharded steps on cuda:0 from the
-    same seed and one more profiled; each run from weights drawn on cuda:0
-    from seed 0 (its constant leaves jittered, ``jitter_constants``), one
-    state at a time, the first run's initial parameters and final state
-    kept on the card for the comparisons.  Per run: step walls, K3'
-    forward launches and backward calls per step, and its peak memory on
-    each card over what was held there before it began."""
+def phase_shard_train(torch, FA, devices=None, *, W=None, arch=SHARD_ARCH,
+                      n_layers=None, batch=SHARD_BATCH, meshes=SHARD_MESHES):
+    """``arch`` (cut to ``n_layers`` if given) trained by the sharded step
+    (train/train_step.py) on each ('data', 'model') mesh of ``meshes``,
+    its positions on ``devices`` (by default every position on cuda:0),
+    batch x SHARD_SEQ tokens a step: per mesh TRAIN_STEPS sharded steps,
+    the same steps sharded again (bit for bit), one more profiled; then
+    TRAIN_STEPS unsharded steps on cuda:0 from the same seed, one more
+    profiled, which every mesh's steps are held against.  Each run from
+    weights drawn on cuda:0 from seed 0 (its constant leaves jittered,
+    ``jitter_constants``), one state at a time, each mesh's final state
+    and the initial parameters kept on the card for the comparisons.  Per
+    run: step walls, the forward launches and backward calls of the
+    attention kernels (wkv6 with ``W`` for RWKV) per step, and its peak
+    memory on each card over what was held there before it began."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import ShapeSpec, get_config
@@ -2132,20 +2152,33 @@ def phase_shard_train(torch, FA, devices=None):
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import OptConfig
 
-    cfg = get_config(SHARD_ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    rwkv = cfg.family == "ssm"
     dev = torch.device("cuda:0")
-    if devices is None:
-        devices = [dev] * int(np.prod(SHARD_MESH))
-    cards = sorted({torch.device(d).index or 0 for d in devices} | {0})
+    cards = sorted({torch.device(d).index or 0 for d in devices or []}
+                   | {0})
     opt_cfg = OptConfig(**TRAIN_OPT)
-    shape = ShapeSpec("z", SHARD_SEQ, SHARD_BATCH, "train")
-    ctx = make_ctx(make_train_mesh(SHARD_MESH, devices=devices))
-    fwd, bwd = FA.flash_attention, FA.flash_attention_bwd
-    out = {"cfg": cfg, "positions": ctx.dp_size, "calls": flash_calls(cfg),
-           "cards": cards}
-    snap = init = None
-    for name, kw in (("sharded", {"ctx": ctx}), ("again", {"ctx": ctx}),
-                     ("unsharded", {})):
+    shape = ShapeSpec("z", SHARD_SEQ, batch, "train")
+    fwd, bwd = ((W.wkv6, W.wkv6_bwd) if rwkv
+                else (FA.flash_attention, FA.flash_attention_bwd))
+    kernel_names = (("wkv6_kernel", "wkv6_bwd") if rwkv
+                    else ("flash_kernel", "flash_bwd"))
+    out = {"cfg": cfg, "batch": batch, "calls": cfg.n_layers if rwkv
+           else flash_calls(cfg), "cards": cards, "meshes": {},
+           "kernels": "wkv6" if rwkv else "flash_attention", "runs": {}}
+    plan = []
+    for mesh in meshes:
+        n = int(np.prod(mesh))
+        ctx = make_ctx(make_train_mesh(
+            mesh, devices=list(devices)[:n] if devices else [dev] * n))
+        out["meshes"][mesh] = {"positions": n, "rows": batch // ctx.dp_size}
+        plan += [((mesh, "sharded"), {"ctx": ctx}),
+                 ((mesh, "again"), {"ctx": ctx})]
+    plan.append(((None, "unsharded"), {}))
+    snaps, init = {}, None
+    for (mesh, name), kw in plan:
         gc.collect()
         held = {}
         for i in cards:
@@ -2159,12 +2192,11 @@ def phase_shard_train(torch, FA, devices=None):
         if init is None:
             init = {n: t.detach().clone()
                     for n, t in model.state_dict().items()}
+        n_params = sum(p.numel() for p in model.parameters())
         state = TS.init_train_state(model, cfg, opt_cfg, **kw)
         del model
         sync_cards(torch)
-        run = {"init_s": time.perf_counter() - t0,
-               "n_params": sum(p.numel()
-                               for p in state["params"].parameters())}
+        run = {"init_s": time.perf_counter() - t0, "n_params": n_params}
         step_fn = TS.make_train_step(cfg, opt_cfg, **kw)
         run["rows"] = train_steps(torch, step_fn, state, cfg, shape, dev,
                                   fwd, bwd, 0, TRAIN_STEPS)
@@ -2172,31 +2204,34 @@ def phase_shard_train(torch, FA, devices=None):
                        for i in cards]
         plain = TS.plain_state(state)
         if name == "sharded":
-            snap = {key: t.clone() for key, t in _state_tensors(plain)}
+            snaps[mesh] = {key: t.clone() for key, t in _state_tensors(plain)}
         elif name == "again":
             run["differ"] = [f"{k}:{n}" for (k, n), t in
                              _state_tensors(plain)
-                             if not torch.equal(t, snap[k, n])]
+                             if not torch.equal(t, snaps[mesh][k, n])]
             # the unsharded run needs the parameters only
-            snap = {key: t for key, t in snap.items() if key[0] == "p"}
+            snaps[mesh] = {key: t for key, t in snaps[mesh].items()
+                           if key[0] == "p"}
         else:
             params = plain["params"].state_dict()
-            run["params"] = max(
-                float((t.detach() - snap["p", n]).abs().max()
-                      / snap["p", n].abs().max().clamp(min=1e-30))
-                for n, t in params.items())
-            # each leaf's change: sharded against unsharded, in L2 over the
-            # unsharded change (0 where neither moved, inf where only the
-            # sharded one did)
-            update = {}
-            for n, t in params.items():
-                moved = float((t.detach() - init[n]).norm())
-                apart = float((t.detach() - snap["p", n]).norm())
-                update[n] = (apart / moved if moved else
-                             0.0 if not apart else float("inf"))
-            run["update"] = update
             run["still"] = sorted(n for n, t in params.items()
                                   if torch.equal(t.detach(), init[n]))
+            for m, snap in snaps.items():
+                r = out["meshes"][m]
+                r["params"] = max(
+                    float((t.detach() - snap["p", n]).abs().max()
+                          / snap["p", n].abs().max().clamp(min=1e-30))
+                    for n, t in params.items())
+                # each leaf's change: sharded against unsharded, in L2 over
+                # the unsharded change (0 where neither moved, inf where
+                # only the sharded one did)
+                update = {}
+                for n, t in params.items():
+                    moved = float((t.detach() - init[n]).norm())
+                    apart = float((t.detach() - snap["p", n]).norm())
+                    update[n] = (apart / moved if moved else
+                                 0.0 if not apart else float("inf"))
+                r["update"] = update
         if name != "sharded":
             # where the time goes: one more step under the profiler
             b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED,
@@ -2209,107 +2244,122 @@ def phase_shard_train(torch, FA, devices=None):
                 "wall": wall, "busy": sum(us for _, us in events) / 1e6,
                 "n": len(events),
                 "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
-                "fwd_us": sum(us for ev, us in events if "flash_kernel" in ev),
-                "bwd_us": sum(us for ev, us in events if "flash_bwd" in ev)}
-        out[name] = run
+                "fwd_us": sum(us for ev, us in events
+                              if kernel_names[0] in ev),
+                "bwd_us": sum(us for ev, us in events
+                              if kernel_names[1] in ev)}
+        out["runs"][mesh, name] = run
         del state, step_fn, plain
-    del snap, init
+    del snaps, init
     gc.collect()
     torch.cuda.empty_cache()
-    rows, flat = out["sharded"]["rows"], out["unsharded"]["rows"]
-    out["vs_unsharded"] = {k: max(abs(r[k] - c[k]) / (abs(c[k]) or 1.0)
-                                  for r, c in zip(rows, flat))
-                           for k in ("loss", "ce", "aux", "grad_norm")}
-    out["metrics_equal"] = all(
-        {k: r[k] for k in ("loss", "ce", "aux", "grad_norm")}
-        == {k: a[k] for k in ("loss", "ce", "aux", "grad_norm")}
-        for r, a in zip(rows, out["again"]["rows"]))
+    flat = out["runs"][None, "unsharded"]["rows"]
+    keys = ("loss", "ce", "aux", "grad_norm")
+    for mesh, r in out["meshes"].items():
+        rows = out["runs"][mesh, "sharded"]["rows"]
+        again = out["runs"][mesh, "again"]["rows"]
+        r["vs_unsharded"] = {k: max(abs(a[k] - c[k]) / (abs(c[k]) or 1.0)
+                                    for a, c in zip(rows, flat))
+                             for k in keys}
+        r["metrics_equal"] = all({k: a[k] for k in keys} ==
+                                 {k: c[k] for k in keys}
+                                 for a, c in zip(rows, again))
     return out
 
 
 def report_shard_train(zr, card, where):
-    """Print phase z's lines for ``zr`` (``phase_shard_train``) on a mesh
-    described by ``where``, and hold it: finite metrics, K3' launches per
-    step, two sharded runs bit-identical, and the sharded run against the
+    """Print the lines of ``zr`` (``phase_shard_train``) on meshes of
+    ``where``, and hold it: finite metrics, the kernels' launches per step
+    (a forward and its recompute on every position), each mesh's two
+    sharded runs bit-identical, and each mesh's sharded run against the
     unsharded one within MOE_TRAIN_METRIC_TOL / MOE_TRAIN_GRAD_TOL /
     MOE_TRAIN_PARAM_TOL and every leaf's change within SHARD_UPDATE_TOL,
     no leaf left where it started."""
-    c, calls, npos = zr["cfg"], zr["calls"], zr["positions"]
-    for name in ("sharded", "again", "unsharded"):
-        run = zr[name]
+    c, calls, batch = zr["cfg"], zr["calls"], zr["batch"]
+    tag = f"[z shard train] {c.name}"
+    what = ("" if c.family == "ssm" else
+            f", {c.n_heads} q / {c.n_kv_heads} KV heads of "
+            f"{c.resolved_head_dim}")
+    for (mesh, name), run in zr["runs"].items():
         walls = [r["wall"] for r in run["rows"]]
         step_s = float(np.median(walls[1:]))
         peaks = {i: round(x / 2**30, 3)
                  for i, x in zip(zr["cards"], run["peak"])}
-        on = (f"{SHARD_MESH} ('data', 'model') mesh of {where}, "
-              f"{SHARD_BATCH // npos} rows per position"
-              if name != "unsharded" else "cuda:0, no mesh")
-        print(f"[z shard train] {SHARD_ARCH} whole ({c.n_layers} layers, "
-              f"d_model {c.d_model}, {c.n_heads} q / {c.n_kv_heads} KV heads "
-              f"of {c.resolved_head_dim}, d_ff {c.d_ff}, vocab "
-              f"{c.vocab_size}; {run['n_params']} f32 parameters, init "
-              f"{run['init_s']:.2f} s), {name} run, {on}, batch "
-              f"{SHARD_BATCH} x {SHARD_SEQ}, AdamW {TRAIN_OPT}, "
+        on = ("cuda:0, no mesh" if mesh is None else
+              f"{mesh} ('data', 'model') mesh of {where}, "
+              f"{zr['meshes'][mesh]['rows']} rows per data position")
+        print(f"{tag} ({c.n_layers} layers, d_model {c.d_model}{what}, "
+              f"d_ff {c.d_ff}, vocab {c.vocab_size}; {run['n_params']} f32 "
+              f"parameters, init {run['init_s']:.2f} s), {name} run, {on}, "
+              f"batch {batch} x {SHARD_SEQ}, AdamW {TRAIN_OPT}, "
               f"deterministic kernels, on {card}: step {step_s:.3f} s "
               f"(median of steps 1-{TRAIN_STEPS - 1}: "
               f"{', '.join(f'{x:.3f}' for x in walls[1:])}; step 0 "
-              f"{walls[0]:.3f} s) = {SHARD_BATCH * SHARD_SEQ / step_s:.1f} "
+              f"{walls[0]:.3f} s) = {batch * SHARD_SEQ / step_s:.1f} "
               f"tokens/s; peak device memory GiB by card {peaks} over "
-              f"what the run found held; "
-              f"per step flash_attention forward launches "
-              f"{[r['fwd'] for r in run['rows']]}, backward calls "
+              f"what the run found held; per step {zr['kernels']} forward "
+              f"launches {[r['fwd'] for r in run['rows']]}, backward calls "
               f"{[r['bwd'] for r in run['rows']]}; loss "
               f"{[round(r['loss'], 6) for r in run['rows']]}, grad_norm "
               f"{[round(r['grad_norm'], 6) for r in run['rows']]}",
               flush=True)
-    for name, what in (("again", "sharded"), ("unsharded", "unsharded")):
-        p = zr[name]["profile"]
-        print(f"[z shard train] {SHARD_ARCH}: profile of one {what} step: "
-              f"wall {p['wall']:.3f} s, device busy {p['busy']:.4f} s (idle "
-              f"share {1 - p['busy'] / p['wall']:.4f}), {p['n']} device "
-              f"activities, flash_attention forward {p['fwd_us'] / 1e3:.3f} "
+        if "profile" not in run:
+            continue
+        p = run["profile"]
+        print(f"{tag}: profile of one {name} step ({on}): wall "
+              f"{p['wall']:.3f} s, device busy {p['busy']:.4f} s (idle share "
+              f"{1 - p['busy'] / p['wall']:.4f}), {p['n']} device "
+              f"activities, {zr['kernels']} forward {p['fwd_us'] / 1e3:.3f} "
               f"ms, backward {p['bwd_us'] / 1e3:.3f} ms (together "
               f"{(p['fwd_us'] + p['bwd_us']) / 1e6 / p['wall']:.2%} of the "
               f"step's wall); top: " + "; ".join(
                   f"{n[:50]} {us / 1e3:.2f} ms" for n, us in p["top"]),
               flush=True)
-    v, un = zr["vs_unsharded"], zr["unsharded"]
-    upd = sorted(un["update"].items(), key=lambda kv: -kv[1])
-    print(f"[z shard train] {SHARD_ARCH}: the sharded run again: state "
-          f"bit-identical: {not zr['again']['differ']} "
-          f"({len(zr['again']['differ'])} tensors differ), metrics equal: "
-          f"{zr['metrics_equal']}; sharded against unsharded: worst "
-          f"relative difference loss {v['loss']:.2e}, ce {v['ce']:.2e}, aux "
-          f"{v['aux']:.2e} (limit {MOE_TRAIN_METRIC_TOL}), grad_norm "
-          f"{v['grad_norm']:.2e} (limit {MOE_TRAIN_GRAD_TOL}); parameters "
-          f"after {TRAIN_STEPS} steps {un['params']:.2e} of a leaf's largest "
-          f"magnitude (limit {MOE_TRAIN_PARAM_TOL}); each leaf's change in "
-          f"L2 over the unsharded change: worst {upd[0][1]:.2e} "
-          f"({upd[0][0]}), median {upd[len(upd) // 2][1]:.2e}, next "
-          + ", ".join(f"{n} {x:.2e}" for n, x in upd[1:4])
-          + f" (limit {SHARD_UPDATE_TOL}); leaves the unsharded steps left "
-          f"where they started: {un['still']}", flush=True)
-    for name in ("sharded", "again", "unsharded"):
-        n = calls * (npos if name != "unsharded" else 1)
-        for r in zr[name]["rows"]:
-            check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
-                  f"{SHARD_ARCH} {name} step {r['step']}: not finite")
-            check(r["fwd"] == 2 * n and r["bwd"] == n,
-                  f"{SHARD_ARCH} {name} step {r['step']}: {r['fwd']} "
-                  f"forward launches and {r['bwd']} backward calls; {n} a "
-                  "forward")
-    check(not zr["again"]["differ"] and zr["metrics_equal"],
-          f"{SHARD_ARCH}: two sharded runs differ in "
-          f"{zr['again']['differ'][:5]}")
-    check(max(v["loss"], v["ce"], v["aux"]) <= MOE_TRAIN_METRIC_TOL
-          and v["grad_norm"] <= MOE_TRAIN_GRAD_TOL
-          and un["params"] <= MOE_TRAIN_PARAM_TOL,
-          f"{SHARD_ARCH}: the sharded step departs from the unsharded one "
-          f"({v}, parameters {un['params']})")
-    check(upd[0][1] <= SHARD_UPDATE_TOL and not un["still"],
-          f"{SHARD_ARCH}: the sharded steps changed the parameters otherwise "
-          f"than the unsharded ones ({upd[:3]}), or these left "
-          f"{un['still'][:5]} unchanged")
+    un = zr["runs"][None, "unsharded"]
+    for mesh, r in zr["meshes"].items():
+        v, again = r["vs_unsharded"], zr["runs"][mesh, "again"]
+        upd = sorted(r["update"].items(), key=lambda kv: -kv[1])
+        print(f"{tag} on {mesh}: the sharded run again: state bit-identical: "
+              f"{not again['differ']} ({len(again['differ'])} tensors "
+              f"differ), metrics equal: {r['metrics_equal']}; sharded "
+              f"against unsharded: worst relative difference loss "
+              f"{v['loss']:.2e}, ce {v['ce']:.2e}, aux {v['aux']:.2e} (limit "
+              f"{MOE_TRAIN_METRIC_TOL}), grad_norm {v['grad_norm']:.2e} "
+              f"(limit {MOE_TRAIN_GRAD_TOL}); parameters after {TRAIN_STEPS} "
+              f"steps {r['params']:.2e} of a leaf's largest magnitude (limit "
+              f"{MOE_TRAIN_PARAM_TOL}); each leaf's change in L2 over the "
+              f"unsharded change: worst {upd[0][1]:.2e} ({upd[0][0]}), "
+              f"median {upd[len(upd) // 2][1]:.2e}, next "
+              + ", ".join(f"{n} {x:.2e}" for n, x in upd[1:4])
+              + f" (limit {SHARD_UPDATE_TOL}); leaves the unsharded steps "
+              f"left where they started: {un['still']}", flush=True)
+        for name in ("sharded", "again"):
+            n = calls * r["positions"]
+            for x in zr["runs"][mesh, name]["rows"]:
+                check(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]),
+                      f"{c.name} {mesh} {name} step {x['step']}: not finite")
+                check(x["fwd"] == 2 * n and x["bwd"] == n,
+                      f"{c.name} {mesh} {name} step {x['step']}: "
+                      f"{x['fwd']} forward launches and {x['bwd']} backward "
+                      f"calls; {n} a forward")
+        check(not again["differ"] and r["metrics_equal"],
+              f"{c.name} on {mesh}: two sharded runs differ in "
+              f"{again['differ'][:5]}")
+        check(max(v["loss"], v["ce"], v["aux"]) <= MOE_TRAIN_METRIC_TOL
+              and v["grad_norm"] <= MOE_TRAIN_GRAD_TOL
+              and r["params"] <= MOE_TRAIN_PARAM_TOL,
+              f"{c.name} on {mesh}: the sharded step departs from the "
+              f"unsharded one ({v}, parameters {r['params']})")
+        check(upd[0][1] <= SHARD_UPDATE_TOL and not un["still"],
+              f"{c.name} on {mesh}: the sharded steps changed the parameters "
+              f"otherwise than the unsharded ones ({upd[:3]}), or these left "
+              f"{un['still'][:5]} unchanged")
+    for x in un["rows"]:
+        check(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+              and x["fwd"] == 2 * calls and x["bwd"] == calls,
+              f"{c.name} unsharded step {x['step']}: not finite, or "
+              f"{x['fwd']} forward launches and {x['bwd']} backward calls; "
+              f"{calls} a forward")
 
 
 def _state_bytes(args):
@@ -3944,7 +3994,8 @@ def main():
     print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases "
           f"{wr['by_kind']} (hs 16/32/64 x S 1/64/512 x zero/random state; "
           f"ragged S 37 and 100; log decay ~-20 and ~-1e-6 at S 37 and "
-          f"512; and {WKV_FULL_SHAPE}), every output finite; max abs err "
+          f"512; a model position's {WKV_TP_SHAPE} and {WKV_FULL_SHAPE}), "
+          f"every output finite; max abs err "
           f"{wr['max_abs_err']:.3e}, worst err/tol {wr['worst']:.4f} at "
           f"rtol = atol = {WKV_TOL}; against the recurrence in f64 on "
           f"every case, worst err/tol {wr['worst_f64']:.4f}); at "
@@ -4062,7 +4113,8 @@ def main():
           f"cores at {ALU_OPS_PER_S / 1e12:.0f} TFLOP/s "
           f"{ar['cuda_core_ms'] * 1e3:.2f} us)", flush=True)
     for model, a_ in (("arctic-480b", ar["arctic"]),
-                      ("qwen2-vl-2b", ar["qwen_vl"])):
+                      ("qwen2-vl-2b", ar["qwen_vl"]),
+                      ("qwen2-vl-2b on a model position", ar["qwen_vl_tp"])):
         sh = a_["shape"]
         print(f"[f flash] at {model}'s shape {tuple(sh)} (GQA group of "
               f"{sh[2] // sh[3]}), causal, f32: flash_attention vs "
@@ -4113,7 +4165,7 @@ def main():
     check(ar["worst"] <= 1.0, f"flash_attention disagrees with "
           f"attention_plain (max abs err {ar['max_abs_err']}, worst err/tol "
           f"{ar['worst']})")
-    for a_ in (ar["arctic"], ar["qwen_vl"]):
+    for a_ in (ar["arctic"], ar["qwen_vl"], ar["qwen_vl_tp"]):
         check(a_["vs_f64"]["flash_attention"][0] <= FLASH_F64_TOL,
               f"flash_attention at {tuple(a_['shape'])} disagrees with "
               f"attention in f64 beyond {FLASH_F64_TOL} (max abs err "
@@ -4492,7 +4544,8 @@ def main():
     print(f"[k backward] wkv6_bwd == autograd of wkv6_plain in f64 on "
           f"{kr_['wkv_cases']} cases (hs 16/32/64 x S 64 and 100, a final-"
           f"state adjoint at S 100, log decay ~-20 at chunk 1 (S 100 and "
-          f"37), ~-1e-6, and {WKV_FULL_SHAPE}): max abs err "
+          f"37), ~-1e-6, a model position's {WKV_TP_SHAPE} and "
+          f"{WKV_FULL_SHAPE}): max abs err "
           f"{kr_['wkv_err']:.3e}, worst "
           f"{kr_['wkv_worst']:.3e} of each gradient's largest magnitude "
           f"(limit {BWD_TOL}); at {WKV_FULL_SHAPE}: kernel "
@@ -4511,7 +4564,8 @@ def main():
           f"Sq < Sk 70/130 and 33/72, hd 16/32/64/128, the ragged key "
           f"block 64-99 on the causal diagonal, causal and full, "
           f"{FLASH_FULL_SHAPE}, qwen2-vl-2b's {FLASH_QWEN_VL_SHAPE} (GQA "
-          f"12/2), Whisper's encoder "
+          f"12/2) and {FLASH_QWEN_VL_TP_SHAPE} (a model position's, 6/1), "
+          f"Whisper's encoder "
           f"{WHISPER_FLASH_CASES['encoder'][0]} and, non-causal only, "
           f"{FLASH_WIDE_CASE[1]} queries over {FLASH_WIDE_CASE[5]} keys): "
           f"max abs err {kr_['flash_err']:.3e}, worst "
@@ -4755,11 +4809,16 @@ def main():
               f"port's ({v})")
 
     marks.append(("z", time.perf_counter()))
-    # z. qwen2-vl-2b whole, trained by the sharded step on a (4, 1) mesh
-    # repeating this card, against the unsharded step
+    # z. qwen2-vl-2b whole, trained by the sharded step on a (4, 1) and a
+    # (2, 2) mesh repeating this card, and rwkv6-1.6b at full width on a
+    # (1, 2) mesh, each against the unsharded step
     t_z = time.perf_counter()
     zr = phase_shard_train(torch, FA)
     report_shard_train(zr, card, "cuda:0")
+    r_arch, r_layers, r_batch, r_meshes = SHARD_RWKV
+    zw = phase_shard_train(torch, FA, W=W, arch=r_arch, n_layers=r_layers,
+                           batch=r_batch, meshes=r_meshes)
+    report_shard_train(zw, card, "cuda:0")
     print(f"[z shard train] phase z {time.perf_counter() - t_z:.1f} s",
           flush=True)
 
@@ -4818,6 +4877,12 @@ def main():
         # the training path's (phase x, rwkv6-1.6b): the forward and the
         # recompute of every step
         "train_launches": sum(r["fwd"] for r in train[RWKV_ARCH]["rows"]),
+        # the sharded training path's (phase z: rwkv6-1.6b's widths at 2
+        # layers on a (1, 2) mesh), each model position on half the heads
+        "shard_train_launches": {str(m): sum(
+            r["fwd"] for r in zw["runs"][m, "sharded"]["rows"])
+            for m in zw["meshes"]},
+        "tp_shape": list(WKV_TP_SHAPE),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4839,10 +4904,16 @@ def main():
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
         # the sharded training path's (phase z: qwen2-vl-2b on a (4, 1)
-        # mesh of the card): the forward and the recompute of every
-        # position's rows, every step; at its shape, a GQA group of 6
-        "shard_train_launches": sum(r["fwd"] for r in zr["sharded"]["rows"]),
+        # and a (2, 2) mesh of the card): the forward and the recompute of
+        # every position's rows, every step of the first sharded run; at
+        # each mesh's per-position shape, a GQA group of 6
+        "shard_train_launches": {str(m): sum(
+            r["fwd"] for r in zr["runs"][m, "sharded"]["rows"])
+            for m in zr["meshes"]},
         "qwen_vl_shape": {k: ar["qwen_vl"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
+        "qwen_vl_tp_shape": {k: ar["qwen_vl_tp"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
         # the hybrid path's (phase p: one generate of jamba's period) and
@@ -4863,6 +4934,9 @@ def main():
         # a backward of the port's own: the TPU kernel it differentiates
         "replaces": "src/repro/kernels/wkv6/kernel.py:65",
         "launches": sum(r["bwd"] for r in train[RWKV_ARCH]["rows"]),
+        "shard_train_launches": {str(m): sum(
+            r["bwd"] for r in zw["runs"][m, "sharded"]["rows"])
+            for m in zw["meshes"]},
         "launches_per_call": 1,
         "max_abs_err": kr_["wkv_err"], "ms": kr_["wkv_ms"],
         "plain_ms": kr_["wkv_plain_ms"], "bound_ms": kr_["wkv_bound_ms"],
@@ -4879,7 +4953,9 @@ def main():
         "whisper_train_launches": sum(
             r["bwd"] for r in train[WHISPER_ARCH]["rows"]),
         # the sharded training path's (phase z)
-        "shard_train_launches": sum(r["bwd"] for r in zr["sharded"]["rows"]),
+        "shard_train_launches": {str(m): sum(
+            r["bwd"] for r in zr["runs"][m, "sharded"]["rows"])
+            for m in zr["meshes"]},
         # at Whisper's encoder shape, non-causal (phase k)
         "whisper_encoder": {"shape": list(WHISPER_FLASH_CASES["encoder"][0]),
                             **{k: fe[k] for k in ("ms", "bound_ms",

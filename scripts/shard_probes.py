@@ -4,15 +4,17 @@ a machine with four CUDA cards:
 
     PYTHONPATH=src python3 scripts/shard_probes.py
 
-qwen2-vl-2b whole, batch 8 x 512, trained by the sharded step on a (4, 1)
-('data', 'model') mesh of cuda:0..3 (``phase_shard_train(devices=...)``:
-the sharded steps twice, then the unsharded steps on cuda:0), then the
-same on a mesh that repeats cuda:0.  Prints the cards' names and power
-limits first, then each run's lines as phase z prints them (step walls,
+qwen2-vl-2b whole, batch 8 x 512, trained by the sharded step on phase
+z's (4, 1) and (2, 2) ('data', 'model') meshes of cuda:0..3
+(``phase_shard_train(devices=...)``: on each mesh the sharded steps
+twice, then the unsharded steps on cuda:0; on (2, 2) each card stores
+only its blocks of the parameters the model axis splits), then the same
+on meshes that repeat cuda:0.  Prints the cards' names and power limits
+first, then each run's lines as phase z prints them (step walls,
 tokens/s, each card's peak memory, K3' launches, the profiled steps'
 idle share) and holds each mesh as phase z holds it.  Holds the
-four-card metrics to the repeated card's within phase z's limits and
-exits non-zero if a check fails.
+four-card metrics to the repeated card's, mesh by mesh, within phase z's
+limits and exits non-zero if a check fails.
 """
 import os
 import subprocess
@@ -52,15 +54,16 @@ def main():
         print(f"[shard probe] {name}", flush=True)
         runs[name] = CS.phase_shard_train(torch, FA, devices=devices)
         CS.report_shard_train(runs[name], card, name)
-    four, one = (runs[n]["sharded"]["rows"] for n in runs)
-    rel = {k: max(abs(a[k] - b[k]) / (abs(b[k]) or 1.0)
-                  for a, b in zip(four, one))
-           for k in ("loss", "ce", "grad_norm")}
-    print(f"[shard probe] four cards against one card repeated: worst "
-          f"relative difference {rel}", flush=True)
-    CS.check(max(rel["loss"], rel["ce"]) <= CS.MOE_TRAIN_METRIC_TOL
-             and rel["grad_norm"] <= CS.MOE_TRAIN_GRAD_TOL,
-             f"four cards depart from one card repeated: {rel}")
+    for mesh in CS.SHARD_MESHES:
+        four, one = (runs[n]["runs"][mesh, "sharded"]["rows"] for n in runs)
+        rel = {k: max(abs(a[k] - b[k]) / (abs(b[k]) or 1.0)
+                      for a, b in zip(four, one))
+               for k in ("loss", "ce", "grad_norm")}
+        print(f"[shard probe] {mesh}: four cards against one card "
+              f"repeated: worst relative difference {rel}", flush=True)
+        CS.check(max(rel["loss"], rel["ce"]) <= CS.MOE_TRAIN_METRIC_TOL
+                 and rel["grad_norm"] <= CS.MOE_TRAIN_GRAD_TOL,
+                 f"{mesh}: four cards depart from one card repeated: {rel}")
     return 0
 
 

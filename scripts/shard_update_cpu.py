@@ -6,11 +6,11 @@ chip_smoke.py's SHARD_UPDATE_TOL.  Run from the repository root:
 
 Reduced qwen2-vl-2b, batch 8 x SEQ, weights drawn from seed 0 with their
 constant leaves jittered as phase z draws them, AdamW at phase z's
-TRAIN_OPT, 3 steps on a (4, 1) ('data', 'model') mesh of the CPU and 3
-unsharded.  Prints, for the worst leaves and the median one, each leaf's
-change sharded against unsharded in L2 over the unsharded change, and
-the leaf's gradient RMS (from AdamW's second moment) over the whole
-model's.
+TRAIN_OPT, 3 steps on each of phase z's ('data', 'model') meshes of the
+CPU ((4, 1) and (2, 2)) and 3 unsharded.  Prints, per mesh, for the worst
+leaves and the median one, each leaf's change sharded against unsharded
+in L2 over the unsharded change, and the leaf's gradient RMS (from
+AdamW's second moment) over the whole model's.
 """
 import argparse
 import os
@@ -49,29 +49,30 @@ def main():
     ap.add_argument("--seq", type=int, nargs="+", default=[64, 256])
     args = ap.parse_args()
     cfg = get_reduced(CS.SHARD_ARCH)
-    ctx = make_ctx(make_train_mesh(CS.SHARD_MESH, device="cpu"))
     for seq in args.seq:
         shape = ShapeSpec("u", seq, CS.SHARD_BATCH, "train")
         init, flat = run(cfg, shape, {})
-        _, sharded = run(cfg, shape, {"ctx": ctx})
         p_un = flat["params"].state_dict()
-        p_sh = sharded["params"].state_dict()
         v = flat["opt"]["v"]
         rms_all = (sum(float(t.sum()) for t in v.values())
                    / sum(t.numel() for t in v.values())) ** 0.5
-        rows = []
-        for n, t in p_un.items():
-            moved = float((t - init[n]).norm())
-            apart = float((p_sh[n] - t).norm())
-            rows.append((apart / moved if moved else 0.0, n,
-                         float(v[n].mean()) ** 0.5 / rms_all))
-        rows.sort(reverse=True)
-        print(f"reduced {CS.SHARD_ARCH}, batch {CS.SHARD_BATCH} x {seq}, "
-              f"mesh {CS.SHARD_MESH}, AdamW {CS.TRAIN_OPT}: each leaf's "
-              f"change in L2 over the unsharded change (gradient RMS over "
-              f"the model's):")
-        for x, n, g in rows[:4] + [rows[len(rows) // 2]]:
-            print(f"  {n:32s} {x:.2e} ({g:.2f})")
+        for mesh in CS.SHARD_MESHES:
+            ctx = make_ctx(make_train_mesh(mesh, device="cpu"))
+            _, sharded = run(cfg, shape, {"ctx": ctx})
+            p_sh = sharded["params"].state_dict()
+            rows = []
+            for n, t in p_un.items():
+                moved = float((t - init[n]).norm())
+                apart = float((p_sh[n] - t).norm())
+                rows.append((apart / moved if moved else 0.0, n,
+                             float(v[n].mean()) ** 0.5 / rms_all))
+            rows.sort(reverse=True)
+            print(f"reduced {CS.SHARD_ARCH}, batch {CS.SHARD_BATCH} x {seq}, "
+                  f"mesh {mesh}, AdamW {CS.TRAIN_OPT}: each leaf's change "
+                  f"in L2 over the unsharded change (gradient RMS over the "
+                  f"model's):")
+            for x, n, g in rows[:4] + [rows[len(rows) // 2]]:
+                print(f"  {n:32s} {x:.2e} ({g:.2f})")
 
 
 if __name__ == "__main__":

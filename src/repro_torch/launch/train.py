@@ -21,9 +21,12 @@ either package: the file format is the reference's) and replays the
 deterministic pipeline, so the run continues bit for bit.  Weights are
 random, from a ``torch.Generator`` seeded with 0 (not the reference's
 draws).  ``--mesh single|multi`` refuses: the sharded step's data axes
-are ported (``launch/mesh.py:make_ctx``, ``make_train_step(cfg, opt,
-ctx)``), but both production meshes have a model axis of 16, and tensor
-parallelism waits for slice 11d.5b.  Prints the reference's lines.
+and the model axis that splits heads (the ``rwkv`` and ``std:dense``
+families) are ported (``launch/mesh.py:make_ctx``, ``make_train_step(cfg,
+opt, ctx)``), but both production meshes have a model axis of 16, and
+the rest of it (sequence-parallel attention for heads that 16 does not
+divide, Mamba, MLA, expert placement, Whisper) waits for slice 11d.5b.2.
+Prints the reference's lines.
 """
 from __future__ import annotations
 
@@ -59,9 +62,12 @@ def main(argv=None):
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the production mesh has a model axis of "
-            "16; the sharded step's data axes are ported (make_ctx and "
-            "make_train_step(cfg, opt_cfg, ctx) on a mesh whose model axis "
-            "is 1), and tensor parallelism waits for ROADMAP slice 11d.5b")
+            "16; the sharded step's data axes are ported, and so is the "
+            "model axis where it splits heads (the rwkv and std:dense "
+            "families: make_ctx and make_train_step(cfg, opt_cfg, ctx)), "
+            "but the production configs include the families that wait for "
+            "ROADMAP slice 11d.5b.2 (sequence-parallel attention, Mamba, "
+            "MLA, expert placement, Whisper)")
     # deterministic cuBLAS, read when CUDA starts (train_step.deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 

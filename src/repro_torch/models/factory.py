@@ -26,7 +26,10 @@ frontend's output, beside ``tokens``; ``generate`` takes token prompts
 only, as the reference's does.  The reference's ``ctx`` is not an
 argument here: the sharded train step (train/train_step.py) runs
 ``loss_parts`` on each data position's rows and combines them with
-``combine_parts``, which is what ``train_loss`` does for one batch.
+``combine_parts``, which is what ``train_loss`` does for one batch;
+under a model axis it passes ``loss_parts`` the data position's
+``lm.ModelGroup`` in place of a model, whose blocks compute the
+embedding, the layers and the vocab-parallel cross-entropy.
 Serving
 (``prefill``, ``decode``, ``generate``) records no autograd graph, so a
 model made trainable serves as a frozen one does.
@@ -95,7 +98,8 @@ def loss_parts(model, batch: dict, *, cfg: ArchConfig,
     over the valid labels (0-d f32), "count": their number (0-d int32),
     "stats": the MoE layers' router statistics in layer order (each (2,
     E) f32; none without MoE), "tokens": the batch's B·S}.  The MoE
-    layers split the tokens into ``moe_groups`` groups."""
+    layers split the tokens into ``moe_groups`` groups.  ``model`` may be
+    an ``lm.ModelGroup`` (the sharded step's model axis)."""
     if cfg.enc_dec:
         enc_out = whisper.encode(model, batch["frames"], cfg=cfg)
         hidden = whisper.decoder_train(model, batch["tokens"], enc_out,

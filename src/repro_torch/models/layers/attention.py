@@ -19,8 +19,11 @@ sends the full-sequence attention through the same wrapper, non-causal
 (the kernel on the card); ``cross_attention_decode`` attends one step's
 query over the cached encoder keys, plain.  ``head_axes`` gives the
 sharding rules (``parallelism/sharding.py``) the tensor-parallel entries
-of the (H, hd) dims; the layer itself runs whole on each device, since
-tensor parallelism and sequence-parallel attention are slice 11d.5b.
+of the (H, hd) dims.  Where they split the heads, the sharded train step
+runs ``attention_heads`` once per model position on its block of heads
+and sums the positions' outputs (``parallelism/tensor.py:row_sum``); a
+head_dim split (sequence-parallel attention, ``seqpar_attention`` in the
+reference) is ROADMAP slice 11d.5b.2.
 """
 from __future__ import annotations
 
@@ -218,6 +221,43 @@ def attention_train(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
     if return_kv:
         return out, (k, v)   # roped, pre-repeat: the KV-cache entries
     return out
+
+
+def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int):
+    """The output partial (B,S,d) of one model position's query heads
+    ``head0 .. head0 + H'``: ``p`` holds its blocks (wq (d,H',hd), wo
+    (H',hd,d), bq) and either its block of the KV heads (wk/wv (d,K',hd),
+    bk/bv) or all of them, replicated (the reference's ``kv_h_ax`` None:
+    the KV heads do not divide the model axis).  Replicated KV heads are
+    projected only where the position's heads need them (query head i
+    reads KV head i // (H / KV)), and repeated to one per query head where
+    the position's heads straddle two groups unevenly.  The core
+    attention is the flash-attention wrapper, as in ``attention_train``;
+    the position's rows of wo make the partial, which ``row_sum`` adds
+    up."""
+    hl = p["wq"].shape[1]
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    rep = None
+    if hl < cfg.n_heads and p["wk"].shape[1] == cfg.n_kv_heads:
+        group = cfg.n_heads // cfg.n_kv_heads
+        ids = [(head0 + i) // group for i in range(hl)]
+        lo, hi = ids[0], ids[-1] + 1
+        kv = {n: t[:, lo:hi] if n[0] == "w" else t[lo:hi]
+              for n, t in kv.items()}
+        n_kv = hi - lo
+        if hl % n_kv or any(ids[i] - lo != i // (hl // n_kv)
+                            for i in range(hl)):
+            rep = [i - lo for i in ids]
+    q = _rope(_project_q(p, x), positions, cfg)
+    k, v = _project_kv(kv, x)
+    k = _rope(k, positions, cfg)
+    if rep is not None:
+        # each KV head expanded to its run of query heads (a sum in the
+        # backward, no scatter)
+        runs = [(c, rep.count(c)) for c in dict.fromkeys(rep)]
+        k, v = (torch.cat([t[:, :, c:c + 1].expand(-1, -1, n, -1)
+                           for c, n in runs], dim=2) for t in (k, v))
+    return _out(p, flash_attention(q, k, v, causal=True))
 
 
 def gqa_decode_attention(q, k_cache, v_cache, kv_valid):

@@ -15,7 +15,9 @@ class ParamDict(nn.Module):
     """A module whose parameters are a dict of tensors, named as the
     leaves of the JAX package's parameter tree; a nested dict (an MLA
     norm, an MoE layer's shared FFN) becomes a child ``ParamDict`` of its
-    key.  Serving needs no gradients, so they are frozen;
+    key; a leaf that is already a parameter is registered as it is (the
+    sharded train step's replicas share the placed tensors).  Serving
+    needs no gradients, so the others are frozen;
     ``train.train_step.init_train_state`` makes a model trainable with
     ``model.requires_grad_(True)``."""
 
@@ -24,6 +26,8 @@ class ParamDict(nn.Module):
         for name, t in params.items():
             if isinstance(t, dict):
                 self.add_module(name, ParamDict(t))
+            elif isinstance(t, nn.Parameter):     # shared, as it is
+                self.register_parameter(name, t)
             else:
                 self.register_parameter(
                     name, nn.Parameter(t, requires_grad=False))

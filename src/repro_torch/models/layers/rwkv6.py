@@ -10,6 +10,14 @@ functions over parameter dicts with the JAX names, and ``TimeMix`` /
 wkv6 wrapper: the CUDA kernel on the card, its plain chunked version on
 the CPU.  The one-token decode step runs the plain ``wkv_chunked`` with
 chunk 1, as the reference does.
+
+Each mix is split where the model axis splits it: the leaves it
+replicates run once (``time_mix_inputs``, ``channel_mix_inputs``,
+``channel_mix_gate``), and the column- and row-split ones on a block of
+heads or d_ff columns (``time_mix_heads``, ``channel_mix_kv``), whose
+partial outputs the sharded train step adds up; the channel mix's sum
+comes before its receptance gate, as the reference's ``kv`` is whole
+before it is gated.
 """
 from __future__ import annotations
 
@@ -25,8 +33,10 @@ from repro_torch.models.layers.common import ParamDict, group_norm_heads
 N_MIX = 5  # w, k, v, r, g
 
 __all__ = ["N_MIX", "ChannelMix", "TimeMix", "channel_mix",
+           "channel_mix_gate", "channel_mix_inputs", "channel_mix_kv",
            "init_channel_mix", "init_time_mix", "time_mix_decode",
-           "time_mix_train", "wkv_chunked", "wkv_step"]
+           "time_mix_heads", "time_mix_inputs", "time_mix_train",
+           "wkv_chunked", "wkv_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +101,63 @@ def _ddlerp(p, x, x_prev):
     return tuple(x + dx * mix[..., i, :] for i in range(N_MIX))
 
 
+def _decay_lora(p, xw):
+    """The decay LoRA's first product, through ``wd1`` (replicated over
+    the model axis)."""
+    return torch.tanh(xw @ p["wd1"].to(xw.dtype))
+
+
+def _decay_of(p, dw):
+    """The log decay (≤ 0) of the columns of ``w0`` and ``wd2`` in ``p``,
+    from ``_decay_lora``'s ``dw``."""
+    return -torch.exp(p["w0"].float() + dw.float() @ p["wd2"].float())
+
+
 def _decay_log(p, xw):
-    w_raw = p["w0"].float() + \
-        torch.tanh(xw @ p["wd1"].to(xw.dtype)).float() @ p["wd2"].float()
-    return -torch.exp(w_raw)          # log decay ≤ 0
+    return _decay_of(p, _decay_lora(p, xw))
+
+
+def time_mix_inputs(p, x, shift_state):
+    """The time mix's leaves that the model axis replicates (the token
+    shift's ``mu_x``, ``mu``, ``mix_w1``, ``mix_w2`` and the decay LoRA's
+    ``wd1``), applied once: (tanh(xw @ wd1), xk, xv, xr, xg)."""
+    x_prev = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, x_prev)
+    return _decay_lora(p, xw), xk, xv, xr, xg
+
+
+def time_mix_heads(p, inputs, wkv_state, *, cfg: ArchConfig,
+                   chunk: int = 64):
+    """The time mix of the heads whose columns ``p`` holds (``wr``,
+    ``wk``, ``wv``, ``wg`` and ``wd2`` by columns, ``w0``, ``u`` and the
+    group norm's by heads, ``wo`` by rows), on ``time_mix_inputs``'s
+    ``inputs``: (out (B,S,d), the new wkv state of these heads).  ``out``
+    is whole for the whole block and a partial for a model position's,
+    which ``parallelism/tensor.py:row_sum`` adds up."""
+    dw, xk, xv, xr, xg = inputs
+    hs = cfg.rwkv.head_size
+    b, s, _ = xk.shape
+    dl = p["wr"].shape[1]
+    if dl % hs:
+        raise ValueError(f"a block of {dl} time-mix columns is not whole "
+                         f"heads of {hs}")
+    h = dl // hs
+    assert s % min(chunk, s) == 0, (s, chunk)
+    wlog = _decay_of(p, dw).reshape(b, s, h, hs)
+    r = (xr @ p["wr"].to(xr.dtype)).reshape(b, s, h, hs)
+    k = (xk @ p["wk"].to(xk.dtype)).reshape(b, s, h, hs)
+    v = (xv @ p["wv"].to(xv.dtype)).reshape(b, s, h, hs)
+    g = F.silu(xg @ p["wg"].to(xg.dtype))
+    u = p["u"].float().reshape(h, hs)
+    if s > 1:
+        o, wkv_state = wkv6(r.float(), k.float(), v.float(), wlog, u,
+                            wkv_state.float(), chunk=chunk)
+    else:
+        o, wkv_state = wkv_chunked(r, k, v, wlog, u, wkv_state, chunk=chunk)
+    o = group_norm_heads(o.to(xk.dtype), p["gn_scale"].reshape(h, hs),
+                         p["gn_bias"].reshape(h, hs))
+    o = o.reshape(b, s, dl) * g
+    return o @ p["wo"].to(xk.dtype), wkv_state
 
 
 def time_mix_train(p, x, shift_state, wkv_state, *, cfg: ArchConfig,
@@ -103,27 +166,9 @@ def time_mix_train(p, x, shift_state, wkv_state, *, cfg: ArchConfig,
     recurrence goes through the wkv6 wrapper (the CUDA kernel on CUDA
     tensors, which it launches or raises); one token takes the plain
     chunked form."""
-    hs = cfg.rwkv.head_size
-    b, s, d = x.shape
-    h = d // hs
-    assert s % min(chunk, s) == 0, (s, chunk)
-    x_prev = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
-    xw, xk, xv, xr, xg = _ddlerp(p, x, x_prev)
-    wlog = _decay_log(p, xw).reshape(b, s, h, hs)
-    r = (xr @ p["wr"].to(x.dtype)).reshape(b, s, h, hs)
-    k = (xk @ p["wk"].to(x.dtype)).reshape(b, s, h, hs)
-    v = (xv @ p["wv"].to(x.dtype)).reshape(b, s, h, hs)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
-    u = p["u"].float().reshape(h, hs)
-    if s > 1:
-        o, wkv_state = wkv6(r.float(), k.float(), v.float(), wlog, u,
-                            wkv_state.float(), chunk=chunk)
-    else:
-        o, wkv_state = wkv_chunked(r, k, v, wlog, u, wkv_state, chunk=chunk)
-    o = group_norm_heads(o.to(x.dtype), p["gn_scale"].reshape(h, hs),
-                         p["gn_bias"].reshape(h, hs))
-    o = o.reshape(b, s, d) * g
-    return o @ p["wo"].to(x.dtype), x[:, -1], wkv_state
+    out, wkv_state = time_mix_heads(p, time_mix_inputs(p, x, shift_state),
+                                    wkv_state, cfg=cfg, chunk=chunk)
+    return out, x[:, -1], wkv_state
 
 
 def time_mix_decode(p, x, shift_state, wkv_state, *, cfg: ArchConfig):
@@ -131,16 +176,30 @@ def time_mix_decode(p, x, shift_state, wkv_state, *, cfg: ArchConfig):
     return time_mix_train(p, x, shift_state, wkv_state, cfg=cfg, chunk=1)
 
 
-def channel_mix(p, x, shift_state, *, cfg: ArchConfig):
-    """x: (B,S,d). Returns (out, new_shift)."""
+def channel_mix_inputs(p, x, shift_state):
+    """The channel mix's token shift (``mu_k``, ``mu_r``, replicated over
+    the model axis): (xk, xr)."""
     x_prev = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
     dx = x_prev - x
-    xk = x + dx * p["mu_k"].to(x.dtype)
-    xr = x + dx * p["mu_r"].to(x.dtype)
-    kk = torch.square(torch.relu(xk @ p["wk"].to(x.dtype)))
-    kv = kk @ p["wv"].to(x.dtype)
-    out = torch.sigmoid(xr @ p["wr"].to(x.dtype)) * kv
-    return out, x[:, -1]
+    return x + dx * p["mu_k"].to(x.dtype), x + dx * p["mu_r"].to(x.dtype)
+
+
+def channel_mix_kv(p, xk):
+    """relu(xk @ wk)² @ wv over the d_ff columns ``p`` holds: whole for
+    the whole block, a partial for a model position's."""
+    kk = torch.square(torch.relu(xk @ p["wk"].to(xk.dtype)))
+    return kk @ p["wv"].to(xk.dtype)
+
+
+def channel_mix_gate(p, xr, kv):
+    """The receptance gate on the whole ``kv``: sigmoid(xr @ wr) * kv."""
+    return torch.sigmoid(xr @ p["wr"].to(xr.dtype)) * kv
+
+
+def channel_mix(p, x, shift_state, *, cfg: ArchConfig):
+    """x: (B,S,d). Returns (out, new_shift)."""
+    xk, xr = channel_mix_inputs(p, x, shift_state)
+    return channel_mix_gate(p, xr, channel_mix_kv(p, xk)), x[:, -1]
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,10 @@ recomputed in the backward; it returns the MoE layers' router
 statistics layer by layer (``moe.moe_layer``), which the factory turns
 into the balance loss, summed over the layers as the reference's scan
 carries it, after the sharded step has summed them over its data
-positions.  Serving drops them, as the reference does.
+positions.  Under the sharded step's model axis ``forward_hidden`` takes
+a data position's ``ModelGroup`` (the ``rwkv`` and ``std:dense`` kinds):
+each block's model positions run on their blocks of the parameters
+inside one checkpoint of that block (``_GroupCheckpoint``).  Serving drops them, as the reference does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -35,6 +38,8 @@ unchanged, so a dense step copies every layer's KV cache
 (``attention_decode``, then the stack of the layers).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -50,6 +55,7 @@ from repro_torch.models.layers.common import (ParamDict, apply_norm,
                                               init_norm, nest_state_dict)
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
 from repro_torch.models.layers.rope import text_mrope_positions
+from repro_torch.parallelism.tensor import col_cat, fan_out, row_sum
 
 VOCAB_PAD = 32
 
@@ -219,11 +225,54 @@ def init_lm(draw, cfg: ArchConfig, dtype=torch.float32, device=None) -> LM:
     return LM(cfg, init_lm_tree(draw, cfg, dtype, device))
 
 
-def embed_tokens(model: LM, tokens):
-    return model.embed.emb[tokens.long()]
+class ModelGroup(NamedTuple):
+    """The model-axis group of one data position of the sharded train
+    step: ``blocks[j]`` is model position j's {parameter name: its block}
+    (``parallelism/sharding.py:param_blocks``), on ``devices[j]``.  The
+    activations between the layers live on ``devices[0]``."""
+    blocks: list
+    devices: list
+
+    @property
+    def tp(self) -> int:
+        return len(self.blocks)
+
+    def split(self, n: int) -> bool:
+        """Whether the model axis splits a dimension of n (the rules'
+        ``tp_if``)."""
+        return n % self.tp == 0
+
+    def layer(self, prefix: str) -> list:
+        """Each position's leaves under ``prefix`` ("groups.0.3."), by
+        their remaining names ("attn.wq")."""
+        n = len(prefix)
+        return [{k[n:]: t for k, t in bj.items() if k.startswith(prefix)}
+                for bj in self.blocks]
 
 
-def head_weight(model: LM, cfg: ArchConfig):
+def embed_tokens(model, tokens):
+    """The rows of ``emb`` for ``tokens``: of the whole table, or for a
+    ``ModelGroup`` each model position's d_model block of it (the rules'
+    (None, tp(d_model))), joined by ``col_cat``, on the group's first
+    device."""
+    if not isinstance(model, ModelGroup):
+        return model.embed.emb[tokens.long()]
+    ids = tokens.long()
+    embs = [bj["embed.emb"] for bj in model.blocks]
+    d_model = model.blocks[0]["final_norm.scale"].shape[0]
+    if embs[0].shape[1] == d_model:          # replicated: looked up once
+        return embs[0][ids]
+    return col_cat([e[ids.to(e.device)] for e in embs], model.devices)[0]
+
+
+def head_weight(model, cfg: ArchConfig):
+    """The head (d, V); for a ``ModelGroup`` whose model axis splits the
+    vocab (the rules' (None, tp(padded_vocab))), the list of its
+    positions' column blocks, which ``loss.chunked_cross_entropy`` takes
+    vocab-parallel."""
+    if isinstance(model, ModelGroup):        # untied (train_step checks)
+        ws = [bj["head.w"] for bj in model.blocks]
+        return ws if ws[0].shape[1] < cfg.padded_vocab(VOCAB_PAD) else ws[0]
     if cfg.tie_embeddings:
         return model.embed.emb.T
     return model.head.w
@@ -351,13 +400,139 @@ def _block_train(blk, x, *, cfg: ArchConfig, positions, moe_groups=1):
     return x + y, ()
 
 
-def forward_hidden(model: LM, embeds, *, cfg: ArchConfig, positions,
+def _split(group: ModelGroup, blocks: list, fn, *args):
+    """fn(block, *args) once per model position, each on its block and
+    its copy of ``args`` (``fan_out``), the partials added by
+    ``row_sum``: the column- and row-split leaves.  Returns the sum on
+    the first device."""
+    fanned = [fan_out(a, group.devices) for a in args]
+    parts = [fn(bj, *(f[j] for f in fanned)) for j, bj in enumerate(blocks)]
+    return row_sum(parts, group.devices)[0]
+
+
+def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
+                       cfg: ArchConfig, positions):
+    """One block of the training forward over the model-axis group of
+    one data position: ``blocks[j]`` is the layer's leaves at model
+    position j (``ModelGroup.layer``), ``x`` on the group's first device.
+    The leaves the model axis replicates (the norms, RWKV's token shift
+    and decay LoRA, its channel mix's receptance, an FFN whose d_ff it
+    does not divide) run once, on position 0's copy; the split ones run
+    once per position, their partials added in position order."""
+    nk, eps = cfg.norm, cfg.norm_eps
+    b0 = blocks[0]
+    if kind == "rwkv":
+        b, _, d = x.shape
+        hs = cfg.rwkv.head_size
+        zshift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        inputs = rwkv.time_mix_inputs(b0["tm"], apply_norm(
+            b0["ln1"], x, kind=nk, eps=eps), zshift)
+
+        def heads(bj, *inp):
+            h = bj["tm"]["wr"].shape[1] // hs
+            zstate = torch.zeros((b, h, hs, hs), dtype=torch.float32,
+                                 device=inp[0].device)
+            return rwkv.time_mix_heads(bj["tm"], inp, zstate, cfg=cfg)[0]
+
+        x = x + _split(group, blocks, heads, *inputs)
+        xk, xr = rwkv.channel_mix_inputs(b0["cm"], apply_norm(
+            b0["ln2"], x, kind=nk, eps=eps), zshift)
+        if group.split(cfg.d_ff):
+            kv = _split(group, blocks,
+                        lambda bj, a: rwkv.channel_mix_kv(bj["cm"], a), xk)
+        else:
+            kv = rwkv.channel_mix_kv(b0["cm"], xk)
+        return x + rwkv.channel_mix_gate(b0["cm"], xr, kv)
+    hl = b0["attn"]["wq"].shape[1]
+    hs = fan_out(apply_norm(b0["attn_norm"], x, kind=nk, eps=eps),
+                 group.devices)
+    parts = [attn.attention_heads(bj["attn"], h, cfg=cfg,
+                                  positions=positions.to(h.device),
+                                  head0=j * hl)
+             for j, (bj, h) in enumerate(zip(blocks, hs))]
+    x = x + row_sum(parts, group.devices)[0]
+    h = apply_norm(b0["mlp_norm"], x, kind=nk, eps=eps)
+    if group.split(cfg.d_ff):
+        y = _split(group, blocks,
+                   lambda bj, a: apply_ffn(bj["mlp"], a, act=cfg.act), h)
+    else:
+        y = apply_ffn(b0["mlp"], h, act=cfg.act)
+    return x + y
+
+
+class _GroupCheckpoint(torch.autograd.Function):
+    """One block of a ``ModelGroup``'s forward, checkpointed: ``fn(x,
+    blocks)`` runs without a graph, and the backward runs it again, once,
+    on the thread that receives the block's output gradient, then
+    differentiates that run.  (``torch.utils.checkpoint`` recomputes from
+    whichever autograd device thread first unpacks a saved tensor, and the
+    threads of two cards race there when one block spans them.)  The
+    layer's leaves come flat, ``keys[i]`` = (model position, name) of
+    ``tensors[i]``."""
+
+    @staticmethod
+    def forward(ctx, fn, keys, x, *tensors):
+        ctx.fn, ctx.keys = fn, keys
+        ctx.save_for_backward(x, *tensors)
+        with torch.no_grad():
+            return fn(x, _nested_blocks(keys, tensors))
+
+    @staticmethod
+    def backward(ctx, dout):
+        need = ctx.needs_input_grad[2:]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.fn(ins[0], _nested_blocks(ctx.keys, ins[1:]))
+        got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need)
+                                             if n], dout, allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+def _nested_blocks(keys, tensors) -> list:
+    """Each model position's leaves, nested by name ({"attn": {"wq":
+    ...}}), from ``_GroupCheckpoint``'s flat keys and tensors."""
+    flat = [{} for _ in range(keys[-1][0] + 1)]
+    for (j, name), t in zip(keys, tensors):
+        flat[j][name] = t
+    return [nest_state_dict(f) for f in flat]
+
+
+def _forward_hidden_group(group: ModelGroup, embeds, *, cfg: ArchConfig,
+                          positions):
+    """``forward_hidden`` of a ``ModelGroup``: every block's model
+    positions inside one checkpoint of that block (``_GroupCheckpoint``),
+    so its recompute in the backward repeats the same sums in the same
+    order."""
+    x = embeds
+    for gi, (kind, count) in enumerate(group_plan(cfg)):
+        for i in range(count):
+            flat = group.layer(f"groups.{gi}.{i}.")
+            keys = [(j, n) for j, f in enumerate(flat) for n in f]
+
+            def block(x, blocks, kind=kind):
+                return _block_train_group(kind, group, blocks, x, cfg=cfg,
+                                          positions=positions)
+
+            x = _GroupCheckpoint.apply(block, keys, x,
+                                       *(flat[j][n] for j, n in keys))
+    final = group.layer("final_norm.")[0]
+    return apply_norm(nest_state_dict(final), x, kind=cfg.norm,
+                      eps=cfg.norm_eps), []
+
+
+def forward_hidden(model, embeds, *, cfg: ArchConfig, positions,
                    moe_groups: int = 1):
     """embeds: (B,S,d) -> (hidden (B,S,d) after the final norm, stats).
     Each block is checkpointed (its forward runs again in the backward);
     stats lists the MoE layers' router statistics in layer order, each
     (2, E) f32 (``moe.moe_layer``, its tokens in ``moe_groups`` groups),
-    and is empty without MoE."""
+    and is empty without MoE.  ``model`` is an ``LM``, or the
+    ``ModelGroup`` of one data position of the sharded train step (the
+    ``rwkv`` and ``std:dense`` kinds, heads split by the model axis)."""
+    if isinstance(model, ModelGroup):
+        return _forward_hidden_group(model, embeds, cfg=cfg,
+                                     positions=positions)
     x = embeds
     stats = []
     for blocks in model.groups:

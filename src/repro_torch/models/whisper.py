@@ -108,7 +108,9 @@ class Whisper(nn.Module):
                 f"{cfg.n_enc_layers} and {cfg.n_layers}")
         self.cfg = cfg
         self.embed = ParamDict(tree["embed"])
-        self.pos_dec = nn.Parameter(tree["pos_dec"], requires_grad=False)
+        pos = tree["pos_dec"]
+        self.pos_dec = (pos if isinstance(pos, nn.Parameter)    # as ParamDict
+                        else nn.Parameter(pos, requires_grad=False))
         self.enc_blocks = nn.ModuleList(_Block(p) for p in tree["enc_blocks"])
         self.enc_norm = ParamDict(tree["enc_norm"])
         self.dec_blocks = nn.ModuleList(_Block(p) for p in tree["dec_blocks"])

@@ -25,18 +25,29 @@ reference's spec for the same leaf; ``leaf_layers`` names each layer's
 place in its stack.  ZeRO-1 may shard that layer axis: each layer is then
 held whole by the positions of one block.
 
-Placement (``shard_tree``, ``gather_tree``) covers the data axes: a leaf
-is split along its ('pod','data') entries into one block per mesh
-position, in the order of a JAX ``NamedSharding`` (row-major over the
-entry's axes).  A leaf, or a block, is stored once per distinct device:
-positions on the same device hold views of it, so a mesh that repeats one
-card holds one copy.  A model-axis entry of size > 1 raises
-NotImplementedError: tensor parallelism is ROADMAP slice 11d.5b.
+Placement (``shard_tree``, ``gather_tree``) covers every axis: a leaf is
+split along each dimension's entry into one block per mesh position, in
+the order of a JAX ``NamedSharding`` (row-major over the entry's axes,
+a tuple entry such as ('data', 'model') included); entries on two
+dimensions give their intersection (a ZeRO-1 moment's data axes beside
+its parameter's model axis).  A leaf, or a block, is stored once per
+distinct device: positions on the same device hold views of it, so a
+mesh that repeats one card holds one copy.
+
+Parameters are placed by ``place_params``: by the model-axis entries of
+their specs only (a data-axis entry, an MoE expert split, is not placed:
+expert placement is ROADMAP slice 11d.5b.2), each stored tensor a leaf of
+its own that autograd differentiates.  ``param_blocks`` then gives each
+position its block of every parameter, taken when it is called (inside
+the train step's forward): a view of the one stored tensor where the
+position's device holds the parameter whole, else that device's stored
+block.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.attention import head_axes
@@ -299,11 +310,6 @@ def _entry_block(entry, coords: dict, mesh) -> tuple[int, int]:
     k, nb = 0, 1
     for a in axes:
         size = mesh.shape[a]
-        if a not in DATA_AXES and size > 1:
-            raise NotImplementedError(
-                f"spec entry {entry!r} splits over the {a!r} axis of size "
-                f"{size}: tensor-parallel placement is ROADMAP slice 11d.5b;"
-                " this port places the data axes only")
         k, nb = k * size + coords[a], nb * size
     return k, nb
 
@@ -341,23 +347,54 @@ def index_of(block: tuple) -> tuple:
     return tuple(slice(a, b) for a, b in block)
 
 
+def _inside(block: tuple, outer: tuple):
+    """``block``'s index relative to ``outer``, which contains it, or None
+    where it does not."""
+    if any(a < oa or b > ob for (a, b), (oa, ob) in zip(block, outer)):
+        return None
+    return tuple(slice(a - oa, b - oa) for (a, b), (oa, _) in zip(block,
+                                                                  outer))
+
+
 class Shards:
     """A leaf placed on a mesh.  ``blocks[pos]`` is the tensor that mesh
-    position ``pos`` (row-major) holds, or None; ``stores[device]`` lists
-    the distinct (block, tensor) pairs that device holds, a block as
-    ((start, stop) per dim), each once; ``wholes[device]`` is the whole
-    leaf where that device holds every block, its blocks views of it."""
+    position ``pos`` (row-major) holds, or None, and ``where[pos]`` its
+    block ((start, stop) per dim); ``devices[pos]`` is that position's
+    device; ``stores[device]`` lists the distinct (block, tensor) pairs
+    that device holds, each once; ``wholes[device]`` is the whole leaf
+    where that device holds every block, its blocks views of it."""
 
-    def __init__(self, shape, spec, blocks, stores, wholes):
+    def __init__(self, shape, spec, blocks, where, devices, stores, wholes):
         self.shape, self.spec = tuple(shape), spec
-        self.blocks, self.stores, self.wholes = blocks, stores, wholes
+        self.blocks, self.where, self.devices = blocks, where, devices
+        self.stores, self.wholes = stores, wholes
+
+    def region(self, device, block: tuple):
+        """The stored tensor on ``device`` over ``block`` (a view), or None
+        where that device holds no stored tensor containing it."""
+        if device in self.wholes:
+            return self.wholes[device][index_of(block)]
+        for held, t in self.stores.get(device, ()):
+            idx = _inside(block, held)
+            if idx is not None:
+                return t[idx]
+        return None
 
 
-def _shard_leaf(x, spec, layer, mesh) -> Shards:
+def _shard_leaf(x, spec, layer, mesh, leaves: bool = False) -> Shards:
+    """``x`` placed by ``spec``.  With ``leaves`` each stored tensor is a
+    leaf that requires grad: ``x`` itself on its own device where that
+    device holds it whole, else a copy."""
     devs = list(mesh.devices.flat)
     where = [_block_of(spec, tuple(x.shape), layer, mesh, p)
              for p in range(len(devs))]
     distinct = {b for b in where if b is not None}
+    src = x.detach()
+
+    def copy(t, dev):
+        t = t.to(dev, copy=True)
+        return nn.Parameter(t) if leaves else t
+
     blocks, stores, wholes = [None] * len(devs), {}, {}
     for dev in dict.fromkeys(devs):
         held = list(dict.fromkeys(where[p] for p in range(len(devs))
@@ -365,16 +402,19 @@ def _shard_leaf(x, spec, layer, mesh) -> Shards:
         if not held:
             continue
         if len(held) == len(distinct):     # all of it: once, blocks as views
-            wholes[dev] = whole = x.detach().to(dev)
+            if leaves:
+                whole = x if x.device == dev else copy(src, dev)
+            else:
+                whole = src.to(dev)
+            wholes[dev] = whole
             stores[dev] = [(b, whole[index_of(b)]) for b in held]
         else:
-            stores[dev] = [(b, x.detach()[index_of(b)].to(dev, copy=True))
-                           for b in held]
+            stores[dev] = [(b, copy(src[index_of(b)], dev)) for b in held]
         views = dict(stores[dev])
         for p in range(len(devs)):
             if devs[p] == dev and where[p] is not None:
                 blocks[p] = views[where[p]]
-    return Shards(x.shape, spec, blocks, stores, wholes)
+    return Shards(x.shape, spec, blocks, where, devs, stores, wholes)
 
 
 def shard_tree(tree: dict, specs: dict, mesh) -> dict:
@@ -384,6 +424,52 @@ def shard_tree(tree: dict, specs: dict, mesh) -> dict:
             for n, x in tree.items()}
 
 
+def _model_axis_spec(spec: tuple) -> tuple:
+    """``spec`` with its data-axis entries dropped: what places a
+    parameter."""
+    def keep(entry):
+        if entry is None:
+            return None
+        axes = tuple(a for a in (entry if isinstance(entry, tuple)
+                                 else (entry,)) if a not in DATA_AXES)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return tuple(keep(e) for e in spec)
+
+
+def place_params(params: dict, specs: dict, mesh) -> dict:
+    """{name: Shards} of a model's {name: parameter} placed by the
+    model-axis entries of ``specs`` (its data-axis entries dropped).  A device stores
+    each parameter whose blocks it holds all of whole, once (the parameter
+    itself on the device it lives on), and otherwise only the blocks its
+    positions hold; every stored tensor is a leaf that requires grad.  A
+    parameter replicated over the model axis is whole on every device."""
+    layers = leaf_layers(params)
+    return {n: _shard_leaf(x, _model_axis_spec(specs[n]), layers[n], mesh,
+                           leaves=True)
+            for n, x in params.items()}
+
+
+def param_blocks(placed: dict) -> list:
+    """For each mesh position, {name: the block of that parameter it
+    holds}: a view of the stored tensor, taken now, where the position's
+    device holds the parameter whole (the tensor itself where the block is
+    all of it), else that device's stored block.  ``placed`` is
+    ``place_params``'s."""
+    n = len(next(iter(placed.values())).devices)
+    out = [{} for _ in range(n)]
+    for name, sh in placed.items():
+        for p, dev in enumerate(sh.devices):
+            if dev not in sh.wholes:
+                out[p][name] = sh.blocks[p]
+            elif all(a == 0 and b == d for (a, b), d in zip(sh.where[p],
+                                                           sh.shape)):
+                out[p][name] = sh.wholes[dev]
+            else:
+                out[p][name] = sh.wholes[dev][index_of(sh.where[p])]
+    return out
+
+
+@torch.no_grad()
 def gather_tree(shards: dict, specs: dict, mesh) -> dict:
     """{name: the whole tensor} on the mesh's first device: the stored
     tensor itself where that device holds all of a leaf (no copy), else

@@ -21,7 +21,9 @@ meshes of the CPU, every position on the one CPU:
   · a sharded checkpoint writes the unsharded state's bytes, and a
     restore into a sharded state then 3 steps equals 6 straight, bit for
     bit;
-  · refusals: a model axis of size 2, and ``launch/train.py --mesh``.
+  · refusals: a model axis of size 2 for the families slice 11d.5b.2
+    ports, and ``launch/train.py --mesh``.  (The model axis of the dense
+    and RWKV families is in test_torch_shard_tp.py.)
 """
 import json
 import os
@@ -185,9 +187,10 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.configs import ShapeSpec
     from repro_torch.data.pipeline import make_batch_np
 
-    arch, out, kw, shape, seed, n = json.loads(sys.argv[1])
+    arch, out, kw, shape, seed, n, mesh_shape = json.loads(sys.argv[1])
     cfg = get_reduced(arch)
-    mesh = Mesh(np.asarray(jax.devices()).reshape(4, 1), ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()).reshape(mesh_shape),
+                ("data", "model"))
     ctx = make_ctx(mesh)
     opt = OptConfig(**kw)
     params = jax.tree_util.tree_map(jnp.asarray, jitter_constant_leaves(
@@ -232,19 +235,22 @@ def ref_names(name: str) -> str:
     return "/".join(shd._ref_path(name)[0])
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "qwen2-vl-2b"])
-def test_matches_the_reference_sharded_step(arch, tmp_path):
+def check_against_reference(arch, mesh, tmp_path):
+    """The port's 2 steps of reduced ``arch`` on a CPU mesh of ``mesh``
+    (('data', 'model')) against the JAX package's sharded step on a host
+    mesh of that shape: metrics, parameters and each position's moment
+    block shapes."""
     cfg = get_reduced(arch)
     out = str(tmp_path / "ref.npz")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    arg = json.dumps([arch, out, KW, [4, 32], DATA_SEED, 2])
+    arg = json.dumps([arch, out, KW, [4, 32], DATA_SEED, 2, list(mesh)])
     proc = subprocess.run([sys.executable, "-c", SCRIPT, arg], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ref = json.loads(proc.stdout.strip().splitlines()[-1])
     want = dict(np.load(out))
-    rows, state = run(cfg, weights(cfg), cpu_ctx((4, 1)), SHAPE, 2)
+    rows, state = run(cfg, weights(cfg), cpu_ctx(mesh), SHAPE, 2)
     assert_rows_close(rows, ref["rows"], aux=cfg.moe is not None)
     if cfg.moe is not None:
         assert all(r["aux"] > 0 for r in ref["rows"])
@@ -280,6 +286,11 @@ def test_matches_the_reference_sharded_step(arch, tmp_path):
                                               ref["shards"][key])
 
 
+@pytest.mark.parametrize("arch", ["arctic-480b", "qwen2-vl-2b"])
+def test_matches_the_reference_sharded_step(arch, tmp_path):
+    check_against_reference(arch, (4, 1), tmp_path)
+
+
 # ---------------------------------------------------------------------------
 # placement, checkpoints, refusals
 # ---------------------------------------------------------------------------
@@ -307,31 +318,61 @@ def test_rows_follow_the_reference_order_and_repeat_no_storage():
     assert list(state["replicas"]) == [torch.device("cpu")]
 
 
-@pytest.mark.parametrize("arch", ["minitron-8b", "arctic-480b"])
-def test_distinct_devices_hold_their_blocks(arch):
-    """Two names of the CPU ("cpu", "cpu:0") stand for two devices: each
-    holds a replica of the model and its positions' moment blocks only;
-    gradients meet on the first, blocks are copied across, and the run
-    equals one on a single repeated device within the limits above."""
+@pytest.mark.parametrize("arch,shape", [
+    pytest.param("minitron-8b", (4, 1), id="minitron-8b"),
+    pytest.param("arctic-480b", (4, 1), id="arctic-480b"),
+    pytest.param("minitron-8b", (1, 2), id="minitron-8b-model-axis")])
+def test_distinct_devices_hold_their_blocks(arch, shape):
+    """Two names of the CPU ("cpu", "cpu:0") stand for two devices.  On a
+    (4, 1) mesh each holds a replica of the model and its positions'
+    moment blocks only; on a (1, 2) mesh each stores only its block of
+    each parameter the model axis splits (and of its moments), and the
+    whole of a replicated one.  Gradients meet on the first, blocks are
+    copied across, and the run equals one on a single repeated device
+    within the limits above."""
     cfg = get_reduced(arch)
     cpu0 = torch.device("cpu", 0)
-    ctx = make_ctx(make_train_mesh((4, 1), devices=["cpu", "cpu", cpu0,
-                                                    cpu0]))
-    want_rows, want = run(cfg, weights(cfg), cpu_ctx((4, 1)), SHAPE, 3)
+    n = shape[0] * shape[1]
+    devs = ["cpu"] * (n // 2) + [cpu0] * (n // 2)
+    if shape[1] > 1:
+        devs = ["cpu", cpu0]
+    ctx = make_ctx(make_train_mesh(shape, devices=devs))
+    want_rows, want = run(cfg, weights(cfg), cpu_ctx(shape), SHAPE, 3)
     rows, state = run(cfg, weights(cfg), ctx, SHAPE, 3)
-    assert list(state["replicas"]) == [torch.device("cpu"), cpu0]
     assert_rows_close(rows, want_rows, aux=cfg.moe is not None)
-    err, leaf = leaf_err(params_of(state), params_of(want))
+    got_params = TS.plain_state(state)["params"].state_dict()
+    err, leaf = leaf_err(got_params, params_of(want))
     assert err <= PARAM_TOL, (leaf, err)
-    other = state["replicas"][cpu0].state_dict()
-    for k, v in state["params"].state_dict().items():
-        assert torch.equal(v, other[k]) and \
-            v.data_ptr() != other[k].data_ptr(), k
+    placed = state["placed"]
+    if shape[1] == 1:
+        assert list(state["replicas"]) == [torch.device("cpu"), cpu0]
+        other = state["replicas"][cpu0].state_dict()
+        for k, v in state["params"].state_dict().items():
+            assert torch.equal(v, other[k]) and \
+                v.data_ptr() != other[k].data_ptr(), k
+    else:
+        assert state["params"] is None and not state["replicas"]
+        split = 0
+        for name, sh in placed.items():
+            ptrs = {t.data_ptr() for items in sh.stores.values()
+                    for _, t in items}
+            assert len(ptrs) == 2, name               # one store each
+            if "model" not in sh.spec:
+                assert all(dev in sh.wholes for dev in sh.stores), name
+                continue
+            split += 1
+            assert not sh.wholes, name
+            for p, dev in enumerate(ctx.mesh.devices.flat):
+                (blk, t), = sh.stores[dev]
+                assert blk == sh.where[p] and t is sh.blocks[p]
+                assert t.numel() * 2 == got_params[name].numel(), name
+                assert torch.equal(t, got_params[name][shd.index_of(blk)])
+        assert split > 0
     partial = 0                 # moments that no one device holds whole
     for name, sh in state["opt"]["m"].items():
         partial += any(dev not in sh.wholes for dev in sh.stores)
         for dev, items in sh.stores.items():
-            held = {sh.blocks[p].data_ptr() for p in range(4)
+            held = {sh.blocks[p].data_ptr() for p in range(n)
                     if ctx.mesh.devices.flat[p] == dev
                     and sh.blocks[p] is not None}
             assert {t.data_ptr() for _, t in items} == held, name
@@ -380,14 +421,25 @@ def test_sharded_checkpoint_is_the_unsharded_file_and_restarts(tmp_path):
 
 
 def test_a_model_axis_refuses():
-    cfg = get_reduced("minitron-8b")
+    """A model axis of 2 trains the dense and RWKV families
+    (test_torch_shard_tp.py); for the MoE layers, MLA, jamba's period,
+    Whisper and a head_dim split it raises, naming slice 11d.5b.2."""
     ctx = make_ctx(make_train_mesh((2, 2), device="cpu"))
     assert ctx.tp_size == 2
-    with pytest.raises(NotImplementedError, match="11d.5b"):
-        TS.make_train_step(cfg, OptConfig(), ctx)
-    with pytest.raises(NotImplementedError, match="11d.5b"):
-        TS.init_train_state(0, cfg, OptConfig(), device="cpu", ctx=ctx)
+    TS.make_train_step(get_reduced("minitron-8b"), OptConfig(), ctx)
+    for arch in ("arctic-480b", "jamba-v0.1-52b", "deepseek-v3-671b",
+                 "whisper-base"):
+        cfg = get_reduced(arch)
+        with pytest.raises(NotImplementedError, match="11d.5b.2"):
+            TS.make_train_step(cfg, OptConfig(), ctx)
+        with pytest.raises(NotImplementedError, match="11d.5b.2"):
+            TS.init_train_state(0, cfg, OptConfig(), device="cpu", ctx=ctx)
+    # 6 heads of 16 on a model axis of 4: the reference splits head_dim
+    with pytest.raises(NotImplementedError, match="head_dim.*11d.5b.2"):
+        TS.make_train_step(get_reduced("qwen2-vl-2b"), OptConfig(),
+                           make_ctx(make_train_mesh((1, 4), device="cpu")))
     # a sharded state and an unsharded step (or the reverse) do not mix
+    cfg = get_reduced("minitron-8b")
     ctx = cpu_ctx((2, 1))
     state = TS.init_train_state(0, cfg, OptConfig(), device="cpu", ctx=ctx)
     batch = to_device(make_batch_np(cfg, SHAPE, DATA_SEED, 0), "cpu")
@@ -401,5 +453,5 @@ def test_launcher_mesh_names_the_model_axis(mesh):
         train_launcher.main(["--arch", "minitron-8b", "--device", "cpu",
                              "--steps", "1", "--mesh", mesh])
     msg = str(err.value)
-    assert "data axes are ported" in msg and "11d.5b" in msg
-    assert "model axis of 16" in msg
+    assert "data axes are ported" in msg and "11d.5b.2" in msg
+    assert "model axis of 16" in msg and "splits heads" in msg

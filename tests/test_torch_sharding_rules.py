@@ -11,7 +11,8 @@ sizes only, no devices) at both production shapes, every config.
     of every size fit;
   · every cache spec at (128, 1024) and (1, 4096) likewise, at both
     production shapes;
-  · the production meshes, ``make_ctx`` and the placement's refusals.
+  · the production meshes, ``make_ctx``, and placement by model-axis
+    entries against JAX's ``NamedSharding`` blocks.
 """
 from dataclasses import dataclass
 from functools import lru_cache
@@ -211,13 +212,56 @@ def test_production_mesh_and_ctx():
     assert make_ctx(mesh).batch == ("pod", "data")
 
 
+PLACEMENT_SCRIPT = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+out = []
+for shape, spec, leaf in json.loads(sys.argv[1]):
+    mesh = Mesh(np.asarray(jax.devices()[:int(np.prod(shape))]).reshape(
+        shape), ("data", "model"))
+    spec = [tuple(e) if isinstance(e, list) else e for e in spec]
+    idx = NamedSharding(mesh, P(*spec)).devices_indices_map(tuple(leaf))
+    out.append([[[s.start or 0, leaf[i] if s.stop is None else s.stop]
+                 for i, s in enumerate(idx[d])] for d in mesh.devices.flat])
+print(json.dumps(out))
+"""
+
+
 def test_placement_refuses_a_model_axis():
-    mesh = make_train_mesh((1, 2), device="cpu")
-    ctx = make_ctx(mesh)
-    x = {"w": torch.zeros((4, 6))}
-    with pytest.raises(NotImplementedError, match="11d.5b"):
-        shd.shard_tree(x, {"w": (None, "model")}, mesh)
+    """Placement by model-axis entries (the name kept from when they
+    refused) gives each position the block that JAX's ``NamedSharding``
+    gives the same mesh position, in its order: a plain entry, a tuple
+    entry over both axes, and a data entry beside a model one (a ZeRO-1
+    moment's intersection); a replicated leaf is one copy, viewed."""
+    import json
+    import os
+    import subprocess
+    import sys
+    cases = [((1, 2), (None, "model"), (4, 6)),
+             ((2, 2), (None, "model"), (4, 6)),
+             ((2, 2), (("data", "model"), None), (8, 3)),
+             ((2, 2), ("data", "model"), (4, 6)),
+             ((1, 4), ("model", None, None), (8, 2, 3))]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", PLACEMENT_SCRIPT,
+                           json.dumps(cases)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    for (shape, spec, leaf), blocks in zip(cases, want):
+        mesh = make_train_mesh(shape, device="cpu")
+        x = torch.arange(int(torch.tensor(leaf).prod())).reshape(leaf)
+        got = shd.shard_tree({"w": x}, {"w": spec}, mesh)["w"]
+        assert [list(map(list, b)) for b in got.where] == blocks, spec
+        for blk, b in zip(got.blocks, got.where):
+            assert torch.equal(blk, x[shd.index_of(b)])
     # a leaf replicated over the model axis places: one copy, two views
+    mesh = make_train_mesh((1, 2), device="cpu")
+    x = {"w": torch.zeros((4, 6))}
     got = shd.shard_tree(x, {"w": (None, None)}, mesh)["w"]
     assert all(b.data_ptr() == x["w"].data_ptr() for b in got.blocks)
-    assert ctx.tp_size == 2
+    assert make_ctx(mesh).tp_size == 2
