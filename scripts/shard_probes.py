@@ -4,12 +4,13 @@ a machine with four CUDA cards:
 
     PYTHONPATH=src python3 scripts/shard_probes.py
 
-qwen2-vl-2b whole, batch 8 x 512, trained by the sharded step on phase
-z's (4, 1) and (2, 2) ('data', 'model') meshes of cuda:0..3
-(``phase_shard_train(devices=...)``: on each mesh the sharded steps
-twice, then the unsharded steps on cuda:0; on (2, 2) each card stores
-only its blocks of the parameters the model axis splits), then the same
-on meshes that repeat cuda:0.  Prints the cards' names and power limits
+qwen2-vl-2b whole, trained by the sharded step on phase z's
+('data', 'model') meshes over cuda:0..3 (``phase_shard_train(devices=
+...)``: on each mesh the sharded steps twice, then the unsharded steps on
+cuda:0; each card stores only its blocks of the parameters the model
+axis splits), then the same on meshes that repeat cuda:0: batch 8 x 512
+on (2, 2), one position a card, and 4 x 1024 on (1, 8) through
+seqpar_attention (``SHARD_SEQPAR``), two positions a card.  Prints the cards' names and power limits
 first, then each run's lines as phase z prints them (step walls,
 tokens/s, each card's peak memory, K3' launches, the profiled steps'
 idle share) and holds each mesh as phase z holds it.  Holds the
@@ -48,22 +49,32 @@ def main():
     cards = [torch.device("cuda", i) for i in range(N_CARDS)]
     for c in cards:             # the allocator's stats need a context
         torch.zeros(1, device=c)
-    runs = {}
-    for name, devices in (("four cards", cards),
-                          ("one card repeated", [cards[0]] * N_CARDS)):
-        print(f"[shard probe] {name}", flush=True)
-        runs[name] = CS.phase_shard_train(torch, FA, devices=devices)
-        CS.report_shard_train(runs[name], card, name)
-    for mesh in CS.SHARD_MESHES:
-        four, one = (runs[n]["runs"][mesh, "sharded"]["rows"] for n in runs)
-        rel = {k: max(abs(a[k] - b[k]) / (abs(b[k]) or 1.0)
-                      for a, b in zip(four, one))
-               for k in ("loss", "ce", "grad_norm")}
-        print(f"[shard probe] {mesh}: four cards against one card "
-              f"repeated: worst relative difference {rel}", flush=True)
-        CS.check(max(rel["loss"], rel["ce"]) <= CS.MOE_TRAIN_METRIC_TOL
-                 and rel["grad_norm"] <= CS.MOE_TRAIN_GRAD_TOL,
-                 f"{mesh}: four cards depart from one card repeated: {rel}")
+    seq_mesh, seq_batch, seq_len = CS.SHARD_SEQPAR
+    per_card = seq_mesh[0] * seq_mesh[1] // N_CARDS
+    cases = [({}, cards),
+             (dict(meshes=(seq_mesh,), batch=seq_batch, seq=seq_len),
+              [c for c in cards for _ in range(per_card)])]
+    for kw, spread in cases:
+        runs = {}
+        for name, devices in (("four cards", spread),
+                              ("one card repeated",
+                               [cards[0]] * len(spread))):
+            print(f"[shard probe] {name}", flush=True)
+            runs[name] = CS.phase_shard_train(torch, FA, devices=devices,
+                                              **kw)
+            CS.report_shard_train(runs[name], card, name)
+        for mesh in runs["four cards"]["meshes"]:
+            four, one = (runs[n]["runs"][mesh, "sharded"]["rows"]
+                         for n in runs)
+            rel = {k: max(abs(a[k] - b[k]) / (abs(b[k]) or 1.0)
+                          for a, b in zip(four, one))
+                   for k in ("loss", "ce", "grad_norm")}
+            print(f"[shard probe] {mesh}: four cards against one card "
+                  f"repeated: worst relative difference {rel}", flush=True)
+            CS.check(max(rel["loss"], rel["ce"]) <= CS.MOE_TRAIN_METRIC_TOL
+                     and rel["grad_norm"] <= CS.MOE_TRAIN_GRAD_TOL,
+                     f"{mesh}: four cards depart from one card repeated: "
+                     f"{rel}")
     return 0
 
 

@@ -6,8 +6,8 @@ chip_smoke.py's SHARD_UPDATE_TOL.  Run from the repository root:
 
 Reduced qwen2-vl-2b, batch 8 x SEQ, weights drawn from seed 0 with their
 constant leaves jittered as phase z draws them, AdamW at phase z's
-TRAIN_OPT, 3 steps on each of phase z's ('data', 'model') meshes of the
-CPU ((4, 1) and (2, 2)) and 3 unsharded.  Prints, per mesh, for the worst
+TRAIN_OPT, 3 steps on each of phase z's ('data', 'model') meshes of
+qwen2-vl-2b on the CPU ((2, 2), (4, 1) and (1, 8)) and 3 unsharded.  Prints, per mesh, for the worst
 leaves and the median one, each leaf's change sharded against unsharded
 in L2 over the unsharded change, and the leaf's gradient RMS (from
 AdamW's second moment) over the whole model's.
@@ -56,7 +56,7 @@ def main():
         v = flat["opt"]["v"]
         rms_all = (sum(float(t.sum()) for t in v.values())
                    / sum(t.numel() for t in v.values())) ** 0.5
-        for mesh in CS.SHARD_MESHES:
+        for mesh in CS.SHARD_MESHES + (CS.SHARD_DP[0], CS.SHARD_SEQPAR[0]):
             ctx = make_ctx(make_train_mesh(mesh, device="cpu"))
             _, sharded = run(cfg, shape, {"ctx": ctx})
             p_sh = sharded["params"].state_dict()

@@ -6,6 +6,8 @@ JAX package's ``launch/train.py``.
       --ckpt-every 4 --ckpt /path/to/dir
   python -m repro_torch.launch.train --arch deepseek-v3-671b --device cpu
   python -m repro_torch.launch.train --arch whisper-base --full --seq 448
+  python -m repro_torch.launch.train --arch qwen2-vl-2b --mesh single \
+      --device cpu --steps 2
 
 ``--arch`` takes every family: RWKV-6, the dense GQA models,
 arctic-480b and deepseek-v3-671b, jamba-v0.1-52b (Mamba and attention
@@ -20,13 +22,15 @@ with the same ``--ckpt`` it resumes from the latest checkpoint (written by
 either package: the file format is the reference's) and replays the
 deterministic pipeline, so the run continues bit for bit.  Weights are
 random, from a ``torch.Generator`` seeded with 0 (not the reference's
-draws).  ``--mesh single|multi`` refuses: the sharded step's data axes
-and the model axis that splits heads (the ``rwkv`` and ``std:dense``
-families) are ported (``launch/mesh.py:make_ctx``, ``make_train_step(cfg,
-opt, ctx)``), but both production meshes have a model axis of 16, and
-the rest of it (sequence-parallel attention for heads that 16 does not
-divide, Mamba, MLA, expert placement, Whisper) waits for slice 11d.5b.2.
-Prints the reference's lines.
+draws).  ``--mesh single|multi`` trains by the sharded step on the
+reference's production mesh, (16, 16) ('data', 'model') or (2, 16, 16)
+('pod', 'data', 'model') (``launch/mesh.py:make_production_mesh``): its
+first 256 or 512 CUDA cards, or the ``--device`` named at every position
+(``--device cuda:0`` repeats one card, ``--device cpu`` runs here).  It
+takes the ``rwkv`` and ``std:dense`` families and Whisper; the MoE,
+MLA and jamba configs raise NotImplementedError naming slice 11d.5b.2b.
+Checkpoints are saved and restored through the sharded state, in the
+unsharded file.  Prints the reference's lines.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from repro_torch.checkpointing.checkpoint import (AsyncSaver, latest_step,
 from repro_torch.configs import ShapeSpec, get_config, get_reduced
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_ctx, make_production_mesh
+from repro_torch.parallelism.ctx import NULL_CTX
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -59,24 +65,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production mesh has a model axis of "
-            "16; the sharded step's data axes are ported, and so is the "
-            "model axis where it splits heads (the rwkv and std:dense "
-            "families: make_ctx and make_train_step(cfg, opt_cfg, ctx)), "
-            "but the production configs include the families that wait for "
-            "ROADMAP slice 11d.5b.2 (sequence-parallel attention, Mamba, "
-            "MLA, expert placement, Whisper)")
     # deterministic cuBLAS, read when CUDA starts (train_step.deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-    device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     opt_cfg = OptConfig(peak_lr=args.lr, warmup_steps=5,
                         total_steps=args.steps)
-    state = init_train_state(0, cfg, opt_cfg, device=device)
+    if args.mesh == "none":
+        ctx = NULL_CTX
+        device = resolve_device(args.device)
+    else:
+        ctx = make_ctx(make_production_mesh(multi_pod=args.mesh == "multi",
+                                            device=args.device))
+        device = ctx.mesh.devices.flat[0]
+    step_fn = make_train_step(cfg, opt_cfg, ctx)
+    state = init_train_state(0, cfg, opt_cfg, device=device, ctx=ctx)
     start = 0
     if args.ckpt:
         ls = latest_step(args.ckpt)
@@ -84,7 +88,6 @@ def main(argv=None):
             state = restore(args.ckpt, ls, state, cfg)
             start = ls
             print(f"[train] resumed from step {start}")
-    step_fn = make_train_step(cfg, opt_cfg)
     saver = AsyncSaver()
     pipe = Pipeline(cfg, shape, DataConfig(), start_step=start,
                     device=device)

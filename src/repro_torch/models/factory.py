@@ -28,8 +28,10 @@ argument here: the sharded train step (train/train_step.py) runs
 ``loss_parts`` on each data position's rows and combines them with
 ``combine_parts``, which is what ``train_loss`` does for one batch;
 under a model axis it passes ``loss_parts`` the data position's
-``lm.ModelGroup`` in place of a model, whose blocks compute the
-embedding, the layers and the vocab-parallel cross-entropy.
+``lm.ModelGroup`` in place of a model (Whisper's too), whose blocks
+compute the embedding, the layers and the cross-entropy: vocab-parallel
+for a split head, whole-vocab over the joined table for Whisper's tied
+one.
 Serving
 (``prefill``, ``decode``, ``generate``) records no autograd graph, so a
 model made trainable serves as a frozen one does.
@@ -105,7 +107,6 @@ def loss_parts(model, batch: dict, *, cfg: ArchConfig,
         hidden = whisper.decoder_train(model, batch["tokens"], enc_out,
                                        cfg=cfg)
         stats = []
-        w = model.embed.emb.T
     else:
         x = lm._inputs(model, batch)
         b, s = x.shape[0], x.shape[1]
@@ -113,9 +114,9 @@ def loss_parts(model, batch: dict, *, cfg: ArchConfig,
         hidden, stats = lm.forward_hidden(model, x, cfg=cfg,
                                           positions=positions,
                                           moe_groups=moe_groups)
-        w = lm.head_weight(model, cfg)
     labels = batch["labels"]
-    ce, count = chunked_cross_entropy(hidden, w, labels)
+    ce, count = chunked_cross_entropy(hidden, lm.head_weight(model, cfg),
+                                      labels)
     return {"ce": ce, "count": count, "stats": stats,
             "tokens": labels.shape[0] * labels.shape[1]}
 

@@ -19,11 +19,22 @@ sends the full-sequence attention through the same wrapper, non-causal
 (the kernel on the card); ``cross_attention_decode`` attends one step's
 query over the cached encoder keys, plain.  ``head_axes`` gives the
 sharding rules (``parallelism/sharding.py``) the tensor-parallel entries
-of the (H, hd) dims.  Where they split the heads, the sharded train step
-runs ``attention_heads`` once per model position on its block of heads
-and sums the positions' outputs (``parallelism/tensor.py:row_sum``); a
-head_dim split (sequence-parallel attention, ``seqpar_attention`` in the
-reference) is ROADMAP slice 11d.5b.2.
+of the (H, hd) dims, and the sharded train step runs one data
+position's attention over its model-axis group through
+``attention_group``, in the layout they give:
+
+  · heads: ``attention_heads`` once per model position on its block of
+    heads, the positions' outputs summed (``parallelism/tensor.py:
+    row_sum``);
+  · head_dim: each position projects its head_dim columns, ``join``
+    makes whole heads, RoPE is applied to them, and the core attention
+    runs on whole heads: ``seqpar_attention`` (each position on its
+    slab of queries) where the reference's test at its
+    ``attention.py:235-236`` takes it, else one call on the first
+    position; each position then multiplies its columns of the output
+    by its rows of ``wo``;
+  · replicated (neither divides): the whole attention once, on the
+    first position.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.parallelism.ctx import ShardCtx
+from repro_torch.parallelism.tensor import fan_out, join, row_sum
 
 NEG_INF = -1e30
 
@@ -223,7 +235,8 @@ def attention_train(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
     return out
 
 
-def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int):
+def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int,
+                    causal: bool = True, kv_x=None):
     """The output partial (B,S,d) of one model position's query heads
     ``head0 .. head0 + H'``: ``p`` holds its blocks (wq (d,H',hd), wo
     (H',hd,d), bq) and either its block of the KV heads (wk/wv (d,K',hd),
@@ -231,10 +244,11 @@ def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int):
     the KV heads do not divide the model axis).  Replicated KV heads are
     projected only where the position's heads need them (query head i
     reads KV head i // (H / KV)), and repeated to one per query head where
-    the position's heads straddle two groups unevenly.  The core
-    attention is the flash-attention wrapper, as in ``attention_train``;
-    the position's rows of wo make the partial, which ``row_sum`` adds
-    up."""
+    the position's heads straddle two groups unevenly.  Keys and values
+    come from ``kv_x`` where given (cross attention, no RoPE), else from
+    ``x``.  The core attention is the flash-attention wrapper, as in
+    ``attention_train``; the position's rows of wo make the partial,
+    which ``row_sum`` adds up."""
     hl = p["wq"].shape[1]
     kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
     rep = None
@@ -248,16 +262,92 @@ def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int):
         if hl % n_kv or any(ids[i] - lo != i // (hl // n_kv)
                             for i in range(hl)):
             rep = [i - lo for i in ids]
-    q = _rope(_project_q(p, x), positions, cfg)
-    k, v = _project_kv(kv, x)
-    k = _rope(k, positions, cfg)
+    q = _project_q(p, x)
+    k, v = _project_kv(kv, x if kv_x is None else kv_x)
+    if kv_x is None:
+        q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
     if rep is not None:
         # each KV head expanded to its run of query heads (a sum in the
         # backward, no scatter)
         runs = [(c, rep.count(c)) for c in dict.fromkeys(rep)]
         k, v = (torch.cat([t[:, :, c:c + 1].expand(-1, -1, n, -1)
                            for c, n in runs], dim=2) for t in (k, v))
-    return _out(p, flash_attention(q, k, v, causal=True))
+    return _out(p, flash_attention(q, k, v, causal=causal))
+
+
+def seqpar_attention(q, k, v, *, causal: bool, devices: list):
+    """Sequence-block-parallel attention, the reference's
+    ``seqpar_attention`` (``attention.py:262``), for whole heads made by
+    a head_dim split: q (B,S,H,hd), k and v (B,S,KV,hd) in the GQA
+    layout (no KV repeat; K3' reads it), each on ``devices[0]``.  Model
+    position m, on ``devices[m]``, takes query rows [m·sg, (m+1)·sg),
+    sg = S / tp, and runs ``flash_attention`` on them over keys
+    [0, (m+1)·sg) where causal (K3''s right-aligned mask, offset m·sg,
+    is then the global mask of that slab), over every key otherwise.
+    In place of the reference's hints (q resharded into sequence slabs,
+    K and V gathered over the model axis) and its online-softmax scan
+    over key chunks of 512, ``fan_out`` hands q, k and v to the
+    positions (their gradients added in position order) and the slabs'
+    outputs are joined along the sequence in position order.  Returns
+    (B,S,H,hd) on ``devices[0]``."""
+    tp, s = len(devices), q.shape[1]
+    if s % tp or k.shape[1] != s:
+        raise ValueError(f"seqpar_attention: {s} queries over "
+                         f"{k.shape[1]} keys do not split into {tp} slabs")
+    sg = s // tp
+    qs, ks, vs = (fan_out(t, devices) for t in (q, k, v))
+    slabs = []
+    for m in range(tp):
+        end = (m + 1) * sg if causal else s
+        slabs.append(flash_attention(
+            qs[m][:, m * sg:(m + 1) * sg].contiguous(),
+            ks[m][:, :end].contiguous(), vs[m][:, :end].contiguous(),
+            causal=causal))
+    return join(slabs, devices[0], dim=1)
+
+
+def attention_group(blocks: list, xs: list, *, cfg: ArchConfig, positions,
+                    devices: list, causal: bool = True, kv_xs=None):
+    """The attention output (B,S,d), on ``devices[0]``, of one data
+    position's model-axis group: ``blocks[j]`` is model position j's
+    block of the layer's leaves (wq, wk, wv, wo and the biases), ``xs[j]``
+    its copy of the normed input (``fan_out``) and ``kv_xs[j]`` of the
+    keys' and values' source for cross attention (Whisper's encoder
+    output; None for self attention).  ``positions`` is on
+    ``devices[0]``.  The layout is the rules' ``head_axes``, read from
+    the blocks' shapes (see the module's docstring).  The whole
+    attention, the head_dim split's fallback and its join of the heads
+    run once per data position, never once per model position."""
+    b0, tp = blocks[0], len(blocks)
+    kv_xs = [None] * tp if kv_xs is None else kv_xs
+    hl, hdl = b0["wq"].shape[1], b0["wq"].shape[2]
+    if hl < cfg.n_heads:                             # heads
+        parts = [attention_heads(bj, xj, cfg=cfg,
+                                 positions=positions.to(xj.device),
+                                 head0=j * hl, causal=causal, kv_x=kvj)
+                 for j, (bj, xj, kvj) in enumerate(zip(blocks, xs, kv_xs))]
+        return row_sum(parts, devices)[0]
+    if hdl == cfg.resolved_head_dim:                 # replicated
+        if kv_xs[0] is None:
+            return attention_train(b0, xs[0], cfg=cfg, positions=positions,
+                                   causal=causal)
+        return cross_attention_train(b0, xs[0], kv_xs[0], cfg=cfg)
+    home = devices[0]                                # head_dim
+    q = join([_project_q(bj, xj) for bj, xj in zip(blocks, xs)], home)
+    kvs = [_project_kv(bj, xj if kvj is None else kvj)
+           for bj, xj, kvj in zip(blocks, xs, kv_xs)]
+    k, v = (join([t[i] for t in kvs], home) for i in (0, 1))
+    if kv_xs[0] is None:
+        q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
+    sq = q.shape[1]
+    if (kv_xs[0] is None and sq % tp == 0 and sq // tp >= 128
+            and sq == k.shape[1]):
+        o = seqpar_attention(q, k, v, causal=causal, devices=devices)
+    else:
+        o = flash_attention(q, k, v, causal=causal)
+    parts = [_out(bj, oj[..., j * hdl:(j + 1) * hdl])
+             for j, (bj, oj) in enumerate(zip(blocks, fan_out(o, devices)))]
+    return row_sum(parts, devices)[0]
 
 
 def gqa_decode_attention(q, k_cache, v_cache, kv_valid):

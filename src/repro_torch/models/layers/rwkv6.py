@@ -17,7 +17,11 @@ replicates run once (``time_mix_inputs``, ``channel_mix_inputs``,
 heads or d_ff columns (``time_mix_heads``, ``channel_mix_kv``), whose
 partial outputs the sharded train step adds up; the channel mix's sum
 comes before its receptance gate, as the reference's ``kv`` is whole
-before it is gated.
+before it is gated.  Where the model axis cuts heads (it divides d_model
+but not the head count), each position makes its columns
+(``time_mix_columns``), and the wkv, group norm and gate run once on
+the joined whole heads (``time_mix_wkv``), as the reference's hints
+(``tp_if(h)`` None) replicate them.
 """
 from __future__ import annotations
 
@@ -34,9 +38,9 @@ N_MIX = 5  # w, k, v, r, g
 
 __all__ = ["N_MIX", "ChannelMix", "TimeMix", "channel_mix",
            "channel_mix_gate", "channel_mix_inputs", "channel_mix_kv",
-           "init_channel_mix", "init_time_mix", "time_mix_decode",
-           "time_mix_heads", "time_mix_inputs", "time_mix_train",
-           "wkv_chunked", "wkv_step"]
+           "init_channel_mix", "init_time_mix", "time_mix_columns",
+           "time_mix_decode", "time_mix_heads", "time_mix_inputs",
+           "time_mix_train", "time_mix_wkv", "wkv_chunked", "wkv_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +130,43 @@ def time_mix_inputs(p, x, shift_state):
     return _decay_lora(p, xw), xk, xv, xr, xg
 
 
+def time_mix_columns(p, inputs):
+    """The time mix's column-split products for the columns ``p`` holds
+    (``wr``, ``wk``, ``wv``, ``wg`` and ``wd2`` by columns, ``w0``
+    likewise), on ``time_mix_inputs``'s ``inputs``: (log decay f32, r, k,
+    v, silu gate), each (B,S,columns)."""
+    dw, xk, xv, xr, xg = inputs
+    return (_decay_of(p, dw), xr @ p["wr"].to(xr.dtype),
+            xk @ p["wk"].to(xk.dtype), xv @ p["wv"].to(xv.dtype),
+            F.silu(xg @ p["wg"].to(xg.dtype)))
+
+
+def time_mix_wkv(columns, p, wkv_state, *, cfg: ArchConfig,
+                 chunk: int = 64):
+    """The wkv of whole heads, their group norm and the gate, from
+    ``time_mix_columns``'s ``columns`` over whole heads and ``p``'s
+    ``u``, ``gn_scale`` and ``gn_bias`` for the same heads: (the gated
+    output (B,S,columns), the new wkv state of these heads)."""
+    wlog, r, k, v, g = columns
+    hs = cfg.rwkv.head_size
+    b, s, dl = r.shape
+    if dl % hs:
+        raise ValueError(f"a block of {dl} time-mix columns is not whole "
+                         f"heads of {hs}")
+    h = dl // hs
+    assert s % min(chunk, s) == 0, (s, chunk)
+    wlog, r, k, v = (t.reshape(b, s, h, hs) for t in (wlog, r, k, v))
+    u = p["u"].float().reshape(h, hs)
+    if s > 1:
+        o, wkv_state = wkv6(r.float(), k.float(), v.float(), wlog, u,
+                            wkv_state.float(), chunk=chunk)
+    else:
+        o, wkv_state = wkv_chunked(r, k, v, wlog, u, wkv_state, chunk=chunk)
+    o = group_norm_heads(o.to(g.dtype), p["gn_scale"].reshape(h, hs),
+                         p["gn_bias"].reshape(h, hs))
+    return o.reshape(b, s, dl) * g, wkv_state
+
+
 def time_mix_heads(p, inputs, wkv_state, *, cfg: ArchConfig,
                    chunk: int = 64):
     """The time mix of the heads whose columns ``p`` holds (``wr``,
@@ -134,30 +175,9 @@ def time_mix_heads(p, inputs, wkv_state, *, cfg: ArchConfig,
     ``inputs``: (out (B,S,d), the new wkv state of these heads).  ``out``
     is whole for the whole block and a partial for a model position's,
     which ``parallelism/tensor.py:row_sum`` adds up."""
-    dw, xk, xv, xr, xg = inputs
-    hs = cfg.rwkv.head_size
-    b, s, _ = xk.shape
-    dl = p["wr"].shape[1]
-    if dl % hs:
-        raise ValueError(f"a block of {dl} time-mix columns is not whole "
-                         f"heads of {hs}")
-    h = dl // hs
-    assert s % min(chunk, s) == 0, (s, chunk)
-    wlog = _decay_of(p, dw).reshape(b, s, h, hs)
-    r = (xr @ p["wr"].to(xr.dtype)).reshape(b, s, h, hs)
-    k = (xk @ p["wk"].to(xk.dtype)).reshape(b, s, h, hs)
-    v = (xv @ p["wv"].to(xv.dtype)).reshape(b, s, h, hs)
-    g = F.silu(xg @ p["wg"].to(xg.dtype))
-    u = p["u"].float().reshape(h, hs)
-    if s > 1:
-        o, wkv_state = wkv6(r.float(), k.float(), v.float(), wlog, u,
-                            wkv_state.float(), chunk=chunk)
-    else:
-        o, wkv_state = wkv_chunked(r, k, v, wlog, u, wkv_state, chunk=chunk)
-    o = group_norm_heads(o.to(xk.dtype), p["gn_scale"].reshape(h, hs),
-                         p["gn_bias"].reshape(h, hs))
-    o = o.reshape(b, s, dl) * g
-    return o @ p["wo"].to(xk.dtype), wkv_state
+    o, wkv_state = time_mix_wkv(time_mix_columns(p, inputs), p, wkv_state,
+                                cfg=cfg, chunk=chunk)
+    return o @ p["wo"].to(o.dtype), wkv_state
 
 
 def time_mix_train(p, x, shift_state, wkv_state, *, cfg: ArchConfig,

@@ -28,9 +28,12 @@ statistics layer by layer (``moe.moe_layer``), which the factory turns
 into the balance loss, summed over the layers as the reference's scan
 carries it, after the sharded step has summed them over its data
 positions.  Under the sharded step's model axis ``forward_hidden`` takes
-a data position's ``ModelGroup`` (the ``rwkv`` and ``std:dense`` kinds):
-each block's model positions run on their blocks of the parameters
-inside one checkpoint of that block (``_GroupCheckpoint``).  Serving drops them, as the reference does.
+a data position's ``ModelGroup`` (the ``rwkv`` and ``std:dense`` kinds,
+whatever the model axis does to their heads; Whisper's blocks run the
+same way, ``models/whisper.py``): each block's model positions run on
+their blocks of the parameters inside one checkpoint of that block
+(``_GroupCheckpoint``, ``run_checkpointed``).  Serving drops them, as
+the reference does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -55,7 +58,7 @@ from repro_torch.models.layers.common import (ParamDict, apply_norm,
                                               init_norm, nest_state_dict)
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
 from repro_torch.models.layers.rope import text_mrope_positions
-from repro_torch.parallelism.tensor import col_cat, fan_out, row_sum
+from repro_torch.parallelism.tensor import fan_out, join, row_sum
 
 VOCAB_PAD = 32
 
@@ -242,6 +245,15 @@ class ModelGroup(NamedTuple):
         ``tp_if``)."""
         return n % self.tp == 0
 
+    @property
+    def d_model(self) -> int:
+        """The model's width, read from its final norm (``final_norm``, or
+        Whisper's ``dec_norm``), which every position holds whole."""
+        b0 = self.blocks[0]
+        key = "final_norm.scale" if "final_norm.scale" in b0 else \
+            "dec_norm.scale"
+        return b0[key].shape[-1]
+
     def layer(self, prefix: str) -> list:
         """Each position's leaves under ``prefix`` ("groups.0.3."), by
         their remaining names ("attn.wq")."""
@@ -250,27 +262,39 @@ class ModelGroup(NamedTuple):
                 for bj in self.blocks]
 
 
+def _embed_table(model: ModelGroup):
+    """The blocks of ``emb`` of a ``ModelGroup``, one per model position,
+    and whether they are its d_model blocks (the rules' (None,
+    tp(d_model))) or each the whole table (replicated)."""
+    embs = [bj["embed.emb"] for bj in model.blocks]
+    return embs, embs[0].shape[1] < model.d_model
+
+
 def embed_tokens(model, tokens):
     """The rows of ``emb`` for ``tokens``: of the whole table, or for a
-    ``ModelGroup`` each model position's d_model block of it (the rules'
-    (None, tp(d_model))), joined by ``col_cat``, on the group's first
-    device."""
+    ``ModelGroup`` each model position's d_model block of it, joined in
+    position order on the group's first device."""
     if not isinstance(model, ModelGroup):
         return model.embed.emb[tokens.long()]
     ids = tokens.long()
-    embs = [bj["embed.emb"] for bj in model.blocks]
-    d_model = model.blocks[0]["final_norm.scale"].shape[0]
-    if embs[0].shape[1] == d_model:          # replicated: looked up once
+    embs, split = _embed_table(model)
+    if not split:                            # replicated: looked up once
         return embs[0][ids]
-    return col_cat([e[ids.to(e.device)] for e in embs], model.devices)[0]
+    return join([e[ids.to(e.device)] for e in embs], model.devices[0])
 
 
 def head_weight(model, cfg: ArchConfig):
-    """The head (d, V); for a ``ModelGroup`` whose model axis splits the
-    vocab (the rules' (None, tp(padded_vocab))), the list of its
+    """The head (d, V): ``head.w``, or ``emb.T`` where it is tied to the
+    embedding (Whisper).  For a ``ModelGroup`` whose model axis splits
+    the vocab (the rules' (None, tp(padded_vocab))), the list of its
     positions' column blocks, which ``loss.chunked_cross_entropy`` takes
-    vocab-parallel."""
-    if isinstance(model, ModelGroup):        # untied (train_step checks)
+    vocab-parallel; a tied head is the embedding's d_model blocks joined
+    into the whole table on the first device (exact), whose whole-vocab
+    cross-entropy runs there."""
+    if isinstance(model, ModelGroup):
+        if cfg.tie_embeddings:
+            embs, split = _embed_table(model)
+            return (join(embs, model.devices[0]) if split else embs[0]).T
         ws = [bj["head.w"] for bj in model.blocks]
         return ws if ws[0].shape[1] < cfg.padded_vocab(VOCAB_PAD) else ws[0]
     if cfg.tie_embeddings:
@@ -410,6 +434,70 @@ def _split(group: ModelGroup, blocks: list, fn, *args):
     return row_sum(parts, group.devices)[0]
 
 
+def ffn_group(group: ModelGroup, blocks: list, h, *, cfg: ArchConfig,
+              name: str = "mlp"):
+    """The dense FFN ``name`` of one data position's group on its normed
+    input ``h``: on each position's d_ff columns, the partials summed,
+    where the model axis splits d_ff; else once, on position 0."""
+    if group.split(cfg.d_ff):
+        return _split(group, blocks,
+                      lambda bj, a: apply_ffn(bj[name], a, act=cfg.act), h)
+    return apply_ffn(blocks[0][name], h, act=cfg.act)
+
+
+def attention_block(group: ModelGroup, blocks: list, h, *, cfg: ArchConfig,
+                    positions, name: str = "attn", causal: bool = True,
+                    kv=None):
+    """The attention ``name`` of one data position's group on its normed
+    input ``h`` (keys and values from ``kv`` where given: cross
+    attention), in any layout of the model axis
+    (``attention.attention_group``)."""
+    devs = group.devices
+    return attn.attention_group(
+        [bj[name] for bj in blocks], fan_out(h, devs), cfg=cfg,
+        positions=positions, devices=devs, causal=causal,
+        kv_xs=None if kv is None else fan_out(kv, devs))
+
+
+def _time_mix_group(group: ModelGroup, blocks: list, inputs, *,
+                    cfg: ArchConfig):
+    """RWKV's time mix over one data position's group from
+    ``time_mix_inputs``'s ``inputs`` on its first device, by the layout
+    of ``tm.wr``'s columns: whole heads per position (each position's
+    heads, the partials summed); heads the model axis cuts (each
+    position's columns of r, k, v, g and the decay, joined with ``u``
+    and the group norm's blocks, then the wkv, group norm and gate once
+    on all heads, each position's columns of the result through its rows
+    of ``wo``, summed); or replicated (once, on position 0)."""
+    b0 = blocks[0]["tm"]
+    b, _, d = inputs[1].shape
+    hs, dl = cfg.rwkv.head_size, b0["wr"].shape[1]
+    devs = group.devices
+
+    def zstate(h, dev):
+        return torch.zeros((b, h, hs, hs), dtype=torch.float32, device=dev)
+
+    if dl == d:                                      # replicated
+        return rwkv.time_mix_heads(b0, inputs, zstate(d // hs, devs[0]),
+                                   cfg=cfg)[0]
+    if dl % hs == 0:                                 # whole heads
+        def heads(bj, *inp):
+            return rwkv.time_mix_heads(
+                bj["tm"], inp, zstate(dl // hs, inp[0].device), cfg=cfg)[0]
+
+        return _split(group, blocks, heads, *inputs)
+    fanned = [fan_out(a, devs) for a in inputs]      # cut heads
+    cols = [rwkv.time_mix_columns(bj["tm"], [f[j] for f in fanned])
+            for j, bj in enumerate(blocks)]
+    whole = [join([c[i] for c in cols], devs[0]) for i in range(5)]
+    vecs = {n: join([bj["tm"][n] for bj in blocks], devs[0])
+            for n in ("u", "gn_scale", "gn_bias")}
+    o, _ = rwkv.time_mix_wkv(whole, vecs, zstate(d // hs, devs[0]), cfg=cfg)
+    parts = [oj[..., j * dl:(j + 1) * dl] @ bj["tm"]["wo"].to(oj.dtype)
+             for j, (bj, oj) in enumerate(zip(blocks, fan_out(o, devs)))]
+    return row_sum(parts, devs)[0]
+
+
 def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
                        cfg: ArchConfig, positions):
     """One block of the training forward over the model-axis group of
@@ -417,24 +505,17 @@ def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
     position j (``ModelGroup.layer``), ``x`` on the group's first device.
     The leaves the model axis replicates (the norms, RWKV's token shift
     and decay LoRA, its channel mix's receptance, an FFN whose d_ff it
-    does not divide) run once, on position 0's copy; the split ones run
+    does not divide, attention or a time mix whose heads it neither
+    splits nor cuts) run once, on position 0's copy; the split ones run
     once per position, their partials added in position order."""
     nk, eps = cfg.norm, cfg.norm_eps
     b0 = blocks[0]
     if kind == "rwkv":
-        b, _, d = x.shape
-        hs = cfg.rwkv.head_size
-        zshift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        zshift = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                             device=x.device)
         inputs = rwkv.time_mix_inputs(b0["tm"], apply_norm(
             b0["ln1"], x, kind=nk, eps=eps), zshift)
-
-        def heads(bj, *inp):
-            h = bj["tm"]["wr"].shape[1] // hs
-            zstate = torch.zeros((b, h, hs, hs), dtype=torch.float32,
-                                 device=inp[0].device)
-            return rwkv.time_mix_heads(bj["tm"], inp, zstate, cfg=cfg)[0]
-
-        x = x + _split(group, blocks, heads, *inputs)
+        x = x + _time_mix_group(group, blocks, inputs, cfg=cfg)
         xk, xr = rwkv.channel_mix_inputs(b0["cm"], apply_norm(
             b0["ln2"], x, kind=nk, eps=eps), zshift)
         if group.split(cfg.d_ff):
@@ -443,50 +524,42 @@ def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
         else:
             kv = rwkv.channel_mix_kv(b0["cm"], xk)
         return x + rwkv.channel_mix_gate(b0["cm"], xr, kv)
-    hl = b0["attn"]["wq"].shape[1]
-    hs = fan_out(apply_norm(b0["attn_norm"], x, kind=nk, eps=eps),
-                 group.devices)
-    parts = [attn.attention_heads(bj["attn"], h, cfg=cfg,
-                                  positions=positions.to(h.device),
-                                  head0=j * hl)
-             for j, (bj, h) in enumerate(zip(blocks, hs))]
-    x = x + row_sum(parts, group.devices)[0]
-    h = apply_norm(b0["mlp_norm"], x, kind=nk, eps=eps)
-    if group.split(cfg.d_ff):
-        y = _split(group, blocks,
-                   lambda bj, a: apply_ffn(bj["mlp"], a, act=cfg.act), h)
-    else:
-        y = apply_ffn(b0["mlp"], h, act=cfg.act)
-    return x + y
+    x = x + attention_block(group, blocks, apply_norm(
+        b0["attn_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions)
+    return x + ffn_group(group, blocks, apply_norm(
+        b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg)
 
 
 class _GroupCheckpoint(torch.autograd.Function):
-    """One block of a ``ModelGroup``'s forward, checkpointed: ``fn(x,
+    """One block of a ``ModelGroup``'s forward, checkpointed: ``fn(*xs,
     blocks)`` runs without a graph, and the backward runs it again, once,
     on the thread that receives the block's output gradient, then
     differentiates that run.  (``torch.utils.checkpoint`` recomputes from
     whichever autograd device thread first unpacks a saved tensor, and the
     threads of two cards race there when one block spans them.)  The
-    layer's leaves come flat, ``keys[i]`` = (model position, name) of
-    ``tensors[i]``."""
+    first ``n_in`` tensors are the block's inputs ``xs``; the layer's
+    leaves follow, flat, ``keys[i]`` = (model position, name) of the
+    i-th of them."""
 
     @staticmethod
-    def forward(ctx, fn, keys, x, *tensors):
-        ctx.fn, ctx.keys = fn, keys
-        ctx.save_for_backward(x, *tensors)
+    def forward(ctx, fn, keys, n_in, *tensors):
+        ctx.fn, ctx.keys, ctx.n_in = fn, keys, n_in
+        ctx.save_for_backward(*tensors)
         with torch.no_grad():
-            return fn(x, _nested_blocks(keys, tensors))
+            return fn(*tensors[:n_in], _nested_blocks(keys, tensors[n_in:]))
 
     @staticmethod
     def backward(ctx, dout):
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         ins = [t.detach().requires_grad_(n)
                for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
-            out = ctx.fn(ins[0], _nested_blocks(ctx.keys, ins[1:]))
+            out = ctx.fn(*ins[:ctx.n_in],
+                         _nested_blocks(ctx.keys, ins[ctx.n_in:]))
         got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need)
                                              if n], dout, allow_unused=True))
-        return (None, None) + tuple(next(got) if n else None for n in need)
+        return (None, None, None) + tuple(next(got) if n else None
+                                          for n in need)
 
 
 def _nested_blocks(keys, tensors) -> list:
@@ -498,27 +571,37 @@ def _nested_blocks(keys, tensors) -> list:
     return [nest_state_dict(f) for f in flat]
 
 
+def run_checkpointed(group: ModelGroup, prefix: str, fn, *xs):
+    """``fn(*xs, blocks)`` over the leaves under ``prefix``
+    ("groups.0.3.") of each model position, checkpointed as one block
+    (``_GroupCheckpoint``), so that its recompute in the backward
+    repeats the same sums in the same order."""
+    flat = group.layer(prefix)
+    keys = [(j, n) for j, f in enumerate(flat) for n in f]
+    return _GroupCheckpoint.apply(fn, keys, len(xs), *xs,
+                                  *(flat[j][n] for j, n in keys))
+
+
+def norm_group(group: ModelGroup, name: str, x, cfg: ArchConfig):
+    """The norm ``name`` ("final_norm"), which the model axis replicates,
+    applied once with position 0's copy."""
+    return apply_norm(nest_state_dict(group.layer(f"{name}.")[0]), x,
+                      kind=cfg.norm, eps=cfg.norm_eps)
+
+
 def _forward_hidden_group(group: ModelGroup, embeds, *, cfg: ArchConfig,
                           positions):
     """``forward_hidden`` of a ``ModelGroup``: every block's model
-    positions inside one checkpoint of that block (``_GroupCheckpoint``),
-    so its recompute in the backward repeats the same sums in the same
-    order."""
+    positions inside one checkpoint of that block."""
     x = embeds
     for gi, (kind, count) in enumerate(group_plan(cfg)):
         for i in range(count):
-            flat = group.layer(f"groups.{gi}.{i}.")
-            keys = [(j, n) for j, f in enumerate(flat) for n in f]
-
             def block(x, blocks, kind=kind):
                 return _block_train_group(kind, group, blocks, x, cfg=cfg,
                                           positions=positions)
 
-            x = _GroupCheckpoint.apply(block, keys, x,
-                                       *(flat[j][n] for j, n in keys))
-    final = group.layer("final_norm.")[0]
-    return apply_norm(nest_state_dict(final), x, kind=cfg.norm,
-                      eps=cfg.norm_eps), []
+            x = run_checkpointed(group, f"groups.{gi}.{i}.", block, x)
+    return norm_group(group, "final_norm", x, cfg), []
 
 
 def forward_hidden(model, embeds, *, cfg: ArchConfig, positions,
@@ -529,7 +612,9 @@ def forward_hidden(model, embeds, *, cfg: ArchConfig, positions,
     (2, E) f32 (``moe.moe_layer``, its tokens in ``moe_groups`` groups),
     and is empty without MoE.  ``model`` is an ``LM``, or the
     ``ModelGroup`` of one data position of the sharded train step (the
-    ``rwkv`` and ``std:dense`` kinds, heads split by the model axis)."""
+    ``rwkv`` and ``std:dense`` kinds: heads split, head_dim split or cut
+    by the model axis, or replicated; the MoE, MLA and ``period`` kinds
+    are slice 11d.5b.2b)."""
     if isinstance(model, ModelGroup):
         return _forward_hidden_group(model, embeds, cfg=cfg,
                                      positions=positions)

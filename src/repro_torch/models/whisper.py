@@ -23,6 +23,20 @@ under ``jax.checkpoint``; serving runs under ``torch.no_grad()`` and
 decode is functional (a step returns a new cache).  The cache keeps the
 reference's layout: ``k``/``v`` (n_dec, B, max_len, KV, hd), the cross
 entries ``ck``/``cv`` (n_dec, B, ENC_LEN, KV, hd) and ``len`` (B,) int32.
+
+Under the sharded train step's model axis ``encode`` and
+``decoder_train`` take a data position's ``lm.ModelGroup`` in place of
+the model, as the reference's take a ``ctx``: each block's model
+positions run on their blocks of its parameters inside one checkpoint of
+that block (``lm.run_checkpointed``, not ``torch.utils.checkpoint``),
+the attention in the layout the rules give it (``attention.
+attention_group``: the encoder's non-causal, the decoder's causal self
+attention and its cross attention over the encoder's output), the FFN
+on its d_ff columns where the model axis splits them
+(``lm.ffn_group``).  The norms and ``pos_dec``, which it replicates, run
+once per data position; the decoder embeds its tokens from each
+position's d_model block of ``emb`` (``lm.embed_tokens``), and the tied
+head is the joined table (``lm.head_weight``).
 """
 from __future__ import annotations
 
@@ -36,7 +50,8 @@ from repro_torch.models.layers.common import (ParamDict, apply_norm,
                                               init_norm, nest_state_dict,
                                               sinusoidal_embedding)
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
-from repro_torch.models.lm import VOCAB_PAD, _pad_seq
+from repro_torch.models import lm
+from repro_torch.models.lm import VOCAB_PAD, ModelGroup, _pad_seq
 
 ENC_LEN = 1500  # 30 s of audio at 50 Hz after the (stubbed) conv frontend
 
@@ -154,13 +169,32 @@ def _enc_block(blk: _Block, x, cfg: ArchConfig, positions):
     return x + apply_ffn(blk.mlp.p, h, act=cfg.act)
 
 
-def encode(model: Whisper, frames, *, cfg: ArchConfig):
-    """frames: (B, Senc, d) precomputed embeddings -> (B, Senc, d)."""
+def _enc_block_group(group: ModelGroup, blocks: list, x, cfg: ArchConfig,
+                     positions):
+    nk, eps = cfg.norm, cfg.norm_eps
+    b0 = blocks[0]
+    x = x + lm.attention_block(group, blocks, apply_norm(
+        b0["attn_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions,
+        causal=False)
+    return x + lm.ffn_group(group, blocks, apply_norm(
+        b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg)
+
+
+def encode(model, frames, *, cfg: ArchConfig):
+    """frames: (B, Senc, d) precomputed embeddings -> (B, Senc, d).
+    ``model`` is a ``Whisper`` or a data position's ``lm.ModelGroup``."""
     b, s, d = frames.shape
     x = frames + sinusoidal_embedding(s, d, frames.dtype,
                                       frames.device)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=frames.device)[None].expand(b, s)
+    if isinstance(model, ModelGroup):
+        for i in range(cfg.n_enc_layers):
+            x = lm.run_checkpointed(
+                model, f"enc_blocks.{i}.",
+                lambda x_, blocks: _enc_block_group(model, blocks, x_, cfg,
+                                                    positions), x)
+        return lm.norm_group(model, "enc_norm", x, cfg)
     for blk in model.enc_blocks:
         x = _remat(lambda blk_, x_: _enc_block(blk_, x_, cfg, positions),
                    blk, x)
@@ -171,10 +205,14 @@ def encode(model: Whisper, frames, *, cfg: ArchConfig):
 # decoder: train / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _dec_embed(model: Whisper, tokens, offset: int):
-    x = model.embed.emb[tokens.long()]
+def _dec_embed(model, tokens, offset: int):
     s = tokens.shape[1]
-    return x + model.pos_dec[offset:offset + s][None].to(x.dtype)
+    if isinstance(model, ModelGroup):
+        x = lm.embed_tokens(model, tokens)
+        pos = model.blocks[0]["pos_dec"]
+    else:
+        x, pos = model.embed.emb[tokens.long()], model.pos_dec
+    return x + pos[offset:offset + s][None].to(x.dtype)
 
 
 def _dec_block(blk: _Block, x, enc_out, cfg: ArchConfig, positions,
@@ -198,12 +236,34 @@ def _dec_block(blk: _Block, x, enc_out, cfg: ArchConfig, positions,
     return (x, kv + ckv) if return_kv else x
 
 
-def decoder_train(model: Whisper, tokens, enc_out, *, cfg: ArchConfig):
-    """tokens: (B, Sd) -> hidden (B, Sd, d) after the final norm."""
+def _dec_block_group(group: ModelGroup, blocks: list, x, enc_out,
+                     cfg: ArchConfig, positions):
+    nk, eps = cfg.norm, cfg.norm_eps
+    b0 = blocks[0]
+    x = x + lm.attention_block(group, blocks, apply_norm(
+        b0["self_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions,
+        name="self_attn")
+    x = x + lm.attention_block(group, blocks, apply_norm(
+        b0["cross_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions,
+        name="cross_attn", causal=False, kv=enc_out)
+    return x + lm.ffn_group(group, blocks, apply_norm(
+        b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg)
+
+
+def decoder_train(model, tokens, enc_out, *, cfg: ArchConfig):
+    """tokens: (B, Sd) -> hidden (B, Sd, d) after the final norm.
+    ``model`` is a ``Whisper`` or a data position's ``lm.ModelGroup``."""
     b, s = tokens.shape
     x = _dec_embed(model, tokens, 0)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
+    if isinstance(model, ModelGroup):
+        for i in range(cfg.n_layers):
+            x = lm.run_checkpointed(
+                model, f"dec_blocks.{i}.",
+                lambda x_, e_, blocks: _dec_block_group(
+                    model, blocks, x_, e_, cfg, positions), x, enc_out)
+        return lm.norm_group(model, "dec_norm", x, cfg)
     for blk in model.dec_blocks:
         x = _remat(lambda blk_, x_, e_: _dec_block(blk_, x_, e_, cfg,
                                                    positions),

@@ -36,7 +36,7 @@ mesh that repeats one card holds one copy.
 
 Parameters are placed by ``place_params``: by the model-axis entries of
 their specs only (a data-axis entry, an MoE expert split, is not placed:
-expert placement is ROADMAP slice 11d.5b.2), each stored tensor a leaf of
+expert placement is ROADMAP slice 11d.5b.2b), each stored tensor a leaf of
 its own that autograd differentiates.  ``param_blocks`` then gives each
 position its block of every parameter, taken when it is called (inside
 the train step's forward): a view of the one stored tensor where the

@@ -12,15 +12,21 @@ layout constraints, chiefly
     their row-split products);
   · the embedding's concatenation over d_model: ``src/repro/models/
     lm.py:183`` and ``:201``, the hints that make the rows whole over the
-    model axis.
+    model axis;
+  · the gathers to whole heads of a head_dim split and back:
+    ``attention.py:285-287`` and ``:326`` (``seqpar_attention``'s query
+    slabs, its K/V made whole, its output returned to the head_dim
+    split), and ``rwkv6.py:163-165`` where ``tp_if(h)`` replicates the
+    wkv over a model axis that cuts heads.
 
 ``fan_out`` sends one data position's activation to each model
 position, and its backward adds the positions' gradients in
 model-position order; ``row_sum`` adds one data position's partials in
-model-position order, and ``col_cat`` concatenates its column blocks;
-each returns the result on every position's device (computed once, on
-the first, and copied to each other distinct device through
-``fan_out``, so every copy holds the same bits).  None writes with
+model-position order and returns the sum on every position's device
+(computed once, on the first, and copied to each other distinct device
+through ``fan_out``, so every copy holds the same bits); ``join``
+concatenates its column blocks (or its sequence slabs) in position
+order on the first device.  None writes with
 duplicate indices or uses atomics, and no gradient is a sum whose order
 depends on the autograd engine's device threads: a tensor read on two
 cards gets one gradient from each through ``fan_out``'s one node, not
@@ -74,8 +80,8 @@ def row_sum(partials: list, devices: list) -> list:
     return fan_out(acc, devices)
 
 
-def col_cat(parts: list, devices: list) -> list:
-    """The concatenation of ``parts`` along their last dimension, in
-    model-position order, on each position's device."""
-    home = devices[0]
-    return fan_out(torch.cat([p.to(home) for p in parts], dim=-1), devices)
+def join(parts: list, home, dim: int = -1):
+    """The concatenation of ``parts`` along ``dim`` (the last by default:
+    column blocks), in model-position order, on ``home``; ``fan_out``
+    hands it to the positions that read it."""
+    return torch.cat([p.to(home) for p in parts], dim=dim)

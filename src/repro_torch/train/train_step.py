@@ -41,19 +41,25 @@ position, and a mesh may repeat one card.
     positions.
   · A model axis of 1: each data position runs its device's replica of
     the model, a module over the stored tensors.  A model axis of tp > 1
-    (the ``rwkv`` and ``std:dense`` families whose heads it splits; the
-    rest raises NotImplementedError naming slice 11d.5b.2): each data
-    position's rows go through each layer once per model position of its
-    row of the mesh (``lm.ModelGroup``), each on its block of every split
-    parameter (``sharding.param_blocks``, views taken in the forward so
-    that the gradient reaches the stored tensor): attention on its
-    heads, the FFN on its d_ff columns, RWKV's time mix on its heads and
-    its channel mix on its d_ff columns, the embedding on its d_model
-    columns and the cross-entropy on its vocab columns.  The row-split
-    partials are added in model-position order
+    (the ``rwkv`` and ``std:dense`` families and Whisper; the MoE
+    layers, MLA and jamba's period raise NotImplementedError naming
+    slice 11d.5b.2b): each data position's rows go through each layer
+    once per model position of its row of the mesh (``lm.ModelGroup``),
+    each on its block of every split parameter
+    (``sharding.param_blocks``, views taken in the forward so that the
+    gradient reaches the stored tensor): attention on its heads, or on
+    its head_dim columns joined into whole heads for K3' (each position
+    on its slab of queries, ``attention.seqpar_attention``, on a long
+    sequence), the FFN on its d_ff columns, RWKV's time mix on its heads
+    (or its columns, joined where it cuts heads) and its channel mix on
+    its d_ff columns, the embedding on its d_model columns and the
+    cross-entropy on its vocab columns (Whisper's tied head: the joined
+    table).  The row-split partials are added in model-position order
     (``parallelism/tensor.py``).  A leaf the model axis replicates (the
     norms, RWKV's token shift and decay LoRA, an FFN whose d_ff it does
-    not divide) runs once per data position, on its first position.
+    not divide, attention whose heads and head_dim it does not divide,
+    Whisper's ``pos_dec``) runs once per data position, on its first
+    position.
   · The positions' CE sums and counts, and each MoE layer's router
     statistics, are summed in data-position order on the first device
     (``factory.combine_parts``), and one backward gives the gradient.
@@ -87,7 +93,6 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import factory, lm
-from repro_torch.models.layers.attention import head_axes
 from repro_torch.models.layers.moe import moe_groups
 from repro_torch.parallelism import sharding
 from repro_torch.parallelism.ctx import NULL_CTX, ShardCtx
@@ -100,40 +105,25 @@ CUBLAS_CONFIGS = (":4096:8", ":16:8")
 
 
 def _check_ctx(ctx: ShardCtx, cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a model axis of size > 1 that this
-    port does not split yet (ROADMAP slice 11d.5b.2)."""
+    """Raise NotImplementedError for a model axis of size > 1 over the
+    families whose split this port does not have yet (ROADMAP slice
+    11d.5b.2b): the MoE layers, MLA and jamba's period."""
     tp = ctx.tp_size
-    if tp == 1:
+    if tp == 1 or cfg.enc_dec:
         return
-    kinds = set() if cfg.enc_dec else {k for k, _ in lm.group_plan(cfg)}
+    kinds = {k for k, _ in lm.group_plan(cfg)}
     what = None
-    if cfg.enc_dec:
-        what = "Whisper's encoder-decoder"
-    elif "period" in kinds:
+    if "period" in kinds:
         what = "jamba's period (Mamba's d_inner split)"
     elif kinds & {"std:moe", "mla:moe"}:
         what = "the MoE layers (expert placement by ctx.ep_axes)"
-    elif kinds & {"mla:dense"}:
+    elif "mla:dense" in kinds:
         what = "MLA's head split"
-    elif kinds == {"rwkv"}:
-        if cfg.d_model % (tp * cfg.rwkv.head_size):
-            what = (f"RWKV-6's d_model {cfg.d_model}, which a model axis of "
-                    f"{tp} does not split into whole heads of "
-                    f"{cfg.rwkv.head_size}")
-    else:
-        h_ax, hd_ax = head_axes(ctx, cfg.n_heads, cfg.resolved_head_dim)
-        if hd_ax is not None:
-            what = ("a head_dim split (sequence-parallel attention through "
-                    "K3')")
-        elif h_ax is None:
-            what = "attention whose heads the model axis does not split"
-    if what is None and cfg.tie_embeddings:
-        what = "a head tied to the embedding"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of size {tp}: {what} is ROADMAP "
-            "slice 11d.5b.2; the model axis is ported for the rwkv and "
-            "std:dense families whose heads it splits")
+            "slice 11d.5b.2b; the model axis is ported for the rwkv and "
+            "std:dense families and Whisper")
 
 
 def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,

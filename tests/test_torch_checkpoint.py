@@ -11,7 +11,8 @@ checkpointing``, ``launch/train.py``), in the JAX package's file format:
     checkpoint restores in the JAX package, leaf for leaf exact;
   · ``AsyncSaver``; ``latest_step``;
   · the launcher: 4 steps with a checkpoint every 2, then a resume to 6,
-    bit-identical to 6 straight; ``--mesh single`` names slice 11d.
+    bit-identical to 6 straight; ``--mesh single`` restores that
+    checkpoint into the production mesh's sharded state.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,8 @@ from repro_torch.data.pipeline import make_batch_np, to_device
 from repro_torch.launch import train as train_launcher
 from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (init_train_state, make_train_step,
+                                          plain_state)
 from test_torch_train import assert_params_close
 
 ARCH = "minitron-8b"
@@ -159,5 +161,12 @@ def test_launcher_resumes_bit_identical(tmp_path, capsys):
                                         str(tmp_path)])
     assert again["step"] == 6
     assert "done: 0 steps, no step left" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="11d"):
-        train_launcher.main(argv + ["--mesh", "single"])
+    # the same checkpoint restored through the production mesh's sharded
+    # state (every position on the CPU): nothing left to take, the state
+    # the straight run's
+    sharded = train_launcher.main(argv + ["--steps", "6", "--ckpt",
+                                          str(tmp_path), "--mesh", "single"])
+    out = capsys.readouterr().out
+    assert "resumed from step 6" in out and "done: 0 steps" in out
+    assert sharded["ctx"].mesh.devices.shape == (16, 16)
+    assert_states_equal(straight, plain_state(sharded), get_reduced(ARCH))

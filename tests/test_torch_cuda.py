@@ -1119,6 +1119,30 @@ def test_flash_autograd_on_card(cuda):
         FA.flash_attention(*bf).float().sum().backward()
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_seqpar_attention_on_card(cuda, causal):
+    """seqpar_attention over 4 slabs of 128 queries on the card: K3' once
+    per slab, causal over the keys up to the slab's end (Sq < Sk), and
+    its backward once per slab; against attention_plain on the whole
+    sequence, the output within 2e-5 and the gradients within
+    GRAD_TOL."""
+    from repro_torch.models.layers.attention import seqpar_attention
+    dev = torch.device("cuda", 0)
+    q, k, v = flash_inputs(21, 2, 512, 512, 6, 2, 64, torch.float32, dev)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    o = seqpar_attention(*ins, causal=causal, devices=[dev] * 4)
+    (o * o).sum().backward()
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == (f0 + 4, b0 + 4)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    whole = attention_plain(*ref, causal=causal)
+    assert float((o - whole).abs().max()) <= 2e-5
+    (whole ** 2).sum().backward()
+    for g, r in zip(ins, ref):
+        assert rel_err(g.grad, r.grad) <= GRAD_TOL
+
+
 # ---------------------------------------------------------------------------
 # training on the card: reduced models through the kernels
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ families (``make_train_step(cfg, opt_cfg, ctx)`` with a ('data',
     on its heads, in the forward and in the checkpointed recompute;
   · the vocab-parallel ``chunked_cross_entropy`` against the whole-vocab
     form, with -1 labels and a label in every block;
-  · ``row_sum``, ``col_cat`` and ``fan_out``: the order of the sums, in
+  · ``row_sum``, ``join`` and ``fan_out``: the order of the sums, in
     the forward and in the backward;
   · against the JAX package's own sharded step under ``make_ctx`` of a
     (2, 2) host mesh (4 forced host devices, in a subprocess): reduced
@@ -41,7 +41,7 @@ from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import rwkv6 as rwkv_mod
 from repro_torch.models.loss import chunked_cross_entropy
 from repro_torch.parallelism import sharding as shd
-from repro_torch.parallelism.tensor import col_cat, fan_out, row_sum
+from repro_torch.parallelism.tensor import fan_out, join, row_sum
 from repro_torch.train import train_step as TS
 from repro_torch.train.optimizer import OptConfig
 from test_torch_shard_train import (DATA_SEED, KW, PARAM_TOL, SHAPE,
@@ -125,7 +125,7 @@ def test_straddling_heads_take_their_kv_heads():
 
 def test_token_embedding_split_over_d_model():
     """minitron-8b's token batch on (2, 2): each model position looks up
-    its d_model columns of ``emb`` and ``col_cat`` joins them exactly; one
+    its d_model columns of ``emb`` and ``join`` joins them exactly; one
     step's gradient of every leaf against the unsharded one."""
     cfg = get_reduced("minitron-8b")
     ctx = cpu_ctx((2, 2))
@@ -200,17 +200,21 @@ def test_vocab_parallel_cross_entropy(n_blocks):
 
 
 def test_row_sum_col_cat_and_fan_out():
-    """row_sum adds in position order and col_cat joins in it, each
-    result on every position's device; fan_out's backward adds the
-    positions' gradients in position order, and skips an unused one."""
+    """row_sum adds in position order, its sum on every position's
+    device; join (which took over col_cat's column join) concatenates in
+    position order, columns or sequence slabs, on the first device;
+    fan_out's backward adds the positions' gradients in position order,
+    and skips an unused one."""
     cpu0 = torch.device("cpu", 0)
     devs = [torch.device("cpu"), cpu0, cpu0]
     gen = torch.Generator().manual_seed(0)
     xs = [torch.randn((4, 5), generator=gen) * 10 ** i for i in range(3)]
     got = row_sum(xs, devs)
     assert all(torch.equal(g, (xs[0] + xs[1]) + xs[2]) for g in got)
-    cat = col_cat(xs, devs)
-    assert all(torch.equal(c, torch.cat(xs, dim=-1)) for c in cat)
+    parts = [x.to(d) for x, d in zip(xs, devs)]
+    for dim in (-1, 0):
+        cat = join(parts, devs[0], dim)
+        assert torch.equal(cat, torch.cat(xs, dim=dim))
     x = torch.randn((4, 5), generator=gen, requires_grad=True)
     outs = fan_out(x, devs)
     assert all(torch.equal(o, x) for o in outs)

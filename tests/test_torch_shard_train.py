@@ -21,9 +21,11 @@ meshes of the CPU, every position on the one CPU:
   · a sharded checkpoint writes the unsharded state's bytes, and a
     restore into a sharded state then 3 steps equals 6 straight, bit for
     bit;
-  · refusals: a model axis of size 2 for the families slice 11d.5b.2
-    ports, and ``launch/train.py --mesh``.  (The model axis of the dense
-    and RWKV families is in test_torch_shard_tp.py.)
+  · refusals: a model axis of size 2 for the families slice 11d.5b.2b
+    ports, and ``launch/train.py --mesh`` for an MoE config.  (The model
+    axis of the dense and RWKV families is in test_torch_shard_tp.py,
+    its head_dim split and RWKV's cut heads in test_torch_shard_seqpar.py,
+    Whisper's in test_torch_shard_whisper.py.)
 """
 import json
 import os
@@ -235,22 +237,23 @@ def ref_names(name: str) -> str:
     return "/".join(shd._ref_path(name)[0])
 
 
-def check_against_reference(arch, mesh, tmp_path):
+def check_against_reference(arch, mesh, tmp_path, shape=SHAPE):
     """The port's 2 steps of reduced ``arch`` on a CPU mesh of ``mesh``
     (('data', 'model')) against the JAX package's sharded step on a host
-    mesh of that shape: metrics, parameters and each position's moment
-    block shapes."""
+    mesh of that shape, batches of ``shape``: metrics, parameters and
+    each position's moment block shapes."""
     cfg = get_reduced(arch)
     out = str(tmp_path / "ref.npz")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    arg = json.dumps([arch, out, KW, [4, 32], DATA_SEED, 2, list(mesh)])
+    arg = json.dumps([arch, out, KW, [shape.global_batch, shape.seq_len],
+                      DATA_SEED, 2, list(mesh)])
     proc = subprocess.run([sys.executable, "-c", SCRIPT, arg], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ref = json.loads(proc.stdout.strip().splitlines()[-1])
     want = dict(np.load(out))
-    rows, state = run(cfg, weights(cfg), cpu_ctx(mesh), SHAPE, 2)
+    rows, state = run(cfg, weights(cfg), cpu_ctx(mesh), shape, 2)
     assert_rows_close(rows, ref["rows"], aux=cfg.moe is not None)
     if cfg.moe is not None:
         assert all(r["aux"] > 0 for r in ref["rows"])
@@ -422,22 +425,24 @@ def test_sharded_checkpoint_is_the_unsharded_file_and_restarts(tmp_path):
 
 def test_a_model_axis_refuses():
     """A model axis of 2 trains the dense and RWKV families
-    (test_torch_shard_tp.py); for the MoE layers, MLA, jamba's period,
-    Whisper and a head_dim split it raises, naming slice 11d.5b.2."""
+    (test_torch_shard_tp.py) and Whisper (test_torch_shard_whisper.py),
+    and a model axis of 4 the head_dim split of qwen2-vl-2b's 6 heads of
+    16 (test_torch_shard_seqpar.py); for the MoE layers, MLA and jamba's
+    period it raises, naming slice 11d.5b.2b."""
     ctx = make_ctx(make_train_mesh((2, 2), device="cpu"))
     assert ctx.tp_size == 2
-    TS.make_train_step(get_reduced("minitron-8b"), OptConfig(), ctx)
-    for arch in ("arctic-480b", "jamba-v0.1-52b", "deepseek-v3-671b",
-                 "whisper-base"):
+    for arch in ("minitron-8b", "whisper-base"):
+        TS.make_train_step(get_reduced(arch), OptConfig(), ctx)
+    for arch, what in (("arctic-480b", "MoE"), ("jamba-v0.1-52b", "period"),
+                       ("deepseek-v3-671b", "MoE")):
         cfg = get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="11d.5b.2"):
+        with pytest.raises(NotImplementedError, match=f"{what}.*11d.5b.2b"):
             TS.make_train_step(cfg, OptConfig(), ctx)
-        with pytest.raises(NotImplementedError, match="11d.5b.2"):
+        with pytest.raises(NotImplementedError, match="11d.5b.2b"):
             TS.init_train_state(0, cfg, OptConfig(), device="cpu", ctx=ctx)
     # 6 heads of 16 on a model axis of 4: the reference splits head_dim
-    with pytest.raises(NotImplementedError, match="head_dim.*11d.5b.2"):
-        TS.make_train_step(get_reduced("qwen2-vl-2b"), OptConfig(),
-                           make_ctx(make_train_mesh((1, 4), device="cpu")))
+    TS.make_train_step(get_reduced("qwen2-vl-2b"), OptConfig(),
+                       make_ctx(make_train_mesh((1, 4), device="cpu")))
     # a sharded state and an unsharded step (or the reverse) do not mix
     cfg = get_reduced("minitron-8b")
     ctx = cpu_ctx((2, 1))
@@ -449,9 +454,12 @@ def test_a_model_axis_refuses():
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_launcher_mesh_names_the_model_axis(mesh):
+    """``--mesh single|multi`` trains the dense, RWKV and Whisper configs
+    on the production mesh (test_torch_shard_seqpar.py); an MoE config
+    there raises, naming the model axis of 16 and slice 11d.5b.2b."""
     with pytest.raises(NotImplementedError) as err:
-        train_launcher.main(["--arch", "minitron-8b", "--device", "cpu",
+        train_launcher.main(["--arch", "arctic-480b", "--device", "cpu",
                              "--steps", "1", "--mesh", mesh])
     msg = str(err.value)
-    assert "data axes are ported" in msg and "11d.5b.2" in msg
-    assert "model axis of 16" in msg and "splits heads" in msg
+    assert "model axis of size 16" in msg and "11d.5b.2b" in msg
+    assert "MoE layers" in msg and "std:dense families and Whisper" in msg
