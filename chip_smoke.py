@@ -334,6 +334,10 @@ SWEEP_CASES = (("nn", 0.5), ("syrk", 0.16))
 SWEEP_SOLO = (("nn", 0.5),)
 # phase l: the workload swept at every lane count of LANE_COUNTS
 LANES_CASE = ("syrk", 0.16)
+# phase t: the workload of dse's grids with telemetry (every lane of the
+# default grid against its solo run, and 32 lanes): nn@0.5, whose 8 solo
+# runs take ~18 s where syrk@0.16's took ~56, for the smoke's time
+TELEMETRY_LANES_CASE = ("nn", 0.5)
 # phase t: the JAX package's full-width timelines (tests/
 # test_torch_telemetry.py --regen), and the quantum loop's kernel launches
 # per quantum with telemetry off by lane count, as phase l reads them
@@ -411,6 +415,12 @@ FLASH_ARCTIC_SHAPE = (8, 512, 56, 8, 128)
 # and on the (2, 2) mesh's model positions (half the heads each)
 FLASH_QWEN_VL_SHAPE = (2, 512, 12, 2, 128)
 FLASH_QWEN_VL_TP_SHAPE = (4, 512, 6, 1, 128)
+# phases f and k: K3' on a (2, 2) mesh's model position at 4 rows of 512
+# tokens a data position (scripts/shard_probes.py's four-card runs):
+# arctic-480b's 56 q / 8 KV heads halved, a GQA group of 7, and
+# jamba-v0.1-52b's attention sublayer's 32 / 8 halved, a group of 4
+FLASH_EP_TP_SHAPES = {"arctic-480b": (4, 512, 28, 4, 128),
+                      "jamba-v0.1-52b": (4, 512, 16, 4, 128)}
 # phases f, k and z: the slabs of qwen2-vl-2b's sequence-parallel attention
 # on a (1, 8) mesh, 4 rows of 1,024 tokens: each model position's 128
 # queries (B, Sq, H, KV, hd), causal over the keys up to its slab's end
@@ -483,6 +493,10 @@ WKV_BWD_OPS_PER_ELEMENT = 12
 TRAIN_CASES = (("rwkv6-1.6b", None, 8, 512),
                ("minitron-8b", 2, 4, 512),
                ("whisper-base", None, 8, 448))
+# phase x: the launcher's restart, whisper-base whole (a 0.87 GB
+# checkpoint, where rwkv6-1.6b's 19.2 GB took ~45 s each way: the smoke's
+# time)
+LAUNCHER_CASE = TRAIN_CASES[2]
 TRAIN_CMP_SEQ = 128
 TRAIN_CMP_LAYERS = 2
 TRAIN_GRAD_TOL = 1e-3
@@ -505,6 +519,15 @@ SHARD_Y_ARCHS = ("arctic-480b", "deepseek-v3-671b", "jamba-v0.1-52b")
 # tokens), rwkv6-1.6b's heads of 16 cut into 8 columns, Whisper's heads
 # split by head_dim too
 SHARD_Y_TP_MESH = (1, 8)
+# phase y: the model axis of the MoE, MLA and jamba families, one mesh per
+# expert placement of ctx.ep_axes (golden, arch, mesh, rows a step, None
+# for the golden's 2): '2d' arctic-480b on (2, 2) (experts over data, their
+# d_ff over model), 'full' deepseek-v3-671b on (1, 4) (one expert a
+# position; MLA's 4 heads split), 'tp' jamba-v0.1-52b on (3, 2) (experts
+# over model; d_inner split) at 6 rows, 2 a data position
+SHARD_Y_EP = ((MOE_GOLDEN, "arctic-480b", (2, 2), None),
+              (MOE_GOLDEN, "deepseek-v3-671b", (1, 4), None),
+              (HYBRID_GOLDEN, "jamba-v0.1-52b", (3, 2), 6))
 SHARD_Y_TP_ARCHS = ("qwen2-vl-2b", "phi3-medium-14b", "rwkv6-1.6b",
                     "whisper-base")
 # phase y: the reduced rwkv6-1.6b's gradient norm, card against CPU.  Its
@@ -515,25 +538,28 @@ SHARD_Y_TP_ARCHS = ("qwen2-vl-2b", "phi3-medium-14b", "rwkv6-1.6b",
 # (scripts/reduced_sensitivity.py).  MOE_TRAIN_GRAD_TOL sits below that
 # reading; RWKV's is ten roundings' worth
 RWKV_Y_GRAD_TOL = 1e-3
-# phase z: qwen2-vl-2b (arXiv:2409.12191) whole, 28 layers at its published
-# widths (1.78 B f32 parameters, a ~28 GB train state), trained by the
-# sharded step on ('data', 'model') meshes repeating this card: (2, 2), 4
-# rows of 512 tokens per data position, each model position on half the
-# heads, so K3' runs at FLASH_QWEN_VL_TP_SHAPE
+# phase z: qwen2-vl-2b (arXiv:2409.12191) at its published widths (28
+# layers, 1.78 B f32 parameters, a ~28 GB train state; scripts/
+# shard_probes.py qwen trains it whole), trained by the sharded step on
+# ('data', 'model') meshes repeating this card: (2, 2), 4 rows of 512
+# tokens per data position, each model position on half the heads, so K3'
+# runs at FLASH_QWEN_VL_TP_SHAPE, cut to SHARD_TP_LAYERS layers to keep the
+# smoke within its time
 SHARD_ARCH = "qwen2-vl-2b"
 SHARD_MESHES = ((2, 2),)
+SHARD_TP_LAYERS = 14
 SHARD_BATCH, SHARD_SEQ = 8, 512
 # phase z: the (4, 1) mesh's run (PR 25's, the data axes only, which the
 # (2, 2) run covers too; 2 rows per position, K3' at FLASH_QWEN_VL_SHAPE)
 # at qwen2-vl-2b's widths cut to this depth, beside its own unsharded run,
 # to keep the smoke within its time: (mesh, layers)
 SHARD_DP = ((4, 1), 4)
-# phase z: qwen2-vl-2b whole on a (1, 8) mesh, 4 rows of 1,024 tokens: 12
-# heads do not divide 8, head_dim 128 does, and 1,024 / 8 = 128 queries a
+# phase z: qwen2-vl-2b on a (1, 8) mesh, 4 rows of 1,024 tokens: 12 heads
+# do not divide 8, head_dim 128 does, and 1,024 / 8 = 128 queries a
 # position meets the reference's test for sequence-parallel attention, so
 # every layer runs seqpar_attention, K3' on each position's slab (mesh,
-# batch, sequence)
-SHARD_SEQPAR = ((1, 8), 4, 1024)
+# batch, sequence, layers: its widths cut in depth for the smoke's time)
+SHARD_SEQPAR = ((1, 8), 4, 1024, 8)
 # phase z: whisper-base whole on a (2, 2) mesh, 8 x 448 decoder tokens
 # over 1,500 frames: its 8 heads split, 4 a model position (arch, mesh,
 # batch, sequence)
@@ -543,6 +569,12 @@ SHARD_WHISPER = ("whisper-base", (2, 2), 8, 448)
 # the embedding split over d_model and K2 on half the heads, at
 # WKV_TP_SHAPE; (arch, layers, batch, meshes)
 SHARD_RWKV = ("rwkv6-1.6b", 2, 4, ((1, 2),))
+# phase z: deepseek-v3-671b at its published widths cut to its 3 dense-
+# prefix layers (MLA and a dense FFN: 3.60 B f32 parameters, a 57.6 GB
+# train state of parameters, gradients and two moments; the run's
+# snapshots kept on the host), 4 x 512 tokens on a (2, 2) mesh: MLA's 128
+# heads split, 64 a model position (arch, layers, batch, meshes)
+SHARD_MLA = ("deepseek-v3-671b", 3, 4, ((2, 2),))
 MOE_TRAIN_METRIC_TOL = 1e-5
 MOE_TRAIN_GRAD_TOL = 1e-4
 MOE_TRAIN_PARAM_TOL = 1e-3
@@ -1163,6 +1195,8 @@ def phase_flash(torch, FA):
     whisper_tp = {name: _flash_timed_case(torch, FA, gen, shape,
                                           causal=causal, sk=sk)
                   for name, (shape, sk, causal) in WHISPER_TP_CASES.items()}
+    ep_tp = {arch: _flash_timed_case(torch, FA, gen, shape)
+             for arch, shape in FLASH_EP_TP_SHAPES.items()}
     b, sq, h, kv, hd, sk = FLASH_WIDE_CASE
     q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
     wide = {"shape": list(FLASH_WIDE_CASE)}
@@ -1179,7 +1213,7 @@ def phase_flash(torch, FA):
     except ValueError:
         wide["causal_refused"] = True
     for r in (arctic, qwen_vl, qwen_vl_tp, full, *whisper.values(), wide,
-              *seqpar, *whisper_tp.values()):
+              *seqpar, *whisper_tp.values(), *ep_tp.values()):
         max_err = max(max_err, r["max_abs_err"])
         worst = max(worst, r["worst"])
         n_cases += 1
@@ -1187,7 +1221,7 @@ def phase_flash(torch, FA):
             "worst": worst, "arctic": arctic, "qwen_vl": qwen_vl,
             "qwen_vl_tp": qwen_vl_tp,
             "whisper": whisper, "wide": wide, "seqpar": seqpar,
-            "whisper_tp": whisper_tp}
+            "whisper_tp": whisper_tp, "ep_tp": ep_tp}
 
 
 def _flash_timed_case(torch, FA, gen, shape, causal=True, sk=None):
@@ -1382,6 +1416,8 @@ def phase_backward(torch, W, FA):
     flash_cases = [(sb, ss, sk, sh_, skv_, shd_) for sk in (128, 640, 1024)]
     flash_cases += [(shape[0], shape[1], sk, *shape[2:])
                     for shape, sk, _ in WHISPER_TP_CASES.values()]
+    flash_cases += [(b, s, s, h, kv, hd) for b, s, h, kv, hd in
+                    FLASH_EP_TP_SHAPES.values()]
     flash_cases += [(qb, qs, qs, qh, qkv, qhd), (tb, ts, ts, th, tkv, thd),
                    (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
                    (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
@@ -1481,7 +1517,60 @@ def phase_backward(torch, W, FA):
     enc["bound_ms"], enc["bound_by"], *_ = flash_bwd_bound(
         eb, es, es, eh, ekv, ehd, False)
     out["flash_encoder"] = enc
+    del q, k, v, do, o, lse
+    out["ep_tp"] = {arch: _flash_bwd_timed(torch, FA, gen, shape)
+                    for arch, shape in FLASH_EP_TP_SHAPES.items()}
     return out
+
+
+def _flash_bwd_timed(torch, FA, gen, shape):
+    """flash_attention_bwd at one causal f32 shape (B, S, H, KV, hd): its
+    two kernels' time per call (profiler), autograd's backward of SDPA
+    (enable_gqa) on the same inputs, the bound, and whether two calls give
+    the same bits."""
+    b, s, h, kv, hd = shape
+    q, k, v = flash_case(torch, gen, b, s, s, h, kv, hd, torch.float32)
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
+    first, again = (FA.flash_attention_bwd(q, k, v, o, lse, do)
+                    for _ in range(2))
+    r = {"shape": list(shape),
+         "same_bits": all(torch.equal(x, y) for x, y in zip(first, again))}
+    del first, again
+
+    def launches():
+        for _ in range(10):
+            FA.flash_attention_bwd(q, k, v, o, lse, do)
+    parts = kernel_us(torch, launches, "flash_bwd")
+    r["timed"] = bool(parts)
+    r["ms"] = (sum(parts) / 10 / 1e3 if parts else time_per_call(
+        torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do), 10))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    r["library_ms"] = time_per_call(
+        torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                           retain_graph=True), 10)
+    r["bound_ms"], r["bound_by"], *_ = flash_bwd_bound(b, s, s, h, kv, hd,
+                                                       True)
+    return r
+
+
+def digest(torch, t, chunk=1 << 26):
+    """An exact-match digest of a tensor's bits, computed on its device:
+    the sums mod 2^64 of its 32-bit words as int64, plain and weighted by
+    a hash of their position, chunk by chunk."""
+    flat = t.detach().reshape(-1).view(torch.int32)
+    s1 = s2 = 0
+    for i in range(0, flat.numel(), chunk):
+        part = flat[i:i + chunk].to(torch.int64)
+        pos = torch.arange(i, i + part.numel(), device=part.device,
+                           dtype=torch.int64)
+        s1 += int(part.sum())
+        s2 += int((part * (pos * 2654435761 % 4294967311 + 1)).sum())
+    return s1 % 2**64, s2 % 2**64
 
 
 def _state_tensors(state):
@@ -1749,8 +1838,8 @@ def phase_train(torch, W, FA, arch, n_layers, batch, seq):
     return out
 
 
-def _train_launcher(torch, ckpt, batch, seq):
-    """launch/train.py at full width for rwkv6-1.6b in this process, batch
+def _train_launcher(torch, ckpt, arch, batch, seq):
+    """launch/train.py at full width for ``arch`` in this process, batch
     x seq tokens a step: 6 steps straight; 4 steps with a checkpoint at
     step 4; the same command to 6 steps, which resumes from it and must
     end in the straight run's state bit for bit.  The launcher's schedule
@@ -1761,7 +1850,7 @@ def _train_launcher(torch, ckpt, batch, seq):
     import io
 
     from repro_torch.launch import train as train_launcher
-    argv = ["--arch", RWKV_ARCH, "--full", "--batch", str(batch), "--seq",
+    argv = ["--arch", arch, "--full", "--batch", str(batch), "--seq",
             str(seq)]
     runs, snap = [], None
     for n, with_ckpt in ((6, False), (4, True), (6, True)):
@@ -2130,7 +2219,7 @@ def _golden_archs(name):
 
 
 def phase_reduced_train(torch, FA, name, mesh_shape=None, archs=None,
-                        W=None):
+                        W=None, rows=None):
     """The reduced models of a golden file (the MoE family's, or jamba's
     and Whisper's; ``archs`` where given, from that file's seeds, and
     without the JAX package's loss where it has none) trained on the card
@@ -2144,7 +2233,9 @@ def phase_reduced_train(torch, FA, name, mesh_shape=None, archs=None,
     them); flash_attention's forward (forward and recompute) and backward
     launches per step (wkv6's with ``W`` for RWKV).  With ``mesh_shape``
     both sides run the sharded step on a mesh of that shape
-    (train/train_step.py), every position on the card or on the CPU."""
+    (train/train_step.py), every position on the card or on the CPU;
+    ``rows`` where given is the steps' batch rows (the golden's batch
+    still gives the losses)."""
     import shutil
     import tempfile
 
@@ -2161,7 +2252,7 @@ def phase_reduced_train(torch, FA, name, mesh_shape=None, archs=None,
     with open(os.path.join(GOLDEN, name)) as f:
         golden = json.load(f)
     b, s = golden["train_shape"]
-    shape = ShapeSpec("y", s, b, "train")
+    shape = ShapeSpec("y", s, rows or b, "train")
     opt_cfg = OptConfig(**TRAIN_OPT)
     sides = (("card", "cuda:0"), ("cpu", "cpu"))
     kws = {side: {} if mesh_shape is None else {"ctx": make_ctx(
@@ -2176,7 +2267,8 @@ def phase_reduced_train(torch, FA, name, mesh_shape=None, archs=None,
             seeded_lm_params(cfg, golden["weight_seed"],
                              max_seq=golden.get("max_seq", 4096)),
             golden["jitter_seed"])
-        batch = make_batch_np(cfg, shape, golden["data_seed"], 0)
+        batch = make_batch_np(cfg, ShapeSpec("y", s, b, "train"),
+                              golden["data_seed"], 0)
         losses, states, step_fns = {}, {}, {}
         for side, dev in sides:
             model = factory.from_state_dict(
@@ -2248,7 +2340,7 @@ def jitter_constants(torch, model, seed, std=0.1):
 
 def phase_shard_train(torch, FA, devices=None, *, W=None, arch=SHARD_ARCH,
                       n_layers=None, batch=SHARD_BATCH, meshes=SHARD_MESHES,
-                      seq=SHARD_SEQ):
+                      seq=SHARD_SEQ, keep=None):
     """``arch`` (cut to ``n_layers`` if given) trained by the sharded step
     (train/train_step.py) on each ('data', 'model') mesh of ``meshes``,
     its positions on ``devices`` (by default every position on cuda:0),
@@ -2261,7 +2353,11 @@ def phase_shard_train(torch, FA, devices=None, *, W=None, arch=SHARD_ARCH,
     and the initial parameters kept on the card for the comparisons.  Per
     run: step walls, the forward launches and backward calls of the
     attention kernels (wkv6 with ``W`` for RWKV) per step, and its peak
-    memory on each card over what was held there before it began."""
+    memory on each card over what was held there before it began.  With
+    ``keep`` ("cpu") the kept parameters live there instead, each leaf
+    brought back to the card for the comparisons, and the two sharded
+    runs' states are held equal by their tensors' digests (``digest``),
+    so that a model whose state fills the card can be compared."""
     import dataclasses
     import gc
 
@@ -2311,7 +2407,7 @@ def phase_shard_train(torch, FA, devices=None, *, W=None, arch=SHARD_ARCH,
         model = factory.init_params(0, cfg, device=dev)
         jitter_constants(torch, model, 1)
         if init is None:
-            init = {n: t.detach().clone()
+            init = {n: t.detach().to(keep or t.device, copy=True)
                     for n, t in model.state_dict().items()}
         n_params = sum(p.numel() for p in model.parameters())
         state = TS.init_train_state(model, cfg, opt_cfg, **kw)
@@ -2325,33 +2421,45 @@ def phase_shard_train(torch, FA, devices=None, *, W=None, arch=SHARD_ARCH,
                        for i in cards]
         plain = TS.plain_state(state)
         if name == "sharded":
-            snaps[mesh] = {key: t.clone() for key, t in _state_tensors(plain)}
+            tensors = dict(_state_tensors(plain))
+            if keep:
+                snaps[mesh] = {key: t.to(keep, copy=True)
+                               for key, t in tensors.items() if key[0] == "p"}
+                snaps[mesh]["digests"] = {key: digest(torch, t)
+                                          for key, t in tensors.items()}
+            else:
+                snaps[mesh] = {key: t.clone() for key, t in tensors.items()}
+            del tensors
         elif name == "again":
+            want = snaps[mesh].get("digests")
             run["differ"] = [f"{k}:{n}" for (k, n), t in
                              _state_tensors(plain)
-                             if not torch.equal(t, snaps[mesh][k, n])]
+                             if (digest(torch, t) != want[k, n] if keep
+                                 else not torch.equal(t, snaps[mesh][k, n]))]
             # the unsharded run needs the parameters only
             snaps[mesh] = {key: t for key, t in snaps[mesh].items()
-                           if key[0] == "p"}
+                           if key[0] == "p" and key != "digests"}
         else:
             params = plain["params"].state_dict()
             run["still"] = sorted(n for n, t in params.items()
-                                  if torch.equal(t.detach(), init[n]))
+                                  if torch.equal(t.detach(),
+                                                 init[n].to(t.device)))
             for m, snap in snaps.items():
                 r = out["meshes"][m]
-                r["params"] = max(
-                    float((t.detach() - snap["p", n]).abs().max()
-                          / snap["p", n].abs().max().clamp(min=1e-30))
-                    for n, t in params.items())
-                # each leaf's change: sharded against unsharded, in L2 over
-                # the unsharded change (0 where neither moved, inf where
-                # only the sharded one did)
-                update = {}
+                r["params"], update = 0.0, {}
                 for n, t in params.items():
-                    moved = float((t.detach() - init[n]).norm())
-                    apart = float((t.detach() - snap["p", n]).norm())
+                    t, want = t.detach(), snap["p", n].to(t.device)
+                    r["params"] = max(r["params"], float(
+                        (t - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30)))
+                    # each leaf's change: sharded against unsharded, in L2
+                    # over the unsharded change (0 where neither moved, inf
+                    # where only the sharded one did)
+                    moved = float((t - init[n].to(t.device)).norm())
+                    apart = float((t - want).norm())
                     update[n] = (apart / moved if moved else
                                  0.0 if not apart else float("inf"))
+                    del want
                 r["update"] = update
         if name != "sharded":
             # where the time goes: one more step under the profiler
@@ -2406,6 +2514,8 @@ def report_shard_train(zr, card, where):
     calls = kernel_calls(c, None, seq)
     tag = f"[z shard train] {c.name}"
     what = ("" if c.family == "ssm" else
+            f", MLA {c.n_heads} heads (q / kv latents {c.mla.q_lora_rank} / "
+            f"{c.mla.kv_lora_rank})" if c.mla is not None else
             f", {c.n_heads} q / {c.n_kv_heads} KV heads of "
             f"{c.resolved_head_dim}")
     for (mesh, name), run in zr["runs"].items():
@@ -2905,8 +3015,8 @@ def phase_telemetry(torch, K, Q, full_golden):
                             "waste": fin["lockstep_waste"],
                             "samples": fin["telemetry_samples"]}
 
-    # dse's default grid over syrk@0.16: every lane against its solo run
-    bench, scale = LANES_CASE
+    # dse's default grid: every lane against its solo run
+    bench, scale = TELEMETRY_LANES_CASE
     w = make_workload(bench, scale=scale)
     cfgs = default_grid(RTX3080TI, SWEEP_LANES)
     r, wall, steps = counted(lambda: sweep(w, cfgs, plan=plan,
@@ -2943,7 +3053,7 @@ def phase_telemetry(torch, K, Q, full_golden):
                    "quanta": [[s["cycles"] // TINY.quantum for s in row]
                               for row in grid.stats]}
 
-    # and syrk@0.16 over 32 lanes
+    # and over 32 lanes
     n = max(LANE_COUNTS)
     cfgs32 = default_grid(RTX3080TI, n)
     r, wall, steps = counted(lambda: sweep(w, cfgs32, plan=plan,
@@ -3966,13 +4076,14 @@ def main():
               f"comparable() == pinned stats; last row == finalize; wall "
               f"{d['wall']:.3f} s for {d['steps']} quanta", flush=True)
     d = tr["dse"]
-    print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, dse default grid "
+    t_bench, t_scale = TELEMETRY_LANES_CASE
+    print(f"[t telemetry] {t_bench}@{t_scale}, dse default grid "
           f"of {SWEEP_LANES} configs with telemetry: every lane's timeline "
           f"== its solo card run's; wall {d['wall']:.3f} s for {d['steps']} "
           f"quanta; lane quanta {d['quanta']}; lockstep_waste {d['waste']}",
           flush=True)
     d = tr["lanes32"]
-    print(f"[t telemetry] {LANES_CASE[0]}@{LANES_CASE[1]}, dse default grid "
+    print(f"[t telemetry] {t_bench}@{t_scale}, dse default grid "
           f"of {d['lanes']} configs: last rows == finalize; wall "
           f"{d['wall']:.3f} s for {d['steps']} quanta; frozen lane-quanta "
           f"{d['lanes'] * d['steps'] - sum(d['quanta'])} of "
@@ -4287,6 +4398,9 @@ def main():
     named += [(f"whisper-base's {name} on a (2, 2) mesh's model position, "
                f"{'causal' if c['causal'] else 'non-causal'} over {c['sk']} "
                f"keys", c) for name, c in ar["whisper_tp"].items()]
+    named += [(f"{arch}'s attention on a (2, 2) mesh's model position (GQA "
+               f"group of {c['shape'][2] // c['shape'][3]}), causal", c)
+              for arch, c in ar["ep_tp"].items()]
     for what, c in named:
         print(f"[f flash] {what}: {tuple(c['shape'])}, f32: "
               f"flash_attention vs attention_plain max abs err "
@@ -4760,8 +4874,19 @@ def main():
           f"{fe['bound_ms'] * 1e3:.2f} us "
           f"({fe['bound_by']}); two calls give the same bits: "
           f"{fe['same_bits']}", flush=True)
+    for arch, c in kr_["ep_tp"].items():
+        print(f"[k backward] flash_attention_bwd at {arch}'s attention on a "
+              f"(2, 2) mesh's model position {tuple(c['shape'])} (held "
+              f"above with the others), causal: kernels "
+              f"{c['ms'] * 1e3:.2f} us/call on the device ("
+              + ("profiler" if c["timed"] else "not profiled: events")
+              + f"), autograd's backward of SDPA (enable_gqa) "
+              f"{c['library_ms'] * 1e3:.2f} us/call, bound "
+              f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}); two calls "
+              f"give the same bits: {c['same_bits']}", flush=True)
     check(kr_["wkv_same_bits"] and kr_["flash_same_bits"]
-          and fe["same_bits"],
+          and fe["same_bits"]
+          and all(c["same_bits"] for c in kr_["ep_tp"].values()),
           "a backward kernel gave other bits on a second call")
 
     marks.append(("x", time.perf_counter()))
@@ -4845,16 +4970,16 @@ def main():
     import shutil
     import tempfile
     ckpt = tempfile.mkdtemp(prefix="train-launcher-")
-    _, _, l_batch, l_seq = TRAIN_CASES[0]
+    l_arch, _, l_batch, l_seq = LAUNCHER_CASE
     try:
-        lr_ = _train_launcher(torch, ckpt, l_batch, l_seq)
+        lr_ = _train_launcher(torch, ckpt, l_arch, l_batch, l_seq)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     for run in lr_:
         same = ("" if "differ" not in run else
                 f"; state bit-identical to the straight 6 steps: "
                 f"{not run['differ']} ({len(run['differ'])} tensors differ)")
-        print(f"[x train] launch/train.py --arch {RWKV_ARCH} --full --batch "
+        print(f"[x train] launch/train.py --arch {l_arch} --full --batch "
               f"{l_batch} --seq {l_seq} {run['argv']}: wall "
               f"{run['wall']:.2f} s; {' | '.join(run['lines'])}{same}",
               flush=True)
@@ -4910,6 +5035,14 @@ def main():
                    for arch, r in got.items()})
         y_shapes.update({f"{arch} on a {mesh_text} mesh": y_shape
                          for arch in got})
+    # the MoE, MLA and jamba families on a model axis: each placement of
+    # the experts by ctx.ep_axes, MLA's heads and Mamba's d_inner split
+    for name, arch, mesh, rows in SHARD_Y_EP:
+        got, y_shape = phase_reduced_train(torch, FA, name, mesh, [arch],
+                                           rows=rows)
+        text = "x".join(map(str, mesh))
+        yr.update({f"{arch} on a {text} mesh": r for arch, r in got.items()})
+        y_shapes.update({f"{arch} on a {text} mesh": y_shape for arch in got})
     # the model axis: the head_dim split, RWKV's cut heads, Whisper (the
     # hybrid golden's seeds, and its JAX loss for Whisper)
     tp_text = "x".join(map(str, SHARD_Y_TP_MESH))
@@ -4986,11 +5119,11 @@ def main():
     # whisper-base whole on a (2, 2) mesh; rwkv6-1.6b at full width on a
     # (1, 2) mesh; each against the unsharded step
     t_z = time.perf_counter()
-    zr = phase_shard_train(torch, FA)
+    zr = phase_shard_train(torch, FA, n_layers=SHARD_TP_LAYERS)
     report_shard_train(zr, card, "cuda:0")
-    zs_mesh, zs_batch, zs_seq = SHARD_SEQPAR
+    zs_mesh, zs_batch, zs_seq, zs_layers = SHARD_SEQPAR
     zs = phase_shard_train(torch, FA, batch=zs_batch, seq=zs_seq,
-                           meshes=(zs_mesh,))
+                           meshes=(zs_mesh,), n_layers=zs_layers)
     report_shard_train(zs, card, "cuda:0")
     z_arch, z_mesh, z_batch, z_seq = SHARD_WHISPER
     zh = phase_shard_train(torch, FA, arch=z_arch, batch=z_batch,
@@ -5003,6 +5136,10 @@ def main():
     zw = phase_shard_train(torch, FA, W=W, arch=r_arch, n_layers=r_layers,
                            batch=r_batch, meshes=r_meshes)
     report_shard_train(zw, card, "cuda:0")
+    m_arch, m_layers, m_batch, m_meshes = SHARD_MLA
+    zm = phase_shard_train(torch, FA, arch=m_arch, n_layers=m_layers,
+                           batch=m_batch, meshes=m_meshes, keep="cpu")
+    report_shard_train(zm, card, "cuda:0")
     print(f"[z shard train] phase z {time.perf_counter() - t_z:.1f} s",
           flush=True)
 
@@ -5117,6 +5254,11 @@ def main():
             "shape", "sk", "causal", "max_abs_err", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}
             for name, c in ar["whisper_tp"].items()},
+        # arctic-480b's and jamba-v0.1-52b's on a (2, 2) mesh's model
+        # position (phase f; scripts/shard_probes.py trains them there)
+        "ep_tp_shapes": {arch: {k: c[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for arch, c in ar["ep_tp"].items()},
         # the hybrid path's (phase p: one generate of jamba's period) and
         # Whisper's (phase w: one prefill and decode loop; phase x: the
         # forward and the recompute of every step)
@@ -5159,6 +5301,11 @@ def main():
         "whisper_encoder": {"shape": list(WHISPER_FLASH_CASES["encoder"][0]),
                             **{k: fe[k] for k in ("ms", "bound_ms",
                                                   "bound_by")}},
+        # at arctic-480b's and jamba-v0.1-52b's (2, 2) model-position
+        # shapes, causal (phase k)
+        "ep_tp_shapes": {arch: {k: c[k] for k in (
+            "shape", "ms", "library_ms", "bound_ms", "bound_by")}
+            for arch, c in kr_["ep_tp"].items()},
         "launches_per_call": 2, "parts_ms": kr_["flash_parts_ms"],
         "max_abs_err": kr_["flash_err"], "ms": kr_["flash_ms"],
         "plain_ms": kr_["flash_plain_ms"], "bound_ms": kr_["flash_bound_ms"],

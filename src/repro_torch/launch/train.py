@@ -14,8 +14,8 @@ arctic-480b and deepseek-v3-671b, jamba-v0.1-52b (Mamba and attention
 periods) and whisper-base (its batches carry 1,500 frames beside the
 decoder tokens); ``--full`` trains the published config, which fits one
 card for rwkv6-1.6b and whisper-base; at full width one MoE layer's or
-jamba period's training state (~16 bytes a parameter) does not, and waits
-for the sharded step.
+jamba period's training state (~16 bytes a parameter) does not, and
+needs the sharded step over several cards (scripts/shard_probes.py).
 
 Runs on the CUDA device unless ``--device`` names another.  On restart
 with the same ``--ckpt`` it resumes from the latest checkpoint (written by
@@ -27,9 +27,8 @@ reference's production mesh, (16, 16) ('data', 'model') or (2, 16, 16)
 ('pod', 'data', 'model') (``launch/mesh.py:make_production_mesh``): its
 first 256 or 512 CUDA cards, or the ``--device`` named at every position
 (``--device cuda:0`` repeats one card, ``--device cpu`` runs here).  It
-takes the ``rwkv`` and ``std:dense`` families and Whisper; the MoE,
-MLA and jamba configs raise NotImplementedError naming slice 11d.5b.2b.
-Checkpoints are saved and restored through the sharded state, in the
+takes every config: the MoE layers' experts placed by ``ctx.ep_axes``,
+MLA's heads and Mamba's d_inner split by the model axis.  Checkpoints are saved and restored through the sharded state, in the
 unsharded file.  Prints the reference's lines.
 """
 from __future__ import annotations

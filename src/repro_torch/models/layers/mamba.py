@@ -14,17 +14,26 @@ package's own bound for this function, rtol 2e-4 and atol 1e-4).  The
 selective scan is plain PyTorch, as the reference's is plain jnp: there
 is no TPU kernel to port.
 
+Under the sharded train step's model axis (``mamba_group``) d_inner is
+split, as the reference's rules split it (``repro/parallelism/
+sharding.py``): each model position runs its channels, the row-split
+``wxp`` partials are added in position order and handed back to every
+position before the softplus, and so are the partials of ``wo``.
+
 Decode is the training form at chunk 1.  A (B, C, di, ds) f32 tensor is
 268 MB at jamba's full width (B 8, C 64, di 8192, ds 16): a chunk keeps
-a few of them alive.
+a few of them alive, and under autograd a chunk is checkpointed, so that
+a training step's backward holds one chunk's, not a whole sequence's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.common import ParamDict
+from repro_torch.parallelism.tensor import fan_out, row_sum
 
 
 def init_mamba(draw, cfg: ArchConfig, dtype=torch.float32,
@@ -67,12 +76,18 @@ def _conv_shift(u, conv_w, conv_b, init_state):
 
 def _ssm_params(p, uc, cfg: ArchConfig):
     """(dt (B,S,di), a (di,ds), B (B,S,ds), C (B,S,ds)), all f32."""
+    return _ssm_split(p, uc @ p["wxp"].to(uc.dtype), cfg)
+
+
+def _ssm_split(p, xdbc, cfg: ArchConfig):
+    """``_ssm_params`` from xdbc = uc @ wxp (B,S,dt_rank + 2·ds): dt of
+    p's channels (``wdt``'s columns, ``dt_bias``, ``A_log``: all of them,
+    or a model position's block)."""
     s = cfg.ssm
-    xdbc = uc @ p["wxp"].to(uc.dtype)
     dt_in = xdbc[..., :s.dt_rank]
     bmat = xdbc[..., s.dt_rank:s.dt_rank + s.d_state].float()
     cmat = xdbc[..., s.dt_rank + s.d_state:].float()
-    dt = F.softplus((dt_in @ p["wdt"].to(uc.dtype)).float()
+    dt = F.softplus((dt_in @ p["wdt"].to(xdbc.dtype)).float()
                     + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())
     return dt, a, bmat, cmat
@@ -94,44 +109,116 @@ def _affine_scan(da, dbu):
     return da, dbu
 
 
+def _ssm_chunk(dtc, a, bc, cc, uc, h):
+    """One chunk of ``ssm_chunked``: (y (B,C,di) f32, the chunk's end
+    state (B,di,ds) f32) from the state h before it."""
+    da = torch.exp(dtc[..., None] * a)                     # (B,C,di,ds) <= 1
+    dbu = (dtc * uc.float())[..., None] * bc[:, :, None, :]
+    acc_a, acc_b = _affine_scan(da, dbu)
+    del da, dbu
+    h_t = acc_a * h[:, None] + acc_b                       # (B,C,di,ds)
+    del acc_a, acc_b
+    return torch.einsum("bcds,bcs->bcd", h_t, cc), h_t[:, -1].clone()
+
+
 def ssm_chunked(dt, a, bmat, cmat, u, h0, *, chunk: int = 64):
     """Chunked diagonal SSM scan.  dt: (B,S,di) f32; a: (di,ds); bmat,
     cmat: (B,S,ds); u: (B,S,di); h0: (B,di,ds) f32.  Returns (y (B,S,di)
-    f32, h_end (B,di,ds) f32)."""
+    f32, h_end (B,di,ds) f32).  Under autograd each chunk is checkpointed
+    (its scan recomputed in the backward), so that a training step keeps
+    one chunk's (B,C,di,ds) tensors, not every chunk's."""
     b, s, di = dt.shape
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"ssm_chunked: {s} steps do not split into chunks "
                          f"of {c}")
     h = h0.float()
+    step = _ssm_chunk
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, a, bmat, cmat, u, h0)):
+        def step(*xs):
+            return checkpoint(_ssm_chunk, *xs, use_reentrant=False,
+                              preserve_rng_state=False)
     ys = []
     for i in range(0, s, c):
-        dtc = dt[:, i:i + c]
-        da = torch.exp(dtc[..., None] * a)                 # (B,C,di,ds) <= 1
-        dbu = (dtc * u[:, i:i + c].float())[..., None] * \
-            bmat[:, i:i + c, None, :]
-        acc_a, acc_b = _affine_scan(da, dbu)
-        del da, dbu
-        h_t = acc_a * h[:, None] + acc_b                   # (B,C,di,ds)
-        del acc_a, acc_b
-        ys.append(torch.einsum("bcds,bcs->bcd", h_t, cmat[:, i:i + c]))
-        h = h_t[:, -1]
-        del h_t
+        y, h = step(dt[:, i:i + c], a, bmat[:, i:i + c], cmat[:, i:i + c],
+                    u[:, i:i + c], h)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def _inner(p, x, conv_state):
+    """(uc, z, new conv state) of p's channels: the input projections,
+    the causal conv and its SiLU."""
+    u = x @ p["wx"].to(x.dtype)
+    z = x @ p["wz"].to(x.dtype)
+    uc, new_conv = _conv_shift(u, p["conv_w"], p["conv_b"], conv_state)
+    return F.silu(uc), z, new_conv
+
+
+def _scan_out(p, x, uc, z, ssm, h0, chunk: int):
+    """(y @ wo (B,S,d), h_end): the scan of p's channels from their SSM
+    parameters ``ssm`` = (dt, a, B, C), the skip, the gate, and p's rows
+    of ``wo`` (the whole output, or a model position's partial)."""
+    y, h_end = ssm_chunked(*ssm, uc, h0, chunk=chunk)
+    y = y.to(x.dtype) + p["D"].to(x.dtype) * uc
+    y = y * F.silu(z)
+    return y @ p["wo"].to(x.dtype), h_end
 
 
 def mamba_train(p, x, conv_state, h0, *, cfg: ArchConfig, chunk: int = 64):
     """x: (B,S,d); conv_state: (B,K-1,di); h0: (B,di,ds) f32.  Returns
     (out (B,S,d), new conv state, h_end)."""
-    u = x @ p["wx"].to(x.dtype)
-    z = x @ p["wz"].to(x.dtype)
-    uc, new_conv = _conv_shift(u, p["conv_w"], p["conv_b"], conv_state)
-    uc = F.silu(uc)
-    dt, a, bmat, cmat = _ssm_params(p, uc, cfg)
-    y, h_end = ssm_chunked(dt, a, bmat, cmat, uc, h0, chunk=chunk)
-    y = y.to(x.dtype) + p["D"].to(x.dtype) * uc
-    y = y * F.silu(z)
-    return y @ p["wo"].to(x.dtype), new_conv, h_end
+    uc, z, new_conv = _inner(p, x, conv_state)
+    out, h_end = _scan_out(p, x, uc, z, _ssm_params(p, uc, cfg), h0, chunk)
+    return out, new_conv, h_end
+
+
+def wxp_sum(partials: list, devices: list) -> list:
+    """xdbc = uc @ wxp from the model positions' partials (each one's
+    channels through its rows of ``wxp``), added in position order, on
+    every position's device."""
+    return row_sum(partials, devices)
+
+
+def mamba_group(blocks: list, x, *, cfg: ArchConfig, devices: list,
+                chunk: int = 64):
+    """A Mamba sublayer over one data position's model-axis group, from
+    the zero states (training), on ``devices[0]``: ``blocks[j]`` is model
+    position j's block of its leaves (the rules' ``tp(di)``: the columns
+    of ``wx``, ``wz`` and ``wdt``, each channel's conv, ``dt_bias``,
+    ``A_log`` and ``D``, the rows of ``wxp`` and ``wo``).  Each position
+    computes its channels' u, z and conv; the ``wxp`` partials are added
+    (``wxp_sum``) and the sum handed back to every position before the
+    softplus, as the reference's ``_ssm_params`` reads the whole of it;
+    each position scans its channels, and the partials through its rows
+    of ``wo`` are added in position order.  Where the model axis does not
+    split d_inner, the sublayer runs once, on position 0."""
+    b, dev = x.shape[0], devices[0]
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    dil = blocks[0]["wx"].shape[1]
+
+    def zeros(n, d):
+        return (torch.zeros((b, s.d_conv - 1, n), dtype=x.dtype, device=d),
+                torch.zeros((b, n, s.d_state), dtype=torch.float32,
+                            device=d))
+
+    if dil == di:                                     # replicated
+        return mamba_train(blocks[0], x, *zeros(di, dev), cfg=cfg,
+                           chunk=chunk)[0]
+    xs = fan_out(x, devices)
+    inner = []
+    for bj, xj in zip(blocks, xs):
+        conv0, _ = zeros(dil, xj.device)
+        inner.append(_inner(bj, xj, conv0))
+    xdbc = wxp_sum([uc @ bj["wxp"].to(uc.dtype)
+                    for bj, (uc, _, _) in zip(blocks, inner)], devices)
+    parts = [_scan_out(bj, xj, uc, z, _ssm_split(bj, xdbc[j], cfg),
+                       zeros(dil, xj.device)[1], chunk)[0]
+             for j, (bj, xj, (uc, z, _)) in enumerate(zip(blocks, xs,
+                                                          inner))]
+    return row_sum(parts, devices)[0]
 
 
 def mamba_decode(p, x, conv_state, h, *, cfg: ArchConfig):

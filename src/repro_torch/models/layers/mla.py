@@ -12,6 +12,12 @@ flash-attention kernel's contract (one head size for q, k and v), and
 the reference's MLA runs the plain ``chunked_attention``, not its Pallas
 kernel: so does the port.  MLA launches no kernel of the port, and there
 is no fallback from the flash-attention kernel to it.
+
+Under the sharded train step's model axis (``mla_group``) the heads are
+split, as the reference's rules split ``wuq``, ``wuk``, ``wuv`` and
+``wo`` (``repro/parallelism/sharding.py``): the latents run once per
+data position, each model position attends with its heads, and the
+partials of the output projection are added in position order.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.attention import NEG_INF, chunked_attention
 from repro_torch.models.layers.common import apply_norm, init_norm
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.parallelism.tensor import fan_out, row_sum
 
 
 def init_mla(draw, cfg: ArchConfig, dtype=torch.float32, device=None) -> dict:
@@ -56,10 +63,15 @@ def _out(p, o):
     return o.reshape(b, s, h * dv) @ p["wo"].to(o.dtype).reshape(h * dv, -1)
 
 
-def _queries(p, x, cfg: ArchConfig, positions):
-    m = cfg.mla
+def q_latent(p, x, cfg: ArchConfig):
+    """The query latent cq (B,S,q_lora_rank): x's down-projection, normed."""
     cq = x @ p["wdq"].to(x.dtype)
-    cq = apply_norm(p["q_norm"], cq, kind="rmsnorm", eps=cfg.norm_eps)
+    return apply_norm(p["q_norm"], cq, kind="rmsnorm", eps=cfg.norm_eps)
+
+
+def _queries(p, cq, cfg: ArchConfig, positions):
+    """(q_nope, q_rope) of p's heads (``wuq``'s, or a block of them)."""
+    m = cfg.mla
     q = _up(cq, p["wuq"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
@@ -77,23 +89,55 @@ def _latents(p, x, cfg: ArchConfig, positions):
     return ckv, k_rope
 
 
-def mla_train(p, x, *, cfg: ArchConfig, positions, chunk: int = 1024,
-              return_cache: bool = False):
-    """Full-sequence causal MLA.  x: (B,S,d); with ``return_cache`` also
-    the latent cache entries (ckv (B,S,kv_lora), k_rope (B,S,rope))."""
+def mla_heads(p, cq, ckv, k_rope, *, cfg: ArchConfig, positions,
+              chunk: int = 1024):
+    """Causal attention of p's heads (all of them, or the block that a
+    model position holds of ``wuq``, ``wuk``, ``wuv`` and ``wo``) from the
+    latents, through its rows of ``wo``: (B,S,d), the whole output or
+    that position's partial of it."""
     m = cfg.mla
-    q_nope, q_rope = _queries(p, x, cfg, positions)
-    ckv, k_rope = _latents(p, x, cfg, positions)
+    q_nope, q_rope = _queries(p, cq, cfg, positions)
     k_nope = _up(ckv, p["wuk"])
     v = _up(ckv, p["wuv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
     o = chunked_attention(q, k, v, causal=True, chunk_q=chunk, chunk_k=chunk)
-    out = _out(p, o)
+    return _out(p, o)
+
+
+def mla_train(p, x, *, cfg: ArchConfig, positions, chunk: int = 1024,
+              return_cache: bool = False):
+    """Full-sequence causal MLA.  x: (B,S,d); with ``return_cache`` also
+    the latent cache entries (ckv (B,S,kv_lora), k_rope (B,S,rope))."""
+    ckv, k_rope = _latents(p, x, cfg, positions)
+    out = mla_heads(p, q_latent(p, x, cfg), ckv, k_rope, cfg=cfg,
+                    positions=positions, chunk=chunk)
     if return_cache:
         return out, (ckv, k_rope)
     return out
+
+
+def mla_group(blocks: list, x, *, cfg: ArchConfig, positions, devices: list,
+              chunk: int = 1024):
+    """MLA over one data position's model-axis group, on ``devices[0]``:
+    ``blocks[j]`` is model position j's block of the layer's leaves (the
+    rules' ``tp(n_heads)`` on ``wuq``, ``wuk``, ``wuv`` and ``wo``'s
+    rows), ``x`` the normed input on ``devices[0]``.  The latents and the
+    query latent run once, with position 0's copies of the replicated
+    ``wdq``, ``wdkv`` and norms; each position attends with its heads
+    (``fan_out`` hands it the latents), and the partials through its rows
+    of ``wo`` are added in position order.  Where the model axis does not
+    split the heads, MLA runs once, on position 0."""
+    b0 = blocks[0]
+    if b0["wuq"].shape[1] == cfg.n_heads:              # replicated
+        return mla_train(b0, x, cfg=cfg, positions=positions, chunk=chunk)
+    ckv, k_rope = _latents(b0, x, cfg, positions)
+    lat = [fan_out(t, devices) for t in (q_latent(b0, x, cfg), ckv, k_rope)]
+    parts = [mla_heads(bj, *(t[j] for t in lat), cfg=cfg,
+                       positions=positions.to(devices[j]), chunk=chunk)
+             for j, bj in enumerate(blocks)]
+    return row_sum(parts, devices)[0]
 
 
 def init_latent_cache(cfg: ArchConfig, n_layers: int, batch: int,
@@ -116,7 +160,7 @@ def mla_decode(p, x, cache_ckv, cache_krope, *, cfg: ArchConfig, cache_len):
     m = cfg.mla
     b, smax = cache_ckv.shape[0], cache_ckv.shape[1]
     positions = cache_len[:, None]
-    q_nope, q_rope = _queries(p, x, cfg, positions)
+    q_nope, q_rope = _queries(p, q_latent(p, x, cfg), cfg, positions)
     ckv_new, krope_new = _latents(p, x, cfg, positions)
     rows = (torch.arange(b, device=x.device), cache_len.long())
     cache_ckv = cache_ckv.index_put(rows, ckv_new[:, 0].to(cache_ckv.dtype))

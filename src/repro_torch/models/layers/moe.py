@@ -45,6 +45,14 @@ the same:
 
 The expert products are plain batched ``torch.bmm`` over the expert axis,
 as the reference's are ``jnp.einsum`` outside any Pallas kernel.
+
+Under the sharded train step the experts are placed by ``ctx.ep_axes``
+(``parallelism/sharding.py``): a data position routes and dispatches its
+own tokens, then ``experts_group`` cuts its (E, C, d) buffer by expert
+block and runs each block where it is stored, on each owner's columns of
+the expert FFN's width (the '2d' placement), the down-projection's
+partials added in model-position order; the blocks' outputs come back to
+the data position, which combines them as above.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.ffn import apply_ffn, init_ffn
+from repro_torch.parallelism.tensor import fan_out, join, ordered_sum
 
 
 def init_moe(draw, cfg: ArchConfig, dtype=torch.float32) -> dict:
@@ -151,10 +160,48 @@ def balance_loss(stats, n_tokens: int, n_experts: int):
                                  * (stats[1] / n_tokens))
 
 
-def moe_layer(p: dict, x, *, cfg: ArchConfig, groups: int = 1):
-    """x: (B,S,d), its B·S tokens in ``groups`` equal groups.  Returns (y,
-    stats): stats (2, E) f32, the tokens' top-1 counts and the sum of
-    their router probabilities (``balance_loss``)."""
+def route(p: dict, tokens, k: int):
+    """(probs (N, E), top_w (N, K), top_idx (N, K)) of the f32 router over
+    tokens (N, d): the k largest probabilities renormalised to sum 1."""
+    logits = tokens.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_idx = top_k_experts(probs, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_idx
+
+
+def expert_ffn(p: dict, buf):
+    """Every expert's SwiGLU FFN on its rows of buf (E, C, d), batched
+    over the expert axis: p's ``wi_gate``/``wi_up`` (E, d, F) and ``wo``
+    (E, F, d), or any block of them (a block of experts, a block of F)."""
+    h = (F.silu(torch.bmm(buf, p["wi_gate"].to(buf.dtype)))
+         * torch.bmm(buf, p["wi_up"].to(buf.dtype)))
+    return torch.bmm(h, p["wo"].to(buf.dtype))
+
+
+def experts_group(blocks: list, devices: list, owners: list, buf):
+    """``expert_ffn`` of buf (E, C, d) over placed experts: ``blocks[q]``
+    is mesh position q's block of the expert leaves, on ``devices[q]``,
+    and ``owners[k]`` the positions that run expert block k, one for each
+    block of the FFN's width in order.  Block k's rows of buf go to each
+    owner (``fan_out``), the owners' down-projection partials are added in
+    that order on the first, and the blocks' outputs are joined in expert
+    order on buf's device."""
+    outs, e0 = [], 0
+    for qs in owners:
+        devs = [devices[q] for q in qs]
+        n = blocks[qs[0]]["wi_gate"].shape[0]
+        outs.append(ordered_sum(
+            [expert_ffn(blocks[q], xq)
+             for q, xq in zip(qs, fan_out(buf[e0:e0 + n], devs))], devs[0]))
+        e0 += n
+    return join(outs, buf.device, dim=0)
+
+
+def moe_routed(p: dict, x, *, cfg: ArchConfig, groups: int = 1, ffn=None):
+    """The routed experts' part of ``moe_layer``: (y, stats).  ``ffn``
+    (buf (E, G·C, d) -> out (E, G·C, d)) runs the experts; by default
+    ``expert_ffn`` on p's leaves."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -165,10 +212,7 @@ def moe_layer(p: dict, x, *, cfg: ArchConfig, groups: int = 1):
     tokens = x.reshape(n, d)
 
     # ---- router (f32) ----------------------------------------------------
-    logits = tokens.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_idx = top_k_experts(probs, k)                 # (N, K)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    probs, top_w, top_idx = route(p, tokens, k)              # (N, K)
     counts = (top_idx[:, :1] == torch.arange(e, device=x.device)).sum(
         0, dtype=torch.float32)
     stats = torch.stack([counts, probs.sum(0)])
@@ -181,19 +225,22 @@ def moe_layer(p: dict, x, *, cfg: ArchConfig, groups: int = 1):
     if groups > 1:                  # (G*E, C, d) -> (E, G*C, d)
         buf = buf.reshape(groups, e, cap, d).transpose(0, 1).reshape(
             e, groups * cap, d)
-    h = (F.silu(torch.bmm(buf, p["wi_gate"].to(x.dtype)))
-         * torch.bmm(buf, p["wi_up"].to(x.dtype)))
+    out_buf = (ffn or (lambda t: expert_ffn(p, t)))(buf)
     del buf
-    out_buf = torch.bmm(h, p["wo"].to(x.dtype))
-    del h
     if groups > 1:
         out_buf = out_buf.reshape(e, groups, cap, d).transpose(0, 1).reshape(
             groups * e, cap, d)
     y = _combine(out_buf, slot, keep, order, top_idx, top_w).reshape(b, s, d)
+    return y, stats
 
+
+def moe_layer(p: dict, x, *, cfg: ArchConfig, groups: int = 1):
+    """x: (B,S,d), its B·S tokens in ``groups`` equal groups.  Returns (y,
+    stats): stats (2, E) f32, the tokens' top-1 counts and the sum of
+    their router probabilities (``balance_loss``)."""
+    y, stats = moe_routed(p, x, cfg=cfg, groups=groups)
     if "shared" in p:
         y = y + apply_ffn(p["shared"], x, act=cfg.act)
     if "dense" in p:
         y = y + apply_ffn(p["dense"], x, act=cfg.act)
     return y, stats
-

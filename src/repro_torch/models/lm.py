@@ -27,13 +27,14 @@ recomputed in the backward; it returns the MoE layers' router
 statistics layer by layer (``moe.moe_layer``), which the factory turns
 into the balance loss, summed over the layers as the reference's scan
 carries it, after the sharded step has summed them over its data
-positions.  Under the sharded step's model axis ``forward_hidden`` takes
-a data position's ``ModelGroup`` (the ``rwkv`` and ``std:dense`` kinds,
-whatever the model axis does to their heads; Whisper's blocks run the
-same way, ``models/whisper.py``): each block's model positions run on
-their blocks of the parameters inside one checkpoint of that block
-(``_GroupCheckpoint``, ``run_checkpointed``).  Serving drops them, as
-the reference does.
+positions.  Under the sharded step's mesh ``forward_hidden`` takes a
+data position's ``ModelGroup`` (every kind, whatever the model axis does
+to its heads, MLA's heads, Mamba's d_inner and the FFNs' widths; the MoE
+layers' experts wherever the rules place them, ``Experts``; Whisper's
+blocks run the same way, ``models/whisper.py``): each block's model
+positions run on their blocks of the parameters inside one checkpoint of
+that block (``_GroupCheckpoint``, ``run_checkpointed``).  Serving drops
+them, as the reference does.
 Prefill and decode run under ``torch.no_grad()``: a model made trainable
 records no graph while it serves.  Decode is functional, as the
 reference's: a step returns a new cache and leaves the one it was given
@@ -228,13 +229,30 @@ def init_lm(draw, cfg: ArchConfig, dtype=torch.float32, device=None) -> LM:
     return LM(cfg, init_lm_tree(draw, cfg, dtype, device))
 
 
+class Experts(NamedTuple):
+    """The MoE layers' expert leaves (``moe.wi_gate``, ``moe.wi_up``,
+    ``moe.wo``) as one data position's group reads them, where the rules
+    place them over the whole mesh (``ctx.ep_axes``): ``blocks[q]`` is
+    mesh position q's {parameter name: its block}, each read through
+    ``shared_reads`` so that the data positions' gradients of a block add
+    in their order; ``owners[k]`` the positions that run expert block k,
+    one for each block of the expert FFN's width in its order
+    (``sharding.expert_owners``)."""
+    blocks: list
+    devices: list
+    owners: list
+
+
 class ModelGroup(NamedTuple):
     """The model-axis group of one data position of the sharded train
     step: ``blocks[j]`` is model position j's {parameter name: its block}
-    (``parallelism/sharding.py:param_blocks``), on ``devices[j]``.  The
-    activations between the layers live on ``devices[0]``."""
+    (``parallelism/sharding.py:param_blocks``), on ``devices[j]``, and
+    ``experts`` the MoE layers' expert leaves over the mesh (None without
+    MoE; with it, the row's ``blocks`` lack them).  The activations between
+    the layers live on ``devices[0]``."""
     blocks: list
     devices: list
+    experts: Experts | None = None
 
     @property
     def tp(self) -> int:
@@ -256,10 +274,20 @@ class ModelGroup(NamedTuple):
 
     def layer(self, prefix: str) -> list:
         """Each position's leaves under ``prefix`` ("groups.0.3."), by
-        their remaining names ("attn.wq")."""
+        their remaining names ("attn.wq"); with ``experts``, each mesh
+        position's expert leaves under it follow, [] for a position that
+        runs no expert block of this group."""
         n = len(prefix)
-        return [{k[n:]: t for k, t in bj.items() if k.startswith(prefix)}
-                for bj in self.blocks]
+
+        def under(bj):
+            return {k[n:]: t for k, t in bj.items() if k.startswith(prefix)}
+
+        row = [under(bj) for bj in self.blocks]
+        if self.experts is None:
+            return row
+        used = {q for qs in self.experts.owners for q in qs}
+        return row + [under(eb) if q in used else {}
+                      for q, eb in enumerate(self.experts.blocks)]
 
 
 def _embed_table(model: ModelGroup):
@@ -435,11 +463,12 @@ def _split(group: ModelGroup, blocks: list, fn, *args):
 
 
 def ffn_group(group: ModelGroup, blocks: list, h, *, cfg: ArchConfig,
-              name: str = "mlp"):
-    """The dense FFN ``name`` of one data position's group on its normed
-    input ``h``: on each position's d_ff columns, the partials summed,
-    where the model axis splits d_ff; else once, on position 0."""
-    if group.split(cfg.d_ff):
+              name: str = "mlp", d_ff: int | None = None):
+    """The dense FFN ``name`` (of width ``d_ff``, by default cfg's) of one
+    data position's group on its normed input ``h``: on each position's
+    d_ff columns, the partials summed, where the model axis splits d_ff;
+    else once, on position 0."""
+    if group.split(d_ff or cfg.d_ff):
         return _split(group, blocks,
                       lambda bj, a: apply_ffn(bj[name], a, act=cfg.act), h)
     return apply_ffn(blocks[0][name], h, act=cfg.act)
@@ -498,17 +527,81 @@ def _time_mix_group(group: ModelGroup, blocks: list, inputs, *,
     return row_sum(parts, devs)[0]
 
 
-def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
-                       cfg: ArchConfig, positions):
-    """One block of the training forward over the model-axis group of
-    one data position: ``blocks[j]`` is the layer's leaves at model
-    position j (``ModelGroup.layer``), ``x`` on the group's first device.
-    The leaves the model axis replicates (the norms, RWKV's token shift
-    and decay LoRA, its channel mix's receptance, an FFN whose d_ff it
-    does not divide, attention or a time mix whose heads it neither
-    splits nor cuts) run once, on position 0's copy; the split ones run
-    once per position, their partials added in position order."""
+def moe_block(group: ModelGroup, blocks: list, experts: list, h, *,
+              cfg: ArchConfig, moe_groups: int = 1):
+    """(y, stats) of the MoE layer ``moe`` of one data position's group on
+    its normed input ``h``: the router, dispatch and combine once, with
+    position 0's copy of the router (``moe.moe_routed``, ``moe_groups``
+    token groups); the experts where they are placed
+    (``moe.experts_group`` over ``experts[q]``, mesh position q's expert
+    leaves of this layer); the shared experts and the dense residual
+    through ``ffn_group``."""
+    p0, e = blocks[0]["moe"], group.experts
+    y, stats = moe_mod.moe_routed(
+        p0, h, cfg=cfg, groups=moe_groups,
+        ffn=lambda buf: moe_mod.experts_group(
+            [eb.get("moe") for eb in experts], e.devices, e.owners, buf))
+    m = cfg.moe
+    moes = [bj["moe"] for bj in blocks]
+    if "shared" in p0:
+        y = y + ffn_group(group, moes, h, cfg=cfg, name="shared",
+                          d_ff=m.n_shared_experts * m.d_ff_expert)
+    if "dense" in p0:
+        y = y + ffn_group(group, moes, h, cfg=cfg, name="dense")
+    return y, stats
+
+
+def _ffn_or_moe(group: ModelGroup, blocks: list, experts: list, h, *,
+                cfg: ArchConfig, moe_groups: int):
+    """(y, stats or None): the FFN or the MoE layer of a block (or a
+    period's sublayer) over a group."""
+    if "moe" in blocks[0]:
+        return moe_block(group, blocks, experts, h, cfg=cfg,
+                         moe_groups=moe_groups)
+    return ffn_group(group, blocks, h, cfg=cfg), None
+
+
+def _period_group(group: ModelGroup, blocks: list, experts: list, x, *,
+                  cfg: ArchConfig, positions, moe_groups: int):
+    """``_period`` of training over a group: each sublayer's mixer (Mamba
+    by ``mamba.mamba_group``, attention by ``attention_block``) and its
+    FFN or MoE layer.  Returns (x, the MoE layers' statistics)."""
     nk, eps = cfg.norm, cfg.norm_eps
+    stats = []
+    for i, sub in enumerate(cfg.block_pattern):
+        key = f"sub{i}"
+        sb = [bj[key] for bj in blocks]
+        h = apply_norm(sb[0]["norm"], x, kind=nk, eps=eps)
+        if sub == "attn":
+            x = x + attention_block(group, sb, h, cfg=cfg,
+                                    positions=positions)
+        else:
+            x = x + mam.mamba_group([bj["mamba"] for bj in sb], h, cfg=cfg,
+                                    devices=group.devices)
+        y, st = _ffn_or_moe(group, sb, [eb.get(key, {}) for eb in experts],
+                            apply_norm(sb[0]["mlp_norm"], x, kind=nk,
+                                       eps=eps), cfg=cfg,
+                            moe_groups=moe_groups)
+        x = x + y
+        if st is not None:
+            stats.append(st)
+    return x, stats
+
+
+def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
+                       cfg: ArchConfig, positions, moe_groups: int = 1):
+    """One block of the training forward over the model-axis group of
+    one data position: ``blocks[:tp]`` are the layer's leaves at each
+    model position (``ModelGroup.layer``) and ``blocks[tp:]``, with MoE,
+    each mesh position's expert leaves; ``x`` on the group's first
+    device.  The leaves the model axis replicates (the norms, RWKV's token
+    shift and decay LoRA, its channel mix's receptance, MLA's down
+    projections, the router, an FFN whose d_ff it does not divide,
+    attention, MLA or Mamba that it does not split) run once, on position
+    0's copy; the split ones run once per position, their partials added
+    in position order.  Returns (x, the block's MoE statistics)."""
+    nk, eps = cfg.norm, cfg.norm_eps
+    blocks, experts = blocks[:group.tp], blocks[group.tp:]
     b0 = blocks[0]
     if kind == "rwkv":
         zshift = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
@@ -523,49 +616,62 @@ def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
                         lambda bj, a: rwkv.channel_mix_kv(bj["cm"], a), xk)
         else:
             kv = rwkv.channel_mix_kv(b0["cm"], xk)
-        return x + rwkv.channel_mix_gate(b0["cm"], xr, kv)
-    x = x + attention_block(group, blocks, apply_norm(
-        b0["attn_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions)
-    return x + ffn_group(group, blocks, apply_norm(
-        b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg)
+        return x + rwkv.channel_mix_gate(b0["cm"], xr, kv), []
+    if kind == "period":
+        return _period_group(group, blocks, experts, x, cfg=cfg,
+                             positions=positions, moe_groups=moe_groups)
+    h = apply_norm(b0["attn_norm"], x, kind=nk, eps=eps)
+    if "mla" in b0:
+        x = x + mla_mod.mla_group([bj["mla"] for bj in blocks], h, cfg=cfg,
+                                  positions=positions, devices=group.devices)
+    else:
+        x = x + attention_block(group, blocks, h, cfg=cfg,
+                                positions=positions)
+    y, st = _ffn_or_moe(group, blocks, experts, apply_norm(
+        b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg, moe_groups=moe_groups)
+    return x + y, [] if st is None else [st]
 
 
 class _GroupCheckpoint(torch.autograd.Function):
     """One block of a ``ModelGroup``'s forward, checkpointed: ``fn(*xs,
     blocks)`` runs without a graph, and the backward runs it again, once,
-    on the thread that receives the block's output gradient, then
+    on the thread that receives the block's output gradients, then
     differentiates that run.  (``torch.utils.checkpoint`` recomputes from
     whichever autograd device thread first unpacks a saved tensor, and the
     threads of two cards race there when one block spans them.)  The
     first ``n_in`` tensors are the block's inputs ``xs``; the layer's
-    leaves follow, flat, ``keys[i]`` = (model position, name) of the
-    i-th of them."""
+    leaves follow, flat, ``keys[i]`` = (position, name) of the i-th of
+    them, among ``n_pos`` positions.  ``fn`` returns a tensor, or a tuple
+    of them (the block's output, then its MoE statistics)."""
 
     @staticmethod
-    def forward(ctx, fn, keys, n_in, *tensors):
-        ctx.fn, ctx.keys, ctx.n_in = fn, keys, n_in
+    def forward(ctx, fn, keys, n_in, n_pos, *tensors):
+        ctx.fn, ctx.keys, ctx.n_in, ctx.n_pos = fn, keys, n_in, n_pos
         ctx.save_for_backward(*tensors)
         with torch.no_grad():
-            return fn(*tensors[:n_in], _nested_blocks(keys, tensors[n_in:]))
+            return fn(*tensors[:n_in],
+                      _nested_blocks(keys, tensors[n_in:], n_pos))
 
     @staticmethod
-    def backward(ctx, dout):
-        need = ctx.needs_input_grad[3:]
+    def backward(ctx, *douts):
+        need = ctx.needs_input_grad[4:]
         ins = [t.detach().requires_grad_(n)
                for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
             out = ctx.fn(*ins[:ctx.n_in],
-                         _nested_blocks(ctx.keys, ins[ctx.n_in:]))
-        got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need)
-                                             if n], dout, allow_unused=True))
-        return (None, None, None) + tuple(next(got) if n else None
-                                          for n in need)
+                         _nested_blocks(ctx.keys, ins[ctx.n_in:], ctx.n_pos))
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, d) for o, d in zip(outs, douts) if o.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t, n in zip(ins, need) if n],
+            [d for _, d in pairs], allow_unused=True))
+        return (None,) * 4 + tuple(next(got) if n else None for n in need)
 
 
-def _nested_blocks(keys, tensors) -> list:
-    """Each model position's leaves, nested by name ({"attn": {"wq":
-    ...}}), from ``_GroupCheckpoint``'s flat keys and tensors."""
-    flat = [{} for _ in range(keys[-1][0] + 1)]
+def _nested_blocks(keys, tensors, n_pos: int) -> list:
+    """Each position's leaves, nested by name ({"attn": {"wq": ...}}),
+    from ``_GroupCheckpoint``'s flat keys and tensors."""
+    flat = [{} for _ in range(n_pos)]
     for (j, name), t in zip(keys, tensors):
         flat[j][name] = t
     return [nest_state_dict(f) for f in flat]
@@ -573,12 +679,13 @@ def _nested_blocks(keys, tensors) -> list:
 
 def run_checkpointed(group: ModelGroup, prefix: str, fn, *xs):
     """``fn(*xs, blocks)`` over the leaves under ``prefix``
-    ("groups.0.3.") of each model position, checkpointed as one block
-    (``_GroupCheckpoint``), so that its recompute in the backward
+    ("groups.0.3.") of each model position (and, with MoE, each mesh
+    position's expert leaves: ``ModelGroup.layer``), checkpointed as one
+    block (``_GroupCheckpoint``), so that its recompute in the backward
     repeats the same sums in the same order."""
     flat = group.layer(prefix)
     keys = [(j, n) for j, f in enumerate(flat) for n in f]
-    return _GroupCheckpoint.apply(fn, keys, len(xs), *xs,
+    return _GroupCheckpoint.apply(fn, keys, len(xs), len(flat), *xs,
                                   *(flat[j][n] for j, n in keys))
 
 
@@ -590,18 +697,21 @@ def norm_group(group: ModelGroup, name: str, x, cfg: ArchConfig):
 
 
 def _forward_hidden_group(group: ModelGroup, embeds, *, cfg: ArchConfig,
-                          positions):
+                          positions, moe_groups: int = 1):
     """``forward_hidden`` of a ``ModelGroup``: every block's model
     positions inside one checkpoint of that block."""
-    x = embeds
+    x, stats = embeds, []
     for gi, (kind, count) in enumerate(group_plan(cfg)):
         for i in range(count):
             def block(x, blocks, kind=kind):
-                return _block_train_group(kind, group, blocks, x, cfg=cfg,
-                                          positions=positions)
+                x, st = _block_train_group(kind, group, blocks, x, cfg=cfg,
+                                           positions=positions,
+                                           moe_groups=moe_groups)
+                return (x, *st)
 
-            x = run_checkpointed(group, f"groups.{gi}.{i}.", block, x)
-    return norm_group(group, "final_norm", x, cfg), []
+            x, *st = run_checkpointed(group, f"groups.{gi}.{i}.", block, x)
+            stats.extend(st)
+    return norm_group(group, "final_norm", x, cfg), stats
 
 
 def forward_hidden(model, embeds, *, cfg: ArchConfig, positions,
@@ -611,13 +721,14 @@ def forward_hidden(model, embeds, *, cfg: ArchConfig, positions,
     stats lists the MoE layers' router statistics in layer order, each
     (2, E) f32 (``moe.moe_layer``, its tokens in ``moe_groups`` groups),
     and is empty without MoE.  ``model`` is an ``LM``, or the
-    ``ModelGroup`` of one data position of the sharded train step (the
-    ``rwkv`` and ``std:dense`` kinds: heads split, head_dim split or cut
-    by the model axis, or replicated; the MoE, MLA and ``period`` kinds
-    are slice 11d.5b.2b)."""
+    ``ModelGroup`` of one data position of the sharded train step (every
+    kind: heads split, head_dim split or cut by the model axis, or
+    replicated; MLA's heads and Mamba's d_inner split; the experts where
+    ``ctx.ep_axes`` places them)."""
     if isinstance(model, ModelGroup):
         return _forward_hidden_group(model, embeds, cfg=cfg,
-                                     positions=positions)
+                                     positions=positions,
+                                     moe_groups=moe_groups)
     x = embeds
     stats = []
     for blocks in model.groups:

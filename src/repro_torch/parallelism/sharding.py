@@ -34,14 +34,15 @@ its parameter's model axis).  A leaf, or a block, is stored once per
 distinct device: positions on the same device hold views of it, so a
 mesh that repeats one card holds one copy.
 
-Parameters are placed by ``place_params``: by the model-axis entries of
-their specs only (a data-axis entry, an MoE expert split, is not placed:
-expert placement is ROADMAP slice 11d.5b.2b), each stored tensor a leaf of
-its own that autograd differentiates.  ``param_blocks`` then gives each
-position its block of every parameter, taken when it is called (inside
-the train step's forward): a view of the one stored tensor where the
-position's device holds the parameter whole, else that device's stored
-block.
+Parameters are placed by ``place_params``, by their whole specs: the
+model-axis entries, and the data-axis entries of the MoE layers' expert
+leaves (``ctx.ep_axes``: experts over the data axes, over data and model,
+or over model), so that a device stores only its experts' blocks; each
+stored tensor is a leaf of its own that autograd differentiates.
+``param_blocks`` then gives each position its block of every parameter,
+taken when it is called (inside the train step's forward): a view of the
+one stored tensor where the position's device holds the parameter whole,
+else that device's stored block.
 """
 from __future__ import annotations
 
@@ -61,9 +62,6 @@ _ATTN_PARENTS = {"attn", "self_attn", "cross_attn"}
 
 # the top-level keys whose layers the reference stacks on a leading axis
 STACKS = ("groups", "enc_blocks", "dec_blocks")
-# the axes placement splits over; any other axis of size > 1 is tensor
-# parallelism
-DATA_AXES = ("pod", "data")
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +345,7 @@ def index_of(block: tuple) -> tuple:
     return tuple(slice(a, b) for a, b in block)
 
 
-def _inside(block: tuple, outer: tuple):
+def inside(block: tuple, outer: tuple):
     """``block``'s index relative to ``outer``, which contains it, or None
     where it does not."""
     if any(a < oa or b > ob for (a, b), (oa, ob) in zip(block, outer)):
@@ -375,26 +373,20 @@ class Shards:
         if device in self.wholes:
             return self.wholes[device][index_of(block)]
         for held, t in self.stores.get(device, ()):
-            idx = _inside(block, held)
+            idx = inside(block, held)
             if idx is not None:
                 return t[idx]
         return None
 
 
-def _shard_leaf(x, spec, layer, mesh, leaves: bool = False) -> Shards:
-    """``x`` placed by ``spec``.  With ``leaves`` each stored tensor is a
-    leaf that requires grad: ``x`` itself on its own device where that
-    device holds it whole, else a copy."""
+def _place(shape, spec, layer, mesh, whole_on, block_on) -> Shards:
+    """A leaf of ``shape`` placed by ``spec``: ``whole_on(dev)`` is the
+    whole leaf on a device that holds every block of it, ``block_on(b,
+    dev)`` block b on a device that holds some."""
     devs = list(mesh.devices.flat)
-    where = [_block_of(spec, tuple(x.shape), layer, mesh, p)
+    where = [_block_of(spec, tuple(shape), layer, mesh, p)
              for p in range(len(devs))]
     distinct = {b for b in where if b is not None}
-    src = x.detach()
-
-    def copy(t, dev):
-        t = t.to(dev, copy=True)
-        return nn.Parameter(t) if leaves else t
-
     blocks, stores, wholes = [None] * len(devs), {}, {}
     for dev in dict.fromkeys(devs):
         held = list(dict.fromkeys(where[p] for p in range(len(devs))
@@ -402,19 +394,34 @@ def _shard_leaf(x, spec, layer, mesh, leaves: bool = False) -> Shards:
         if not held:
             continue
         if len(held) == len(distinct):     # all of it: once, blocks as views
-            if leaves:
-                whole = x if x.device == dev else copy(src, dev)
-            else:
-                whole = src.to(dev)
-            wholes[dev] = whole
+            whole = wholes[dev] = whole_on(dev)
             stores[dev] = [(b, whole[index_of(b)]) for b in held]
         else:
-            stores[dev] = [(b, copy(src[index_of(b)], dev)) for b in held]
+            stores[dev] = [(b, block_on(b, dev)) for b in held]
         views = dict(stores[dev])
         for p in range(len(devs)):
             if devs[p] == dev and where[p] is not None:
                 blocks[p] = views[where[p]]
-    return Shards(x.shape, spec, blocks, where, devs, stores, wholes)
+    return Shards(shape, spec, blocks, where, devs, stores, wholes)
+
+
+def _shard_leaf(x, spec, layer, mesh, leaves: bool = False) -> Shards:
+    """``x`` placed by ``spec``.  With ``leaves`` each stored tensor is a
+    leaf that requires grad: ``x`` itself on its own device where that
+    device holds it whole, else a copy."""
+    src = x.detach()
+
+    def copy(t, dev):
+        t = t.to(dev, copy=True)
+        return nn.Parameter(t) if leaves else t
+
+    def whole_on(dev):
+        if leaves:
+            return x if x.device == dev else copy(src, dev)
+        return src.to(dev)
+
+    return _place(x.shape, spec, layer, mesh, whole_on,
+                  lambda b, dev: copy(src[index_of(b)], dev))
 
 
 def shard_tree(tree: dict, specs: dict, mesh) -> dict:
@@ -424,29 +431,64 @@ def shard_tree(tree: dict, specs: dict, mesh) -> dict:
             for n, x in tree.items()}
 
 
-def _model_axis_spec(spec: tuple) -> tuple:
-    """``spec`` with its data-axis entries dropped: what places a
-    parameter."""
-    def keep(entry):
-        if entry is None:
-            return None
-        axes = tuple(a for a in (entry if isinstance(entry, tuple)
-                                 else (entry,)) if a not in DATA_AXES)
-        return None if not axes else axes[0] if len(axes) == 1 else axes
-    return tuple(keep(e) for e in spec)
+def zeros_tree(shapes: dict, specs: dict, mesh, dtype) -> dict:
+    """{name: Shards} of zero leaves of ``shapes`` placed by ``specs``,
+    each stored block made on its device, so that no device holds more of
+    a leaf than its blocks (the ZeRO-1 moments)."""
+    layers = leaf_layers(shapes)
+
+    def zeros(shape, dev):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {n: _place(tuple(shape), specs[n], layers[n], mesh,
+                      lambda dev, shape=shape: zeros(tuple(shape), dev),
+                      lambda b, dev: zeros(tuple(e - a for a, e in b), dev))
+            for n, shape in shapes.items()}
+
+
+def is_expert_leaf(name: str) -> bool:
+    """Whether ``name`` is an MoE layer's expert leaf (``moe.wi_gate``,
+    ``moe.wi_up``, ``moe.wo``), which ``ctx.ep_axes`` may place over the
+    data axes."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in (
+        "wi_gate", "wi_up", "wo")
 
 
 def place_params(params: dict, specs: dict, mesh) -> dict:
-    """{name: Shards} of a model's {name: parameter} placed by the
-    model-axis entries of ``specs`` (its data-axis entries dropped).  A device stores
-    each parameter whose blocks it holds all of whole, once (the parameter
+    """{name: Shards} of a model's {name: parameter} placed by ``specs``
+    (an expert leaf's data-axis entries too).  A device stores each
+    parameter whose blocks it holds all of whole, once (the parameter
     itself on the device it lives on), and otherwise only the blocks its
     positions hold; every stored tensor is a leaf that requires grad.  A
-    parameter replicated over the model axis is whole on every device."""
+    parameter that the mesh's first device does not store whole is
+    released once placed (its storage emptied), so that the device that
+    made the model never holds it beside its blocks."""
     layers = leaf_layers(params)
-    return {n: _shard_leaf(x, _model_axis_spec(specs[n]), layers[n], mesh,
-                           leaves=True)
-            for n, x in params.items()}
+    home = mesh.devices.flat[0]
+    out = {}
+    for n, x in params.items():
+        out[n] = _shard_leaf(x, specs[n], layers[n], mesh, leaves=True)
+        if home not in out[n].wholes:
+            x.data = x.new_empty(0)
+    return out
+
+
+def expert_owners(where: list, row: list) -> list:
+    """The mesh positions that run each expert block for the data position
+    whose model positions are ``row``: ``where`` is an expert leaf's
+    ``Shards.where`` ((experts, d_model, d_ff) ranges by position).  For
+    each block of experts, in order, one position for each block of d_ff,
+    in order: the row's own where it holds that block (the 'tp' and
+    replicated placements), else the first that does (the '2d' and 'full'
+    placements hold each block once)."""
+    blocks: dict = {}
+    for q, w in enumerate(where):
+        held = blocks.setdefault(w[0], {})
+        if w[2] not in held or (q in row and held[w[2]] not in row):
+            held[w[2]] = q
+    return [[held[f] for f in sorted(held)]
+            for _, held in sorted(blocks.items())]
 
 
 def param_blocks(placed: dict) -> list:

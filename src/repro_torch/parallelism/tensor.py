@@ -26,7 +26,9 @@ model-position order and returns the sum on every position's device
 (computed once, on the first, and copied to each other distinct device
 through ``fan_out``, so every copy holds the same bits); ``join``
 concatenates its column blocks (or its sequence slabs) in position
-order on the first device.  None writes with
+order on the first device; ``shared_reads`` hands a stored block to
+each data position that reads it (an MoE layer's experts), their
+gradients added in data-position order.  None writes with
 duplicate indices or uses atomics, and no gradient is a sum whose order
 depends on the autograd engine's device threads: a tensor read on two
 cards gets one gradient from each through ``fan_out``'s one node, not
@@ -69,15 +71,44 @@ def fan_out(x, devices: list) -> list:
     return list(_FanOut.apply(x, *devices))
 
 
+class _Reads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = None
+        for g in grads:                      # in reader order
+            if g is not None:
+                acc = g if acc is None else acc.add_(g)
+        return acc, None
+
+
+def shared_reads(x, n: int) -> list:
+    """``n`` views of ``x`` on its own device, one for each reader (the
+    data positions that read a stored expert block); their gradients are
+    added in reader order, into the first's storage, so that a block's
+    gradient never stands beside more than its readers' own.  The readers'
+    gradients must be fresh tensors of their own (a product's weight
+    gradient), not shared with another branch of the graph."""
+    return list(_Reads.apply(x, n))
+
+
+def ordered_sum(partials: list, home):
+    """Σ partials, in the order given, on ``home``."""
+    acc = partials[0].to(home)
+    for p in partials[1:]:
+        acc = acc + p.to(home)
+    return acc
+
+
 def row_sum(partials: list, devices: list) -> list:
     """Σ partials, in the order given (model position 0 first), on each
     position's device: ``partials[j]`` is position j's, on
     ``devices[j]``."""
-    home = devices[0]
-    acc = partials[0].to(home)
-    for p in partials[1:]:
-        acc = acc + p.to(home)
-    return fan_out(acc, devices)
+    return fan_out(ordered_sum(partials, devices[0]), devices)
 
 
 def join(parts: list, home, dim: int = -1):

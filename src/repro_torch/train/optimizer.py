@@ -55,7 +55,7 @@ def lr_schedule(cfg: OptConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.peak_lr * cos)
 
 
-def _moment_dtype(cfg: OptConfig) -> torch.dtype:
+def moment_dtype(cfg: OptConfig) -> torch.dtype:
     return {"float32": torch.float32,
             "bfloat16": torch.bfloat16}[cfg.moment_dtype]
 
@@ -63,7 +63,7 @@ def _moment_dtype(cfg: OptConfig) -> torch.dtype:
 def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     """Zero first and second moments beside each parameter, in
     ``cfg.moment_dtype``."""
-    dt = _moment_dtype(cfg)
+    dt = moment_dtype(cfg)
     return {name: {n: torch.zeros(p.shape, dtype=dt, device=p.device)
                    for n, p in params.items()} for name in ("m", "v")}
 

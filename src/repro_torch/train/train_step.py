@@ -24,11 +24,13 @@ With a ``ctx`` over a mesh (``launch/mesh.py:make_ctx``) the step is the
 reference's sharded step, single-controller: one process drives every
 position, and a mesh may repeat one card.
 
-  · The parameters are placed by the model-axis entries of
-    ``param_pspecs`` (``sharding.place_params``): a device stores each
-    parameter it holds every block of whole, once, and of a parameter
-    the model axis splits only its positions' blocks.  Each stored
-    tensor is a leaf of autograd.
+  · The parameters are placed by ``param_pspecs``
+    (``sharding.place_params``): a device stores each parameter it holds
+    every block of whole, once, and of a parameter the mesh splits only
+    its positions' blocks: the model axis's splits, and the MoE layers'
+    experts wherever ``ctx.ep_axes`` places them (over the data axes, the
+    expert FFN's width over the model axis; over data and model; over
+    model; replicated).  Each stored tensor is a leaf of autograd.
   · The batch (each microbatch, under ``accum_steps``) is split by
     ``batch_pspecs``: each data position runs the forward of its
     contiguous rows on its device, the MoE layers with one token group
@@ -39,49 +41,58 @@ position, and a mesh may repeat one card.
     (``moe.moe_groups``).  So does a batch whose MoE layers take one
     group (fewer tokens than dp · top_k): its dispatch spans the
     positions.
-  · A model axis of 1: each data position runs its device's replica of
-    the model, a module over the stored tensors.  A model axis of tp > 1
-    (the ``rwkv`` and ``std:dense`` families and Whisper; the MoE
-    layers, MLA and jamba's period raise NotImplementedError naming
-    slice 11d.5b.2b): each data position's rows go through each layer
+  · A model axis of 1 without MoE: each data position runs its device's
+    replica of the model, a module over the stored tensors.  Otherwise
+    (every family): each data position's rows go through each layer
     once per model position of its row of the mesh (``lm.ModelGroup``),
     each on its block of every split parameter
     (``sharding.param_blocks``, views taken in the forward so that the
     gradient reaches the stored tensor): attention on its heads, or on
     its head_dim columns joined into whole heads for K3' (each position
     on its slab of queries, ``attention.seqpar_attention``, on a long
-    sequence), the FFN on its d_ff columns, RWKV's time mix on its heads
-    (or its columns, joined where it cuts heads) and its channel mix on
-    its d_ff columns, the embedding on its d_model columns and the
-    cross-entropy on its vocab columns (Whisper's tied head: the joined
-    table).  The row-split partials are added in model-position order
-    (``parallelism/tensor.py``).  A leaf the model axis replicates (the
-    norms, RWKV's token shift and decay LoRA, an FFN whose d_ff it does
-    not divide, attention whose heads and head_dim it does not divide,
-    Whisper's ``pos_dec``) runs once per data position, on its first
-    position.
+    sequence), MLA on its heads from latents made once, Mamba on its
+    d_inner channels (the ``wxp`` partials summed before the softplus),
+    the FFN on its d_ff columns, RWKV's time mix on its heads (or its
+    columns, joined where it cuts heads) and its channel mix on its d_ff
+    columns, the embedding on its d_model columns and the cross-entropy
+    on its vocab columns (Whisper's tied head: the joined table).  An
+    MoE layer routes and dispatches the data position's tokens once,
+    then runs each expert block where it is stored (``lm.Experts``: each
+    stored block read by the data positions through ``shared_reads``,
+    so that their gradients add in position order), on each owner's columns
+    of the expert FFN's width, and combines the outputs on the data
+    position's device.  The row-split partials are added in
+    model-position order (``parallelism/tensor.py``).  A leaf the model
+    axis replicates (the norms, the router, MLA's down-projections,
+    RWKV's token shift and decay LoRA, an FFN whose d_ff it does not
+    divide, attention, MLA or Mamba that it does not split, Whisper's
+    ``pos_dec``) runs once per data position, on its first position.
   · The positions' CE sums and counts, and each MoE layer's router
     statistics, are summed in data-position order on the first device
     (``factory.combine_parts``), and one backward gives the gradient.
     Positions on one device share its stored tensors, and autograd sums
-    their gradients; each parameter's gradient is then made whole on the
-    first device, its stored tensors' gradients added in device order
-    (``_grads_of``).
-  · The update: the global norm and the clip factor come from the whole
-    gradient; AdamW runs on each ZeRO-1 block of the moments
-    (``moments_pspecs``: the parameter's model-axis split, and the data
-    axes on a free dimension), and the parameters' matching slice, once
-    per device that stores it; a device then copies the blocks it stores
-    but did not update from their holder.  On a mesh that repeats one
-    card, the blocks are views of one copy of each moment and parameter,
-    and nothing is copied.
+    their gradients; each block of each parameter's gradient then lives
+    on the first device that stores it, its stored copies' gradients
+    added in device order (``_grads_of``): no device holds a whole
+    gradient it does not store whole.
+  · The update: the global norm (each gradient block's sum of squares,
+    in name and block order) and the clip factor; AdamW runs on each
+    ZeRO-1 block of the moments (``moments_pspecs``: the parameter's
+    split, and the data axes on a free dimension where the parameter
+    does not use them already), made on its device, and the
+    parameters' matching slice, once per device that stores it; a
+    device then copies the blocks it stores but did not update from
+    their holder.  On a mesh that repeats one card, the blocks are views
+    of one copy of each moment and parameter, and nothing is copied.
   · A sharded state adds {"ctx", "cfg", "specs": the moments' specs,
     "placed": {name: ``sharding.Shards``} of the parameters, "replicas":
-    {device: the model there} for a model axis of 1}; its moments are
-    ``sharding.Shards``.  Its "params" is the model on the first device
-    where that device stores every parameter whole (every mesh that
-    repeats one card), else None.  ``plain_state`` gathers it for a
-    checkpoint, and ``scatter_state`` puts a restored one back.
+    {device: the model there} for a model axis of 1 without MoE, else
+    empty}; its moments are ``sharding.Shards``.  Its "params" is the
+    model on the first device where that device stores every parameter
+    whole (every mesh that repeats one card), else None (and the model
+    it was made from is emptied as it is placed).  ``plain_state``
+    gathers it for a checkpoint, and ``scatter_state`` puts a restored
+    one back.
 """
 from __future__ import annotations
 
@@ -96,34 +107,13 @@ from repro_torch.models import factory, lm
 from repro_torch.models.layers.moe import moe_groups
 from repro_torch.parallelism import sharding
 from repro_torch.parallelism.ctx import NULL_CTX, ShardCtx
+from repro_torch.parallelism.tensor import shared_reads
 from repro_torch.train.optimizer import (OptConfig, adamw_leaf, adamw_update,
-                                         clip_scale, global_norm,
-                                         init_opt_state, scaled,
+                                         clip_scale, init_opt_state,
+                                         moment_dtype, scaled,
                                          step_constants)
 
 CUBLAS_CONFIGS = (":4096:8", ":16:8")
-
-
-def _check_ctx(ctx: ShardCtx, cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a model axis of size > 1 over the
-    families whose split this port does not have yet (ROADMAP slice
-    11d.5b.2b): the MoE layers, MLA and jamba's period."""
-    tp = ctx.tp_size
-    if tp == 1 or cfg.enc_dec:
-        return
-    kinds = {k for k, _ in lm.group_plan(cfg)}
-    what = None
-    if "period" in kinds:
-        what = "jamba's period (Mamba's d_inner split)"
-    elif kinds & {"std:moe", "mla:moe"}:
-        what = "the MoE layers (expert placement by ctx.ep_axes)"
-    elif "mla:dense" in kinds:
-        what = "MLA's head split"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of size {tp}: {what} is ROADMAP "
-            "slice 11d.5b.2b; the model axis is ported for the rwkv and "
-            "std:dense families and Whisper")
 
 
 def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,
@@ -144,7 +134,6 @@ def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,
                 "opt": init_opt_state(dict(model.named_parameters()),
                                       opt_cfg),
                 "step": 0}
-    _check_ctx(ctx, cfg)
     mesh = ctx.mesh
     home = mesh.devices.flat[0]
     if device is not None and torch.device(device) != home:
@@ -159,16 +148,17 @@ def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,
     params = dict(model.named_parameters())
     pspecs = sharding.param_pspecs(params, cfg, ctx)
     specs = sharding.moments_pspecs(pspecs, params, ctx)
+    shapes = {n: tuple(p.shape) for n, p in params.items()}
     placed = sharding.place_params(params, pspecs, mesh)
     replicas = {}
-    if ctx.tp_size == 1:
+    if ctx.tp_size == 1 and cfg.moe is None:
         for dev in dict.fromkeys(mesh.devices.flat):
             replicas[dev] = model if dev == home else factory.from_state_dict(
                 cfg, {n: sh.wholes[dev] for n, sh in placed.items()})
-    plain = init_opt_state(params, opt_cfg)
     whole = all(home in sh.wholes for sh in placed.values())
+    dt = moment_dtype(opt_cfg)
     return {"params": model if whole else None,
-            "opt": {k: sharding.shard_tree(plain[k], specs, mesh)
+            "opt": {k: sharding.zeros_tree(shapes, specs, mesh, dt)
                     for k in ("m", "v")},
             "step": 0, "ctx": ctx, "cfg": cfg, "specs": specs,
             "placed": placed, "replicas": replicas}
@@ -242,11 +232,13 @@ def deterministic(device: torch.device):
         torch.use_deterministic_algorithms(was)
 
 
-def _grads_of(loss, placed: dict, home) -> dict:
-    """{name: gradient} of ``loss`` over a sharded state's placed
-    parameters (``sharding.place_params``), each whole on ``home``: a
-    parameter's stored tensors' gradients added device by device in mesh
-    order, a whole tensor's over the whole, a block's over its block."""
+def _grads_of(loss, placed: dict) -> dict:
+    """{name: {block: gradient}} of ``loss`` over a sharded state's placed
+    parameters (``sharding.place_params``): for each distinct block of a
+    parameter (``Shards.where``, in position order), its gradient on the
+    first device that stores it, the stored tensors' gradients over it
+    added there device by device in mesh order (a whole tensor's by the
+    view of it).  No device holds more of a gradient than its blocks."""
     leaves, where = [], []
     for name, sh in placed.items():
         for dev, items in sh.stores.items():
@@ -257,45 +249,72 @@ def _grads_of(loss, placed: dict, home) -> dict:
                 leaves += [t for _, t in items]
                 where += [(name, blk) for blk, _ in items]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    out = {}
+    out = {name: dict.fromkeys(b for b in dict.fromkeys(sh.where)
+                               if b is not None)
+           for name, sh in placed.items()}
     for (name, blk), g in zip(where, grads):
         if g is None:
             continue
-        g = g.to(home)
-        acc = out.get(name)
-        if blk is None:
-            out[name] = g if acc is None else acc + g
-            continue
-        if acc is None:
-            acc = out[name] = torch.zeros(placed[name].shape, dtype=g.dtype,
-                                          device=home)
-        idx = sharding.index_of(blk)
-        acc[idx] = acc[idx] + g
-    for name, sh in placed.items():
-        if name not in out:                  # a parameter the loss skips
-            t = next(iter(sh.stores.values()))[0][1]
-            out[name] = torch.zeros(sh.shape, dtype=t.dtype, device=home)
+        acc = out[name]
+        parts = ([(blk, g)] if blk is not None else
+                 [(b, g[sharding.index_of(b)]) for b in acc])
+        for b, part in parts:
+            acc[b] = part if acc[b] is None else \
+                acc[b] + part.to(acc[b].device)
+    for name, sh in placed.items():        # a block the loss skips
+        for b, g in out[name].items():
+            if g is None:
+                dev = next(d for d in sh.stores
+                           if sh.region(d, b) is not None)
+                out[name][b] = torch.zeros_like(sh.region(dev, b))
     return out
+
+
+def _expert_reads(placed: dict, blocks: list, ctx: ShardCtx, n: int) -> list:
+    """For each of the first ``n`` data positions, the ``lm.Experts`` its
+    group reads: every mesh position's expert leaves (from
+    ``param_blocks``'s ``blocks``), each block read by the n groups
+    through ``shared_reads``, and the positions that run each expert
+    block for that data position's row (``sharding.expert_owners``)."""
+    devs = list(ctx.mesh.devices.flat)
+    tp = ctx.tp_size
+    names = [k for k in placed if sharding.is_expert_leaf(k)]
+    reads = {(q, k): shared_reads(blocks[q][k], n)
+             for q in range(len(devs)) for k in names}
+    where = placed[names[0]].where
+    return [lm.Experts([{k: reads[q, k][i] for k in names}
+                        for q in range(len(devs))], devs,
+                       sharding.expert_owners(
+                           where, range(i * tp, (i + 1) * tp)))
+            for i in range(n)]
 
 
 def _position_parts(state: dict, batch: dict, cfg: ArchConfig,
                     ctx: ShardCtx) -> list:
     """``factory.loss_parts`` of one (micro)batch on a mesh: of each data
-    position's rows, on its replica of the model (a model axis of 1) or
-    its ``lm.ModelGroup`` of blocks, or of the whole batch on the first
-    (see the module's docstring for which)."""
+    position's rows, on its replica of the model (a model axis of 1,
+    without MoE) or its ``lm.ModelGroup`` of blocks, or of the whole batch
+    on the first (see the module's docstring for which)."""
     mesh = ctx.mesh
     devs = list(mesh.devices.flat)
     dp, tp = ctx.dp_size, ctx.tp_size
-    if tp == 1:
+    b, s = batch["labels"].shape
+    groups = 1 if cfg.moe is None else moe_groups(dp, b * s, cfg.moe.top_k)
+    spread = not (b % dp or (cfg.moe is not None and groups != dp))
+    n = dp if spread else 1
+    if state["replicas"]:
         models = [state["replicas"][dev] for dev in devs]
     else:
         blocks = sharding.param_blocks(state["placed"])
-        models = [lm.ModelGroup(blocks[p:p + tp], devs[p:p + tp])
-                  for p in range(0, len(devs), tp)]
-    b, s = batch["labels"].shape
-    groups = 1 if cfg.moe is None else moe_groups(dp, b * s, cfg.moe.top_k)
-    if b % dp or (cfg.moe is not None and groups != dp):
+        experts = [None] * n
+        if any(sharding.is_expert_leaf(k) for k in state["placed"]):
+            experts = _expert_reads(state["placed"], blocks, ctx, n)
+            blocks = [{k: t for k, t in bq.items()
+                       if not sharding.is_expert_leaf(k)} for bq in blocks]
+        models = [lm.ModelGroup(blocks[i * tp:(i + 1) * tp],
+                                devs[i * tp:(i + 1) * tp], experts[i])
+                  for i in range(n)]
+    if not spread:
         whole = {k: x.to(devs[0]) for k, x in batch.items()}
         return [factory.loss_parts(models[0], whole, cfg=cfg,
                                    moe_groups=groups)]
@@ -317,33 +336,47 @@ def _grads(model: nn.Module, batch: dict, cfg: ArchConfig):
 
 
 def _step_grads(state: dict, batch: dict, cfg: ArchConfig, ctx: ShardCtx):
-    """(metrics, {name: grad}) of one batch, on the model's device."""
+    """(metrics, gradients) of one batch: {name: grad} on the model's
+    device, or on a mesh ``_grads_of``'s {name: {block: grad}}."""
     if ctx.mesh is None:
         _, metrics, grads = _grads(state["params"], batch, cfg)
         return metrics, grads
     loss, metrics = factory.combine_parts(
         _position_parts(state, batch, cfg, ctx), cfg=cfg)
-    return metrics, _grads_of(loss, state["placed"],
-                              ctx.mesh.devices.flat[0])
+    return metrics, _grads_of(loss, state["placed"])
+
+
+def _block_norm(grads: dict, home) -> torch.Tensor:
+    """The global norm of ``_grads_of``'s gradients: each block's sum of
+    squares in f32 (a view of a whole gradient made contiguous first, so
+    that it sums as a stored block does), added on ``home`` in name and
+    block order."""
+    return torch.sqrt(torch.stack([
+        torch.sum(torch.square(g.to(torch.float32).contiguous())).to(home)
+        for blocks in grads.values() for g in blocks.values()]).sum())
 
 
 @torch.no_grad()
 def _zero1_update(grads: dict, state: dict, opt_cfg: OptConfig):
     """AdamW on a sharded state, block by block (see the module's
-    docstring); returns the gradients' global norm."""
-    gnorm = global_norm(grads)
+    docstring), from ``_grads_of``'s gradients; returns their global
+    norm."""
+    home = state["ctx"].mesh.devices.flat[0]
+    gnorm = _block_norm(grads, home)
     scale = clip_scale(opt_cfg, gnorm)
     consts = step_constants(opt_cfg, state["step"])
-    for name, g in grads.items():
-        g = scaled(g, scale)
+    for name, gblocks in grads.items():
+        gblocks = [(b, scaled(g, scale.to(g.device)))
+                   for b, g in gblocks.items()]
         ms, vs = state["opt"]["m"][name], state["opt"]["v"][name]
         ps = state["placed"][name]
         holder = {}
         for dev, items in ms.stores.items():
             for (blk, m), (_, v) in zip(items, vs.stores[dev]):
-                adamw_leaf(name, ps.region(dev, blk).detach(),
-                           g[sharding.index_of(blk)].to(dev), m, v, opt_cfg,
-                           consts)
+                g = next(g[idx] for b, g in gblocks
+                         if (idx := sharding.inside(blk, b)) is not None)
+                adamw_leaf(name, ps.region(dev, blk).detach(), g.to(dev), m,
+                           v, opt_cfg, consts)
                 holder.setdefault(blk, dev)
         for dev in ps.stores:                # the blocks a device lacks
             held = {blk for blk, _ in ms.stores.get(dev, [])}
@@ -365,6 +398,16 @@ def _microbatches(batch: dict, accum_steps: int):
                             + tuple(x.shape[1:]))[i] for k, x in batch.items()}
 
 
+def _map_grads(fn, grads: dict, *more) -> dict:
+    """fn over the gradients' tensors, a {name: grad} dict's or a sharded
+    step's {name: {block: grad}}, with the same tensors of ``more``."""
+    if isinstance(next(iter(grads.values())), dict):
+        return {n: {b: fn(g, *(m[n][b] for m in more))
+                    for b, g in blocks.items()} for n, blocks in
+                grads.items()}
+    return {n: fn(g, *(m[n] for m in more)) for n, g in grads.items()}
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                     ctx: ShardCtx = NULL_CTX, accum_steps: int = 1):
     """train_step(state, batch) -> (state, metrics).  accum_steps > 1
@@ -373,7 +416,6 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     microbatch's, as the reference's scan carries them).  With a mesh
     ``ctx`` it takes a state that ``init_train_state(..., ctx=ctx)``
     made."""
-    _check_ctx(ctx, cfg)
 
     def train_step(state: dict, batch: dict):
         device = (ctx.mesh.devices.flat[0] if ctx.mesh is not None
@@ -388,12 +430,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                 if accum_steps == 1:
                     grads = g
                 elif grads is None:
-                    grads = {n: x.float() for n, x in g.items()}
+                    grads = _map_grads(lambda x: x.float(), g)
                 else:
-                    for n, x in g.items():
-                        grads[n].add_(x.float())
+                    _map_grads(lambda acc, x: acc.add_(x.float()), grads, g)
             if accum_steps > 1:
-                grads = {n: x / accum_steps for n, x in grads.items()}
+                grads = _map_grads(lambda x: x / accum_steps, grads)
             if ctx.mesh is None:
                 _, _, gnorm = adamw_update(
                     grads, state["opt"],

@@ -28,8 +28,8 @@ and RWKV's cut heads (``make_train_step(cfg, opt_cfg, ctx)`` with a
     ``seqpar_attention``, 2 steps;
   · ``launch/train.py --mesh single`` (reduced qwen2-vl-2b) and
     ``--mesh multi`` (reduced minitron-8b) end at ``--mesh none``'s
-    loss, and refuse the MoE, MLA and jamba configs, naming slice
-    11d.5b.2b.
+    loss, and so do the MoE, MLA and jamba configs at ``--mesh single``
+    against the unsharded step with the same token groups.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -47,7 +47,8 @@ from repro_torch.models.layers.attention import seqpar_attention
 from repro_torch.train import train_step as TS
 from test_torch_shard_train import (SHAPE, assert_rows_close,
                                     check_against_reference, cpu_ctx,
-                                    leaf_err, params_of, run, weights)
+                                    launcher_loss, leaf_err, params_of,
+                                    run, weights, whole_grads)
 from test_torch_train import PARAM_LR_TOL, PARAM_SHARE
 
 ATTN_TOL = 2e-5
@@ -132,7 +133,8 @@ def _grads_per_step(monkeypatch):
     def record(state, batch, cfg, ctx):
         metrics, grads = real(state, batch, cfg, ctx)
         seen[ctx.mesh is not None].append(
-            {n: g.detach().clone() for n, g in grads.items()})
+            {n: g.detach().clone()
+             for n, g in whole_grads(grads, state).items()})
         return metrics, grads
 
     monkeypatch.setattr(TS, "_step_grads", record)
@@ -278,7 +280,15 @@ def test_launcher_mesh_trains_to_the_unsharded_loss(monkeypatch, capsys,
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b",
                                   "jamba-v0.1-52b"])
-def test_launcher_mesh_refuses_the_families_of_11d_5b_2b(arch):
-    with pytest.raises(NotImplementedError, match="11d.5b.2b"):
-        train_launcher.main(["--arch", arch, "--device", "cpu", "--steps",
-                             "1", "--mesh", "single"])
+def test_launcher_mesh_refuses_the_families_of_11d_5b_2b(monkeypatch, arch):
+    """``--mesh single`` once refused the MoE, MLA and jamba configs; now
+    it trains each on (16, 16) of the CPU: 4 rows that the 16 data
+    positions do not divide run on the first in 16 token groups, the
+    model axis splitting what 16 divides (deepseek's d_ff, jamba's
+    d_inner), and the step's loss is the unsharded step's with the same
+    groups."""
+    argv = ["--arch", arch, "--device", "cpu", "--steps", "1"]
+    _, want = launcher_loss(monkeypatch, argv, moe_groups=16)
+    state, got = launcher_loss(monkeypatch, argv + ["--mesh", "single"])
+    assert state["ctx"].mesh.devices.shape == (16, 16)
+    assert abs(got - want) <= 1e-5 * abs(want)

@@ -21,8 +21,9 @@ meshes of the CPU, every position on the one CPU:
   · a sharded checkpoint writes the unsharded state's bytes, and a
     restore into a sharded state then 3 steps equals 6 straight, bit for
     bit;
-  · refusals: a model axis of size 2 for the families slice 11d.5b.2b
-    ports, and ``launch/train.py --mesh`` for an MoE config.  (The model
+  · every family on a model axis of 2, and ``launch/train.py --mesh``
+    for an MoE config against the unsharded step with the same token
+    groups (once tests of their refusal).  (The model
     axis of the dense and RWKV families is in test_torch_shard_tp.py,
     its head_dim split and RWKV's cut heads in test_torch_shard_seqpar.py,
     Whisper's in test_torch_shard_whisper.py.)
@@ -119,6 +120,22 @@ def assert_rows_close(rows, want_rows, aux=False):
 def params_of(state) -> dict:
     return {k: v.detach().clone()
             for k, v in state["params"].state_dict().items()}
+
+
+def whole_grads(grads: dict, state: dict) -> dict:
+    """{name: the whole gradient} of a sharded step's {name: {block:
+    gradient}} (``train_step._grads_of``), or a plain step's gradients as
+    they are."""
+    if not isinstance(next(iter(grads.values())), dict):
+        return grads
+    out = {}
+    for name, blocks in grads.items():
+        g0 = next(iter(blocks.values()))
+        whole = torch.zeros(state["placed"][name].shape, dtype=g0.dtype)
+        for blk, g in blocks.items():
+            whole[shd.index_of(blk)] = g.detach().cpu()
+        out[name] = whole
+    return out
 
 
 _PLAIN = {}
@@ -294,6 +311,19 @@ def test_matches_the_reference_sharded_step(arch, tmp_path):
     check_against_reference(arch, (4, 1), tmp_path)
 
 
+@pytest.mark.parametrize("arch,mesh", [
+    ("arctic-480b", (2, 2)), ("deepseek-v3-671b", (1, 4)),
+    ("jamba-v0.1-52b", (2, 2))], ids=["arctic-2d", "deepseek-full",
+                                      "jamba-2d"])
+def test_expert_placement_matches_the_reference_sharded_step(arch, mesh,
+                                                             tmp_path):
+    """The model axis of the MoE, MLA and jamba families: experts placed
+    by ``ctx.ep_axes`` ('2d' on (2, 2), 'full' on (1, 4)), MLA's heads
+    and Mamba's d_inner split, against the reference's step on a host
+    mesh of that shape."""
+    check_against_reference(arch, mesh, tmp_path)
+
+
 # ---------------------------------------------------------------------------
 # placement, checkpoints, refusals
 # ---------------------------------------------------------------------------
@@ -318,7 +348,10 @@ def test_rows_follow_the_reference_order_and_repeat_no_storage():
     specs = state["specs"]
     assert specs["groups.0.0.moe.wi_gate"] == (None, ("pod", "data"), None,
                                                "model")
-    assert list(state["replicas"]) == [torch.device("cpu")]
+    assert not state["replicas"]            # MoE: ModelGroups, one device
+    assert state["placed"]["groups.0.0.moe.wi_gate"].wholes[
+        torch.device("cpu")] is dict(state["params"].named_parameters())[
+        "groups.0.0.moe.wi_gate"]
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -327,8 +360,9 @@ def test_rows_follow_the_reference_order_and_repeat_no_storage():
     pytest.param("minitron-8b", (1, 2), id="minitron-8b-model-axis")])
 def test_distinct_devices_hold_their_blocks(arch, shape):
     """Two names of the CPU ("cpu", "cpu:0") stand for two devices.  On a
-    (4, 1) mesh each holds a replica of the model and its positions'
-    moment blocks only; on a (1, 2) mesh each stores only its block of
+    (4, 1) mesh each holds a replica of the model (an MoE model: its
+    positions' experts and the rest whole) and its positions' moment
+    blocks only; on a (1, 2) mesh each stores only its block of
     each parameter the model axis splits (and of its moments), and the
     whole of a replicated one.  Gradients meet on the first, blocks are
     copied across, and the run equals one on a single repeated device
@@ -347,7 +381,15 @@ def test_distinct_devices_hold_their_blocks(arch, shape):
     err, leaf = leaf_err(got_params, params_of(want))
     assert err <= PARAM_TOL, (leaf, err)
     placed = state["placed"]
-    if shape[1] == 1:
+    if cfg.moe is not None:
+        # no replica: each device stores its positions' experts, and the
+        # rest whole (test_torch_shard_ep.py holds the blocks)
+        assert state["params"] is None and not state["replicas"]
+        for name, sh in placed.items():
+            held = sum(t.numel() for _, t in sh.stores[cpu0])
+            assert (held * 2 if shd.is_expert_leaf(name) else held) == \
+                got_params[name].numel(), name
+    elif shape[1] == 1:
         assert list(state["replicas"]) == [torch.device("cpu"), cpu0]
         other = state["replicas"][cpu0].state_dict()
         for k, v in state["params"].state_dict().items():
@@ -424,22 +466,22 @@ def test_sharded_checkpoint_is_the_unsharded_file_and_restarts(tmp_path):
 
 
 def test_a_model_axis_refuses():
-    """A model axis of 2 trains the dense and RWKV families
-    (test_torch_shard_tp.py) and Whisper (test_torch_shard_whisper.py),
-    and a model axis of 4 the head_dim split of qwen2-vl-2b's 6 heads of
-    16 (test_torch_shard_seqpar.py); for the MoE layers, MLA and jamba's
-    period it raises, naming slice 11d.5b.2b."""
+    """Once a model axis of 2 refused the MoE layers, MLA and jamba's
+    period; now every family trains on it (the dense and RWKV families in
+    test_torch_shard_tp.py, Whisper in test_torch_shard_whisper.py, these
+    three in test_torch_shard_ep.py): one step of each here, and a model
+    axis of 4 takes the head_dim split of qwen2-vl-2b's 6 heads of 16
+    (test_torch_shard_seqpar.py).  A sharded state and an unsharded step
+    (or the reverse) still refuse to mix."""
     ctx = make_ctx(make_train_mesh((2, 2), device="cpu"))
     assert ctx.tp_size == 2
-    for arch in ("minitron-8b", "whisper-base"):
-        TS.make_train_step(get_reduced(arch), OptConfig(), ctx)
-    for arch, what in (("arctic-480b", "MoE"), ("jamba-v0.1-52b", "period"),
-                       ("deepseek-v3-671b", "MoE")):
+    for arch in ("minitron-8b", "whisper-base", "arctic-480b",
+                 "jamba-v0.1-52b", "deepseek-v3-671b"):
         cfg = get_reduced(arch)
-        with pytest.raises(NotImplementedError, match=f"{what}.*11d.5b.2b"):
-            TS.make_train_step(cfg, OptConfig(), ctx)
-        with pytest.raises(NotImplementedError, match="11d.5b.2b"):
-            TS.init_train_state(0, cfg, OptConfig(), device="cpu", ctx=ctx)
+        rows, state = run(cfg, weights(cfg), ctx, SHAPE, 1)
+        assert np.isfinite(rows[0]["loss"]) and state["step"] == 1, arch
+        if cfg.moe is not None:
+            assert rows[0]["aux"] > 0, arch
     # 6 heads of 16 on a model axis of 4: the reference splits head_dim
     TS.make_train_step(get_reduced("qwen2-vl-2b"), OptConfig(),
                        make_ctx(make_train_mesh((1, 4), device="cpu")))
@@ -452,14 +494,44 @@ def test_a_model_axis_refuses():
         TS.make_train_step(cfg, OptConfig())(state, batch)
 
 
+def launcher_loss(monkeypatch, argv, moe_groups=1):
+    """The launcher's state and its last step's loss, as the step
+    returned it; the unsharded step's MoE layers in ``moe_groups`` token
+    groups."""
+    last = {}
+    real = train_launcher.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            last["loss"] = float(metrics["loss"])
+            return state, metrics
+
+        return recorded
+
+    def grouped(model, batch, *, cfg):
+        return factory.combine_parts([factory.loss_parts(
+            model, batch, cfg=cfg, moe_groups=moe_groups)], cfg=cfg)
+
+    monkeypatch.setattr(train_launcher, "make_train_step", make)
+    monkeypatch.setattr(factory, "train_loss", grouped)
+    state = train_launcher.main(argv)
+    return state, last["loss"]
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launcher_mesh_names_the_model_axis(mesh):
-    """``--mesh single|multi`` trains the dense, RWKV and Whisper configs
-    on the production mesh (test_torch_shard_seqpar.py); an MoE config
-    there raises, naming the model axis of 16 and slice 11d.5b.2b."""
-    with pytest.raises(NotImplementedError) as err:
-        train_launcher.main(["--arch", "arctic-480b", "--device", "cpu",
-                             "--steps", "1", "--mesh", mesh])
-    msg = str(err.value)
-    assert "model axis of size 16" in msg and "11d.5b.2b" in msg
-    assert "MoE layers" in msg and "std:dense families and Whisper" in msg
+def test_launcher_mesh_names_the_model_axis(monkeypatch, mesh):
+    """``--mesh single|multi`` once refused an MoE config, naming the
+    model axis of 16; now it trains reduced arctic-480b on the production
+    mesh, (16, 16) or (2, 16, 16) of the CPU: 4 rows that its 16 or 32
+    data positions do not divide run on the first, in 16 or 32 token
+    groups (its 4 experts replicated), and 2 steps end at the loss of the
+    unsharded step with the same groups."""
+    argv = ["--arch", "arctic-480b", "--device", "cpu", "--steps", "2"]
+    dp = 16 if mesh == "single" else 32
+    _, want = launcher_loss(monkeypatch, argv, moe_groups=dp)
+    state, got = launcher_loss(monkeypatch, argv + ["--mesh", mesh])
+    assert state["ctx"].tp_size == 16 and state["ctx"].dp_size == dp
+    assert abs(got - want) <= 1e-5 * abs(want)

@@ -39,7 +39,8 @@ from repro_torch.train.optimizer import OptConfig
 from test_torch_shard_train import (DATA_SEED, KW, PARAM_TOL, SHAPE,
                                     assert_rows_close,
                                     check_against_reference, cpu_ctx,
-                                    leaf_err, params_of, run, weights)
+                                    leaf_err, params_of, run, weights,
+                                    whole_grads)
 
 ARCH = "whisper-base"
 MESHES = [(1, 2), (2, 2), (1, 8)]
@@ -91,7 +92,8 @@ def test_step_matches_unsharded(monkeypatch, mesh):
 
     def record(state, batch, cfg_, ctx_):
         metrics, g = real_sg(state, batch, cfg_, ctx_)
-        grads.append({n: t.detach().clone() for n, t in g.items()})
+        grads.append({n: t.detach().clone()
+                      for n, t in whole_grads(g, state).items()})
         return metrics, g
 
     monkeypatch.setattr(attn_mod, "flash_attention", counted)
