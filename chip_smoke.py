@@ -62,7 +62,8 @@ last line.  The simulator's path:
   r. the seeded analytic-prune search (nn@0.5 on the RTX 3080 Ti, seed 0,
      3 rounds of 256 candidates, top 8) with its verify sweeps on the
      card; the same case cut to one round on the card equal in full to it
-     on the CPU in this process; the card's round 0 verified set equal to
+     on the CPU (in a child process started after the builds, beside the
+     card phases); the card's round 0 verified set equal to
      tests/golden/torch_port_search.json
      (the JAX package's) and equal cycles on every vector both measured;
      then launch/dse.py --base 3080ti --workload nn --scale 0.5 --search
@@ -83,8 +84,9 @@ last line.  The simulator's path:
      16 and 48 quanta, differenced) against the bare quantum loop's; then
      the frontends in child processes: a scripted --stdin session (its
      cold start to first completion beside the warm in-process batch of
-     the same jobs), a --port 0 socket session beside --selftest, every
-     completion equal to the in-process lanes;
+     the same jobs), a --port 0 socket session, every completion equal
+     to the in-process lanes, and --selftest, run from the phase's start
+     beside the in-process server;
   m. SM-axis sharding and the ('cfg','sm') mesh on this one card, every
      mesh position repeating it (the counterpart of the JAX package's
      forced host devices): nn@0.5 and syrk@0.16 at full width through
@@ -118,7 +120,7 @@ The RWKV-6 serving path (f32 products in full f32: TF32 is off):
      tests/golden/torch_port_rwkv6_reduced.json (the JAX package's
      prefill and decode logits, 1e-4, and greedy tokens);
   d. rwkv6-1.6b at full width (24 layers, d_model 2048): generate for
-     batch 8, prompt 512, 32 new tokens, wkv6 launched once per layer of
+     batch 8, prompt 512, 16 new tokens, wkv6 launched once per layer of
      the prefill; cache consistency (prefill against a shorter prefill
      plus decode steps): 448 + 64 and 63 + 1 steps within 1e-3 of the
      largest logit, 64 + 64 within 2e-3 (MODEL_F32_TOL), and witnesses
@@ -160,7 +162,7 @@ The dense GQA serving path (f32, TF32 off):
   h. minitron-8b at full width (32 layers, d_model 4096, 32 query and 8
      KV heads of 128, d_ff 16384, vocab 256,000; 7.7 B f32 parameters
      drawn on the card), after the RWKV model is freed: generate for batch
-     8, prompt 512, 32 new tokens with flash_attention launched once per
+     8, prompt 512, 16 new tokens with flash_attention launched once per
      layer of the prefill; cache consistency 448 + 64 and 63 + 1 steps
      within 1e-3 of the largest logit; the kernel against attention_plain
      inside the model on a 128-token prefill; medians and ranges over
@@ -271,9 +273,16 @@ Training (f32, TF32 off, deterministic kernels):
      on a mesh of the CPU; and qwen2-vl-2b, phi3-medium-14b, rwkv6-1.6b
      and whisper-base so on a (1, 8) mesh (the head_dim split, RWKV's
      cut heads), each kernel's launches per step as ``kernel_calls``
-     counts them;
-  z. qwen2-vl-2b whole at its published widths (28 layers, 1.78 B f32
-     parameters), trained by the sharded step on meshes repeating this
+     counts them; then the reduced arctic-480b (2, 2), deepseek-v3-671b
+     (1, 4: MLA's latent cache by sequence), jamba-v0.1-52b (3, 2),
+     rwkv6-1.6b (1, 8: cut heads) and whisper-base (2, 2) served on a
+     mesh of this card (factory.prefill/decode with a ctx: a prefill and
+     8 greedy decode steps) and evaluated (make_eval_step(cfg, ctx))
+     against the same calls unsharded at equal MoE token groups: prefill
+     logits within 1e-4, tokens equal, eval within 1e-5;
+  z. qwen2-vl-2b at its published widths (28 layers, 1.78 B f32
+     parameters; cut to SHARD_TP_LAYERS and SHARD_SEQPAR's depth),
+     trained by the sharded step on meshes repeating this
      card: (2, 2) at 8 x 512, (1, 8) at 4 x 1024 (seqpar_attention in
      every layer), and (4, 1) at its widths cut to SHARD_DP's depth;
      whisper-base whole on (2, 2) at 8 x 448; rwkv6-1.6b's widths at 2
@@ -284,7 +293,20 @@ Training (f32, TF32 off, deterministic kernels):
      nothing reads 1); step time, tokens/s, peak memory, a profiled
      sharded and unsharded step's idle share (device activity only),
      the kernels' launches per step (phases f and k hold K3' and its
-     backward at each run's per-position shapes).
+     backward at each run's per-position shapes);
+  n. serving on meshes of this card (models/sharded.py): qwen2-vl-2b
+     whole, 8 x 1024 prompts and 8 greedy tokens, on (2, 2), (1, 4) and
+     (1, 8), one mesh per KV-cache layout (by KV heads, by sequence, by
+     head_dim with seqpar_attention in every layer of the prefill), and
+     rwkv6-1.6b whole and at 2 layers on (1, 2), 8 x 512: each against
+     its unsharded serving (prefill logits within 1e-4 of their largest
+     magnitude, the cache after the prefill gathered from its blocks
+     within 1e-5, every greedy token equal; the 24-layer rwkv6-1.6b,
+     whose depth amplifies f32 rounding, tokens equal and its distances
+     within twice a one-ulp witness), with prefill seconds, decode ms
+     a step, tokens/s, peak memory, a decode step's idle share and the
+     kernel's launches per prefill (phase f times K3' at each mesh's
+     per-position prefill shape).
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -352,6 +374,7 @@ SEARCH_GOLDEN = "torch_port_search.json"
 # rounds of the card-against-CPU search and of dse --search --check
 # (the CPU's verify sweeps and the solo reruns are the phase's slow part)
 SEARCH_CPU_ROUNDS = 1
+CPU_SEARCH_THREADS = 4           # of the card machine's 8 cores
 # phase v: the simulation server on the RTX 3080 Ti: the workloads of its
 # batch, the bundled traces uploaded as text, the lanes of its sample
 # grid; the soak's client threads, draws per client and seed; the
@@ -391,8 +414,9 @@ WKV_OPS_PER_ELEMENT = 5
 WKV_TOL = 1e-4                   # tests/test_kernels.py's wkv6 tolerance
 WKV_FULL_SHAPE = (8, 512, 32, 64)        # (B, S, H, hs) of phase d's prefill
 WKV_TP_SHAPE = (4, 512, 16, 64)          # a model position's in phase z
+WKV_SERVE_SHAPE = (8, 512, 16, 64)       # a model position's in phase n
 RWKV_ARCH = "rwkv6-1.6b"
-RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 32
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 16      # 32 before phase n
 CONSISTENCY_TOL = 1e-3           # of the largest logit
 # of the largest logit, for two f32 runs of the full-width model that
 # round differently and that CONSISTENCY_TOL cannot hold: 128 tokens
@@ -405,7 +429,7 @@ FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 # (B, S, H, KV, hd) of phase h's prefill, where the main path launches it
 FLASH_FULL_SHAPE = (8, 512, 32, 8, 128)
 DENSE_ARCH = "minitron-8b"
-DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 512, 16   # 32 before phase n
 DENSE_REPEATS = 2                # timing windows of phase h
 # phase f: arctic-480b's attention shape (B, S, H, KV, hd), a GQA group of
 # 7 query heads, which the MoE path (phase o) launches the kernel at
@@ -427,6 +451,17 @@ FLASH_EP_TP_SHAPES = {"arctic-480b": (4, 512, 28, 4, 128),
 # (Sk 128 for the first slab ... 1,024 for the last; phase f times these)
 FLASH_SEQPAR_SHAPE = (4, 128, 12, 2, 128)
 FLASH_SEQPAR_SK = (128, 512, 1024)
+# phases f and n: qwen2-vl-2b's prefill of 8 rows of 1,024 tokens at one
+# position of each serving mesh ((B, Sq, H, KV, hd), Sk): (2, 2) 4 rows
+# and half the heads, (1, 4) a quarter of the heads, (1, 8) seqpar's
+# first and last slabs of 128 queries, causal over the keys up to their
+# end (jamba-v0.1-52b's (2, 2) shape is FLASH_EP_TP_SHAPES')
+FLASH_SERVE_CASES = {"qwen2-vl-2b (2, 2)": ((4, 1024, 6, 1, 128), 1024),
+                     "qwen2-vl-2b (1, 4)": ((8, 1024, 3, 1, 128), 1024),
+                     "qwen2-vl-2b (1, 8) first slab": ((8, 128, 12, 2, 128),
+                                                       128),
+                     "qwen2-vl-2b (1, 8) last slab": ((8, 128, 12, 2, 128),
+                                                      1024)}
 # phases f and k: whisper-base's shapes on a (2, 2) mesh's model position
 # (4 of its 8 heads, 4 rows): name -> ((B, Sq, H, KV, hd), Sk, causal)
 WHISPER_TP_CASES = {"encoder": ((4, 1500, 4, 4, 64), 1500, False),
@@ -544,10 +579,10 @@ RWKV_Y_GRAD_TOL = 1e-3
 # ('data', 'model') meshes repeating this card: (2, 2), 4 rows of 512
 # tokens per data position, each model position on half the heads, so K3'
 # runs at FLASH_QWEN_VL_TP_SHAPE, cut to SHARD_TP_LAYERS layers to keep the
-# smoke within its time
+# smoke within its time (14 before phase n, which serves it whole)
 SHARD_ARCH = "qwen2-vl-2b"
 SHARD_MESHES = ((2, 2),)
-SHARD_TP_LAYERS = 14
+SHARD_TP_LAYERS = 7
 SHARD_BATCH, SHARD_SEQ = 8, 512
 # phase z: the (4, 1) mesh's run (PR 25's, the data axes only, which the
 # (2, 2) run covers too; 2 rows per position, K3' at FLASH_QWEN_VL_SHAPE)
@@ -558,8 +593,9 @@ SHARD_DP = ((4, 1), 4)
 # do not divide 8, head_dim 128 does, and 1,024 / 8 = 128 queries a
 # position meets the reference's test for sequence-parallel attention, so
 # every layer runs seqpar_attention, K3' on each position's slab (mesh,
-# batch, sequence, layers: its widths cut in depth for the smoke's time)
-SHARD_SEQPAR = ((1, 8), 4, 1024, 8)
+# batch, sequence, layers: its widths cut in depth for the smoke's time;
+# 8 layers before phase n)
+SHARD_SEQPAR = ((1, 8), 4, 1024, 4)
 # phase z: whisper-base whole on a (2, 2) mesh, 8 x 448 decoder tokens
 # over 1,500 frames: its 8 heads split, 4 a model position (arch, mesh,
 # batch, sequence)
@@ -586,6 +622,44 @@ MOE_TRAIN_PARAM_TOL = 1e-3
 # mostly cancels, and AdamW's normalised first steps turn its rounding
 # into a share of the update.
 SHARD_UPDATE_TOL = 5e-2
+# phase n: serving on meshes of the card (models/sharded.py).  qwen2-vl-2b
+# whole (arXiv:2409.12191: 28 layers, d_model 1536, 12 q / 2 KV heads of
+# 128, vocab 151,936), token prompts SERVE_BATCH x SERVE_PROMPT and
+# SERVE_NEW greedy tokens, on one mesh per cache layout that the rules
+# give it: (2, 2) by KV heads, (1, 4) by sequence (3 query heads a
+# position, the cache's max_len in 4 slabs), (1, 8) by head_dim (the
+# prefill through seqpar_attention in every layer); then rwkv6-1.6b whole
+# (arXiv:2404.05892: 24 layers, d_model 2048, heads of 64) on (1, 2), S
+# by heads: (arch, layers (None: all), meshes, batch, prompt, new, held);
+# 8 new tokens, not 16, for the smoke's time.
+# A seeded 24-layer RWKV-6 turns f32 rounding into ~1e-4 of its logits
+# and ~1e-3 of its last state (on the CPU, the reduced model at 24 layers:
+# one ulp of the embedding moves its logits by 1.5e-4): the whole model
+# is held to equal tokens, its distances printed beside that of the
+# unsharded model with its embedding moved by one ulp; rwkv6-1.6b at its
+# published widths and 2 layers is held at the limits below, as phase x
+# holds its gradients
+MESH_SERVE_CASES = (
+    ("qwen2-vl-2b", None, ((2, 2), (1, 4), (1, 8)), 8, 1024, 8, True),
+    ("rwkv6-1.6b", None, ((1, 2),), 8, 512, 8, False),
+    ("rwkv6-1.6b", 2, ((1, 2),), 8, 512, 8, True))
+SERVE_SEED = 2029
+SERVE_LOGIT_TOL = 1e-4           # of the largest prefill logit
+SERVE_CACHE_TOL = 1e-5           # of each cache leaf's largest magnitude
+# a model not held to those: its distances within this many times the
+# witness's, the distances that one ulp of its embedding makes
+SERVE_WITNESS_FACTOR = 2
+# phase y: the reduced configs served and evaluated on a mesh of the card
+# against the same calls unsharded at equal token groups: (arch, mesh,
+# rows); prompts of SERVE_Y_PROMPT tokens, SERVE_Y_NEW greedy tokens (a
+# prefill and SERVE_Y_NEW - 1 decode steps), the caches sized
+# SERVE_Y_MAX_LEN so that every mesh splits their sequence where the rules
+# say (deepseek's latent over 4 slabs)
+SERVE_Y = (("arctic-480b", (2, 2), 4), ("deepseek-v3-671b", (1, 4), 4),
+           ("jamba-v0.1-52b", (3, 2), 3), ("rwkv6-1.6b", (1, 8), 4),
+           ("whisper-base", (2, 2), 2))
+SERVE_Y_PROMPT, SERVE_Y_NEW, SERVE_Y_MAX_LEN = 64, 9, 80
+SERVE_Y_EVAL_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -817,9 +891,10 @@ def phase_wkv6(torch, W):
     # a log decay of about -20 and of about -1e-6 on every token
     cases += [((2, s, 4, hs), s == 37, decay) for decay in ("strong", "weak")
               for hs in (16, 32, 64) for s in (37, 512)]
-    # a model position's in phase z; last, the shape the main path
+    # a model position's in phases z and n; last, the shape the main path
     # launches it at, which is also timed
     cases.append((WKV_TP_SHAPE, True, "random"))
+    cases.append((WKV_SERVE_SHAPE, True, "random"))
     cases.append((WKV_FULL_SHAPE, True, "random"))
     for shape, zero_state, decay in cases:
         args = wkv_case(rng, torch, *shape, zero_state, decay)
@@ -1197,6 +1272,8 @@ def phase_flash(torch, FA):
                   for name, (shape, sk, causal) in WHISPER_TP_CASES.items()}
     ep_tp = {arch: _flash_timed_case(torch, FA, gen, shape)
              for arch, shape in FLASH_EP_TP_SHAPES.items()}
+    serve = {name: _flash_timed_case(torch, FA, gen, shape, sk=sk)
+             for name, (shape, sk) in FLASH_SERVE_CASES.items()}
     b, sq, h, kv, hd, sk = FLASH_WIDE_CASE
     q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
     wide = {"shape": list(FLASH_WIDE_CASE)}
@@ -1213,7 +1290,8 @@ def phase_flash(torch, FA):
     except ValueError:
         wide["causal_refused"] = True
     for r in (arctic, qwen_vl, qwen_vl_tp, full, *whisper.values(), wide,
-              *seqpar, *whisper_tp.values(), *ep_tp.values()):
+              *seqpar, *whisper_tp.values(), *ep_tp.values(),
+              *serve.values()):
         max_err = max(max_err, r["max_abs_err"])
         worst = max(worst, r["worst"])
         n_cases += 1
@@ -1221,7 +1299,7 @@ def phase_flash(torch, FA):
             "worst": worst, "arctic": arctic, "qwen_vl": qwen_vl,
             "qwen_vl_tp": qwen_vl_tp,
             "whisper": whisper, "wide": wide, "seqpar": seqpar,
-            "whisper_tp": whisper_tp, "ep_tp": ep_tp}
+            "whisper_tp": whisper_tp, "ep_tp": ep_tp, "serve": serve}
 
 
 def _flash_timed_case(torch, FA, gen, shape, causal=True, sk=None):
@@ -2604,6 +2682,385 @@ def report_shard_train(zr, card, where):
               f"{calls} a forward")
 
 
+def serve_loop(torch, fn_prefill, fn_decode, greedy, gather, new):
+    """A prefill and ``new`` - 1 greedy decode steps, timed: (the prefill's
+    logits and cache as ``gather`` returns them, the tokens (B, new), the
+    prefill's seconds, the decode steps' seconds, the last cache)."""
+    sync_cards(torch)
+    t0 = time.perf_counter()
+    logits, cache = fn_prefill()
+    sync_cards(torch)
+    prefill_s = time.perf_counter() - t0
+    first = gather(logits, cache)
+    toks = [greedy(logits)]
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        logits, cache = fn_decode(cache, toks[-1])
+        toks.append(greedy(logits))
+    sync_cards(torch)
+    return (first, torch.cat(toks, dim=1), prefill_s,
+            time.perf_counter() - t0, cache)
+
+
+def phase_serve_mesh(torch, FA, W, arch, meshes, batch, prompt, new, *,
+                     n_layers=None, held=True):
+    """``arch`` at its published widths (whole, or cut to ``n_layers``),
+    weights drawn on cuda:0
+    from seed 0, served by ``factory.prefill``/``decode`` unsharded and
+    then on each ('data', 'model') mesh of ``meshes`` repeating cuda:0
+    (``place_model``: one copy of the model and one cache on the card):
+    seeded token prompts (batch, prompt), ``new`` greedy tokens.  Per run:
+    the prefill's seconds and its launches of the attention kernel (K3',
+    or K2 for RWKV), counted from 0 just before it; the decode steps' ms a
+    step and tokens/s; the peak device memory; the idle share of one more
+    decode step, profiled (device activity only).  Each mesh is held
+    against the unsharded run: its prefill logits, gathered, against the
+    unsharded ones over their largest magnitude; its cache after the
+    prefill, gathered from its blocks, leaf by leaf; its tokens.  Where
+    not ``held`` (a model whose rounding its depth amplifies), the same
+    distances of the unsharded model with its embedding moved by one ulp
+    (a random sign per element) are read as a witness."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory, sharded
+    from repro_torch.parallelism import sharding
+    from repro_torch.parallelism.ctx import NULL_CTX
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    rwkv = cfg.family == "ssm"
+    kern = W.wkv6 if rwkv else FA.flash_attention
+    dev = torch.device("cuda:0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = factory.init_params(0, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, dtype=torch.int32, device=dev)
+    out = {"cfg": cfg, "init_s": init_s, "batch": batch, "prompt": prompt,
+           "new": new, "kernel": "wkv6" if rwkv else "flash_attention",
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "runs": {}, "held": held}
+    want = None
+
+    def distances(logits, cache0):
+        """(the prefill logits' distance from the unsharded ones over their
+        largest magnitude; each cache leaf's, likewise)."""
+        errs = {"/".join(map(str, path)): float(
+            (a.double() - b.double()).abs().max()
+            / b.double().abs().max().clamp(min=1e-30))
+            for (path, a), (_, b) in zip(sharded._leaves(cache0),
+                                         sharded._leaves(want[1]))
+            if path != ("len",)}
+        return (float((logits - want[0]).abs().max()
+                      / want[0].abs().max()), errs)
+    for mesh in (None,) + tuple(meshes):
+        ctx = NULL_CTX if mesh is None else make_ctx(
+            make_train_mesh(mesh, device="cuda:0"))
+        served = model if mesh is None else factory.place_model(model, cfg,
+                                                                ctx)
+        if mesh is None:
+            def greedy(lg):
+                return torch.argmax(lg, -1).to(torch.int32)[:, None]
+
+            def gather(lg, cache):
+                return lg, cache
+        else:
+            greedy = sharded.greedy
+
+            def gather(lg, cache):
+                return (sharding.gather(lg, dev),
+                        sharded.gather_cache(cache, dev))
+
+        def pre():
+            kern.launches = 0
+            return factory.prefill(served, {"tokens": prompts}, cfg=cfg,
+                                   max_len=prompt + new, ctx=ctx)
+
+        def dec(cache, tok):
+            return factory.decode(served, cache, {"tokens": tok}, cfg=cfg,
+                                  ctx=ctx)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache0), toks, prefill_s, decode_s, cache = serve_loop(
+            torch, pre, dec, greedy, gather, new)
+        launches = kern.launches
+        peak = torch.cuda.max_memory_allocated()
+        events, wall = profiled(torch, lambda: dec(cache, toks[:, -1:]),
+                                host=False)
+        run = {"prefill_s": prefill_s,
+               "step_ms": decode_s * 1e3 / (new - 1),
+               "tokens_s": batch * (new - 1) / decode_s,
+               "peak": peak, "launches": launches,
+               "expected": kernel_calls(cfg, mesh, prompt),
+               "idle": 1 - sum(us for _, us in events) / 1e6 / wall,
+               "n_events": len(events), "tokens": toks}
+        if mesh is None:
+            want = (logits, cache0, toks)
+            if not held:          # the witness: one ulp of the embedding
+                emb = model.embed.emb
+                keep = emb.detach().clone()
+                sign = torch.sign(torch.randn(emb.shape, generator=gen,
+                                              device=dev))
+                with torch.no_grad():
+                    emb.mul_(1 + 2.0 ** -23 * sign)
+                lw, cw = factory.prefill(model, {"tokens": prompts},
+                                         cfg=cfg, max_len=prompt + new)
+                with torch.no_grad():
+                    emb.copy_(keep)
+                err, errs = distances(lw, cw)
+                out["witness"] = {"logit_err": err,
+                                  "cache_err": max(errs.values()),
+                                  "cache_leaf": max(errs, key=errs.get)}
+                del keep, sign, lw, cw
+        else:
+            run["logit_err"], errs = distances(logits, cache0)
+            run["cache_err"] = max(errs.values())
+            run["cache_leaf"] = max(errs, key=errs.get)
+            run["tokens_equal"] = bool(torch.equal(toks, want[2]))
+            run["specs"] = sorted({str(sh.spec) for p, sh in
+                                   sharded._leaves(cache) if p != ("len",)})
+        out["runs"][mesh] = run
+        del logits, cache0, cache, served
+    del model, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rwkv and n_layers is None:     # K2 at a position's prefill shape
+        b_, h_, hs = batch, cfg.d_model // cfg.rwkv.head_size, \
+            cfg.rwkv.head_size
+        tp = meshes[0][1]
+        shape = (b_, prompt, h_ // tp, hs)
+        args = wkv_case(np.random.default_rng(SERVE_SEED), torch, *shape,
+                        True)
+        got, want = W.wkv6(*args), W.wkv6_plain(*args, chunk=64)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        # allclose's measure: |g - r| <= atol + rtol |r|
+        worst = max(float(((g - r).abs() / (WKV_TOL + WKV_TOL * r.abs()))
+                          .max()) for g, r in zip(got, want))
+        del got, want
+        kus = kernel_us(torch, lambda: [W.wkv6(*args) for _ in range(5)],
+                        "wkv6_kernel")
+        wrapper_ms = time_per_call(torch, lambda: W.wkv6(*args), 10)
+        bound_ms, bound_by, _, _ = wkv_bound(*shape)
+        out["k2"] = {"shape": list(shape), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "device_timed": bool(kus),
+                     "max_abs_err": err, "worst": worst,
+                     "ms": sum(kus) / len(kus) / 1e3 if kus else wrapper_ms,
+                     "wrapper_ms": wrapper_ms}
+    return out
+
+
+def get_config_layers(name):
+    """The published config's number of layers."""
+    from repro_torch.configs import get_config
+    return get_config(name).n_layers
+
+
+def report_serve_mesh(r, card):
+    """Print phase n's lines for one model and hold its checks."""
+    c = r["cfg"]
+    desc = (f"{c.n_layers} layers, d_model {c.d_model}, "
+            + (f"heads of {c.rwkv.head_size}" if c.family == "ssm" else
+               f"{c.n_heads} q / {c.n_kv_heads} KV heads of "
+               f"{c.resolved_head_dim}") + f", vocab {c.vocab_size}")
+    kname = "K2" if r["kernel"] == "wkv6" else "K3'"
+    whole = "whole" if c.n_layers == get_config_layers(c.name) else \
+        f"at {c.n_layers} layers"
+    if r["held"]:
+        lim = SERVE_LOGIT_TOL, SERVE_CACHE_TOL
+    else:
+        lim = (SERVE_WITNESS_FACTOR * r["witness"]["logit_err"],
+               SERVE_WITNESS_FACTOR * r["witness"]["cache_err"])
+    for mesh, run in r["runs"].items():
+        where = ("unsharded on cuda:0" if mesh is None else
+                 f"on a {mesh} ('data', 'model') mesh of cuda:0, cache "
+                 f"specs {run['specs']}")
+        line = (f"[n serve mesh] {c.name} {whole} ({desc}; {r['n_params']} "
+                f"f32 parameters, drawn in {r['init_s']:.2f} s), prompts "
+                f"{r['batch']} x {r['prompt']}, {r['new']} greedy tokens, "
+                f"{where}, on {card}: prefill {run['prefill_s']:.4f} s, "
+                f"decode {run['step_ms']:.3f} ms a step = "
+                f"{run['tokens_s']:.1f} tokens/s, peak device memory "
+                f"{run['peak'] / 2**30:.3f} GiB, one more decode step "
+                f"profiled: idle share {run['idle']:.4f} "
+                f"({run['n_events']} device activities); {kname} launches "
+                f"per prefill {run['launches']} (expected "
+                f"{run['expected']})")
+        if mesh is not None:
+            line += (f"; against the unsharded run: prefill logits within "
+                     f"{run['logit_err']:.3e} of their largest magnitude "
+                     f"(limit {lim[0]:.3e}), cache after the prefill "
+                     f"gathered from its blocks within {run['cache_err']:.3e}"
+                     f" ({run['cache_leaf']}; limit {lim[1]:.3e}), "
+                     f"tokens equal {run['tokens_equal']}")
+        print(line + f"; tokens of row 0 {run['tokens'][0].tolist()}",
+              flush=True)
+    if "witness" in r:
+        w = r["witness"]
+        print(f"[n serve mesh] {c.name} {whole}: not held to the limits "
+              f"above (its depth amplifies f32 rounding): the unsharded "
+              f"model with its embedding moved by one ulp departs from "
+              f"itself by {w['logit_err']:.3e} in the prefill logits and "
+              f"{w['cache_err']:.3e} in the cache ({w['cache_leaf']}); "
+              f"its tokens are held equal, its distances within "
+              f"{SERVE_WITNESS_FACTOR} times these", flush=True)
+    if "k2" in r:
+        k = r["k2"]
+        print(f"[n serve mesh] K2 at a model position's prefill shape "
+              f"{tuple(k['shape'])}: {k['ms'] * 1e3:.2f} us a launch ("
+              + ("profiler" if k["device_timed"] else "not profiled: events")
+              + f"), wrapper {k['wrapper_ms'] * 1e3:.2f} us/call, bound "
+              f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}); against "
+              f"wkv6_plain on the same inputs: max abs err "
+              f"{k['max_abs_err']:.3e}, worst err / (atol + rtol |plain|) "
+              f"{k['worst']:.4f} (rtol = atol = {WKV_TOL})", flush=True)
+        check(k["worst"] <= 1.0, f"wkv6 at {tuple(k['shape'])} disagrees "
+              f"with wkv6_plain beyond rtol = atol = {WKV_TOL} (max abs err "
+              f"{k['max_abs_err']})")
+    for mesh, run in r["runs"].items():
+        check(run["launches"] == run["expected"],
+              f"{c.name} {mesh}: {run['launches']} {kname} launches per "
+              f"prefill, {run['expected']} expected")
+        if mesh is None:
+            continue
+        check(run["tokens_equal"] and run["logit_err"] <= lim[0]
+              and run["cache_err"] <= lim[1],
+              f"{c.name} on {mesh}: departs from the unsharded serving: "
+              f"logits {run['logit_err']}, cache {run['cache_err']} "
+              f"({run['cache_leaf']}; limits {lim}), tokens equal "
+              f"{run['tokens_equal']}")
+
+
+def phase_serve_reduced(torch, FA, W, cases=SERVE_Y):
+    """The reduced configs served and evaluated on a mesh of the card
+    (phase y): per (arch, mesh, rows), weights drawn on cuda:0 from seed
+    0, seeded prompts (rows, SERVE_Y_PROMPT) (Whisper's with seeded
+    frames), a prefill and SERVE_Y_NEW - 1 greedy decode steps unsharded
+    (the MoE layers in the mesh's token groups) and on the mesh
+    (``place_model``), and one ``eval_step`` of a batch on the mesh
+    (``make_eval_step(cfg, ctx)`` over ``init_train_state(..., ctx)``)
+    against ``combine_parts`` of the unsharded ``loss_parts`` in the same
+    groups.  Returns {arch: readings}."""
+    import gc
+
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory, sharded
+    from repro_torch.models.layers.moe import moe_groups
+    from repro_torch.parallelism import sharding
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    dev = torch.device("cuda:0")
+    out = {}
+    for arch, mesh, rows in cases:
+        cfg = get_reduced(arch)
+        ctx = make_ctx(make_train_mesh(mesh, device="cuda:0"))
+        dp = ctx.dp_size
+
+        def groups(n):
+            return 1 if cfg.moe is None else moe_groups(dp, n,
+                                                        cfg.moe.top_k)
+
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (rows, SERVE_Y_PROMPT), generator=gen,
+            dtype=torch.int32, device=dev)}
+        if cfg.enc_dec:
+            batch["frames"] = torch.randn((rows, 1500, cfg.d_model),
+                                          generator=gen, device=dev)
+        model = factory.init_params(0, cfg, device=dev)
+        kern = W.wkv6 if cfg.family == "ssm" else FA.flash_attention
+        got = {}
+        for name, served, kw, greedy, gather in (
+                ("unsharded", model, {}, lambda lg: torch.argmax(
+                    lg, -1).to(torch.int32)[:, None], lambda lg: lg),
+                ("sharded", factory.place_model(model, cfg, ctx),
+                 {"ctx": ctx}, sharded.greedy,
+                 lambda lg: sharding.gather(lg, dev))):
+            def pre():
+                kern.launches = 0
+                extra = {} if kw else {"moe_groups": groups(
+                    rows * SERVE_Y_PROMPT)}
+                return factory.prefill(served, batch, cfg=cfg,
+                                       max_len=SERVE_Y_MAX_LEN, **kw,
+                                       **extra)
+
+            def dec(cache, tok):
+                extra = {} if kw else {"moe_groups": groups(rows)}
+                return factory.decode(served, cache, {"tokens": tok},
+                                      cfg=cfg, **kw, **extra)
+
+            first, toks, prefill_s, decode_s, _ = serve_loop(
+                torch, pre, dec, greedy, lambda lg, c: gather(lg),
+                SERVE_Y_NEW)
+            got[name] = {"logits": first, "tokens": toks,
+                         "launches": kern.launches, "prefill_s": prefill_s,
+                         "step_ms": decode_s * 1e3 / (SERVE_Y_NEW - 1)}
+        data = to_device(make_batch_np(cfg, ShapeSpec(
+            "y", SERVE_Y_PROMPT, rows, "train"), SERVE_SEED, 0), dev)
+        with torch.no_grad():
+            _, plain = factory.combine_parts([factory.loss_parts(
+                model, data, cfg=cfg,
+                moe_groups=groups(rows * SERVE_Y_PROMPT))], cfg=cfg)
+        state = TS.init_train_state(model, cfg, OptConfig(**TRAIN_OPT),
+                                    ctx=ctx)
+        ev = TS.make_eval_step(cfg, ctx)(state, data)
+        want, have = got["unsharded"], got["sharded"]
+        out[arch] = {
+            "cfg": cfg, "mesh": mesh, "rows": rows, "runs": got,
+            "groups": groups(rows * SERVE_Y_PROMPT),
+            "logit_err": float((have["logits"] - want["logits"]).abs().max()
+                               / want["logits"].abs().max()),
+            "tokens_equal": bool(torch.equal(have["tokens"],
+                                             want["tokens"])),
+            "expected": kernel_calls(cfg, mesh, SERVE_Y_PROMPT),
+            "eval": {k: float(ev[k]) for k in ("loss", "ce", "aux")},
+            "plain": {k: float(plain[k]) for k in ("loss", "ce", "aux")}}
+        del model, state, got
+        gc.collect()
+    return out
+
+
+def report_serve_reduced(yr, card):
+    """Print phase y's serving lines and hold their checks."""
+    for arch, r in yr.items():
+        c, u, s_ = r["cfg"], r["runs"]["unsharded"], r["runs"]["sharded"]
+        rel = {k: abs(r["eval"][k] - r["plain"][k])
+               / max(abs(r["plain"][k]), 1e-30) for k in r["eval"]}
+        print(f"[y serve reduced] {arch} reduced on a {r['mesh']} mesh of "
+              f"cuda:0, {r['rows']} rows, prompt {SERVE_Y_PROMPT}, "
+              f"{SERVE_Y_NEW} greedy tokens, max_len {SERVE_Y_MAX_LEN}, "
+              f"MoE token groups {r['groups']}, on {card}: prefill "
+              f"{s_['prefill_s']:.4f} s (unsharded {u['prefill_s']:.4f}), "
+              f"decode {s_['step_ms']:.3f} ms a step (unsharded "
+              f"{u['step_ms']:.3f}); kernel launches per prefill "
+              f"{s_['launches']} (expected {r['expected']}; unsharded "
+              f"{u['launches']}); prefill logits within "
+              f"{r['logit_err']:.3e} of their largest magnitude (limit "
+              f"{SERVE_LOGIT_TOL}), tokens equal {r['tokens_equal']}; "
+              f"eval_step on the mesh {r['eval']} against the unsharded "
+              f"forward {r['plain']} (relative {rel}, limit "
+              f"{SERVE_Y_EVAL_RTOL})", flush=True)
+        check(s_["launches"] == r["expected"]
+              and r["logit_err"] <= SERVE_LOGIT_TOL and r["tokens_equal"]
+              and max(rel.values()) <= SERVE_Y_EVAL_RTOL,
+              f"{arch} reduced on {r['mesh']}: the sharded serving or eval "
+              f"departs from the unsharded: {r['logit_err']}, tokens "
+              f"{r['tokens_equal']}, eval {rel}, launches "
+              f"{s_['launches']} of {r['expected']}")
+
+
 def _state_bytes(args):
     """Bytes of the four state dicts among a quantum's arguments."""
     return sum(x.numel() * x.element_size() for a in args[:4]
@@ -3153,21 +3610,10 @@ def search_record(result):
     }))
 
 
-def phase_search(torch, K, Q):
-    """The seeded analytic-prune search of SEARCH_GOLDEN's case (nn@0.5 on
-    the RTX 3080 Ti, seed 0, 3 rounds of 256 candidates, top 8) with its
-    verify sweeps on the card: (a) the case cut to SEARCH_CPU_ROUNDS
-    rounds on the card equal, in full, to the same on the CPU in this
-    process; (b) round 0's verified set equal to the JAX
-    package's golden, and equal cycles on every vector both measured;
-    then ``python -m repro_torch.launch.dse --base 3080ti --workload nn
-    --scale 0.5 --search --search-rounds 1 --check``, in this process."""
-    import dataclasses
-    import io
-
+def search_case(rounds=None):
+    """(SEARCH_GOLDEN's contents, its workload, ``search``'s keywords for
+    its case, cut to ``rounds`` rounds where given)."""
     from repro_torch.core.plan import RunPlan
-    from repro_torch.core.search import search
-    from repro_torch.launch import dse
     from repro_torch.launch.cli import base_config
     from repro_torch.workloads import make_workload
 
@@ -3176,10 +3622,54 @@ def phase_search(torch, K, Q):
     case = golden["case"]
     w = make_workload(case["workload"], scale=case["scale"])
     kw = dict(plan=RunPlan(max_cycles=case["max_cycles"],
-                           search_rounds=case["rounds"],
+                           search_rounds=rounds or case["rounds"],
                            search_topk=case["topk"]),
               seed=case["seed"], base=base_config(case["base"]),
               n_candidates=case["n_candidates"], calibrate_from=None)
+    return golden, w, kw
+
+
+def cpu_search():
+    """{"record": ``search_record`` of SEARCH_GOLDEN's case cut to
+    SEARCH_CPU_ROUNDS rounds, searched on the CPU, "wall": its seconds}:
+    the body of ``start_cpu_search``'s child."""
+    import torch
+    torch.set_num_threads(CPU_SEARCH_THREADS)
+    from repro_torch.core.search import search
+    _, w, kw = search_case(SEARCH_CPU_ROUNDS)
+    t0 = time.perf_counter()
+    res = search(w, device="cpu", **kw)
+    return {"record": search_record(res), "wall": time.perf_counter() - t0}
+
+
+def start_cpu_search():
+    """``cpu_search`` in a child process, started beside the card phases
+    (it needs no card; its verify sweeps on the CPU are the smoke's
+    longest host-only work), which phase r joins."""
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import chip_smoke; print(json.dumps(chip_smoke.cpu_search()))")
+    return start_child(
+        [sys.executable, "-c", code, ROOT, os.path.join(ROOT, "src")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_search(torch, K, Q, cpu_proc):
+    """The seeded analytic-prune search of SEARCH_GOLDEN's case (nn@0.5 on
+    the RTX 3080 Ti, seed 0, 3 rounds of 256 candidates, top 8) with its
+    verify sweeps on the card: (a) the case cut to SEARCH_CPU_ROUNDS
+    rounds on the card equal, in full, to the same on the CPU
+    (``cpu_proc``, ``start_cpu_search``'s child); (b) round 0's verified
+    set equal to the JAX package's golden, and equal cycles on every
+    vector both measured; then ``python -m repro_torch.launch.dse --base
+    3080ti --workload nn --scale 0.5 --search --search-rounds 1
+    --check``, in this process."""
+    import io
+
+    from repro_torch.core.search import search
+    from repro_torch.launch import dse
+
+    golden, w, kw = search_case()
+    case = golden["case"]
     card, wall, fused, issue, steps = _counted_run(
         torch, K, Q, lambda: search(w, device="cuda", **kw))
     check(fused == steps > 0 and issue == 0,
@@ -3187,15 +3677,17 @@ def phase_search(torch, K, Q):
           f"{steps} quanta")
     # the card against the CPU in full, at SEARCH_CPU_ROUNDS rounds (the
     # CPU's verify sweeps are the smoke's slowest part)
-    kw1 = dict(kw, plan=dataclasses.replace(
-        kw["plan"], search_rounds=SEARCH_CPU_ROUNDS))
+    _, _, kw1 = search_case(SEARCH_CPU_ROUNDS)
     card1, _, fused1, _, _ = _counted_run(
         torch, K, Q, lambda: search(w, device="cuda", **kw1))
     t0 = time.perf_counter()
-    cpu = search(w, device="cpu", **kw1)
-    cpu_wall = time.perf_counter() - t0
+    text, err = cpu_proc.communicate(timeout=900)
+    wait_s = time.perf_counter() - t0
+    check(cpu_proc.returncode == 0, f"the CPU search's process exited "
+          f"{cpu_proc.returncode}: {err[-2000:]}")
+    cpu = json.loads(text.strip().splitlines()[-1])
     got, want = search_record(card), golden["result"]
-    check(search_record(card1) == search_record(cpu), "the search on the "
+    check(search_record(card1) == cpu["record"], "the search on the "
           "card differs from the same search on the CPU")
     topk = case["topk"]
 
@@ -3209,7 +3701,8 @@ def phase_search(torch, K, Q):
     bad = [v for v, c in shared if theirs[v] != c]
     check(not bad, f"{len(bad)} vectors measured by both the card and "
           f"{SEARCH_GOLDEN} differ in cycles")
-    out = {"wall": wall, "cpu_wall": cpu_wall, "steps": steps,
+    out = {"wall": wall, "cpu_wall": cpu["wall"], "cpu_wait": wait_s,
+           "steps": steps,
            "launches": fused + fused1, "shared": len(shared),
            "n_verified": len(got["verified"]), "equal_golden": got == want,
            "best": card.best_cycles, "golden_best": want["best_cycles"],
@@ -3304,6 +3797,24 @@ def served_launches(torch, sub, n_q):
             bool(events))
 
 
+_CHILDREN = []                   # every child process the smoke starts
+
+
+def start_child(args, **kw):
+    """``subprocess.Popen(args, **kw)``, registered for ``stop_children``."""
+    proc = subprocess.Popen(args, **kw)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def stop_children():
+    """Kill every child process that is still running."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
 def _child_env():
     src = os.path.join(ROOT, "src")
     path = os.environ.get("PYTHONPATH")
@@ -3312,7 +3823,7 @@ def _child_env():
 
 
 def _serve_child(args, **kw):
-    return subprocess.Popen(
+    return start_child(
         [sys.executable, "-m", "repro_torch.launch.serve", *args],
         cwd=ROOT, env=_child_env(), text=True, **kw)
 
@@ -3355,12 +3866,29 @@ def _check_session(replies, subs, want, where):
               "server's")
 
 
-def serve_children(want):
+def start_selftest():
+    """``serve --selftest`` in a child process on the card, started at
+    phase v's beginning beside the in-process server; a thread reads its
+    output and notes when it ends."""
+    import threading
+    proc = _serve_child(["--selftest"], stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT)
+    run = {"proc": proc, "t0": time.perf_counter()}
+
+    def read():
+        run["text"] = proc.communicate()[0]
+        run["end"] = time.perf_counter()
+    run["thread"] = threading.Thread(target=read, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def serve_children(want, selftest):
     """The frontends in child processes on the card: a scripted stdin
     session (``--stdin --base 3080ti``), timed from the start to its
-    first completion; then a socket session on ``--port 0`` beside
-    ``--selftest``.  ``want``: {id: comparable() per lane} of the
-    in-process server."""
+    first completion; then a socket session on ``--port 0``; and the
+    end of ``selftest`` (``start_selftest``'s).  ``want``: {id:
+    comparable() per lane} of the in-process server."""
     subs = [s for s in serve_subs() if s["id"] in CHILD_IDS]
     out = {}
     # stdin, alone: the cold child's time to its first completion
@@ -3383,25 +3911,24 @@ def serve_children(want):
     _check_session(replies, subs, want, "stdin server")
     out.update(stdin_first_s=first, stdin_s=time.perf_counter() - t0,
                stdin_lines=len(replies))
-    # the socket session beside --selftest
-    t0 = time.perf_counter()
-    selftest = _serve_child(["--selftest"], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT)
+    # the socket session
     sock = _serve_child(["--port", "0", "--base", "3080ti"],
                         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
     try:
         out.update(socket_session(sock, subs, want))
         rc = sock.wait(timeout=600)
         check(rc == 0, f"the socket server exited {rc}")
-        text, _ = selftest.communicate(timeout=900)
+        selftest["thread"].join(timeout=900)
     finally:
         _stop(sock)
-        _stop(selftest)
-    lines = text.strip().splitlines()
-    check(selftest.returncode == 0 and lines
+        _stop(selftest["proc"])
+    proc = selftest["proc"]
+    check(not selftest["thread"].is_alive(), "serve --selftest did not end")
+    lines = selftest["text"].strip().splitlines()
+    check(proc.returncode == 0 and lines
           and lines[-1].startswith("[selftest] PASS"),
-          f"serve --selftest exited {selftest.returncode}: {lines[-5:]}")
-    out.update(selftest_s=time.perf_counter() - t0,
+          f"serve --selftest exited {proc.returncode}: {lines[-5:]}")
+    out.update(selftest_s=selftest["end"] - selftest["t0"],
                selftest_lines=[ln for ln in lines
                                if ln.startswith("[selftest]")][:3])
     return out
@@ -3704,7 +4231,8 @@ def phase_serve(torch, K, Q, full_golden):
     draws, batch_lanes 8, max_wait_s 0.05); the kernel launches per
     quantum of a served bucket at 1 and 8 lanes against the bare quantum
     loop's; and the stdin, socket and selftest frontends in child
-    processes."""
+    processes (the selftest from the phase's start, beside the
+    in-process server)."""
     import threading
 
     from repro_torch.core import stats as S
@@ -3714,6 +4242,7 @@ def phase_serve(torch, K, Q, full_golden):
     from repro_torch.launch.dse import lane_signature
     from repro_torch.sim.config import RTX3080TI
 
+    selftest = start_selftest()
     subs = serve_subs()
     solo = {}
 
@@ -3850,7 +4379,8 @@ def phase_serve(torch, K, Q, full_golden):
     out["per_q"] = rows
 
     out["children"] = serve_children({i: [S.comparable(s) for s in
-                                          jobs[i].stats] for i in jobs})
+                                          jobs[i].stats] for i in jobs},
+                                     selftest)
     return out
 
 
@@ -3903,6 +4433,8 @@ def main():
         bwd_info = {n: builds[n].result()
                     for n in ("wkv6_bwd", "flash_attention_bwd")}
         bwd_build_s = time.perf_counter() - t0
+    # phase r's search on the CPU, in a child process from here on
+    cpu_search_proc = start_cpu_search()
     print(f"[1 build] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; sm_issue built in {info['seconds']:.2f} s "
           f"(load {build_s:.2f} s); ptxas: {ptxas_lines(info['log'])}",
@@ -4113,10 +4645,12 @@ def main():
 
     marks.append(("r", time.perf_counter()))
     # r. the seeded analytic-prune search, verify sweeps on the card
-    rr_ = phase_search(torch, K, Q)
+    rr_ = phase_search(torch, K, Q, cpu_search_proc)
     print(f"[r search] {SEARCH_GOLDEN}'s case on the card (wall "
           f"{rr_['wall']:.3f} s); at {SEARCH_CPU_ROUNDS} round(s) == the "
-          f"same search on the CPU in full (CPU {rr_['cpu_wall']:.3f} s); "
+          f"same search on the CPU in full (CPU {rr_['cpu_wall']:.3f} s in "
+          f"a child process beside the card phases, {rr_['cpu_wait']:.3f} "
+          f"s waited for here); "
           f"round 0's verified set == the golden's,"
           f" equal cycles on all {rr_['shared']} of {rr_['n_verified']} "
           f"vectors both measured (whole search == golden: "
@@ -4171,7 +4705,8 @@ def main():
           f"whole session {c['stdin_s']:.3f} s, against the warm in-process "
           f"batch of the same {len(CHILD_IDS)} jobs {vr['warm_wall']:.3f} s;"
           f" --port 0 (port {c['port']}, {c['socket_lines']} lines, "
-          f"completions == in-process lanes) beside --selftest (exit 0, "
+          f"completions == in-process lanes); --selftest from the phase's "
+          f"start, beside the in-process server (exit 0, "
           f"{c['selftest_s']:.3f} s: {' | '.join(c['selftest_lines'])}); "
           f"phase v {v_s:.1f} s", flush=True)
 
@@ -4237,7 +4772,8 @@ def main():
     print(f"[b wkv6] wkv6 == wkv6_plain on {wr['cases']} cases "
           f"{wr['by_kind']} (hs 16/32/64 x S 1/64/512 x zero/random state; "
           f"ragged S 37 and 100; log decay ~-20 and ~-1e-6 at S 37 and "
-          f"512; a model position's {WKV_TP_SHAPE} and {WKV_FULL_SHAPE}), "
+          f"512; a model position's {WKV_TP_SHAPE}, {WKV_SERVE_SHAPE} and "
+          f"{WKV_FULL_SHAPE}), "
           f"every output finite; max abs err "
           f"{wr['max_abs_err']:.3e}, worst err/tol {wr['worst']:.4f} at "
           f"rtol = atol = {WKV_TOL}; against the recurrence in f64 on "
@@ -4401,6 +4937,9 @@ def main():
     named += [(f"{arch}'s attention on a (2, 2) mesh's model position (GQA "
                f"group of {c['shape'][2] // c['shape'][3]}), causal", c)
               for arch, c in ar["ep_tp"].items()]
+    named += [(f"{name}'s serving prefill at one position (phase n), "
+               f"causal over {c['sk']} keys", c)
+              for name, c in ar["serve"].items()]
     for what, c in named:
         print(f"[f flash] {what}: {tuple(c['shape'])}, f32: "
               f"flash_attention vs attention_plain max abs err "
@@ -5112,6 +5651,11 @@ def main():
               f"{arch} reduced: the card's training departs from the CPU "
               f"port's ({v})")
 
+    # the reduced configs served and evaluated on a mesh of the card
+    # (models/sharded.py), each against the same calls unsharded
+    ys = phase_serve_reduced(torch, FA, W)
+    report_serve_reduced(ys, card)
+
     marks.append(("z", time.perf_counter()))
     # z. qwen2-vl-2b whole, trained by the sharded step on a (2, 2) and a
     # (1, 8) mesh repeating this card (the latter through seqpar_attention
@@ -5142,6 +5686,18 @@ def main():
     report_shard_train(zm, card, "cuda:0")
     print(f"[z shard train] phase z {time.perf_counter() - t_z:.1f} s",
           flush=True)
+
+    marks.append(("n", time.perf_counter()))
+    # n. serving on meshes of the card: qwen2-vl-2b whole on (2, 2), (1, 4)
+    # and (1, 8), one per KV-cache layout, and rwkv6-1.6b whole on (1, 2),
+    # each against its unsharded serving
+    nr = {}
+    for arch, layers, meshes, n_batch, n_prompt, n_new, held in \
+            MESH_SERVE_CASES:
+        r = phase_serve_mesh(torch, FA, W, arch, meshes, n_batch, n_prompt,
+                             n_new, n_layers=layers, held=held)
+        nr[arch if layers is None else f"{arch} at {layers} layers"] = r
+        report_serve_mesh(r, card)
 
     marks.append(("end", time.perf_counter()))
     print("[time] seconds by phase: " + ", ".join(
@@ -5212,6 +5768,13 @@ def main():
             r["fwd"] for r in zw["runs"][m, "sharded"]["rows"])
             for m in zw["meshes"]},
         "tp_shape": list(WKV_TP_SHAPE),
+        # the sharded serving path's (phase n: rwkv6-1.6b whole on a (1, 2)
+        # mesh, each model position on half the heads): launches per
+        # prefill, and the kernel at that position's shape
+        "serve_launches": {f"{arch} {m}": run["launches"]
+                           for arch, r in nr.items() if r["kernel"] == "wkv6"
+                           for m, run in r["runs"].items()},
+        "serve_shape": nr[RWKV_ARCH]["k2"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -5259,6 +5822,21 @@ def main():
         "ep_tp_shapes": {arch: {k: c[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")} for arch, c in ar["ep_tp"].items()},
+        # the sharded serving path's (phase n: qwen2-vl-2b whole on three
+        # meshes of the card): launches per prefill; phase y's reduced
+        # configs on their meshes; and at each serving mesh's per-position
+        # prefill shape (phase f)
+        "serve_launches": {f"{arch} {m}": run["launches"]
+                           for arch, r in nr.items()
+                           if r["kernel"] == "flash_attention"
+                           for m, run in r["runs"].items()},
+        "serve_reduced_launches": {
+            f"{arch} {r['mesh']}": r["runs"]["sharded"]["launches"]
+            for arch, r in ys.items()},
+        "serve_shapes": {name: {k: c[k] for k in (
+            "shape", "sk", "causal", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for name, c in ar["serve"].items()},
         # the hybrid path's (phase p: one generate of jamba's period) and
         # Whisper's (phase w: one prefill and decode loop; phase x: the
         # forward and the recompute of every step)
@@ -5322,4 +5900,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

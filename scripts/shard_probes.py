@@ -1,7 +1,7 @@
 """The sharded train step on four distinct cards.  Run from the
 repository root on a machine with four CUDA cards:
 
-    PYTHONPATH=src python3 scripts/shard_probes.py [ep|qwen]
+    PYTHONPATH=src python3 scripts/shard_probes.py [ep|qwen|serve]
 
 ``ep`` (the default): arctic-480b's full-width layer (1 layer, 14.07 B
 f32 parameters, batch 8 x 512) and jamba-v0.1-52b's full-width period
@@ -30,6 +30,23 @@ same phase with every position on the first card: qwen2-vl-2b whole on
 phase z's meshes, 8 x 512 on (2, 2) and 4 x 1024 on (1, 8) through
 seqpar_attention, the four-card metrics held to the repeated card's
 within phase z's limits.
+
+``serve``: jamba-v0.1-52b whole (all 32 layers, 4 periods, the published
+widths: 51.6 B f32 parameters, 206 GB) served on a (2, 2) mesh over
+cuda:0..3 (models/sharded.py): ``factory.init_placed`` draws the weights
+on cuda:0 one block or period sublayer at a time and places each part
+before the next is drawn (the experts '2d': 8 experts a data row, half
+their d_ff a card), so no card ever holds the whole model; token prompts
+8 x 512, 32 greedy tokens.  Run twice from the same seed, the two runs'
+tokens and prefill logits (a digest of their bits) must be identical.
+The same code on jamba cut to one period (8 layers at full width, 13.3 B
+parameters, which cuda:0 holds whole) is held against the unsharded
+prefill and decode on cuda:0 in the same two token groups: prefill
+logits within SERVE_LOGIT_TOL of their largest magnitude, tokens equal.
+Prints per run each card's peak memory and stored expert bytes, the
+prefill's seconds, decode ms a step, tokens/s and K3' launches per
+prefill (4 attention layers x 4 positions), and exits non-zero if a
+check fails.
 """
 import dataclasses
 import gc
@@ -161,6 +178,182 @@ def ep_probe(arch, n_layers, devices, batch):
     return out
 
 
+# the serving probe: jamba-v0.1-52b on SERVE_MESH over four cards
+SERVE_ARCH = "jamba-v0.1-52b"
+SERVE_MESH = (2, 2)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 32
+SERVE_PERIOD_LAYERS = 8          # the one-period model held to one card
+SERVE_LOGIT_TOL = 1e-4           # of the largest prefill logit
+SERVE_SEED = 2029
+
+
+def serve_once(cfg, served, ctx, prompts, dev):
+    """A prefill and SERVE_NEW - 1 greedy decode steps, unsharded (``ctx``
+    None: ``served`` the model on ``dev``, the MoE layers in the mesh's
+    token groups) or on a mesh (``served`` a ``PlacedModel``); returns its
+    readings, the prefill logits gathered on ``dev``."""
+    from repro_torch.models import factory, sharded
+    from repro_torch.models.layers.moe import moe_groups
+    from repro_torch.parallelism import sharding
+
+    dp = SERVE_MESH[0]
+    b, s = prompts.shape
+    if ctx is None:
+        kw = {"moe_groups": moe_groups(dp, b * s, cfg.moe.top_k)}
+        step_kw = {"moe_groups": moe_groups(dp, b, cfg.moe.top_k)}
+
+        def greedy(lg):
+            return torch.argmax(lg, -1).to(torch.int32)[:, None]
+
+        def whole(lg):
+            return lg
+    else:
+        kw = step_kw = {"ctx": ctx}
+        greedy = sharded.greedy
+
+        def whole(lg):
+            return sharding.gather(lg, dev)
+
+    FA.flash_attention.launches = 0
+    CS.sync_cards(torch)
+    t0 = time.perf_counter()
+    logits, cache = factory.prefill(served, {"tokens": prompts}, cfg=cfg,
+                                    max_len=s + SERVE_NEW, **kw)
+    CS.sync_cards(torch)
+    out = {"prefill_s": time.perf_counter() - t0,
+           "launches": FA.flash_attention.launches}
+    out["logits"] = whole(logits)
+    out["digest"] = CS.digest(torch, out["logits"])
+    toks = [greedy(logits)]
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW - 1):
+        logits, cache = factory.decode(served, cache, {"tokens": toks[-1]},
+                                       cfg=cfg, **step_kw)
+        toks.append(greedy(logits))
+    CS.sync_cards(torch)
+    decode_s = time.perf_counter() - t0
+    out.update(tokens=torch.cat(toks, dim=1).cpu(),
+               step_ms=decode_s * 1e3 / (SERVE_NEW - 1),
+               tokens_s=b * (SERVE_NEW - 1) / decode_s)
+    return out
+
+
+def serve_probe(devices):
+    """The serving probe (see the module's docstring): returns its
+    readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory
+
+    full = get_config(SERVE_ARCH)
+    period = dataclasses.replace(full, n_layers=SERVE_PERIOD_LAYERS)
+    dev = devices[0]
+    cards = sorted({d.index or 0 for d in devices})
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    prompts = torch.randint(0, full.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32, device=dev)
+    ctx = make_ctx(make_train_mesh(SERVE_MESH, devices=devices))
+    out = {"runs": []}
+
+    def fresh():
+        gc.collect()
+        for i in cards:
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(i)
+
+    # one period: the unsharded serving on cuda:0, then the same weights
+    # drawn and placed part by part on the mesh
+    fresh()
+    t0 = time.perf_counter()
+    model = factory.init_params(0, period, device=dev)
+    out["period_params"] = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        out["period_unsharded"] = serve_once(period, model, None, prompts,
+                                             dev)
+    out["period_unsharded"]["init_s"] = time.perf_counter() - t0
+    del model
+    fresh()
+    pm = factory.init_placed(0, period, ctx)
+    out["period_sharded"] = serve_once(period, pm, ctx, prompts, dev)
+    del pm
+    # the whole model, twice
+    for _ in range(2):
+        fresh()
+        t0 = time.perf_counter()
+        pm = factory.init_placed(0, full, ctx)
+        CS.sync_cards(torch)
+        init_s = time.perf_counter() - t0
+        state = {"placed": pm.placed}
+        run = serve_once(full, pm, ctx, prompts, dev)
+        run.update(init_s=init_s, experts=stored_bytes(state, True),
+                   stored=stored_bytes(state, False),
+                   peak={i: torch.cuda.max_memory_allocated(i)
+                         for i in cards},
+                   n_params=sum(int(np.prod(sh.shape))
+                                for sh in pm.placed.values()))
+        out["runs"].append(run)
+        del pm, state
+    out["cfg"], out["period"] = full, period
+    out["calls"] = CS.kernel_calls(full, SERVE_MESH, SERVE_PROMPT)
+    out["period_calls"] = CS.kernel_calls(period, SERVE_MESH, SERVE_PROMPT)
+    return out
+
+
+def serve_report(r, card):
+    """Print the serving probe's lines and hold its checks."""
+    c = r["cfg"]
+    tag = f"[shard probe serve] {c.name}"
+    u, p = r["period_unsharded"], r["period_sharded"]
+    logit_err = float((p["logits"] - u["logits"]).abs().max()
+                      / u["logits"].abs().max())
+    same = bool(torch.equal(p["tokens"], u["tokens"]))
+    print(f"{tag} cut to {r['period'].n_layers} layers (one period, "
+          f"{r['period_params']} f32 parameters) at the published widths, "
+          f"prompts {SERVE_BATCH} x {SERVE_PROMPT}, {SERVE_NEW} greedy "
+          f"tokens, on {card}: unsharded on cuda:0 in {SERVE_MESH[0]} token "
+          f"groups: prefill {u['prefill_s']:.3f} s, decode "
+          f"{u['step_ms']:.2f} ms a step = {u['tokens_s']:.1f} tokens/s, "
+          f"K3' {u['launches']} per prefill; on a {SERVE_MESH} mesh over "
+          f"cuda:0..{N_CARDS - 1} (init_placed): prefill "
+          f"{p['prefill_s']:.3f} s, decode {p['step_ms']:.2f} ms a step = "
+          f"{p['tokens_s']:.1f} tokens/s, K3' {p['launches']} per prefill "
+          f"(expected {r['period_calls']}); prefill logits within "
+          f"{logit_err:.3e} of their largest magnitude (limit "
+          f"{SERVE_LOGIT_TOL}), tokens equal {same}", flush=True)
+    for i, run in enumerate(r["runs"]):
+        print(f"{tag} whole ({c.n_layers} layers, {run['n_params']} f32 "
+              f"parameters), run {i + 1} on a {SERVE_MESH} ('data', "
+              f"'model') mesh over cuda:0..{N_CARDS - 1}, prompts "
+              f"{SERVE_BATCH} x {SERVE_PROMPT}, {SERVE_NEW} greedy tokens, "
+              f"on {card} each: drawn and placed part by part in "
+              f"{run['init_s']:.1f} s; prefill {run['prefill_s']:.3f} s, "
+              f"decode {run['step_ms']:.2f} ms a step = "
+              f"{run['tokens_s']:.1f} tokens/s; K3' launches per prefill "
+              f"{run['launches']} (expected {r['calls']}); peak device "
+              f"memory GiB by card {gib(run['peak'])}; stored expert GiB by "
+              f"device {gib(run['experts'])} of all stored parameter GiB "
+              f"{gib(run['stored'])}; prefill logits digest "
+              f"{run['digest']}; tokens of row 0 "
+              f"{run['tokens'][0].tolist()}", flush=True)
+    a, b = r["runs"]
+    identical = bool(torch.equal(a["tokens"], b["tokens"])
+                     and a["digest"] == b["digest"])
+    print(f"{tag}: the two whole runs identical (tokens and prefill "
+          f"logits' bits): {identical}", flush=True)
+    CS.check(logit_err <= SERVE_LOGIT_TOL and same,
+             f"{c.name} one period: the mesh departs from cuda:0 alone: "
+             f"logits {logit_err}, tokens equal {same}")
+    CS.check(p["launches"] == r["period_calls"]
+             and all(run["launches"] == r["calls"] for run in r["runs"]),
+             f"{c.name}: K3' launches per prefill {p['launches']}, "
+             f"{[run['launches'] for run in r['runs']]}; expected "
+             f"{r['period_calls']}, {r['calls']}")
+    CS.check(identical, f"{c.name}: two whole runs differ")
+    CS.check(all(np.isfinite(run["logits"].cpu().numpy()).all()
+                 for run in r["runs"]), f"{c.name}: logits not finite")
+
+
 def gib(by):
     """{key: bytes} in GiB, to 3 places."""
     return {k: round(v / 2**30, 3) for k, v in by.items()}
@@ -270,8 +463,8 @@ def qwen_probe():
 
 def main(argv):
     which = argv[0] if argv else "ep"
-    if which not in ("ep", "qwen"):
-        print(f"shard_probes: unknown probe {which!r} (ep or qwen)",
+    if which not in ("ep", "qwen", "serve"):
+        print(f"shard_probes: unknown probe {which!r} (ep, qwen or serve)",
               file=sys.stderr)
         return 2
     if torch.cuda.device_count() < N_CARDS:
@@ -290,6 +483,13 @@ def main(argv):
         torch.zeros(1, device=torch.device("cuda", i))
     if which == "qwen":
         qwen_probe()
+        return 0
+    if which == "serve":
+        t0 = time.perf_counter()
+        serve_report(serve_probe([torch.device("cuda", i)
+                                  for i in range(N_CARDS)]), CS.card_line())
+        print(f"[shard probe serve] all checks passed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return 0
     card = CS.card_line()
     t0 = time.perf_counter()

@@ -10,12 +10,14 @@ encoder-decoder.
                                                      count, MoE statistics
   combine_parts([parts, ...], cfg)                -> (loss, metrics)
   param_shapes(cfg, dtype, max_seq)               -> {name: shape}
-  prefill(model, batch, cfg, max_len)             -> (logits, cache)
-  decode(model, cache, batch, cfg)                -> (logits, cache)
-  init_cache(cfg, batch, max_len, dtype, device)  -> zeroed cache
+  prefill(model, batch, cfg, max_len, ctx)        -> (logits, cache)
+  decode(model, cache, batch, cfg, ctx)           -> (logits, cache)
+  init_cache(cfg, batch, max_len, dtype, device, ctx) -> zeroed cache
   make_batch(seed, cfg, shape, device)            -> dummy batch
   make_decode_batch(seed, cfg, batch, device)     -> one step's input
-  generate(model, cfg, prompts, max_new)          -> greedy tokens
+  generate(model, cfg, prompts, max_new, ctx)     -> greedy tokens
+  place_model(model, cfg, ctx)                    -> the model on a mesh
+  init_placed(seed, cfg, ctx)                     -> fresh weights, placed
 
 Entry points run on the CUDA card unless the caller names another device.
 Random draws come from an explicit ``torch.Generator`` on the device,
@@ -23,28 +25,34 @@ seeded by the caller; they are not the JAX package's draws, so tests that
 compare the two carry the same weights across with ``repro_torch.convert``.
 Whisper's batches carry ``frames`` (B, ENC_LEN, d), the stubbed audio
 frontend's output, beside ``tokens``; ``generate`` takes token prompts
-only, as the reference's does.  The reference's ``ctx`` is not an
-argument here: the sharded train step (train/train_step.py) runs
-``loss_parts`` on each data position's rows and combines them with
-``combine_parts``, which is what ``train_loss`` does for one batch;
-under a model axis it passes ``loss_parts`` the data position's
-``lm.ModelGroup`` in place of a model (Whisper's too), whose blocks
-compute the embedding, the layers and the cross-entropy: vocab-parallel
-for a split head, whole-vocab over the joined table for Whisper's tied
-one.
-Serving
-(``prefill``, ``decode``, ``generate``) records no autograd graph, so a
-model made trainable serves as a frozen one does.
+only, as the reference's does.  The training loss takes no ``ctx``:
+the sharded train step (train/train_step.py) runs ``loss_parts`` on each
+data position's rows and combines them with ``combine_parts``, which is
+what ``train_loss`` does for one batch; under a model axis it passes
+``loss_parts`` the data position's ``lm.ModelGroup`` in place of a
+model (Whisper's too), whose blocks compute the embedding, the layers
+and the cross-entropy: vocab-parallel for a split head, whole-vocab over
+the joined table for Whisper's tied one.
+Serving (``prefill``, ``decode``, ``generate``) records no autograd
+graph, so a model made trainable serves as a frozen one does.  It takes
+the reference's ``ctx``: with ``ctx.mesh`` None it is the unsharded path
+(its MoE layers in ``moe_groups`` token groups, 1 by default); over a
+mesh it takes the ``sharded.PlacedModel`` that ``place_model`` (or
+``init_placed``) makes, stores the cache in ``cache_pspecs``' blocks and
+returns the logits in ``logits_pspec``'s (``models/sharded.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.convert import _flatten
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, whisper
+from repro_torch.models import lm, sharded, whisper
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.loss import chunked_cross_entropy
+from repro_torch.parallelism import sharding
+from repro_torch.parallelism.ctx import NULL_CTX, ShardCtx
 
 AUX_WEIGHT = 0.01
 
@@ -155,25 +163,92 @@ def train_loss(model, batch: dict, *, cfg: ArchConfig):
     return combine_parts([loss_parts(model, batch, cfg=cfg)], cfg=cfg)
 
 
-def prefill(model, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
+def prefill(model, batch: dict, *, cfg: ArchConfig, max_len: int = 0,
+            ctx: ShardCtx = NULL_CTX, moe_groups: int = 1):
+    """(last-token logits, cache) of a prompt; over a mesh ``model`` is a
+    ``sharded.PlacedModel`` and both come back placed (the MoE groups then
+    follow the data positions, ``moe_groups`` is not read)."""
+    if ctx.mesh is not None:
+        return sharded.prefill(_placed(model, ctx), batch, cfg=cfg,
+                               max_len=max_len)
     if cfg.enc_dec:
         return whisper.whisper_prefill(model, batch, cfg=cfg,
                                        max_len=max_len)
-    return lm.lm_prefill(model, batch, cfg=cfg, max_len=max_len)
+    return lm.lm_prefill(model, batch, cfg=cfg, max_len=max_len,
+                         moe_groups=moe_groups)
 
 
-def decode(model, cache: dict, batch: dict, *, cfg: ArchConfig):
+def decode(model, cache: dict, batch: dict, *, cfg: ArchConfig,
+           ctx: ShardCtx = NULL_CTX, moe_groups: int = 1):
+    """One decode step: (logits, new cache), as ``prefill``'s."""
+    if ctx.mesh is not None:
+        return sharded.decode(_placed(model, ctx), cache, batch, cfg=cfg)
     if cfg.enc_dec:
         return whisper.whisper_decode(model, cache, batch, cfg=cfg)
-    return lm.lm_decode(model, cache, batch, cfg=cfg)
+    return lm.lm_decode(model, cache, batch, cfg=cfg, moe_groups=moe_groups)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.float32, *, device=None) -> dict:
+               dtype=torch.float32, *, device=None,
+               ctx: ShardCtx = NULL_CTX) -> dict:
+    """The zero cache; over a mesh placed by ``cache_pspecs``, each block
+    made on its holder."""
+    if ctx.mesh is not None:
+        return sharded.init_cache(cfg, batch, max_len, ctx, dtype)
     device = resolve_device(device)
     if cfg.enc_dec:
         return whisper.init_whisper_cache(cfg, batch, max_len, dtype, device)
     return lm.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def _placed(model, ctx: ShardCtx) -> sharded.PlacedModel:
+    if not isinstance(model, sharded.PlacedModel):
+        raise TypeError("serving on a mesh takes the model that "
+                        "place_model(model, cfg, ctx) returns")
+    if model.ctx != ctx:
+        raise ValueError("the model was placed for another ctx")
+    return model
+
+
+def place_model(model, cfg: ArchConfig, ctx: ShardCtx) -> sharded.PlacedModel:
+    """``model`` (an ``LM`` or ``Whisper``) placed on ``ctx.mesh`` by
+    ``param_pspecs`` (``sharding.place_params``: the experts by
+    ``ctx.ep_axes``), for ``prefill``, ``decode`` and ``generate`` under
+    ``ctx``.  A parameter that the mesh's first device does not store
+    whole is released from ``model`` once placed."""
+    params = dict(model.named_parameters())
+    return sharded.PlacedModel(sharding.place_params(
+        params, sharding.param_pspecs(params, cfg, ctx), ctx.mesh), ctx)
+
+
+def init_placed(seed: int, cfg: ArchConfig, ctx: ShardCtx,
+                dtype=torch.float32) -> sharded.PlacedModel:
+    """``place_model(init_params(seed, cfg, dtype, device=first))``, the
+    same weights, drawn on the mesh's first device and placed one part at
+    a time (``lm.init_lm_parts``: a block, a period's sublayer), so that
+    no device ever holds more of the model than its blocks and one part:
+    a model larger than any card.  Whisper is drawn whole."""
+    home = ctx.mesh.devices.flat[0]
+    if cfg.enc_dec:
+        return place_model(init_params(seed, cfg, dtype, device=home), cfg,
+                           ctx)
+    gen = _generator(seed, home)
+
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=home).mul_(std)
+
+    shapes = param_shapes(cfg, dtype)
+    specs = sharding.param_pspecs(shapes, cfg, ctx)
+    layers = sharding.leaf_layers(shapes)
+    placed = {}
+    for prefix, part in lm.init_lm_parts(draw, cfg, dtype, home):
+        flat = {}
+        _flatten(prefix, part, flat, lambda t: t)
+        placed.update(sharding.place_params(
+            flat, {n: specs[n] for n in flat}, ctx.mesh, layers=layers))
+        del flat, part
+    return sharded.PlacedModel({n: placed[n] for n in shapes}, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +299,17 @@ def make_decode_batch(seed: int, cfg: ArchConfig, batch: int, *,
 
 
 @torch.no_grad()
-def generate(model, cfg: ArchConfig, prompts, *, max_new: int = 16):
+def generate(model, cfg: ArchConfig, prompts, *, max_new: int = 16,
+             ctx: ShardCtx = NULL_CTX):
     """prompts: (B, S) int32. Greedy decode max_new tokens; argmax ties go
-    to the first index, as ``jnp.argmax``'s do.  A token-prompt batch
+    to the first index, as ``jnp.argmax``'s do (over a mesh, across the
+    logits' vocab blocks too: ``sharded.greedy``).  A token-prompt batch
     only, as the reference's: Whisper's prefill needs frames (drive it
-    through ``prefill`` and ``decode``)."""
+    through ``prefill`` and ``decode``).  Over a mesh ``model`` is a
+    ``sharded.PlacedModel``, as ``prefill``'s."""
+    if ctx.mesh is not None:
+        return sharded.generate(_placed(model, ctx), cfg, prompts,
+                                max_new=max_new)
     b, s = prompts.shape
     logits, cache = prefill(model, {"tokens": prompts}, cfg=cfg,
                             max_len=s + max_new)

@@ -44,7 +44,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.parallelism.ctx import ShardCtx
-from repro_torch.parallelism.tensor import fan_out, join, row_sum
+from repro_torch.parallelism.tensor import (fan_out, join, ordered_sum,
+                                             row_sum)
 
 NEG_INF = -1e30
 
@@ -236,7 +237,7 @@ def attention_train(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
 
 
 def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int,
-                    causal: bool = True, kv_x=None):
+                    causal: bool = True, kv_x=None, return_kv: bool = False):
     """The output partial (B,S,d) of one model position's query heads
     ``head0 .. head0 + H'``: ``p`` holds its blocks (wq (d,H',hd), wo
     (H',hd,d), bq) and either its block of the KV heads (wk/wv (d,K',hd),
@@ -248,10 +249,12 @@ def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int,
     come from ``kv_x`` where given (cross attention, no RoPE), else from
     ``x``.  The core attention is the flash-attention wrapper, as in
     ``attention_train``; the position's rows of wo make the partial,
-    which ``row_sum`` adds up."""
+    which ``row_sum`` adds up.  With ``return_kv`` also (first KV head,
+    k, v): the keys (roped) and values of the KV heads it projected, before
+    any repeat, the cache entries of those heads."""
     hl = p["wq"].shape[1]
     kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
-    rep = None
+    rep, lo = None, head0 // hl * p["wk"].shape[1]
     if hl < cfg.n_heads and p["wk"].shape[1] == cfg.n_kv_heads:
         group = cfg.n_heads // cfg.n_kv_heads
         ids = [(head0 + i) // group for i in range(hl)]
@@ -266,13 +269,15 @@ def attention_heads(p, x, *, cfg: ArchConfig, positions, head0: int,
     k, v = _project_kv(kv, x if kv_x is None else kv_x)
     if kv_x is None:
         q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
+    entry = (lo, k, v)
     if rep is not None:
         # each KV head expanded to its run of query heads (a sum in the
         # backward, no scatter)
         runs = [(c, rep.count(c)) for c in dict.fromkeys(rep)]
         k, v = (torch.cat([t[:, :, c:c + 1].expand(-1, -1, n, -1)
                            for c, n in runs], dim=2) for t in (k, v))
-    return _out(p, flash_attention(q, k, v, causal=causal))
+    out = _out(p, flash_attention(q, k, v, causal=causal))
+    return (out, entry) if return_kv else out
 
 
 def seqpar_attention(q, k, v, *, causal: bool, devices: list):
@@ -307,7 +312,8 @@ def seqpar_attention(q, k, v, *, causal: bool, devices: list):
 
 
 def attention_group(blocks: list, xs: list, *, cfg: ArchConfig, positions,
-                    devices: list, causal: bool = True, kv_xs=None):
+                    devices: list, causal: bool = True, kv_xs=None,
+                    return_kv: bool = False):
     """The attention output (B,S,d), on ``devices[0]``, of one data
     position's model-axis group: ``blocks[j]`` is model position j's
     block of the layer's leaves (wq, wk, wv, wo and the biases), ``xs[j]``
@@ -317,21 +323,32 @@ def attention_group(blocks: list, xs: list, *, cfg: ArchConfig, positions,
     ``devices[0]``.  The layout is the rules' ``head_axes``, read from
     the blocks' shapes (see the module's docstring).  The whole
     attention, the head_dim split's fallback and its join of the heads
-    run once per data position, never once per model position."""
+    run once per data position, never once per model position.  With
+    ``return_kv`` also the cache entries, [(first KV head, k, v), ...]
+    (roped keys, before any repeat): each position's KV heads on its
+    device where the layout splits heads, else every KV head, whole, on
+    ``devices[0]``."""
     b0, tp = blocks[0], len(blocks)
     kv_xs = [None] * tp if kv_xs is None else kv_xs
     hl, hdl = b0["wq"].shape[1], b0["wq"].shape[2]
     if hl < cfg.n_heads:                             # heads
-        parts = [attention_heads(bj, xj, cfg=cfg,
-                                 positions=positions.to(xj.device),
-                                 head0=j * hl, causal=causal, kv_x=kvj)
-                 for j, (bj, xj, kvj) in enumerate(zip(blocks, xs, kv_xs))]
-        return row_sum(parts, devices)[0]
+        outs = [attention_heads(bj, xj, cfg=cfg,
+                                positions=positions.to(xj.device),
+                                head0=j * hl, causal=causal, kv_x=kvj,
+                                return_kv=True)
+                for j, (bj, xj, kvj) in enumerate(zip(blocks, xs, kv_xs))]
+        out = row_sum([o for o, _ in outs], devices)[0]
+        return (out, [e for _, e in outs]) if return_kv else out
     if hdl == cfg.resolved_head_dim:                 # replicated
         if kv_xs[0] is None:
-            return attention_train(b0, xs[0], cfg=cfg, positions=positions,
-                                   causal=causal)
-        return cross_attention_train(b0, xs[0], kv_xs[0], cfg=cfg)
+            out = attention_train(b0, xs[0], cfg=cfg, positions=positions,
+                                  causal=causal, return_kv=return_kv)
+        else:
+            out = cross_attention_train(b0, xs[0], kv_xs[0], cfg=cfg,
+                                        return_kv=return_kv)
+        if not return_kv:
+            return out
+        return out[0], [(0, *out[1])]
     home = devices[0]                                # head_dim
     q = join([_project_q(bj, xj) for bj, xj in zip(blocks, xs)], home)
     kvs = [_project_kv(bj, xj if kvj is None else kvj)
@@ -345,7 +362,21 @@ def attention_group(blocks: list, xs: list, *, cfg: ArchConfig, positions,
         o = seqpar_attention(q, k, v, causal=causal, devices=devices)
     else:
         o = flash_attention(q, k, v, causal=causal)
-    parts = [_out(bj, oj[..., j * hdl:(j + 1) * hdl])
+    out = out_group(blocks, o, devices)
+    return (out, [(0, k, v)]) if return_kv else out
+
+
+def out_group(blocks: list, o, devices: list):
+    """The output projection of whole heads ``o`` (B,S,H,hd) on
+    ``devices[0]`` over a model-axis group, by ``wo``'s layout: each
+    position's heads or head_dim columns through its rows of ``wo``, the
+    partials added in position order (``row_sum``); replicated, once on
+    the first position."""
+    hl, hdl = blocks[0]["wo"].shape[:2]
+    if hl == o.shape[2] and hdl == o.shape[3]:
+        return _out(blocks[0], o)
+    parts = [_out(bj, oj[:, :, j * hl:(j + 1) * hl] if hl < o.shape[2]
+                  else oj[..., j * hdl:(j + 1) * hdl])
              for j, (bj, oj) in enumerate(zip(blocks, fan_out(o, devices)))]
     return row_sum(parts, devices)[0]
 
@@ -394,6 +425,182 @@ def attention_decode(p, x, cache_k, cache_v, *, cfg: ArchConfig, cache_len):
     o = gqa_decode_attention(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                              kv_valid)
     return _out(p, o), cache_k, cache_v
+
+
+def decode_qkv_group(blocks: list, xs: list, *, cfg: ArchConfig, positions,
+                     devices: list, kv: bool = True):
+    """One decode step's q (B,1,H,hd), and with ``kv`` the new k and v
+    (B,1,KV,hd), whole heads on ``devices[0]``, of a model-axis group:
+    each position projects its block of the heads (or of head_dim), the
+    blocks joined in position order, then q and k roped at ``positions``
+    (None: no RoPE, cross attention); a leaf the axis replicates is
+    projected once, by position 0."""
+    b0 = blocks[0]
+    hd = cfg.resolved_head_dim
+
+    def whole(name, fn, heads):
+        w = b0[name]
+        if w.shape[1] == heads and w.shape[2] == hd:
+            return fn(b0, xs[0])
+        parts = [fn(bj, xj) for bj, xj in zip(blocks, xs)]
+        dim = 2 if w.shape[1] < heads else -1
+        return tuple(join([p[i] for p in parts], devices[0], dim=dim)
+                     for i in range(len(parts[0])))
+
+    def rope(t):
+        return t if positions is None else _rope(t, positions, cfg)
+
+    q, = whole("wq", lambda bj, xj: (_project_q(bj, xj),), cfg.n_heads)
+    if not kv:
+        return rope(q)
+    k, v = whole("wk", _project_kv, cfg.n_kv_heads)
+    return rope(q), rope(k), v
+
+
+def write_step(blocks: list, new, cache_len, rows: tuple) -> list:
+    """A decode step's cache blocks: each of ``blocks`` [(box, tensor)]
+    (box (rows, sequence, heads, head_dim) ranges, the rows global) with
+    the new token's entry of ``new`` (B_g,1,KV,hd; the group's rows
+    ``rows``) written at sequence index ``cache_len[b]`` where the block
+    holds it, by a mask: each row writes at most one index of a block, and
+    a block that does not hold it is copied unchanged."""
+    r0 = rows[0]
+    out = []
+    for box, blk in blocks:
+        (a, b), (s0, s1), (h0, h1), (d0, d1) = box
+        dev = blk.device
+        at = (torch.arange(s0, s1, device=dev)[None, :]
+              == cache_len[a - r0:b - r0].to(dev)[:, None])
+        val = new[a - r0:b - r0, :, h0:h1, d0:d1].to(dev, blk.dtype)
+        out.append((box, torch.where(at[:, :, None, None], val, blk)))
+    return out
+
+
+def _slab_partial(q, blocks: list, valid, scale: float):
+    """(m, l, acc) of one sequence slab, on q's device: the scores of q
+    (B,1,KV',g,hd) against the slab's head_dim blocks [(columns, k, v)]
+    (each k, v (B,S',KV',hd') on its device), their partial products
+    added in column order on the first block's device, masked by
+    ``valid`` (B,S'); the running max m and sum l (B,KV',g,1,1) and the
+    unnormalised output acc (B,KV',g,1,hd), the columns joined."""
+    home = q.device
+    dev = blocks[0][1].device
+    s = ordered_sum([torch.einsum("bqkgh,bskh->bkgqs",
+                                  q[..., d0:d1].to(k.device).float(),
+                                  k.float())
+                     for (d0, d1), k, _ in blocks], dev) * scale
+    s = torch.where(valid.to(dev)[:, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = join([torch.einsum("bkgqs,bskh->bkgqh", pj, v.float())
+                for pj, (_, _, v) in zip(fan_out(p, [v.device for _, _, v
+                                                     in blocks]), blocks)],
+               home)
+    return m.to(home), l.to(home), acc
+
+
+def merge_slabs(partials: list):
+    """The attention output (B,KV',g,1,hd) from the slabs' (m, l, acc) in
+    slab order (``_slab_partial``): each slab's sum and output rescaled
+    by exp(m_i − max m) and added in that order, then acc / l.  A slab
+    whose keys are all masked has m = NEG_INF and adds exactly 0."""
+    mg = partials[0][0]
+    for m, _, _ in partials[1:]:
+        mg = torch.maximum(mg, m)
+    l_acc = o_acc = None
+    for m, l, acc in partials:
+        f = torch.exp(m - mg)
+        l_acc = l * f if l_acc is None else l_acc + l * f
+        o_acc = acc * f if o_acc is None else o_acc + acc * f
+    return o_acc / l_acc
+
+
+def decode_heads(q, k_blocks: list, v_blocks: list, valid_of, rows: tuple):
+    """One step's attention output (B_g,1,H,hd) on q's device of q
+    (B_g,1,H,hd) over a layer's cache held in blocks: ``k_blocks`` and
+    ``v_blocks`` [(box, tensor)] of the same boxes (rows, sequence, KV
+    heads, head_dim ranges; blocks outside the group's ``rows`` are
+    skipped) and ``valid_of(rows, seq)`` the (rows, S') mask of the keys
+    a query sees.  The blocks of one (rows, KV heads) tile are its
+    sequence slabs, each of head_dim blocks: a tile of one whole block
+    is ``gqa_decode_attention`` on its device; otherwise each slab's
+    partial (its head_dim partial products added in column order) and
+    the slabs merged by log-sum-exp in slab order (``merge_slabs``), on
+    q's device."""
+    b, _, h, hd = q.shape
+    r0, r1 = rows
+    kv_heads = max(box[2][1] for box, _ in k_blocks)
+    g = h // kv_heads
+    tiles: dict = {}
+    for (box, k), (_, v) in zip(k_blocks, v_blocks):
+        rb, sb, hb, db = box
+        if rb[0] < r0 or rb[1] > r1:
+            continue
+        tiles.setdefault((rb, hb), {}).setdefault(sb, []).append((db, k, v))
+    out = torch.empty_like(q)
+    for ((a, b_), (h0, h1)), slabs in tiles.items():
+        qt = q[a - r0:b_ - r0, :, h0 * g:h1 * g]
+        slabs = sorted(slabs.items())
+        if len(slabs) == 1 and len(slabs[0][1]) == 1 and \
+                slabs[0][1][0][0] == (0, hd):
+            sb, ((_, k, v),) = slabs[0]
+            o = gqa_decode_attention(qt.to(k.device), k.to(q.dtype),
+                                     v.to(q.dtype),
+                                     valid_of((a, b_), sb).to(k.device))
+        else:
+            qg = qt.reshape(b_ - a, 1, h1 - h0, g, hd)
+            parts = [_slab_partial(qg, sorted(blks, key=lambda t: t[0]),
+                                   valid_of((a, b_), sb), hd ** -0.5)
+                     for sb, blks in slabs]
+            o = merge_slabs(parts).permute(0, 3, 1, 2, 4).reshape(
+                b_ - a, 1, (h1 - h0) * g, hd).to(q.dtype)
+        out[a - r0:b_ - r0, :, h0 * g:h1 * g] = o.to(q.device)
+    return out
+
+
+def attention_decode_group(blocks: list, xs: list, cache: dict, *,
+                           cfg: ArchConfig, cache_len, devices: list,
+                           rows: tuple, cross: bool = False):
+    """One decode step of a layer's attention over one data position's
+    model-axis group, the cache held in blocks (``cache_pspecs``):
+    ``blocks[j]``/``xs[j]`` as ``attention_group``'s; ``cache`` {"k": [(box,
+    tensor)], "v": [...]} the distinct blocks of the layer's K and V
+    (box (rows, sequence, KV heads, head_dim), rows global), each on its
+    holder; ``cache_len`` (B_g,) the group's rows' lengths on
+    ``devices[0]``; ``rows`` (r0, r1) the group's rows.  q, k and v are
+    projected by the positions and joined into whole heads
+    (``decode_qkv_group``); the new token is written into the block that
+    holds its index (``write_step``); each tile of blocks attends where
+    it is stored (``decode_heads``); the whole heads' output goes through
+    ``wo``'s layout (``out_group``).  Returns (out (B_g,1,d) on
+    ``devices[0]``, {"k", "v": the new blocks}).  With ``cross`` (Whisper's
+    cross attention over ``ck``/``cv``) nothing is written, no RoPE
+    applies and every key is seen; the blocks come back unchanged."""
+    b = cache_len.shape[0]
+    positions = cache_len[:, None]
+    if cfg.rope_mode == "mrope":
+        positions = positions[None].expand(3, b, 1)
+    if cross:
+        q = decode_qkv_group(blocks, xs, cfg=cfg, positions=None,
+                             devices=devices, kv=False)
+        new = cache
+
+        def valid_of(r, sb):
+            return torch.ones((r[1] - r[0], sb[1] - sb[0]), dtype=torch.bool,
+                              device=q.device)
+    else:
+        q, k_new, v_new = decode_qkv_group(blocks, xs, cfg=cfg,
+                                           positions=positions,
+                                           devices=devices)
+        new = {"k": write_step(cache["k"], k_new, cache_len, rows),
+               "v": write_step(cache["v"], v_new, cache_len, rows)}
+
+        def valid_of(r, sb):
+            return (torch.arange(sb[0], sb[1], device=q.device)[None, :]
+                    <= cache_len[r[0] - rows[0]:r[1] - rows[0], None])
+    o = decode_heads(q, new["k"], new["v"], valid_of, rows)
+    return out_group(blocks, o, devices), new
 
 
 def cross_attention_train(p, x, enc, *, cfg: ArchConfig,

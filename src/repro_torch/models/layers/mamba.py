@@ -194,31 +194,50 @@ def mamba_group(blocks: list, x, *, cfg: ArchConfig, devices: list,
     each position scans its channels, and the partials through its rows
     of ``wo`` are added in position order.  Where the model axis does not
     split d_inner, the sublayer runs once, on position 0."""
+    return mamba_group_states(blocks, x, cfg=cfg, devices=devices,
+                              chunk=chunk)[0]
+
+
+def mamba_group_states(blocks: list, x, *, cfg: ArchConfig, devices: list,
+                       chunk: int = 64, states=None):
+    """``mamba_group`` from given states, returning the new ones: (out,
+    [((c0, c1), conv state (B,K-1,c1-c0), SSM state (B,c1-c0,ds) f32),
+    ...]) for the channels each position scanned (all of them, on
+    ``devices[0]``, where the model axis does not split d_inner).
+    ``states(c0, c1, device)`` gives the (conv, SSM) states of channels
+    [c0, c1) before the step on ``device``; None starts from zeros (a
+    prefill, training)."""
     b, dev = x.shape[0], devices[0]
     s = cfg.ssm
     di = s.expand * cfg.d_model
     dil = blocks[0]["wx"].shape[1]
 
-    def zeros(n, d):
-        return (torch.zeros((b, s.d_conv - 1, n), dtype=x.dtype, device=d),
-                torch.zeros((b, n, s.d_state), dtype=torch.float32,
+    def start(c0, c1, d):
+        if states is not None:
+            conv, h = states(c0, c1, d)
+            return conv.to(x.dtype), h
+        return (torch.zeros((b, s.d_conv - 1, c1 - c0), dtype=x.dtype,
+                            device=d),
+                torch.zeros((b, c1 - c0, s.d_state), dtype=torch.float32,
                             device=d))
 
     if dil == di:                                     # replicated
-        return mamba_train(blocks[0], x, *zeros(di, dev), cfg=cfg,
-                           chunk=chunk)[0]
+        out, conv, h = mamba_train(blocks[0], x, *start(0, di, dev), cfg=cfg,
+                                   chunk=chunk)
+        return out, [((0, di), conv, h)]
     xs = fan_out(x, devices)
-    inner = []
-    for bj, xj in zip(blocks, xs):
-        conv0, _ = zeros(dil, xj.device)
-        inner.append(_inner(bj, xj, conv0))
+    spans = [(j * dil, (j + 1) * dil) for j in range(len(blocks))]
+    st = [start(c0, c1, xj.device) for (c0, c1), xj in zip(spans, xs)]
+    inner = [_inner(bj, xj, conv0) for bj, xj, (conv0, _) in zip(blocks, xs,
+                                                                  st)]
     xdbc = wxp_sum([uc @ bj["wxp"].to(uc.dtype)
                     for bj, (uc, _, _) in zip(blocks, inner)], devices)
-    parts = [_scan_out(bj, xj, uc, z, _ssm_split(bj, xdbc[j], cfg),
-                       zeros(dil, xj.device)[1], chunk)[0]
-             for j, (bj, xj, (uc, z, _)) in enumerate(zip(blocks, xs,
-                                                          inner))]
-    return row_sum(parts, devices)[0]
+    outs = [_scan_out(bj, xj, uc, z, _ssm_split(bj, xdbc[j], cfg), h0, chunk)
+            for j, (bj, xj, (uc, z, _), (_, h0)) in enumerate(zip(
+                blocks, xs, inner, st))]
+    return (row_sum([o for o, _ in outs], devices)[0],
+            [(sp, conv, h) for sp, (_, _, conv), (_, h) in zip(spans, inner,
+                                                               outs)])
 
 
 def mamba_decode(p, x, conv_state, h, *, cfg: ArchConfig):

@@ -89,6 +89,21 @@ def group_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
 # parameters
 # ---------------------------------------------------------------------------
 
+def _init_period_sub(draw, cfg: ArchConfig, i: int, dtype, device) -> dict:
+    """Sublayer i of a period: its mixer draws first, then its FFN."""
+    sub = cfg.block_pattern[i]
+    mixer = (attn.init_attention(draw, cfg, dtype, device) if sub == "attn"
+             else mam.init_mamba(draw, cfg, dtype, device))
+    # MoE on odd sublayers, whatever the MoE config's layer_mode
+    is_moe = cfg.moe is not None and i % 2 == 1
+    mlp = (moe_mod.init_moe(draw, cfg, dtype) if is_moe
+           else init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.act, dtype))
+    return {"norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
+            ("attn" if sub == "attn" else "mamba"): mixer,
+            "mlp_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
+            ("moe" if is_moe else "mlp"): mlp}
+
+
 def _init_block(draw, kind: str, cfg: ArchConfig, dtype, device) -> dict:
     if kind == "rwkv":
         return {
@@ -98,24 +113,8 @@ def _init_block(draw, kind: str, cfg: ArchConfig, dtype, device) -> dict:
             "cm": rwkv.init_channel_mix(draw, cfg, dtype, device),
         }
     if kind == "period":
-        # per sublayer the mixer draws first, then the FFN
-        p = {}
-        for i, sub in enumerate(cfg.block_pattern):
-            mixer = (attn.init_attention(draw, cfg, dtype, device)
-                     if sub == "attn"
-                     else mam.init_mamba(draw, cfg, dtype, device))
-            # MoE on odd sublayers, whatever the MoE config's layer_mode
-            is_moe = cfg.moe is not None and i % 2 == 1
-            mlp = (moe_mod.init_moe(draw, cfg, dtype) if is_moe
-                   else init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.act,
-                                 dtype))
-            p[f"sub{i}"] = {
-                "norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
-                ("attn" if sub == "attn" else "mamba"): mixer,
-                "mlp_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
-                ("moe" if is_moe else "mlp"): mlp,
-            }
-        return p
+        return {f"sub{i}": _init_period_sub(draw, cfg, i, dtype, device)
+                for i in range(len(cfg.block_pattern))}
     attn_kind, mlp_kind = kind.split(":")
     # the reference's keys; the mixer draws first, then the FFN
     mixer = (mla_mod.init_mla(draw, cfg, dtype, device) if attn_kind == "mla"
@@ -130,21 +129,44 @@ def _init_block(draw, kind: str, cfg: ArchConfig, dtype, device) -> dict:
     }
 
 
+def init_lm_parts(draw, cfg: ArchConfig, dtype=torch.float32, device=None):
+    """``init_lm_tree``'s parameters in the order it draws them, one part
+    at a time: (name prefix, subtree) pairs, the embedding, the final
+    norm, the head, then each block in order (a period sublayer by
+    sublayer), so that a caller can place each part before the next is
+    drawn."""
+    vp = cfg.padded_vocab(VOCAB_PAD)
+    yield "embed", {"emb": draw((vp, cfg.d_model), 0.02).to(dtype)}
+    yield "final_norm", init_norm(cfg.norm, cfg.d_model, dtype, device)
+    if not cfg.tie_embeddings:
+        yield "head", {"w": draw((cfg.d_model, vp),
+                                 cfg.d_model ** -0.5).to(dtype)}
+    for g, (kind, count) in enumerate(group_plan(cfg)):
+        for i in range(count):
+            if kind == "period":
+                for k in range(len(cfg.block_pattern)):
+                    yield (f"groups.{g}.{i}.sub{k}",
+                           _init_period_sub(draw, cfg, k, dtype, device))
+            else:
+                yield f"groups.{g}.{i}", _init_block(draw, kind, cfg, dtype,
+                                                     device)
+
+
 def init_lm_tree(draw, cfg: ArchConfig, dtype=torch.float32,
                  device=None) -> dict:
     """The parameter tree with the reference's init scales, one dict per
     layer: {"embed": {"emb"}, "final_norm", ["head": {"w"}], "groups":
     [[block, ...], ...]}.  draw(shape, std) returns f32 normal draws times
-    std; it is called in a fixed order."""
-    vp = cfg.padded_vocab(VOCAB_PAD)
-    plan = group_plan(cfg)
-    tree = {"embed": {"emb": draw((vp, cfg.d_model), 0.02).to(dtype)},
-            "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, device)}
-    if not cfg.tie_embeddings:
-        tree["head"] = {"w": draw((cfg.d_model, vp),
-                                  cfg.d_model ** -0.5).to(dtype)}
-    tree["groups"] = [[_init_block(draw, kind, cfg, dtype, device)
-                       for _ in range(count)] for kind, count in plan]
+    std; it is called in a fixed order (``init_lm_parts``')."""
+    tree = {"groups": [[{} for _ in range(count)]
+                       for _, count in group_plan(cfg)]}
+    for prefix, sub in init_lm_parts(draw, cfg, dtype, device):
+        parts = prefix.split(".")
+        if parts[0] != "groups":
+            tree[prefix] = sub
+        else:
+            blk = tree["groups"][int(parts[1])][int(parts[2])]
+            blk.update(sub if len(parts) == 3 else {parts[3]: sub})
     return tree
 
 
@@ -489,7 +511,7 @@ def attention_block(group: ModelGroup, blocks: list, h, *, cfg: ArchConfig,
 
 
 def _time_mix_group(group: ModelGroup, blocks: list, inputs, *,
-                    cfg: ArchConfig):
+                    cfg: ArchConfig, states=None):
     """RWKV's time mix over one data position's group from
     ``time_mix_inputs``'s ``inputs`` on its first device, by the layout
     of ``tm.wr``'s columns: whole heads per position (each position's
@@ -497,34 +519,47 @@ def _time_mix_group(group: ModelGroup, blocks: list, inputs, *,
     position's columns of r, k, v, g and the decay, joined with ``u``
     and the group norm's blocks, then the wkv, group norm and gate once
     on all heads, each position's columns of the result through its rows
-    of ``wo``, summed); or replicated (once, on position 0)."""
+    of ``wo``, summed); or replicated (once, on position 0).  Returns
+    (out, [((h0, h1), the new wkv state of heads [h0, h1)), ...]) for the
+    heads each position ran (all of them, on the first device, where the
+    axis cuts or replicates them); ``states(h0, h1, device)`` gives the
+    state of heads [h0, h1) before the step, None the zero state."""
     b0 = blocks[0]["tm"]
     b, _, d = inputs[1].shape
     hs, dl = cfg.rwkv.head_size, b0["wr"].shape[1]
     devs = group.devices
 
-    def zstate(h, dev):
-        return torch.zeros((b, h, hs, hs), dtype=torch.float32, device=dev)
+    def state(h0, h1, dev):
+        if states is not None:
+            return states(h0, h1, dev)
+        return torch.zeros((b, h1 - h0, hs, hs), dtype=torch.float32,
+                           device=dev)
 
     if dl == d:                                      # replicated
-        return rwkv.time_mix_heads(b0, inputs, zstate(d // hs, devs[0]),
-                                   cfg=cfg)[0]
+        o, st = rwkv.time_mix_heads(b0, inputs, state(0, d // hs, devs[0]),
+                                    cfg=cfg)
+        return o, [((0, d // hs), st)]
     if dl % hs == 0:                                 # whole heads
-        def heads(bj, *inp):
-            return rwkv.time_mix_heads(
-                bj["tm"], inp, zstate(dl // hs, inp[0].device), cfg=cfg)[0]
-
-        return _split(group, blocks, heads, *inputs)
+        hl = dl // hs
+        fanned = [fan_out(a, devs) for a in inputs]
+        outs = [rwkv.time_mix_heads(bj["tm"], [f[j] for f in fanned],
+                                    state(j * hl, (j + 1) * hl, devs[j]),
+                                    cfg=cfg)
+                for j, bj in enumerate(blocks)]
+        return (row_sum([o for o, _ in outs], devs)[0],
+                [((j * hl, (j + 1) * hl), st)
+                 for j, (_, st) in enumerate(outs)])
     fanned = [fan_out(a, devs) for a in inputs]      # cut heads
     cols = [rwkv.time_mix_columns(bj["tm"], [f[j] for f in fanned])
             for j, bj in enumerate(blocks)]
     whole = [join([c[i] for c in cols], devs[0]) for i in range(5)]
     vecs = {n: join([bj["tm"][n] for bj in blocks], devs[0])
             for n in ("u", "gn_scale", "gn_bias")}
-    o, _ = rwkv.time_mix_wkv(whole, vecs, zstate(d // hs, devs[0]), cfg=cfg)
+    o, st = rwkv.time_mix_wkv(whole, vecs, state(0, d // hs, devs[0]),
+                              cfg=cfg)
     parts = [oj[..., j * dl:(j + 1) * dl] @ bj["tm"]["wo"].to(oj.dtype)
              for j, (bj, oj) in enumerate(zip(blocks, fan_out(o, devs)))]
-    return row_sum(parts, devs)[0]
+    return row_sum(parts, devs)[0], [((0, d // hs), st)]
 
 
 def moe_block(group: ModelGroup, blocks: list, experts: list, h, *,
@@ -561,11 +596,49 @@ def _ffn_or_moe(group: ModelGroup, blocks: list, experts: list, h, *,
     return ffn_group(group, blocks, h, cfg=cfg), None
 
 
+class GroupMixers:
+    """The token mixers of a block over a group, as ``_block_group``,
+    ``_period_group`` and Whisper's ``_dec_block_group`` call them: the
+    training forward's, from the sequence start, with no cache.  Serving
+    (``sharded.ServeMixers``) passes mixers that start from a layer's
+    cache blocks and keep its new cache entries, through the same block
+    wiring."""
+
+    def shift(self, name: str, h):
+        """RWKV's token shift ``name`` ("tm", "cm") before ``h``'s first
+        token: zeros."""
+        return torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
+                           device=h.device)
+
+    def attention(self, group: ModelGroup, blocks: list, h, *,
+                  cfg: ArchConfig, positions, name: str = "attn",
+                  causal: bool = True, kv=None):
+        return attention_block(group, blocks, h, cfg=cfg,
+                               positions=positions, name=name,
+                               causal=causal, kv=kv)
+
+    def mla(self, group: ModelGroup, blocks: list, h, *, cfg: ArchConfig,
+            positions):
+        return mla_mod.mla_group(blocks, h, cfg=cfg, positions=positions,
+                                 devices=group.devices)
+
+    def mamba(self, group: ModelGroup, blocks: list, h, *, cfg: ArchConfig):
+        return mam.mamba_group(blocks, h, cfg=cfg, devices=group.devices)
+
+    def time_mix(self, group: ModelGroup, blocks: list, inputs, *,
+                 cfg: ArchConfig):
+        return _time_mix_group(group, blocks, inputs, cfg=cfg)[0]
+
+
+TRAIN_MIXERS = GroupMixers()
+
+
 def _period_group(group: ModelGroup, blocks: list, experts: list, x, *,
-                  cfg: ArchConfig, positions, moe_groups: int):
-    """``_period`` of training over a group: each sublayer's mixer (Mamba
-    by ``mamba.mamba_group``, attention by ``attention_block``) and its
-    FFN or MoE layer.  Returns (x, the MoE layers' statistics)."""
+                  cfg: ArchConfig, positions, moe_groups: int,
+                  mix: GroupMixers = TRAIN_MIXERS):
+    """``_period`` over a group: each sublayer's mixer (Mamba by
+    ``mix.mamba``, attention by ``mix.attention``) and its FFN or MoE
+    layer.  Returns (x, the MoE layers' statistics)."""
     nk, eps = cfg.norm, cfg.norm_eps
     stats = []
     for i, sub in enumerate(cfg.block_pattern):
@@ -573,11 +646,9 @@ def _period_group(group: ModelGroup, blocks: list, experts: list, x, *,
         sb = [bj[key] for bj in blocks]
         h = apply_norm(sb[0]["norm"], x, kind=nk, eps=eps)
         if sub == "attn":
-            x = x + attention_block(group, sb, h, cfg=cfg,
-                                    positions=positions)
+            x = x + mix.attention(group, sb, h, cfg=cfg, positions=positions)
         else:
-            x = x + mam.mamba_group([bj["mamba"] for bj in sb], h, cfg=cfg,
-                                    devices=group.devices)
+            x = x + mix.mamba(group, [bj["mamba"] for bj in sb], h, cfg=cfg)
         y, st = _ffn_or_moe(group, sb, [eb.get(key, {}) for eb in experts],
                             apply_norm(sb[0]["mlp_norm"], x, kind=nk,
                                        eps=eps), cfg=cfg,
@@ -588,29 +659,29 @@ def _period_group(group: ModelGroup, blocks: list, experts: list, x, *,
     return x, stats
 
 
-def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
-                       cfg: ArchConfig, positions, moe_groups: int = 1):
-    """One block of the training forward over the model-axis group of
-    one data position: ``blocks[:tp]`` are the layer's leaves at each
-    model position (``ModelGroup.layer``) and ``blocks[tp:]``, with MoE,
-    each mesh position's expert leaves; ``x`` on the group's first
-    device.  The leaves the model axis replicates (the norms, RWKV's token
-    shift and decay LoRA, its channel mix's receptance, MLA's down
-    projections, the router, an FFN whose d_ff it does not divide,
-    attention, MLA or Mamba that it does not split) run once, on position
-    0's copy; the split ones run once per position, their partials added
-    in position order.  Returns (x, the block's MoE statistics)."""
+def _block_group(kind: str, group: ModelGroup, blocks: list, x, *,
+                 cfg: ArchConfig, positions, moe_groups: int = 1,
+                 mix: GroupMixers = TRAIN_MIXERS):
+    """One block over the model-axis group of one data position, its
+    token mixers ``mix``'s (training's by default, serving's from
+    ``sharded``): ``blocks[:tp]`` are the layer's leaves at each model
+    position (``ModelGroup.layer``) and ``blocks[tp:]``, with MoE, each
+    mesh position's expert leaves; ``x`` on the group's first device.
+    The leaves the model axis replicates (the norms, RWKV's token shift
+    and decay LoRA, its channel mix's receptance, MLA's down projections,
+    the router, an FFN whose d_ff it does not divide, attention, MLA or
+    Mamba that it does not split) run once, on position 0's copy; the
+    split ones run once per position, their partials added in position
+    order.  Returns (x, the block's MoE statistics)."""
     nk, eps = cfg.norm, cfg.norm_eps
     blocks, experts = blocks[:group.tp], blocks[group.tp:]
     b0 = blocks[0]
     if kind == "rwkv":
-        zshift = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
-                             device=x.device)
-        inputs = rwkv.time_mix_inputs(b0["tm"], apply_norm(
-            b0["ln1"], x, kind=nk, eps=eps), zshift)
-        x = x + _time_mix_group(group, blocks, inputs, cfg=cfg)
-        xk, xr = rwkv.channel_mix_inputs(b0["cm"], apply_norm(
-            b0["ln2"], x, kind=nk, eps=eps), zshift)
+        h = apply_norm(b0["ln1"], x, kind=nk, eps=eps)
+        inputs = rwkv.time_mix_inputs(b0["tm"], h, mix.shift("tm", h))
+        x = x + mix.time_mix(group, blocks, inputs, cfg=cfg)
+        h = apply_norm(b0["ln2"], x, kind=nk, eps=eps)
+        xk, xr = rwkv.channel_mix_inputs(b0["cm"], h, mix.shift("cm", h))
         if group.split(cfg.d_ff):
             kv = _split(group, blocks,
                         lambda bj, a: rwkv.channel_mix_kv(bj["cm"], a), xk)
@@ -619,14 +690,14 @@ def _block_train_group(kind: str, group: ModelGroup, blocks: list, x, *,
         return x + rwkv.channel_mix_gate(b0["cm"], xr, kv), []
     if kind == "period":
         return _period_group(group, blocks, experts, x, cfg=cfg,
-                             positions=positions, moe_groups=moe_groups)
+                             positions=positions, moe_groups=moe_groups,
+                             mix=mix)
     h = apply_norm(b0["attn_norm"], x, kind=nk, eps=eps)
     if "mla" in b0:
-        x = x + mla_mod.mla_group([bj["mla"] for bj in blocks], h, cfg=cfg,
-                                  positions=positions, devices=group.devices)
+        x = x + mix.mla(group, [bj["mla"] for bj in blocks], h, cfg=cfg,
+                        positions=positions)
     else:
-        x = x + attention_block(group, blocks, h, cfg=cfg,
-                                positions=positions)
+        x = x + mix.attention(group, blocks, h, cfg=cfg, positions=positions)
     y, st = _ffn_or_moe(group, blocks, experts, apply_norm(
         b0["mlp_norm"], x, kind=nk, eps=eps), cfg=cfg, moe_groups=moe_groups)
     return x + y, [] if st is None else [st]
@@ -682,8 +753,11 @@ def run_checkpointed(group: ModelGroup, prefix: str, fn, *xs):
     ("groups.0.3.") of each model position (and, with MoE, each mesh
     position's expert leaves: ``ModelGroup.layer``), checkpointed as one
     block (``_GroupCheckpoint``), so that its recompute in the backward
-    repeats the same sums in the same order."""
+    repeats the same sums in the same order; with no graph being recorded
+    (serving, eval), ``fn`` runs directly."""
     flat = group.layer(prefix)
+    if not torch.is_grad_enabled():                  # serving, eval
+        return fn(*xs, [nest_state_dict(f) for f in flat])
     keys = [(j, n) for j, f in enumerate(flat) for n in f]
     return _GroupCheckpoint.apply(fn, keys, len(xs), len(flat), *xs,
                                   *(flat[j][n] for j, n in keys))
@@ -704,9 +778,9 @@ def _forward_hidden_group(group: ModelGroup, embeds, *, cfg: ArchConfig,
     for gi, (kind, count) in enumerate(group_plan(cfg)):
         for i in range(count):
             def block(x, blocks, kind=kind):
-                x, st = _block_train_group(kind, group, blocks, x, cfg=cfg,
-                                           positions=positions,
-                                           moe_groups=moe_groups)
+                x, st = _block_group(kind, group, blocks, x, cfg=cfg,
+                                     positions=positions,
+                                     moe_groups=moe_groups)
                 return (x, *st)
 
             x, *st = run_checkpointed(group, f"groups.{gi}.{i}.", block, x)
@@ -793,12 +867,13 @@ def _pad_seq(a, max_len: int):
     return out
 
 
-def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
+def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int,
+                   moe_groups: int = 1):
     """Returns (x, cache_entry) matching init_cache leaf layout (minus n)."""
     nk, eps = cfg.norm, cfg.norm_eps
     if isinstance(blk, PeriodBlock):
         x, entry = _period(blk, x, cfg=cfg, positions=positions,
-                           max_len=max_len)
+                           max_len=max_len, moe_groups=moe_groups)
         return x, entry
     if isinstance(blk, AttnBlock):
         y, cache = _mixer(blk, apply_norm(blk.attn_norm.p, x, kind=nk,
@@ -809,7 +884,8 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
                  for n, c in zip(names, cache)}
         x = x + y
         y, _ = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
-                                           eps=eps), cfg=cfg)
+                                           eps=eps), cfg=cfg,
+                           moe_groups=moe_groups)
         return x + y, entry
     b, _, d = x.shape
     h, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -824,11 +900,12 @@ def _block_prefill(blk, x, *, cfg: ArchConfig, positions, max_len: int):
                    "cm": cm_shift.to(x.dtype)}
 
 
-def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len):
+def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len,
+                  moe_groups: int = 1):
     nk, eps = cfg.norm, cfg.norm_eps
     if isinstance(blk, PeriodBlock):
         x, entry = _period(blk, x, cfg=cfg, positions=None, cache=cache,
-                           cache_len=cache_len)
+                           cache_len=cache_len, moe_groups=moe_groups)
         return x, entry
     if isinstance(blk, AttnBlock):
         h = apply_norm(blk.attn_norm.p, x, kind=nk, eps=eps)
@@ -844,7 +921,8 @@ def _block_decode(blk, x, cache: dict, *, cfg: ArchConfig, cache_len):
             entry = {"k": kc, "v": vc}
         x = x + y
         y, _ = _mlp_or_moe(blk, apply_norm(blk.mlp_norm.p, x, kind=nk,
-                                           eps=eps), cfg=cfg)
+                                           eps=eps), cfg=cfg,
+                           moe_groups=moe_groups)
         return x + y, entry
     y, tm_shift, S = blk.tm.decode(
         apply_norm(blk.ln1.p, x, kind=nk, eps=eps),
@@ -874,9 +952,12 @@ def _inputs(model: LM, batch: dict):
 
 
 @torch.no_grad()
-def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
+def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0,
+               moe_groups: int = 1):
     """Run the full prompt, return (last-token logits, filled cache); the
-    KV caches are sized for max_len tokens (the prompt's length if 0)."""
+    KV caches are sized for max_len tokens (the prompt's length if 0).
+    The MoE layers split the B·S tokens into ``moe_groups`` groups, as
+    the reference's under a ctx of that many data shards."""
     x = _inputs(model, batch)
     b, s = x.shape[0], x.shape[1]
     max_len = max_len or s
@@ -886,7 +967,7 @@ def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
         entries = []
         for blk in blocks:
             x, entry = _block_prefill(blk, x, cfg=cfg, positions=positions,
-                                      max_len=max_len)
+                                      max_len=max_len, moe_groups=moe_groups)
             entries.append(entry)
         groups_cache.append(_stack(entries))
     cache = {"len": torch.full((b,), s, dtype=torch.int32, device=x.device),
@@ -895,9 +976,10 @@ def lm_prefill(model: LM, batch: dict, *, cfg: ArchConfig, max_len: int = 0):
 
 
 @torch.no_grad()
-def lm_decode(model: LM, cache: dict, batch: dict, *, cfg: ArchConfig):
+def lm_decode(model: LM, cache: dict, batch: dict, *, cfg: ArchConfig,
+              moe_groups: int = 1):
     """One decode step. batch['tokens'] or ['embeds']: (B,1)[,d].  Returns
-    (logits, cache)."""
+    (logits, cache); the MoE layers' B tokens in ``moe_groups`` groups."""
     x = _inputs(model, batch)
     cache_len = cache["len"]
     new_groups = []
@@ -906,7 +988,8 @@ def lm_decode(model: LM, cache: dict, batch: dict, *, cfg: ArchConfig):
         for i, blk in enumerate(blocks):
             x, entry = _block_decode(blk, x, {k: v[i]
                                               for k, v in gcache.items()},
-                                     cfg=cfg, cache_len=cache_len)
+                                     cfg=cfg, cache_len=cache_len,
+                                     moe_groups=moe_groups)
             entries.append(entry)
         new_groups.append(_stack(entries))
     return _logits(model, x, cfg), {"len": cache_len + 1,

@@ -237,13 +237,16 @@ def _dec_block(blk: _Block, x, enc_out, cfg: ArchConfig, positions,
 
 
 def _dec_block_group(group: ModelGroup, blocks: list, x, enc_out,
-                     cfg: ArchConfig, positions):
+                     cfg: ArchConfig, positions,
+                     mix: lm.GroupMixers = lm.TRAIN_MIXERS):
+    """A decoder block over a group, its attentions ``mix``'s
+    (``lm._block_group``)."""
     nk, eps = cfg.norm, cfg.norm_eps
     b0 = blocks[0]
-    x = x + lm.attention_block(group, blocks, apply_norm(
+    x = x + mix.attention(group, blocks, apply_norm(
         b0["self_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions,
         name="self_attn")
-    x = x + lm.attention_block(group, blocks, apply_norm(
+    x = x + mix.attention(group, blocks, apply_norm(
         b0["cross_norm"], x, kind=nk, eps=eps), cfg=cfg, positions=positions,
         name="cross_attn", causal=False, kv=enc_out)
     return x + lm.ffn_group(group, blocks, apply_norm(

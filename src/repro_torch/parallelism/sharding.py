@@ -455,7 +455,7 @@ def is_expert_leaf(name: str) -> bool:
         "wi_gate", "wi_up", "wo")
 
 
-def place_params(params: dict, specs: dict, mesh) -> dict:
+def place_params(params: dict, specs: dict, mesh, layers=None) -> dict:
     """{name: Shards} of a model's {name: parameter} placed by ``specs``
     (an expert leaf's data-axis entries too).  A device stores each
     parameter whose blocks it holds all of whole, once (the parameter
@@ -463,8 +463,10 @@ def place_params(params: dict, specs: dict, mesh) -> dict:
     positions hold; every stored tensor is a leaf that requires grad.  A
     parameter that the mesh's first device does not store whole is
     released once placed (its storage emptied), so that the device that
-    made the model never holds it beside its blocks."""
-    layers = leaf_layers(params)
+    made the model never holds it beside its blocks.  ``layers``
+    (``leaf_layers`` of the whole model's names) places part of a model:
+    by default the names of ``params`` are the whole."""
+    layers = leaf_layers(params) if layers is None else layers
     home = mesh.devices.flat[0]
     out = {}
     for n, x in params.items():
@@ -516,21 +518,92 @@ def gather_tree(shards: dict, specs: dict, mesh) -> dict:
     """{name: the whole tensor} on the mesh's first device: the stored
     tensor itself where that device holds all of a leaf (no copy), else
     each block copied from its first holder."""
-    home = mesh.devices.flat[0]
     out = {}
     for n, sh in shards.items():
         if sh.spec != specs[n]:
             raise ValueError(f"{n}: placed by {sh.spec}, not {specs[n]}")
-        if home in sh.wholes:
-            out[n] = sh.wholes[home]
-            continue
-        first = next(iter(sh.stores.values()))[0][1]
-        whole = torch.empty(sh.shape, dtype=first.dtype, device=home)
-        done = set()
-        for items in sh.stores.values():
-            for b, t in items:
-                if b not in done:
-                    whole[index_of(b)] = t.to(home)
-                    done.add(b)
-        out[n] = whole
+        out[n] = gather(sh, mesh.devices.flat[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# leaves computed in pieces: a served model's cache and logits
+# ---------------------------------------------------------------------------
+
+def regions(sh: Shards) -> list:
+    """[(block, tensor)]: each distinct block of a placed leaf once, the
+    tensor of its first holder in position order."""
+    seen, out = set(), []
+    for b, t in zip(sh.where, sh.blocks):
+        if b is not None and b not in seen:
+            seen.add(b)
+            out.append((b, t))
+    return out
+
+
+def _overlap(box: tuple, other: tuple):
+    """The intersection of two boxes ((start, stop) per dim), or None."""
+    out = tuple((max(a, c), min(b, d)) for (a, b), (c, d) in zip(box, other))
+    return None if any(a >= b for a, b in out) else out
+
+
+def _fill(out, box: tuple, pieces: list):
+    """Copy into ``out``, which covers ``box``, every piece's overlap
+    with it, in the pieces' order."""
+    for pbox, t in pieces:
+        ov = _overlap(box, pbox)
+        if ov is not None:
+            out[inside(ov, box)] = t[inside(ov, pbox)].to(out.device)
+
+
+def cut(box: tuple, pieces: list, device):
+    """The tensor over ``box`` on ``device`` from ``pieces`` [(box,
+    tensor)], boxes in the leaf's coordinates: the piece itself where one
+    is exactly ``box`` on ``device``, else a copy of the first piece that
+    holds all of it, else zeros filled from every piece that overlaps it
+    in order (what no piece covers stays 0: a cache's positions past the
+    prompt).  A copy holds only ``box``, never the piece it came from."""
+    for pbox, t in pieces:
+        idx = inside(box, pbox)
+        if idx is None:
+            continue
+        if pbox == box and t.device == torch.device(device):
+            return t
+        return t[idx].to(device, copy=True)
+    out = torch.zeros(tuple(b - a for a, b in box), dtype=pieces[0][1].dtype,
+                      device=device)
+    _fill(out, box, pieces)
+    return out
+
+
+def place_pieces(shape, spec, mesh, pieces: list,
+                 stacked: bool = False) -> Shards:
+    """A leaf of ``shape`` placed by ``spec``, each stored block (and the
+    whole, on a device that holds every block) cut from ``pieces`` [(box,
+    tensor)] (``cut``); with ``stacked``, ``pieces`` holds one such list
+    per index of the leaf's first (layer) axis, each box over a layer's
+    slice, and a block is filled layer by layer.  The pieces may lie on
+    any device; each block is made on its holder."""
+    def make(box, dev):
+        if not stacked:
+            return cut(box, pieces, dev)
+        (l0, l1), sub = box[0], box[1:]
+        first = pieces[l0][0][1]
+        out = torch.zeros(tuple(b - a for a, b in box), dtype=first.dtype,
+                          device=dev)
+        for i, layer in enumerate(pieces[l0:l1]):
+            _fill(out[i], sub, layer)
+        return out
+
+    full = tuple((0, d) for d in shape)
+    return _place(tuple(shape), spec, None, mesh, lambda dev: make(full, dev),
+                  make)
+
+
+def gather(sh: Shards, device):
+    """The whole of a placed leaf on ``device``: the stored whole where
+    that device holds one, else its blocks joined there."""
+    dev = torch.device(device)
+    if dev in sh.wholes:
+        return sh.wholes[dev]
+    return cut(tuple((0, d) for d in sh.shape), regions(sh), dev)

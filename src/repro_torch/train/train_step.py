@@ -103,11 +103,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import factory, lm
-from repro_torch.models.layers.moe import moe_groups
+from repro_torch.models import factory, sharded
 from repro_torch.parallelism import sharding
 from repro_torch.parallelism.ctx import NULL_CTX, ShardCtx
-from repro_torch.parallelism.tensor import shared_reads
 from repro_torch.train.optimizer import (OptConfig, adamw_leaf, adamw_update,
                                          clip_scale, init_opt_state,
                                          moment_dtype, scaled,
@@ -270,25 +268,6 @@ def _grads_of(loss, placed: dict) -> dict:
     return out
 
 
-def _expert_reads(placed: dict, blocks: list, ctx: ShardCtx, n: int) -> list:
-    """For each of the first ``n`` data positions, the ``lm.Experts`` its
-    group reads: every mesh position's expert leaves (from
-    ``param_blocks``'s ``blocks``), each block read by the n groups
-    through ``shared_reads``, and the positions that run each expert
-    block for that data position's row (``sharding.expert_owners``)."""
-    devs = list(ctx.mesh.devices.flat)
-    tp = ctx.tp_size
-    names = [k for k in placed if sharding.is_expert_leaf(k)]
-    reads = {(q, k): shared_reads(blocks[q][k], n)
-             for q in range(len(devs)) for k in names}
-    where = placed[names[0]].where
-    return [lm.Experts([{k: reads[q, k][i] for k in names}
-                        for q in range(len(devs))], devs,
-                       sharding.expert_owners(
-                           where, range(i * tp, (i + 1) * tp)))
-            for i in range(n)]
-
-
 def _position_parts(state: dict, batch: dict, cfg: ArchConfig,
                     ctx: ShardCtx) -> list:
     """``factory.loss_parts`` of one (micro)batch on a mesh: of each data
@@ -299,21 +278,12 @@ def _position_parts(state: dict, batch: dict, cfg: ArchConfig,
     devs = list(mesh.devices.flat)
     dp, tp = ctx.dp_size, ctx.tp_size
     b, s = batch["labels"].shape
-    groups = 1 if cfg.moe is None else moe_groups(dp, b * s, cfg.moe.top_k)
-    spread = not (b % dp or (cfg.moe is not None and groups != dp))
+    groups, spread = sharded.row_split(cfg, ctx, b, b * s)
     n = dp if spread else 1
     if state["replicas"]:
         models = [state["replicas"][dev] for dev in devs]
     else:
-        blocks = sharding.param_blocks(state["placed"])
-        experts = [None] * n
-        if any(sharding.is_expert_leaf(k) for k in state["placed"]):
-            experts = _expert_reads(state["placed"], blocks, ctx, n)
-            blocks = [{k: t for k, t in bq.items()
-                       if not sharding.is_expert_leaf(k)} for bq in blocks]
-        models = [lm.ModelGroup(blocks[i * tp:(i + 1) * tp],
-                                devs[i * tp:(i + 1) * tp], experts[i])
-                  for i in range(n)]
+        models = sharded.model_groups(state["placed"], ctx, n)
     if not spread:
         whole = {k: x.to(devs[0]) for k, x in batch.items()}
         return [factory.loss_parts(models[0], whole, cfg=cfg,
@@ -449,10 +419,19 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     return train_step
 
 
-def make_eval_step(cfg: ArchConfig):
-    """eval_step(model, batch) -> metrics, with no graph recorded."""
+def make_eval_step(cfg: ArchConfig, ctx: ShardCtx = NULL_CTX):
+    """eval_step(model, batch) -> metrics ({"loss", "ce", "aux"}), with no
+    graph recorded.  With a mesh ``ctx`` it is eval_step(state, batch)
+    for a state that ``init_train_state(..., ctx=ctx)`` made: the train
+    step's forward (``combine_parts`` of ``_position_parts``), so that
+    its metrics are the next step's."""
     @torch.no_grad()
-    def eval_step(model: nn.Module, batch: dict):
-        _, metrics = factory.train_loss(model, batch, cfg=cfg)
-        return metrics
+    def eval_step(model, batch: dict):
+        if ctx.mesh is None:
+            return factory.train_loss(model, batch, cfg=cfg)[1]
+        if "ctx" not in model:
+            raise ValueError("eval on a mesh takes the train state that "
+                             "init_train_state(..., ctx=ctx) made")
+        return factory.combine_parts(_position_parts(model, batch, cfg, ctx),
+                                     cfg=cfg)[1]
     return eval_step

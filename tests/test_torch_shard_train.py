@@ -9,13 +9,16 @@ meshes of the CPU, every position on the one CPU:
     ZeRO-1 moments within 1e-4 of each leaf's largest magnitude; a
     microbatched step (accum_steps=2) too;
   · (the MoE models' token groups are in test_torch_shard_moe.py)
-  · against the JAX package's own sharded step on 4 host devices
+  · ``check_against_reference``: the port's steps against the JAX
+    package's own sharded step on 4 host devices
     (``XLA_FLAGS=--xla_force_host_platform_device_count=4``, in a
     subprocess, as tests/test_sim_shard.py runs it), placed by
     ``param_pspecs``/``moments_pspecs``/``batch_pspecs`` as
-    launch/dryrun.py places it: reduced arctic-480b (G = 4) and
-    qwen2-vl-2b on a (4, 1) mesh, 2 steps, within the limits above; each
-    moment's blocks have the shapes of the reference's shards;
+    launch/dryrun.py places it, 2 steps, within the limits above; each
+    moment's blocks have the shapes of the reference's shards (its cases
+    of the data axes and of expert placement are in
+    test_torch_shard_ref_step.py, a file of their own so that
+    ``--dist loadfile`` runs them beside this one);
   · placement: row order over ('pod', 'data'), one copy per device; two
     names of the CPU as two devices (a replica and its blocks on each);
   · a sharded checkpoint writes the unsharded state's bytes, and a
@@ -304,24 +307,6 @@ def check_against_reference(arch, mesh, tmp_path, shape=SHAPE):
         shapes = [([c] + s if stacked else s) for c, s in per_pos]
         assert shapes == ref["shards"][key], (key, shapes,
                                               ref["shards"][key])
-
-
-@pytest.mark.parametrize("arch", ["arctic-480b", "qwen2-vl-2b"])
-def test_matches_the_reference_sharded_step(arch, tmp_path):
-    check_against_reference(arch, (4, 1), tmp_path)
-
-
-@pytest.mark.parametrize("arch,mesh", [
-    ("arctic-480b", (2, 2)), ("deepseek-v3-671b", (1, 4)),
-    ("jamba-v0.1-52b", (2, 2))], ids=["arctic-2d", "deepseek-full",
-                                      "jamba-2d"])
-def test_expert_placement_matches_the_reference_sharded_step(arch, mesh,
-                                                             tmp_path):
-    """The model axis of the MoE, MLA and jamba families: experts placed
-    by ``ctx.ep_axes`` ('2d' on (2, 2), 'full' on (1, 4)), MLA's heads
-    and Mamba's d_inner split, against the reference's step on a host
-    mesh of that shape."""
-    check_against_reference(arch, mesh, tmp_path)
 
 
 # ---------------------------------------------------------------------------
