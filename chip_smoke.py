@@ -307,6 +307,15 @@ Training (f32, TF32 off, deterministic kernels):
      a step, tokens/s, peak memory, a decode step's idle share and the
      kernel's launches per prefill (phase f times K3' at each mesh's
      per-position prefill shape).
+  u. the dry run's cost pass (launch/hlo_costs.py): qwen2-vl-2b at phase
+     z's widths and rwkv6-1.6b, each at 2 layers, 8 x 512 tokens, a train
+     step and a prefill: on fake tensors on the host
+     (launch/dryrun.py) and live on the card under the same pass, FLOPs,
+     HBM bytes and the kernels' calls, FLOPs and bytes equal, the calls
+     equal to the wrappers' launch counts, the predicted peak against
+     torch.cuda.max_memory_allocated, the step time beside the pass's
+     step_bound_s; on a (2, 2) mesh the fake pass over four devices
+     against the card repeated, FLOPs and kernel calls equal.
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -658,6 +667,23 @@ SERVE_WITNESS_FACTOR = 2
 SERVE_Y = (("arctic-480b", (2, 2), 4), ("deepseek-v3-671b", (1, 4), 4),
            ("jamba-v0.1-52b", (3, 2), 3), ("rwkv6-1.6b", (1, 8), 4),
            ("whisper-base", (2, 2), 2))
+# phase u: the dry run's cost pass (launch/hlo_costs.py) on fake tensors
+# against the same step live on the card: qwen2-vl-2b at phase z's widths
+# (K3' and its backward) and rwkv6-1.6b (K2 and wkv6_bwd), each cut to
+# COST_LAYERS layers, COST_BATCH x COST_SEQ tokens, a train step and a
+# prefill unsharded, and on COST_MESH of fake distinct devices against
+# the card repeated.  The predicted peak (the fake pass's, over the
+# step's arguments) against the allocator's (torch.cuda.
+# max_memory_allocated over what was held before the step): within
+# COST_PEAK_REL of it plus COST_PEAK_ABS bytes.  Measured on one H100:
+# the allocator 1.0000-1.0043x the prediction, at most 33.6 MB over
+# it (qwen2-vl-2b's step: cuBLAS's 32 MiB workspace of :4096:8 and the
+# allocator's 512-byte rounding)
+COST_ARCHS = ("qwen2-vl-2b", "rwkv6-1.6b")
+COST_LAYERS = 2
+COST_BATCH, COST_SEQ = 8, 512
+COST_MESH = (2, 2)
+COST_PEAK_REL, COST_PEAK_ABS = 0.01, 40 << 20
 SERVE_Y_PROMPT, SERVE_Y_NEW, SERVE_Y_MAX_LEN = 64, 9, 80
 SERVE_Y_EVAL_RTOL = 1e-5
 
@@ -4384,6 +4410,160 @@ def phase_serve(torch, K, Q, full_golden):
     return out
 
 
+def _cost_counts(cp, dev):
+    """A cost pass's counts on ``dev``: FLOPs, HBM bytes by kind, and its
+    kernels' calls, FLOPs and bytes."""
+    c, m = cp.costs[dev], cp.memory[dev]
+    return {"flops": c.flops, "bytes": c.bytes,
+            "bytes_by_op": dict(sorted(c.bytes_by_op.items())),
+            "kernels": {k: dict(v) for k, v in sorted(cp.kernels.items())},
+            "step_peak": m.peak - m.arg}
+
+
+def phase_cost(torch, FA, W):
+    """The dry run's cost pass against live runs (see COST_ARCHS): per
+    arch, a train step and a prefill, unsharded, on fake tensors on the
+    host (``dryrun.build_lowerable(..., mesh_shape=())``) and live on
+    cuda:0 under the same pass, the kernels launching: FLOPs, bytes, the
+    kernels' calls, FLOPs and bytes, and the step's tracked peak equal;
+    the calls equal to the wrappers' launch counts (set to 0 just before
+    the live pass); the predicted peak against the allocator's; the step
+    time (a second step, no pass, the median of three) beside the
+    bound.  Then the same on COST_MESH: the fake pass over distinct
+    devices against the card repeated, total FLOPs and the kernels' calls
+    and FLOPs equal."""
+    import dataclasses
+    import gc
+    from functools import partial
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun, hlo_analysis, hlo_costs
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory
+    from repro_torch.train import train_step as TS
+
+    wrappers = {"flash_attention": FA.flash_attention,
+                "flash_attention_bwd": FA.flash_attention_bwd,
+                "wkv6": W.wkv6, "wkv6_bwd": W.wkv6_bwd}
+    dev, host = torch.device("cuda:0"), torch.device("cpu", 0)
+    out = []
+    for arch in COST_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=COST_LAYERS)
+        opt_cfg = dryrun._opt_config(cfg)
+        for kind in ("train", "prefill"):
+            shape = ShapeSpec("u", COST_SEQ, COST_BATCH, kind)
+            row = {"arch": arch, "kind": kind, "layers": COST_LAYERS}
+            for mesh in ((), COST_MESH):
+                t = time.perf_counter()
+                fn, args, _ = dryrun.build_lowerable(
+                    arch, "u", multi_pod=False, cfg=cfg, shape=shape,
+                    mesh_shape=mesh)
+                _, fake = hlo_costs.analyze(fn, *args)
+                fake_s = time.perf_counter() - t
+                del fn, args
+                ctx = (make_ctx(make_train_mesh(mesh, device=dev)) if mesh
+                       else None)
+                kw = {} if ctx is None else {"ctx": ctx}
+                batch = dryrun._batch(cfg, COST_BATCH, COST_SEQ,
+                                      torch.float32, dev)
+                if kind == "train":
+                    state = TS.init_train_state(0, cfg, opt_cfg, device=dev,
+                                                **kw)
+                    fn = TS.make_train_step(cfg, opt_cfg, **kw)
+                    args = (state, batch)
+                else:
+                    model = (factory.init_placed(0, cfg, ctx) if mesh else
+                             factory.init_params(0, cfg, device=dev))
+                    fn = partial(factory.prefill, cfg=cfg, max_len=COST_SEQ,
+                                 **kw)
+                    args = (model, batch)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                for w in wrappers.values():
+                    w.launches = 0                     # counts: just before
+                _, live = hlo_costs.analyze(fn, *args)
+                torch.cuda.synchronize()
+                alloc_peak = torch.cuda.max_memory_allocated(dev) - base
+                launches = {n: w.launches for n, w in wrappers.items()
+                            if w.launches}
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn(*args)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                del fn, args
+                gc.collect()
+                torch.cuda.empty_cache()
+                calls = {k: v["calls"] for k, v in live.kernels.items()}
+                check(calls == launches and launches,
+                      f"phase u {arch} {kind} {mesh or 'unsharded'}: the "
+                      f"pass counted {calls}, the wrappers launched "
+                      f"{launches}")
+                if not mesh:
+                    got, want = _cost_counts(live, dev), _cost_counts(
+                        fake, host)
+                    check(got == want, f"phase u {arch} {kind}: live "
+                          f"{got} against fake {want}")
+                    terms = hlo_analysis.roofline_terms(
+                        got["flops"], got["bytes"], 0.0, 1,
+                        cfg.model_flops(shape))
+                    row.update(
+                        fake_s=fake_s, flops=got["flops"],
+                        bytes=got["bytes"], kernels=got["kernels"],
+                        launches=launches, predicted_peak=want["step_peak"],
+                        alloc_peak=alloc_peak,
+                        step_s=float(np.median(walls)),
+                        step_bound_s=terms["step_bound_s"],
+                        dominant=terms["dominant"])
+                    check(abs(alloc_peak - want["step_peak"])
+                          <= COST_PEAK_REL * want["step_peak"]
+                          + COST_PEAK_ABS,
+                          f"phase u {arch} {kind}: predicted peak "
+                          f"{want['step_peak']} B, the allocator's "
+                          f"{alloc_peak} B")
+                else:
+                    total = {k: sum(c.flops for d, c in p.costs.items()
+                                    if d.index is not None)
+                             for k, p in (("live", live), ("fake", fake))}
+                    kern = {k: {n: (v["calls"], v["flops"])
+                                for n, v in p.kernels.items()}
+                            for k, p in (("live", live), ("fake", fake))}
+                    check(total["live"] == total["fake"]
+                          and kern["live"] == kern["fake"],
+                          f"phase u {arch} {kind} {mesh}: live {total['live']}"
+                          f" {kern['live']} against fake {total['fake']} "
+                          f"{kern['fake']}")
+                    row.update(mesh_flops=total["live"],
+                               mesh_launches=launches, mesh_fake_s=fake_s,
+                               mesh_devices=len([d for d in fake.costs
+                                                 if d.index is not None]))
+            out.append(row)
+    return out
+
+
+def report_cost(rows, card):
+    for r in rows:
+        print(f"[u cost pass] {r['arch']} at {r['layers']} layers, "
+              f"{r['kind']} {COST_BATCH} x {COST_SEQ} ({card}): fake == live"
+              f" on the card, {r['flops']:.6e} FLOPs, {r['bytes']:.6e} B, "
+              f"kernels {r['kernels']} (launches {r['launches']}); peak "
+              f"over the arguments predicted {r['predicted_peak']} B, "
+              f"allocator {r['alloc_peak']} B "
+              f"({r['alloc_peak'] / max(r['predicted_peak'], 1):.4f}x); "
+              f"step {r['step_s'] * 1e3:.3f} ms against step_bound_s "
+              f"{r['step_bound_s'] * 1e3:.3f} ms ({r['dominant']}; share "
+              f"{r['step_bound_s'] / r['step_s']:.4f}); fake pass "
+              f"{r['fake_s']:.2f} s on the host; {COST_MESH} fake over "
+              f"{r['mesh_devices']} devices == the card repeated: "
+              f"{r['mesh_flops']:.6e} FLOPs, launches "
+              f"{r['mesh_launches']} (fake pass {r['mesh_fake_s']:.2f} s)",
+              flush=True)
+
+
 def main():
     start = time.perf_counter()
     marks = []                     # (phase, its start) for the time line
@@ -5699,12 +5879,24 @@ def main():
         nr[arch if layers is None else f"{arch} at {layers} layers"] = r
         report_serve_mesh(r, card)
 
+    marks.append(("u", time.perf_counter()))
+    # u. the dry run's cost pass against live steps on the card
+    ur = phase_cost(torch, FA, W)
+    report_cost(ur, card)
+
     marks.append(("end", time.perf_counter()))
     print("[time] seconds by phase: " + ", ".join(
         f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
         flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} "
           "s, the builds included", flush=True)
+
+    def cost_launches(name):
+        """A kernel's launches in phase u's live passes: [unsharded, on
+        COST_MESH] by arch and step."""
+        return {f"{r['arch']} {r['kind']}": [r["launches"][name],
+                                            r["mesh_launches"][name]]
+                for r in ur if name in r["launches"]}
 
     def shard_launches(key, *runs):
         """A kernel's launches (``key`` "fwd") or backward calls ("bwd")
@@ -5752,6 +5944,7 @@ def main():
                      for row in qr["by_lanes"]],
     }, {
         "name": "wkv6", "route": "cuda",
+        "cost_pass_launches": cost_launches("wkv6"),
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:65",
         "launches": fr["launches"], "max_abs_err": wr["max_abs_err"],
@@ -5777,6 +5970,7 @@ def main():
         "serve_shape": nr[RWKV_ARCH]["k2"],
     }, {
         "name": "flash_attention", "route": "cuda",
+        "cost_pass_launches": cost_launches("flash_attention"),
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
@@ -5851,6 +6045,7 @@ def main():
             for name, w_ in ar["whisper"].items()},
     }, {
         "name": "wkv6_bwd", "route": "cuda",
+        "cost_pass_launches": cost_launches("wkv6_bwd"),
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
         # a backward of the port's own: the TPU kernel it differentiates
         "replaces": "src/repro/kernels/wkv6/kernel.py:65",
@@ -5867,6 +6062,7 @@ def main():
         "shape": list(WKV_FULL_SHAPE),
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
+        "cost_pass_launches": cost_launches("flash_attention_bwd"),
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:65",

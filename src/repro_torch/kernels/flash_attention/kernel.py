@@ -23,6 +23,13 @@ offset).
 ``flash_attention_bwd.launches`` backward calls (two launches each:
 ``flash_bwd_dq``, which also writes D = rowsum(do . o), then
 ``flash_bwd_dkdv``).
+
+Each launch reports its work to the running cost passes
+(``repro_torch.kernels.costs``) by ``flash_cost`` / ``flash_bwd_cost``.
+A dry run's fake tensors take the kernels' path wherever they lie: they
+are checked as the card's are (bf16 into the backward still raises),
+their outputs allocated and their work reported, and nothing is built
+or launched.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.build import build_library, once
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_plain, attention_plain, check_shapes)
@@ -44,6 +52,36 @@ _MAX_GRID_YZ = 65535        # CUDA's limit on the grid's y (B) and z axes
 _BQ = 64                    # query rows per block: the grid's z is Sq / 64
 
 
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """The (query, key) pairs one head of one row attends: every pair, or
+    under the right-aligned causal mask query i's keys j <= i + sk - sq
+    (sq <= sk)."""
+    if not causal:
+        return sq * sk
+    return sq * (sk - sq) + sq * (sq + 1) // 2
+
+
+def flash_cost(b, sq, sk, h, kv, hd, causal, itemsize: int = 4,
+               with_lse: bool = False) -> tuple:
+    """(flops, bytes) of one forward launch: q·k and p·v over the pairs
+    it attends, 4·hd a pair (only the causal pairs: the masked part of a
+    diagonal tile is not counted); q, k and v read once, o written once
+    (and the rows' log-sum-exp, f32)."""
+    flops = 4 * hd * b * h * causal_pairs(sq, sk, causal)
+    nbytes = itemsize * hd * (2 * b * sq * h + 2 * b * sk * kv)
+    return flops, nbytes + (4 * b * h * sq if with_lse else 0)
+
+
+def flash_bwd_cost(b, sq, sk, h, kv, hd, causal) -> tuple:
+    """(flops, bytes) of one backward call (f32): q·k recomputed, do·v,
+    p·do, ds·k and ds·q over the pairs it attends, 10·hd a pair; q, k, v,
+    o, do and the log-sum-exp read once, dq, dk and dv written once (its
+    D rows are scratch)."""
+    flops = 10 * hd * b * h * causal_pairs(sq, sk, causal)
+    nbytes = 4 * (hd * (4 * b * sq * h + 4 * b * sk * kv) + b * h * sq)
+    return flops, nbytes
+
+
 def _check(name, x, dtype, device):
     if x.device != device:
         raise ValueError(f"flash_attention: {name} is on {x.device}, "
@@ -53,16 +91,16 @@ def _check(name, x, dtype, device):
                         f"expected {dtype}")
     if not x.is_contiguous():
         raise ValueError(f"flash_attention: {name} must be contiguous")
-    if x.data_ptr() % 16:
+    if costs.misaligned(x):
         raise ValueError(f"flash_attention: {name} must be 16-byte aligned "
                          "(the kernel copies rows in 16-byte pieces)")
 
 
 def _check_inputs(q, k, v, causal: bool):
-    """(b, sq, sk, h, kv, hd) of CUDA inputs the kernels take; raises
-    otherwise."""
+    """(b, sq, sk, h, kv, hd) of CUDA inputs the kernels take (or a dry
+    run's fake ones); raises otherwise."""
     device = q.device
-    if device.type != "cuda":
+    if device.type != "cuda" and not costs.is_fake(q):
         raise ValueError(f"flash_attention: no kernel for device {device}")
     check_shapes(q, k, v, causal)
     b, sq, h, hd = q.shape
@@ -122,18 +160,22 @@ def _flash_kernel(q, k, v, causal: bool, with_lse: bool):
            if with_lse else None)
     if b * h * sq == 0:
         return o, lse
-    fn, _ = _launcher()
-    # the launcher sets its shared-memory attribute and launches on the
-    # current device: make it the tensors' one
-    with torch.cuda.device(device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, sq, sk, h, kv,
-                 hd, int(causal), _DTYPES[q.dtype], hd ** -0.5,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
-                           f"error {err}")
-    flash_attention.launches += 1
+    if not costs.is_fake(q):
+        fn, _ = _launcher()
+        # the launcher sets its shared-memory attribute and launches on the
+        # current device: make it the tensors' one
+        with torch.cuda.device(device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     None if lse is None else lse.data_ptr(), b, sq, sk, h,
+                     kv, hd, int(causal), _DTYPES[q.dtype], hd ** -0.5,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention: kernel launch failed with "
+                               f"CUDA error {err}")
+        flash_attention.launches += 1
+    if costs.PASSES:
+        costs.report("flash_attention", device, *flash_cost(
+            b, sq, sk, h, kv, hd, causal, q.element_size(), with_lse))
     return o, lse
 
 
@@ -164,17 +206,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     if b * h * sq == 0:
         return dq, dk.zero_(), dv.zero_()
     d_rows = torch.empty((b, h, sq), dtype=torch.float32, device=device)
-    fn, _ = _bwd_launcher()
-    with torch.cuda.device(device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
-                 kv, hd, int(causal), hd ** -0.5,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
-                           f"CUDA error {err}")
-    flash_attention_bwd.launches += 1
+    if not costs.is_fake(q):
+        fn, _ = _bwd_launcher()
+        with torch.cuda.device(device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk,
+                     h, kv, hd, int(causal), hd ** -0.5,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
+                               f"with CUDA error {err}")
+        flash_attention_bwd.launches += 1
+    if costs.PASSES:
+        costs.report("flash_attention_bwd", device, *flash_bwd_cost(
+            b, sq, sk, h, kv, hd, causal))
     return dq, dk, dv
 
 
@@ -209,7 +255,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     ``FlashAttentionFunction``, whose backward is a kernel too (f32
     only)."""
     device = q.device
-    if device.type == "cpu":
+    if device.type == "cpu" and not costs.is_fake(q):
         return attention_plain(q, k, v, causal=causal)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal)

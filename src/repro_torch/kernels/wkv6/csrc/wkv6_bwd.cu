@@ -821,17 +821,12 @@ int launch(int n, cudaStream_t st, const float* r, const float* k,
 
 }  // namespace
 
-// Floats of the scratch buffer that wkv6_bwd_launch needs for (B, T, H,
-// hs): the state before every chunk of 32 tokens of each (b, h).
-extern "C" long long wkv6_bwd_scratch_floats(int B, int T, int H, int hs) {
-  return (long long)B * H * ((T + C - 1) / C) * hs * hs;
-}
-
 // Returns cudaGetLastError() after the launch (0 when it was accepted), or
 // cudaErrorInvalidValue for a head size without a kernel.  Inputs are f32
 // and contiguous in the forward's layouts, 16-byte aligned; dstate may be
 // null (a zero adjoint of the final state); du_part is (B, H, hs), summed
-// over B by the caller; scratch holds wkv6_bwd_scratch_floats floats.
+// over B by the caller; scratch holds B H ceil(T / C) hs^2 floats (the
+// caller, kernel.py, reads C from this file).
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
                                const void* w, const void* u, const void* s0,
                                const void* dout, const void* dstate,

@@ -20,19 +20,66 @@ Where a gradient is asked for on CUDA, ``wkv6`` goes through
 the TPU package has no backward kernel and trains through
 ``wkv_chunked``.  ``wkv6.launches`` counts forward kernel
 launches, ``wkv6_bwd.launches`` backward calls (one launch each).
+
+Each launch reports its work to the running cost passes
+(``repro_torch.kernels.costs``) by ``wkv6_cost`` / ``wkv6_bwd_cost``.  A
+dry run's fake tensors take the kernels' path wherever they lie: they
+are checked as the card's are, their outputs (and the backward's
+scratch) allocated and their work reported, and nothing is built or
+launched.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.build import build_library, once
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
 HEAD_SIZES = (16, 32, 64)
+_CHUNK = re.compile(r"^constexpr int C = (\d+);", re.M)
+
+
+def bwd_chunk(text: str) -> int:
+    """C, the tokens of a chunk, in the text of ``csrc/wkv6_bwd.cu``."""
+    return int(_CHUNK.search(text).group(1))
+
+
+@once
+def _bwd_chunk() -> int:
+    return bwd_chunk(BWD_SOURCE.read_text())
+
+
+def bwd_scratch_floats(b, s, h, hs, chunk: int | None = None) -> int:
+    """Floats of the backward kernel's scratch: the state before each of
+    its chunks, (b, h, ceil(s / C), hs, hs), C read from its source (or
+    ``chunk``, a variant's).  Sized here alone, for a launch and for a dry
+    run's fake call alike."""
+    return b * h * -(-s // (chunk or _bwd_chunk())) * hs * hs
+
+
+def wkv6_cost(b, s, h, hs) -> tuple:
+    """(flops, bytes) of one forward launch: the recurrence's 5·hs² a
+    token and head (the state's decay, k·vᵀ added, r·S); r, k, v, wlog,
+    u and the initial state read once, o and the final state written
+    once, all f32."""
+    return 5 * b * s * h * hs * hs, 4 * (5 * b * s * h * hs + h * hs
+                                         + 2 * b * h * hs * hs)
+
+
+def wkv6_bwd_cost(b, s, h, hs, with_dstate: bool = False) -> tuple:
+    """(flops, bytes) of one backward launch: 12·hs² a token and head;
+    r, k, v, wlog, do, u, the initial state (and the final state's
+    adjoint) read once, dr, dk, dv, dwlog and du written once, all f32
+    (the chunk-start states are scratch)."""
+    return 12 * b * s * h * hs * hs, 4 * (
+        9 * b * s * h * hs + 2 * h * hs
+        + (2 if with_dstate else 1) * b * h * hs * hs)
 
 
 def wkv6_plain(r, k, v, wlog, u, state, *, chunk: int = 64):
@@ -259,15 +306,16 @@ def _check(name, x, shape, device):
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"wkv6: {name} must be contiguous")
-    if x.data_ptr() % 16:
+    if costs.misaligned(x):
         raise ValueError(f"wkv6: {name} must start on a 16-byte boundary "
                          "(the kernel loads rows 16 bytes at a time)")
 
 
 def _check_inputs(r, k, v, wlog, u, state):
-    """(b, s, h, hs) of CUDA inputs the kernels take; raises otherwise."""
+    """(b, s, h, hs) of CUDA inputs the kernels take (or a dry run's fake
+    ones); raises otherwise."""
     device = r.device
-    if device.type != "cuda":
+    if device.type != "cuda" and not costs.is_fake(r):
         raise ValueError(f"wkv6: no kernel for device {device}")
     if r.dim() != 4:
         raise ValueError(f"wkv6: r has shape {tuple(r.shape)}, expected "
@@ -305,10 +353,7 @@ def _bwd_launcher():
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    scratch = lib.wkv6_bwd_scratch_floats
-    scratch.argtypes = [ctypes.c_int] * 4
-    scratch.restype = ctypes.c_longlong
-    return fn, scratch, info
+    return fn, info
 
 
 def build() -> dict:
@@ -320,7 +365,7 @@ def build() -> dict:
 
 def build_bwd() -> dict:
     """Build (or reuse) and load the backward kernel; its build record."""
-    return _bwd_launcher()[2]
+    return _bwd_launcher()[1]
 
 
 def _wkv6_kernel(r, k, v, wlog, u, state):
@@ -331,18 +376,21 @@ def _wkv6_kernel(r, k, v, wlog, u, state):
     s_out = torch.empty((b, h, hs, hs), dtype=torch.float32, device=device)
     if b * h == 0:
         return o, s_out
-    fn, _ = _launcher()
-    # the launcher sets its shared-memory attribute and launches on the
-    # current device: make it the tensors' one
-    with torch.cuda.device(device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
-                 u.data_ptr(), state.data_ptr(), o.data_ptr(),
-                 s_out.data_ptr(), b, s, h, hs,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"wkv6: kernel launch failed with CUDA error "
-                           f"{err}")
-    wkv6.launches += 1
+    if not costs.is_fake(r):
+        fn, _ = _launcher()
+        # the launcher sets its shared-memory attribute and launches on the
+        # current device: make it the tensors' one
+        with torch.cuda.device(device):
+            err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     wlog.data_ptr(), u.data_ptr(), state.data_ptr(),
+                     o.data_ptr(), s_out.data_ptr(), b, s, h, hs,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"wkv6: kernel launch failed with CUDA error "
+                               f"{err}")
+        wkv6.launches += 1
+    if costs.PASSES:
+        costs.report("wkv6", device, *wkv6_cost(b, s, h, hs))
     return o, s_out
 
 
@@ -364,20 +412,25 @@ def wkv6_bwd(r, k, v, wlog, u, state, do, dstate=None):
     du_part = torch.zeros((b, h, hs), dtype=torch.float32, device=device)
     if b * h * s == 0:                 # every gradient but du is empty
         return (*grads, du_part.sum(0))
-    fn, scratch_floats, _ = _bwd_launcher()
-    scratch = torch.empty(int(scratch_floats(b, s, h, hs)),
+    scratch = torch.empty(bwd_scratch_floats(b, s, h, hs),
                           dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
-                 u.data_ptr(), state.data_ptr(), do.data_ptr(),
-                 None if dstate is None else dstate.data_ptr(),
-                 *(g.data_ptr() for g in grads), du_part.data_ptr(),
-                 scratch.data_ptr(), b, s, h, hs,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"wkv6_bwd: kernel launch failed with CUDA error "
-                           f"{err}")
-    wkv6_bwd.launches += 1
+    if not costs.is_fake(r):
+        fn, _ = _bwd_launcher()
+        with torch.cuda.device(device):
+            err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     wlog.data_ptr(), u.data_ptr(), state.data_ptr(),
+                     do.data_ptr(),
+                     None if dstate is None else dstate.data_ptr(),
+                     *(g.data_ptr() for g in grads), du_part.data_ptr(),
+                     scratch.data_ptr(), b, s, h, hs,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"wkv6_bwd: kernel launch failed with CUDA "
+                               f"error {err}")
+        wkv6_bwd.launches += 1
+    if costs.PASSES:
+        costs.report("wkv6_bwd", device, *wkv6_bwd_cost(
+            b, s, h, hs, dstate is not None))
     return (*grads, du_part.sum(0))
 
 
@@ -418,7 +471,7 @@ def wkv6(r, k, v, wlog, u, state, *, chunk: int = 64):
     requires grad the call goes through ``WKV6Function``, whose backward
     is a kernel too (a ``state`` that requires grad raises)."""
     device = r.device
-    if device.type == "cpu":
+    if device.type == "cpu" and not costs.is_fake(r):
         return wkv6_plain(r, k, v, wlog, u, state, chunk=chunk)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (r, k, v, wlog, u, state)):

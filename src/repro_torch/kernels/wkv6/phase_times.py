@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import BUILD_DIR, build_library
-from repro_torch.kernels.wkv6.kernel import BWD_SOURCE, SOURCE
+from repro_torch.kernels.wkv6.kernel import (BWD_SOURCE, SOURCE,
+                                             bwd_chunk, bwd_scratch_floats)
 
 SHAPE = (8, 512, 32, 64)
 # (variant, [(text in the source, its replacement)])
@@ -107,20 +108,18 @@ def variant(name, cuts, text, backward=False):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
     lib, _ = build_library(path, f"{stem}_cut_{name}")
-    scratch = None
+    chunk = None
     if backward:
         fn = lib.wkv6_bwd_launch
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
-        scratch = lib.wkv6_bwd_scratch_floats
-        scratch.argtypes = [ctypes.c_int] * 4
-        scratch.restype = ctypes.c_longlong
+        chunk = bwd_chunk(text)
     else:
         fn = lib.wkv6_launch
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, scratch
+    return fn, chunk
 
 
 def main() -> int:
@@ -150,8 +149,8 @@ def main() -> int:
     args = [torch.as_tensor(x, device="cuda") for x in host]
     if backward:
         outs = [torch.empty_like(args[0]) for _ in range(4)]
-        floats = max(int(scratch(b, s, h, hs))      # as each cut sizes it
-                     for _, scratch in built.values())
+        floats = max(bwd_scratch_floats(b, s, h, hs, chunk)  # each cut's
+                     for _, chunk in built.values())
         outs += [torch.empty((b, h, hs), device="cuda"),
                  torch.empty(floats, device="cuda")]
     else:

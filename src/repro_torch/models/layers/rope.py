@@ -59,9 +59,8 @@ def apply_mrope(x, positions3, *, theta: float):
     """M-RoPE.  x: (B, S, H, hd); positions3: (3, B, S) int32 (t/h/w)."""
     hd = x.shape[-1]
     inv = rope_frequencies(hd, theta, x.device)                  # (hd/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(mrope_sections(hd), device=x.device))       # (hd/2,)
+    sec_id = torch.tensor([i for i, n in enumerate(mrope_sections(hd))
+                           for _ in range(n)], device=x.device)  # (hd/2,)
     pos = torch.movedim(positions3, 0, -1).float()               # (B, S, 3)
     pos_per_pair = pos[..., sec_id]                              # (B, S, hd/2)
     ang = pos_per_pair[..., None, :] * inv                       # (B,S,1,hd/2)

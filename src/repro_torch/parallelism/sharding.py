@@ -431,14 +431,18 @@ def shard_tree(tree: dict, specs: dict, mesh) -> dict:
             for n, x in tree.items()}
 
 
-def zeros_tree(shapes: dict, specs: dict, mesh, dtype) -> dict:
+def zeros_tree(shapes: dict, specs: dict, mesh, dtype,
+               leaves: bool = False) -> dict:
     """{name: Shards} of zero leaves of ``shapes`` placed by ``specs``,
     each stored block made on its device, so that no device holds more of
-    a leaf than its blocks (the ZeRO-1 moments)."""
+    a leaf than its blocks (the ZeRO-1 moments).  With ``leaves`` each
+    stored tensor is a leaf that requires grad, as ``place_params`` stores
+    a model's parameters (a dry run's parameters, made from shapes)."""
     layers = leaf_layers(shapes)
 
     def zeros(shape, dev):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        t = torch.zeros(shape, dtype=dtype, device=dev)
+        return nn.Parameter(t) if leaves else t
 
     return {n: _place(tuple(shape), specs[n], layers[n], mesh,
                       lambda dev, shape=shape: zeros(tuple(shape), dev),

@@ -144,16 +144,34 @@ def init_train_state(model, cfg: ArchConfig, opt_cfg: OptConfig,
                          f", the mesh's first device is {home}")
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    pspecs = sharding.param_pspecs(params, cfg, ctx)
-    specs = sharding.moments_pspecs(pspecs, params, ctx)
-    shapes = {n: tuple(p.shape) for n, p in params.items()}
-    placed = sharding.place_params(params, pspecs, mesh)
+    placed = sharding.place_params(
+        params, sharding.param_pspecs(params, cfg, ctx), mesh)
+    return placed_train_state(placed, cfg, opt_cfg, ctx, model)
+
+
+def placed_train_state(placed: dict, cfg: ArchConfig, opt_cfg: OptConfig,
+                       ctx: ShardCtx, model=None) -> dict:
+    """The sharded train state over parameters already placed by
+    ``param_pspecs`` on ``ctx.mesh`` (``sharding.place_params`` of
+    ``model``, or a dry run's ``sharding.zeros_tree(..., leaves=True)``,
+    made from shapes): zero moments placed by ``moments_pspecs``, each
+    block made on its device, and step 0.  Where a model is needed over
+    the first device's stored tensors (a replica, or "params") and
+    ``model`` is None, it is made of them."""
+    mesh = ctx.mesh
+    home = mesh.devices.flat[0]
+    shapes = {n: sh.shape for n, sh in placed.items()}
+    specs = sharding.moments_pspecs({n: sh.spec for n, sh in placed.items()},
+                                    shapes, ctx)
+    whole = all(home in sh.wholes for sh in placed.values())
+    if whole and model is None:
+        model = factory.from_state_dict(
+            cfg, {n: sh.wholes[home] for n, sh in placed.items()})
     replicas = {}
     if ctx.tp_size == 1 and cfg.moe is None:
         for dev in dict.fromkeys(mesh.devices.flat):
             replicas[dev] = model if dev == home else factory.from_state_dict(
                 cfg, {n: sh.wholes[dev] for n, sh in placed.items()})
-    whole = all(home in sh.wholes for sh in placed.values())
     dt = moment_dtype(opt_cfg)
     return {"params": model if whole else None,
             "opt": {k: sharding.zeros_tree(shapes, specs, mesh, dt)

@@ -251,6 +251,8 @@ def test_lm_modules_import_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.models.factory, repro_torch.launch.serve_decode\n"
         "import repro_torch.convert\n"
+        "import repro_torch.launch.hlo_analysis, repro_torch.launch.hlo_costs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.perf_probe\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
