@@ -216,7 +216,7 @@ f32:
      consistency of a 64-token prefill against 32 + 32 steps, the kernel
      against attention_plain inside the model, decode ms per step, peak
      memory, profiles of a prefill and of four decode steps;
-Training (f32, TF32 off, deterministic kernels):
+Training (f32, TF32 off, deterministic kernels; and bf16):
   k. the backward kernels (builds; ptxas registers and spills of each
      instance, none may spill): wkv6_bwd against autograd of wkv6_plain
      in f64 (hs 16/32/64 x S 64 and 100, a final-state adjoint, a log
@@ -232,6 +232,14 @@ Training (f32, TF32 off, deterministic kernels):
      flash_attention_bwd also at Whisper's encoder shape (8, 1500, 8 / 8,
      64) and at (2, 300, 8 / 8, 64) over 100 keys, non-causal, within
      1e-4 of f64, the encoder's bits equal from call to call, its time;
+     then flash_attention_bwd's bf16 form (mma.sync m16n8k16, one pass)
+     at every one of those shapes: each gradient bf16, finite, within
+     2e-2 of its largest magnitude from attention_backward_plain in f64
+     on the same bf16 inputs and within twice the distance of
+     autograd's backward of SDPA (enable_gqa) in bf16, two calls the
+     same bits; timed (profiler) at the full shape, Whisper's encoder
+     and arctic's and jamba's (2, 2) shapes beside the f32 form, SDPA's
+     bf16 backward and the bound at the bf16 rate;
   x. training through make_train_step at full width: rwkv6-1.6b (24
      layers, 1.60 B parameters, batch 8 x 512) and minitron-8b's widths at
      2 layers (2.45 B parameters, batch 4 x 512) and whisper-base whole
@@ -252,7 +260,13 @@ Training (f32, TF32 off, deterministic kernels):
      rwkv6-1.6b --full --batch 8 --seq 512 for 6 steps straight, for 4
      with a checkpoint at step 4 (--ckpt-every 4 --ckpt DIR), and the
      same to 6, which resumes and must end in the straight run's state
-     bit for bit;
+     bit for bit; then qwen2-vl-2b whole in bf16 (1.78 B bf16
+     parameters, f32 moments), unsharded, 8 x 512: on the first batch
+     the loss and every gradient leaf with the kernels held within
+     twice the distance from the same weights in f32 of the same with
+     attention_plain in bf16 (the witness rule); 3 steps, each with 56
+     K3' launches and 28 backward calls, every one bf16; step time and
+     tokens/s beside the f32 reading;
   y. the reduced arctic-480b, deepseek-v3-671b, jamba-v0.1-52b and
      whisper-base trained through make_train_step under deterministic
      kernels (the Mamba scan's backward through autograd): the loss of the
@@ -293,7 +307,12 @@ Training (f32, TF32 off, deterministic kernels):
      nothing reads 1); step time, tokens/s, peak memory, a profiled
      sharded and unsharded step's idle share (device activity only),
      the kernels' launches per step (phases f and k hold K3' and its
-     backward at each run's per-position shapes);
+     backward at each run's per-position shapes); then one bf16 step of
+     qwen2-vl-2b at 4 layers on (1, 8) at 4 x 1024 (seqpar_attention,
+     the bf16 backward on every slab) and unsharded, from the same
+     weights: the mesh's gradient leaves within twice the unsharded bf16
+     step's distance from the f32 step (the witness rule), every launch
+     bf16;
   n. serving on meshes of this card (models/sharded.py): qwen2-vl-2b
      whole, 8 x 1024 prompts and 8 greedy tokens, on (2, 2), (1, 4) and
      (1, 8), one mesh per KV-cache layout (by KV heads, by sequence, by
@@ -315,7 +334,9 @@ Training (f32, TF32 off, deterministic kernels):
      equal to the wrappers' launch counts, the predicted peak against
      torch.cuda.max_memory_allocated, the step time beside the pass's
      step_bound_s; on a (2, 2) mesh the fake pass over four devices
-     against the card repeated, FLOPs and kernel calls equal.
+     against the card repeated, FLOPs and kernel calls equal; and
+     qwen2-vl-2b's train step in bf16 (the dry run's default), unsharded,
+     fake against live the same way.
 Then:
   6. a JSON line of per-kernel numbers;
   7. the last line, {"ok": true, "device": {...}}.
@@ -416,6 +437,7 @@ TINY_CASES = (("myocyte", 1.0, "vmap", 0), ("myocyte", 1.0, "seq", 0),
               ("hotspot", 0.02, "vmap", 2))
 TF32_OPS_PER_S = 495e12          # tensor cores, dense TF32
 TF32_PASSES = 3                  # the f32 split: three TF32 products
+BF16_OPS_PER_S = 989e12          # tensor cores, dense bf16: one pass
 FLASH_F64_TOL = 5e-6             # the kernel against f64 at full width
 # wkv: per token and state element, the k (x) v product (1), the decay-and-
 # add (2) and the read-out (2)
@@ -547,6 +569,19 @@ TRAIN_GRAD_TOL = 1e-3
 TRAIN_OPT = dict(peak_lr=1e-4, warmup_steps=2, total_steps=20)
 TRAIN_STEPS = 3
 TRAIN_DATA_SEED = 1234
+# bf16 training (phases k, x, z, u).  The witness rule of the CPU tests
+# (tests/test_torch_bf16_train.py): a bf16 result no farther from its f32
+# truth than BF16_WITNESS times a witness's bf16 result is: for the
+# backward kernels autograd's backward of SDPA in bf16 (the library's
+# rounding), for a train step the same step with attention_plain (phase
+# x) or unsharded (phase z), in bf16.  Phase x trains BF16_TRAIN_ARCH
+# whole (28 layers; 1.78 B bf16 parameters, 3.6 GB, and f32 moments, 14
+# GB) at phase z's SHARD_BATCH x SHARD_SEQ, unsharded; its f32 reading,
+# the same model unsharded at 8 x 512: BF16_TRAIN_F32_STEP_S a step on
+# the H100 (PERF.md §5)
+BF16_WITNESS = 2
+BF16_TRAIN_ARCH = "qwen2-vl-2b"
+BF16_TRAIN_F32_STEP_S = 1.291
 # phase y: the reduced MoE models' 6 steps on the card against the same
 # steps on the CPU.  Perturbing the weights by 1e-6 relative moved these
 # by at most 8e-7 (loss, ce, aux), 2.1e-6 (grad_norm) and 1.4e-5 (a
@@ -680,6 +715,9 @@ SERVE_Y = (("arctic-480b", (2, 2), 4), ("deepseek-v3-671b", (1, 4), 4),
 # it (qwen2-vl-2b's step: cuBLAS's 32 MiB workspace of :4096:8 and the
 # allocator's 512-byte rounding)
 COST_ARCHS = ("qwen2-vl-2b", "rwkv6-1.6b")
+# and qwen2-vl-2b's train step in bf16 (the dry run's default dtype),
+# unsharded: (arch, kind)
+COST_BF16 = ("qwen2-vl-2b", "train")
 COST_LAYERS = 2
 COST_BATCH, COST_SEQ = 8, 512
 COST_MESH = (2, 2)
@@ -701,7 +739,7 @@ def ptxas_spills(log, pattern):
     for ln in log.splitlines():
         m = re.search(pattern, ln)
         if m:
-            inst = "/".join(m.groups())
+            inst = "/".join(g for g in m.groups() if g)
         elif inst and "spill" in ln:
             spills = tuple(int(re.search(rf"(\d+) bytes spill {w}",
                                          ln).group(1))
@@ -1415,20 +1453,53 @@ def wkv_bwd_bound(b, s, h, hs):
             n_ops / ALU_OPS_PER_S * 1e3)
 
 
-def flash_bwd_bound(b, sq, sk, h, kv, hd, causal):
+def flash_bwd_bound(b, sq, sk, h, kv, hd, causal, elem=4):
     """(bound_ms, bound_by, bytes, operations, cuda_core_ms) of one
-    attention backward: q, k, v, o, do and the rows' log-sum-exp read
-    once, dq, dk, dv written once, against the 10 hd operations (five
-    multiply-adds of hd: the scores, dP, dV, dK, dQ) of each (query, key)
-    pair, counted as flash_bound counts the forward's."""
-    n_bytes = 4 * (4 * b * sq * h * hd + 4 * b * sk * kv * hd + b * h * sq)
+    attention backward: q, k, v, o, do read once and dq, dk, dv written
+    once at ``elem`` bytes an element, the rows' log-sum-exp (f32) read
+    once, against the 10 hd operations (five multiply-adds of hd: the
+    scores, dP, dV, dK, dQ) of each (query, key) pair, counted as
+    flash_bound counts the forward's: in three TF32 passes for f32, one
+    pass at the bf16 rate for bf16."""
+    n_bytes = elem * (4 * b * sq * h * hd + 4 * b * sk * kv * hd) \
+        + 4 * b * h * sq
     _, _, _, fwd_ops, _ = flash_bound(b, sq, sk, h, kv, hd, causal)
     n_ops = fwd_ops // 4 * 10
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
+    ops_ms = (TF32_PASSES * n_ops / TF32_OPS_PER_S if elem == 4
+              else n_ops / BF16_OPS_PER_S) * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops,
             n_ops / ALU_OPS_PER_S * 1e3)
+
+
+def flash_bwd_cases():
+    """(B, Sq, Sk, H, KV, hd) where phase k holds flash_attention_bwd, in
+    f32 and in bf16: GQA 32/8-like groups and MHA, hd 16 to 128, ragged
+    tiles (Sq = Sk = 100: the ragged key block 64-99 sits on the causal
+    diagonal), the full shape, the model-axis runs' (qwen2-vl-2b's seqpar
+    slabs, Sq 128 under Sk 128 ... 1,024, causal right-aligned; the (2, 2)
+    model positions' of whisper-base, arctic-480b and jamba-v0.1-52b),
+    Whisper's encoder shape (non-causal, 1,500 frames) and a non-causal
+    case with more queries than keys (causal refuses it, F4)."""
+    b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
+    (eb, es, eh, ekv, ehd), _ = WHISPER_FLASH_CASES["encoder"]
+    wb, wsq, wh, wkv, whd, wsk = FLASH_WIDE_CASE
+    qb, qs, qh, qkv, qhd = FLASH_QWEN_VL_SHAPE
+    tb, ts, th, tkv, thd = FLASH_QWEN_VL_TP_SHAPE
+    sb, ss, sh_, skv_, shd_ = FLASH_SEQPAR_SHAPE
+    cases = [(sb, ss, sk, sh_, skv_, shd_) for sk in (128, 640, 1024)]
+    cases += [(shape[0], shape[1], sk, *shape[2:])
+              for shape, sk, _ in WHISPER_TP_CASES.values()]
+    cases += [(b, s, s, h, kv, hd) for b, s, h, kv, hd in
+              FLASH_EP_TP_SHAPES.values()]
+    cases += [(qb, qs, qs, qh, qkv, qhd), (tb, ts, ts, th, tkv, thd),
+              (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
+              (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
+              (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
+              (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_),
+              (eb, es, es, eh, ekv, ehd), (wb, wsq, wsk, wh, wkv, whd)]
+    return cases
 
 
 def phase_backward(torch, W, FA):
@@ -1503,32 +1574,10 @@ def phase_backward(torch, W, FA):
      out["wkv_ops"], out["wkv_cuda_core_ms"]) = wkv_bwd_bound(b, s, h, hs)
     del args, do
 
-    # flash_attention_bwd: GQA 32/8-like groups and MHA, hd 64 and 128,
-    # causal and full, ragged tiles, and the full shape
+    # flash_attention_bwd on flash_bwd_cases()
     b_, s_, h_, kv_, hd_ = FLASH_FULL_SHAPE
-    # (100 keys: the ragged key block 64-99 sits on the causal diagonal)
-    # Whisper's encoder shape (non-causal, 1,500 frames) and a non-causal
-    # case with more queries than keys (causal refuses it, F4)
     (eb, es, eh, ekv, ehd), _ = WHISPER_FLASH_CASES["encoder"]
-    wb, wsq, wh, wkv, whd, wsk = FLASH_WIDE_CASE
-    qb, qs, qh, qkv, qhd = FLASH_QWEN_VL_SHAPE
-    tb, ts, th, tkv, thd = FLASH_QWEN_VL_TP_SHAPE
-    # the model-axis runs': qwen2-vl-2b's seqpar slabs (Sq 128 under Sk
-    # 128 ... 1,024, causal right-aligned), whisper-base's on a model
-    # position of a (2, 2) mesh
-    sb, ss, sh_, skv_, shd_ = FLASH_SEQPAR_SHAPE
-    flash_cases = [(sb, ss, sk, sh_, skv_, shd_) for sk in (128, 640, 1024)]
-    flash_cases += [(shape[0], shape[1], sk, *shape[2:])
-                    for shape, sk, _ in WHISPER_TP_CASES.values()]
-    flash_cases += [(b, s, s, h, kv, hd) for b, s, h, kv, hd in
-                    FLASH_EP_TP_SHAPES.values()]
-    flash_cases += [(qb, qs, qs, qh, qkv, qhd), (tb, ts, ts, th, tkv, thd),
-                   (2, 128, 128, 8, 2, 64), (2, 128, 128, 8, 8, 128),
-                   (2, 100, 100, 4, 1, 64), (1, 70, 130, 4, 4, 128),
-                   (1, 100, 100, 4, 2, 128), (1, 33, 72, 2, 1, 16),
-                   (2, 47, 47, 4, 4, 32), (b_, s_, s_, h_, kv_, hd_),
-                   (eb, es, es, eh, ekv, ehd), (wb, wsq, wsk, wh, wkv, whd)]
-    for b, sq, sk, h, kv, hd in flash_cases:
+    for b, sq, sk, h, kv, hd in flash_bwd_cases():
         q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd, torch.float32)
         do = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
         for causal in (False,) if sq > sk else (True, False):
@@ -1660,6 +1709,343 @@ def _flash_bwd_timed(torch, FA, gen, shape):
     r["bound_ms"], r["bound_by"], *_ = flash_bwd_bound(b, s, s, h, kv, hd,
                                                        True)
     return r
+
+
+def sdpa_grads(torch, q, k, v, do, causal):
+    """Autograd's backward of torch's scaled_dot_product_attention
+    (enable_gqa; the causal mask right-aligned as the kernels', by a
+    boolean mask where Sq < Sk) on the port's layout, in the inputs'
+    dtype: ((dq, dk, dv), a function that runs the backward again)."""
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = None
+    if causal and sq != sk:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def again():
+        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+    return [g.transpose(1, 2) for g in again()], again
+
+
+def device_ms(torch, fn, name=None, n=10):
+    """Device time per call in ms of ``fn`` run ``n`` times under the
+    profiler: the kernels whose name holds ``name``, or every device
+    activity; None where no window caught any (up to three tried)."""
+    def calls():
+        for _ in range(n):
+            fn()
+    for _ in range(3):
+        events, _ = profiled(torch, calls)
+        us = [t for ev, t in events if name is None or name in ev]
+        if us:
+            return sum(us) / n / 1e3
+    return None
+
+
+def phase_backward_bf16(torch, FA):
+    """flash_attention_bwd's bf16 form at every shape of
+    flash_bwd_cases(), causal and not (non-causal only where Sq > Sk):
+    each gradient bf16, finite, within FLASH_TOLS["bfloat16"] of its
+    largest magnitude from attention_backward_plain in f64 on the same
+    bf16 inputs, and no farther from it than BF16_WITNESS times
+    autograd's backward of SDPA (enable_gqa) in bf16 on those inputs; a
+    second call the same bits.  Then timed (profiler) at phase k's timed
+    shapes beside SDPA's bf16 backward (its device time) and the plain
+    version: the full shape (its two kernels each), Whisper's encoder,
+    arctic-480b's and jamba-v0.1-52b's (2, 2) model-position shapes.
+    SDPA is timed by CUDA events, as phase k times it in f32, and its
+    device time by the profiler beside: inside the smoke's long process
+    the profiler's sum of its device activities has read below the
+    shape's bound (PERF.md §6)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_plain)
+    gen = torch.Generator(device="cuda").manual_seed(20261031)
+    out = {"cases": 0, "err": 0.0, "worst": 0.0, "lib_worst": 0.0,
+           "ratio": 0.0, "bad": []}
+    tol = FLASH_TOLS["bfloat16"]
+    for b, sq, sk, h, kv, hd in flash_bwd_cases():
+        q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd,
+                             torch.bfloat16)
+        do = torch.randn((b, sq, h, hd), generator=gen,
+                         device="cuda").bfloat16()
+        for causal in (False,) if sq > sk else (True, False):
+            o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
+            got, again = (FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal)
+                          for _ in range(2))
+            want = attention_backward_plain(q.double(), k.double(),
+                                            v.double(), do.double(),
+                                            causal=causal)
+            lib, _ = sdpa_grads(torch, q, k, v, do, causal)
+            torch.cuda.synchronize()
+            fine = all(g.dtype == torch.bfloat16
+                       and bool(torch.isfinite(g).all()) for g in got)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            e, w = grad_err(torch, got, want)
+            lw = grad_err(torch, lib, want)[1]
+            out["err"], out["worst"] = max(out["err"], e), max(out["worst"],
+                                                               w)
+            out["lib_worst"] = max(out["lib_worst"], lw)
+            out["ratio"] = max(out["ratio"], w / max(lw, 1e-30))
+            out["cases"] += 1
+            if not (fine and same and w <= tol and w <= BF16_WITNESS * lw):
+                out["bad"].append({"shape": (b, sq, sk, h, kv, hd),
+                                   "causal": causal, "finite_bf16": fine,
+                                   "same_bits": same, "worst": w,
+                                   "sdpa_worst": lw})
+            del got, again, want, lib, o, lse
+        del q, k, v, do
+    timed = {"full": (FLASH_FULL_SHAPE, FLASH_FULL_SHAPE[1], True),
+             "whisper encoder": (WHISPER_FLASH_CASES["encoder"][0],
+                                 WHISPER_FLASH_CASES["encoder"][1], False)}
+    timed.update({f"{arch} (2, 2)": (shape, shape[1], True)
+                  for arch, shape in FLASH_EP_TP_SHAPES.items()})
+    out["timed"] = {}
+    for name, (shape, sk, causal) in timed.items():
+        b, sq, h, kv, hd = shape
+        q, k, v = flash_case(torch, gen, b, sq, sk, h, kv, hd,
+                             torch.bfloat16)
+        do = torch.randn((b, sq, h, hd), generator=gen,
+                         device="cuda").bfloat16()
+        o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
+
+        def call():
+            FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        lib = sdpa_grads(torch, q, k, v, do, causal)[1]
+        r = {"shape": list(shape), "sk": sk, "causal": causal,
+             "ms": device_ms(torch, call, "flash_bwd"),
+             "wrapper_ms": time_per_call(torch, call, 10),
+             "library_ms": time_per_call(torch, lib, 10),
+             "library_profiler_ms": device_ms(torch, lib),
+             "plain_ms": time_per_call(torch, lambda: attention_backward_plain(
+                 q, k, v, do, causal=causal), 3)}
+        # where no profiler window caught a launch: CUDA events per call
+        r["timed"] = r["ms"] is not None
+        if r["ms"] is None:
+            r["ms"] = r["wrapper_ms"]
+        if name == "full":
+            r["parts_ms"] = {part: device_ms(torch, call, part)
+                             for part in ("flash_bwd_dq", "flash_bwd_dkdv")}
+        (r["bound_ms"], r["bound_by"], r["bytes"], r["ops"],
+         _) = flash_bwd_bound(b, sq, sk, h, kv, hd, causal, elem=2)
+        out["timed"][name] = r
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def launch_dtypes(FA, tally):
+    """Tally every K3' and flash_attention_bwd launch while the block runs
+    by the dtype it hands the kernel (tally[kind, dtype], kind "fwd" or
+    "bwd", dtype "f32" or "bf16"), by wrapping the launchers' C
+    functions."""
+    real = {"fwd": FA._launcher, "bwd": FA._bwd_launcher}
+    at = {"fwd": 12, "bwd": 17}          # the dtype argument's position
+
+    def spy(kind):
+        fn, info = real[kind]()
+
+        def launch(*args):
+            tally[kind, "bf16" if args[at[kind]] else "f32"] += 1
+            return fn(*args)
+        return launch, info
+    FA._launcher = lambda: spy("fwd")
+    FA._bwd_launcher = lambda: spy("bwd")
+    try:
+        yield tally
+    finally:
+        FA._launcher, FA._bwd_launcher = real["fwd"], real["bwd"]
+
+
+def cast_batch(batch, dtype):
+    """A batch with its float leaves (embeds, frames) in ``dtype``; as it
+    is for None."""
+    if dtype is None:
+        return batch
+    return {k: x.to(dtype) if x.is_floating_point() else x
+            for k, x in batch.items()}
+
+
+def step_grads(torch, FA, state, batch, cfg, ctx=None, attention=None):
+    """(loss, grad_norm, {name: whole gradient on the mesh's first device
+    or the model's}) of a train state on ``batch`` under deterministic
+    kernels: what a train step reads before its update (on a mesh its
+    gradient blocks put together); the attention layers' flash_attention
+    rebound to ``attention`` if given, as phase h swaps it."""
+    from repro_torch.models.layers import attention as attn_layers
+    from repro_torch.parallelism import sharding
+    from repro_torch.parallelism.ctx import NULL_CTX
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import global_norm
+    if attention is not None:
+        attn_layers.flash_attention = attention
+    try:
+        with TS.deterministic(batch["labels"].device):
+            metrics, grads = TS._step_grads(state, batch, cfg,
+                                            ctx or NULL_CTX)
+    finally:
+        attn_layers.flash_attention = FA.flash_attention
+    if ctx is not None:
+        home = ctx.mesh.devices.flat[0]
+        whole = {}
+        for name, blocks in grads.items():
+            g0 = next(iter(blocks.values()))
+            w = torch.empty(state["placed"][name].shape, dtype=g0.dtype,
+                            device=home)
+            for blk, g in blocks.items():
+                w[sharding.index_of(blk)] = g.to(home)
+            whole[name] = w
+        grads = whole
+    return (metrics["loss"].detach().item(), global_norm(grads).item(), grads)
+
+
+def leaf_distances(got, want):
+    """(worst, median) over leaves of max |g - w| / max |w|, as the CPU
+    tests read a gradient (tests/test_torch_bf16_train.py)."""
+    d = [float((got[n].float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30))
+         for n, w in want.items()]
+    return max(d), float(np.median(d))
+
+
+def witnessed(got, ref, truth):
+    """The witness rule: |got - truth| within BF16_WITNESS times |ref -
+    truth|."""
+    return abs(got - truth) <= BF16_WITNESS * abs(ref - truth)
+
+
+def phase_train_bf16(torch, FA):
+    """BF16_TRAIN_ARCH whole in bf16 (parameters and batch; f32 moments)
+    through make_train_step, unsharded, at SHARD_BATCH x SHARD_SEQ.  On
+    the first batch, before any step: the loss, grad_norm and gradients
+    with the same weights in f32 and the kernels in f32 (the truth), in
+    bf16 with attention_plain (the witness) and in bf16 with the kernels,
+    each leaf's distance from the truth (``leaf_distances``).  Then
+    TRAIN_STEPS steps with their walls, metrics, the kernels' launches
+    per step and every launch's dtype."""
+    import collections
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models import factory
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(BF16_TRAIN_ARCH)
+    dev = torch.device("cuda")
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    shape = ShapeSpec("x", SHARD_SEQ, SHARD_BATCH, "train")
+    t0 = time.perf_counter()
+    state = TS.init_train_state(0, cfg, opt_cfg, torch.bfloat16, device=dev)
+    model = state["params"]
+    torch.cuda.synchronize()
+    out = {"cfg": cfg, "init_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "dtypes": sorted({str(p.dtype).replace("torch.", "")
+                             for p in model.parameters()}),
+           "moments": sorted({str(m.dtype).replace("torch.", "")
+                              for m in state["opt"]["m"].values()})}
+    batch = cast_batch(to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED,
+                                               0), dev), torch.bfloat16)
+    f32 = {"params": factory.from_state_dict(cfg, {
+        n: t.detach().float() for n, t in model.state_dict().items()
+    }).requires_grad_(True)}
+    *out["f32"], truth = step_grads(torch, FA, f32, cast_batch(
+        batch, torch.float32), cfg)
+    del f32
+    for key, attention in (("plain", attention_plain), ("kernels", None)):
+        *out[key], g = step_grads(torch, FA, state, batch, cfg,
+                                  attention=attention)
+        out[key].append(leaf_distances(g, truth))
+        del g
+    del truth, batch
+    torch.cuda.empty_cache()
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+    tally = collections.Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with launch_dtypes(FA, tally):
+        out["rows"] = train_steps(torch, step_fn, state, cfg, shape, dev,
+                                  FA.flash_attention, FA.flash_attention_bwd,
+                                  0, TRAIN_STEPS, dtype=torch.bfloat16)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["tally"] = dict(tally)
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard_bf16(torch, FA):
+    """SHARD_ARCH at SHARD_SEQPAR's mesh, batch, sequence and depth, from
+    the same weights (drawn in bf16, constants jittered) and the first
+    batch: the loss, grad_norm and gradients of the step in f32
+    unsharded (the truth), in bf16 unsharded (the witness) and in bf16 on
+    the mesh (seqpar_attention in every layer: K3' and its backward on
+    each slab), each leaf's distance from the truth; then one step of
+    each bf16 run with its metrics, the kernels' launches and every
+    launch's dtype."""
+    import collections
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import make_batch_np, to_device
+    from repro_torch.launch.mesh import make_ctx, make_train_mesh
+    from repro_torch.models import factory
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    mesh, batch, seq, layers = SHARD_SEQPAR
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), n_layers=layers)
+    dev = torch.device("cuda:0")
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    shape = ShapeSpec("z", seq, batch, "train")
+    model = factory.init_params(0, cfg, torch.bfloat16, device=dev)
+    jitter_constants(torch, model, 1)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    del model
+    first = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED, 0), dev)
+    ctx = make_ctx(make_train_mesh(mesh, devices=[dev] * int(np.prod(mesh))))
+    out = {"cfg": cfg, "mesh": mesh, "batch": batch, "seq": seq,
+           "calls": kernel_calls(cfg, mesh, seq),
+           "calls_unsharded": kernel_calls(cfg, None, seq), "runs": {}}
+    truth = None
+    for name, dtype, c in (("f32", torch.float32, None),
+                           ("unsharded", torch.bfloat16, None),
+                           ("sharded", torch.bfloat16, ctx)):
+        kw = {} if c is None else {"ctx": c}
+        m = factory.from_state_dict(cfg, {n: t.to(dtype, copy=True)
+                                          for n, t in init.items()})
+        state = TS.init_train_state(m, cfg, opt_cfg, **kw)
+        loss, norm, g = step_grads(torch, FA, state,
+                                   cast_batch(first, dtype), cfg, c)
+        run = {"first": (loss, norm)}
+        if truth is None:
+            truth = g
+        else:
+            run["leaves"] = leaf_distances(g, truth)
+        del g
+        if dtype == torch.bfloat16:
+            step_fn = TS.make_train_step(cfg, opt_cfg, **kw)
+            tally = collections.Counter()
+            with launch_dtypes(FA, tally):
+                row, = train_steps(torch, step_fn, state, cfg, shape, dev,
+                                   FA.flash_attention,
+                                   FA.flash_attention_bwd, 0, 1, dtype=dtype)
+            run.update(row, tally=dict(tally))
+            del step_fn
+        out["runs"][name] = run
+        del m, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def digest(torch, t, chunk=1 << 26):
@@ -1831,15 +2217,17 @@ def sync_cards(torch):
 
 
 def train_steps(torch, step_fn, state, cfg, shape, dev, fwd, bwd, start,
-                n):
+                n, dtype=None):
     """Steps start .. start + n - 1 of ``step_fn`` on the seeded batches of
-    ``shape`` on ``dev``: per step its wall, the launches of the kernel
-    wrappers ``fwd`` and ``bwd`` (each count set to 0 just before the
-    step) and its metrics."""
+    ``shape`` on ``dev`` (their float leaves cast to ``dtype`` if given):
+    per step its wall, the launches of the kernel wrappers ``fwd`` and
+    ``bwd`` (each count set to 0 just before the step) and its
+    metrics."""
     from repro_torch.data.pipeline import make_batch_np, to_device
     rows = []
     for step in range(start, start + n):
-        b = to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED, step), dev)
+        b = cast_batch(to_device(make_batch_np(cfg, shape, TRAIN_DATA_SEED,
+                                               step), dev), dtype)
         sync_cards(torch)
         fwd.launches = bwd.launches = 0              # counts: just before
         t = time.perf_counter()
@@ -4447,108 +4835,115 @@ def phase_cost(torch, FA, W):
                 "wkv6": W.wkv6, "wkv6_bwd": W.wkv6_bwd}
     dev, host = torch.device("cuda:0"), torch.device("cpu", 0)
     out = []
-    for arch in COST_ARCHS:
+    cases = [(arch, kind, torch.float32, ((), COST_MESH))
+             for arch in COST_ARCHS for kind in ("train", "prefill")]
+    cases.append((*COST_BF16, torch.bfloat16, ((),)))
+    for arch, kind, dtype, meshes in cases:
         cfg = dataclasses.replace(get_config(arch), n_layers=COST_LAYERS)
         opt_cfg = dryrun._opt_config(cfg)
-        for kind in ("train", "prefill"):
-            shape = ShapeSpec("u", COST_SEQ, COST_BATCH, kind)
-            row = {"arch": arch, "kind": kind, "layers": COST_LAYERS}
-            for mesh in ((), COST_MESH):
+        shape = ShapeSpec("u", COST_SEQ, COST_BATCH, kind)
+        row = {"arch": arch, "kind": kind, "layers": COST_LAYERS,
+               "dtype": str(dtype).replace("torch.", "")}
+        for mesh in meshes:
+            t = time.perf_counter()
+            fn, args, _ = dryrun.build_lowerable(
+                arch, "u", multi_pod=False, cfg=cfg, shape=shape,
+                mesh_shape=mesh, dtype=dtype)
+            _, fake = hlo_costs.analyze(fn, *args)
+            fake_s = time.perf_counter() - t
+            del fn, args
+            ctx = (make_ctx(make_train_mesh(mesh, device=dev)) if mesh
+                   else None)
+            kw = {} if ctx is None else {"ctx": ctx}
+            batch = dryrun._batch(cfg, COST_BATCH, COST_SEQ, dtype, dev)
+            if kind == "train":
+                state = TS.init_train_state(0, cfg, opt_cfg, dtype,
+                                            device=dev, **kw)
+                fn = TS.make_train_step(cfg, opt_cfg, **kw)
+                args = (state, batch)
+            else:
+                model = (factory.init_placed(0, cfg, ctx) if mesh else
+                         factory.init_params(0, cfg, dtype, device=dev))
+                fn = partial(factory.prefill, cfg=cfg, max_len=COST_SEQ,
+                             **kw)
+                args = (model, batch)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            for w in wrappers.values():
+                w.launches = 0                     # counts: just before
+            _, live = hlo_costs.analyze(fn, *args)
+            torch.cuda.synchronize()
+            alloc_peak = torch.cuda.max_memory_allocated(dev) - base
+            launches = {n: w.launches for n, w in wrappers.items()
+                        if w.launches}
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
                 t = time.perf_counter()
-                fn, args, _ = dryrun.build_lowerable(
-                    arch, "u", multi_pod=False, cfg=cfg, shape=shape,
-                    mesh_shape=mesh)
-                _, fake = hlo_costs.analyze(fn, *args)
-                fake_s = time.perf_counter() - t
-                del fn, args
-                ctx = (make_ctx(make_train_mesh(mesh, device=dev)) if mesh
-                       else None)
-                kw = {} if ctx is None else {"ctx": ctx}
-                batch = dryrun._batch(cfg, COST_BATCH, COST_SEQ,
-                                      torch.float32, dev)
-                if kind == "train":
-                    state = TS.init_train_state(0, cfg, opt_cfg, device=dev,
-                                                **kw)
-                    fn = TS.make_train_step(cfg, opt_cfg, **kw)
-                    args = (state, batch)
-                else:
-                    model = (factory.init_placed(0, cfg, ctx) if mesh else
-                             factory.init_params(0, cfg, device=dev))
-                    fn = partial(factory.prefill, cfg=cfg, max_len=COST_SEQ,
-                                 **kw)
-                    args = (model, batch)
-                gc.collect()
+                fn(*args)
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-                base = torch.cuda.memory_allocated(dev)
-                for w in wrappers.values():
-                    w.launches = 0                     # counts: just before
-                _, live = hlo_costs.analyze(fn, *args)
-                torch.cuda.synchronize()
-                alloc_peak = torch.cuda.max_memory_allocated(dev) - base
-                launches = {n: w.launches for n, w in wrappers.items()
-                            if w.launches}
-                walls = []
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    fn(*args)
-                    torch.cuda.synchronize()
-                    walls.append(time.perf_counter() - t)
-                del fn, args
-                gc.collect()
-                torch.cuda.empty_cache()
-                calls = {k: v["calls"] for k, v in live.kernels.items()}
-                check(calls == launches and launches,
-                      f"phase u {arch} {kind} {mesh or 'unsharded'}: the "
-                      f"pass counted {calls}, the wrappers launched "
-                      f"{launches}")
-                if not mesh:
-                    got, want = _cost_counts(live, dev), _cost_counts(
-                        fake, host)
-                    check(got == want, f"phase u {arch} {kind}: live "
-                          f"{got} against fake {want}")
-                    terms = hlo_analysis.roofline_terms(
-                        got["flops"], got["bytes"], 0.0, 1,
-                        cfg.model_flops(shape))
-                    row.update(
-                        fake_s=fake_s, flops=got["flops"],
-                        bytes=got["bytes"], kernels=got["kernels"],
-                        launches=launches, predicted_peak=want["step_peak"],
-                        alloc_peak=alloc_peak,
-                        step_s=float(np.median(walls)),
-                        step_bound_s=terms["step_bound_s"],
-                        dominant=terms["dominant"])
-                    check(abs(alloc_peak - want["step_peak"])
-                          <= COST_PEAK_REL * want["step_peak"]
-                          + COST_PEAK_ABS,
-                          f"phase u {arch} {kind}: predicted peak "
-                          f"{want['step_peak']} B, the allocator's "
-                          f"{alloc_peak} B")
-                else:
-                    total = {k: sum(c.flops for d, c in p.costs.items()
-                                    if d.index is not None)
-                             for k, p in (("live", live), ("fake", fake))}
-                    kern = {k: {n: (v["calls"], v["flops"])
-                                for n, v in p.kernels.items()}
-                            for k, p in (("live", live), ("fake", fake))}
-                    check(total["live"] == total["fake"]
-                          and kern["live"] == kern["fake"],
-                          f"phase u {arch} {kind} {mesh}: live {total['live']}"
-                          f" {kern['live']} against fake {total['fake']} "
-                          f"{kern['fake']}")
-                    row.update(mesh_flops=total["live"],
-                               mesh_launches=launches, mesh_fake_s=fake_s,
-                               mesh_devices=len([d for d in fake.costs
-                                                 if d.index is not None]))
-            out.append(row)
+                walls.append(time.perf_counter() - t)
+            del fn, args
+            gc.collect()
+            torch.cuda.empty_cache()
+            calls = {k: v["calls"] for k, v in live.kernels.items()}
+            check(calls == launches and launches,
+                  f"phase u {arch} {kind} {mesh or 'unsharded'}: the "
+                  f"pass counted {calls}, the wrappers launched "
+                  f"{launches}")
+            if not mesh:
+                got, want = _cost_counts(live, dev), _cost_counts(
+                    fake, host)
+                check(got == want, f"phase u {arch} {kind}: live "
+                      f"{got} against fake {want}")
+                terms = hlo_analysis.roofline_terms(
+                    got["flops"], got["bytes"], 0.0, 1,
+                    cfg.model_flops(shape), dtype=dtype)
+                row.update(
+                    fake_s=fake_s, flops=got["flops"],
+                    bytes=got["bytes"], kernels=got["kernels"],
+                    launches=launches, predicted_peak=want["step_peak"],
+                    alloc_peak=alloc_peak,
+                    step_s=float(np.median(walls)),
+                    step_bound_s=terms["step_bound_s"],
+                    dominant=terms["dominant"])
+                check(abs(alloc_peak - want["step_peak"])
+                      <= COST_PEAK_REL * want["step_peak"]
+                      + COST_PEAK_ABS,
+                      f"phase u {arch} {kind}: predicted peak "
+                      f"{want['step_peak']} B, the allocator's "
+                      f"{alloc_peak} B")
+            else:
+                total = {k: sum(c.flops for d, c in p.costs.items()
+                                if d.index is not None)
+                         for k, p in (("live", live), ("fake", fake))}
+                kern = {k: {n: (v["calls"], v["flops"])
+                            for n, v in p.kernels.items()}
+                        for k, p in (("live", live), ("fake", fake))}
+                check(total["live"] == total["fake"]
+                      and kern["live"] == kern["fake"],
+                      f"phase u {arch} {kind} {mesh}: live {total['live']}"
+                      f" {kern['live']} against fake {total['fake']} "
+                      f"{kern['fake']}")
+                row.update(mesh_flops=total["live"],
+                           mesh_launches=launches, mesh_fake_s=fake_s,
+                           mesh_devices=len([d for d in fake.costs
+                                             if d.index is not None]))
+        out.append(row)
     return out
 
 
 def report_cost(rows, card):
     for r in rows:
+        mesh = ("" if "mesh_flops" not in r else
+                f"; {COST_MESH} fake over {r['mesh_devices']} devices == "
+                f"the card repeated: {r['mesh_flops']:.6e} FLOPs, launches "
+                f"{r['mesh_launches']} (fake pass {r['mesh_fake_s']:.2f} s)")
         print(f"[u cost pass] {r['arch']} at {r['layers']} layers, "
-              f"{r['kind']} {COST_BATCH} x {COST_SEQ} ({card}): fake == live"
+              f"{r['kind']} {COST_BATCH} x {COST_SEQ} in {r['dtype']} "
+              f"({card}): fake == live"
               f" on the card, {r['flops']:.6e} FLOPs, {r['bytes']:.6e} B, "
               f"kernels {r['kernels']} (launches {r['launches']}); peak "
               f"over the arguments predicted {r['predicted_peak']} B, "
@@ -4557,11 +4952,7 @@ def report_cost(rows, card):
               f"step {r['step_s'] * 1e3:.3f} ms against step_bound_s "
               f"{r['step_bound_s'] * 1e3:.3f} ms ({r['dominant']}; share "
               f"{r['step_bound_s'] / r['step_s']:.4f}); fake pass "
-              f"{r['fake_s']:.2f} s on the host; {COST_MESH} fake over "
-              f"{r['mesh_devices']} devices == the card repeated: "
-              f"{r['mesh_flops']:.6e} FLOPs, launches "
-              f"{r['mesh_launches']} (fake pass {r['mesh_fake_s']:.2f} s)",
-              flush=True)
+              f"{r['fake_s']:.2f} s on the host{mesh}", flush=True)
 
 
 def main():
@@ -5521,7 +5912,7 @@ def main():
     for name, inf in bwd_info.items():
         bwd_regs[name] = regs = ptxas_spills(
             inf["log"], r"(wkv6_bwd_kernel|flash_bwd_dq|flash_bwd_dkdv)"
-                        r"ILi(\d+)E")
+                        r"I(f|13__nv_bfloat16)?Li(\d+)E")
         print(f"[k build] {name} built in {inf['seconds']:.2f} s beside the "
               f"others (loaded {bwd_build_s:.2f} s after the start); ptxas "
               "(kernel/head size: registers, spill stores/loads in bytes): "
@@ -5607,6 +5998,45 @@ def main():
           and fe["same_bits"]
           and all(c["same_bits"] for c in kr_["ep_tp"].values()),
           "a backward kernel gave other bits on a second call")
+    t_kb = time.perf_counter()
+    kb = phase_backward_bf16(torch, FA)
+    print(f"[k backward bf16] flash_attention_bwd in bf16 (mma.sync "
+          f"m16n8k16 on bf16 operands, one pass) against "
+          f"attention_backward_plain in f64 on the same bf16 inputs, on the "
+          f"f32 form's {kb['cases']} cases: max abs err {kb['err']:.3e}, "
+          f"worst {kb['worst']:.3e} of each gradient's largest magnitude "
+          f"(limit {FLASH_TOLS['bfloat16']}); autograd's backward of SDPA "
+          f"(enable_gqa) in bf16 on the same inputs: worst "
+          f"{kb['lib_worst']:.3e}; the kernels' distance over SDPA's, "
+          f"worst case {kb['ratio']:.3f} (limit {BF16_WITNESS}); every "
+          f"gradient bf16 and finite, two calls the same bits: "
+          f"{not kb['bad']}; {time.perf_counter() - t_kb:.1f} s",
+          flush=True)
+    f32_ms = {"full": kr_["flash_ms"], "whisper encoder": fe["ms"],
+              **{f"{a} (2, 2)": c["ms"] for a, c in kr_["ep_tp"].items()}}
+    for name, r in kb["timed"].items():
+        parts = ("" if "parts_ms" not in r else " (" + ", ".join(
+            f"{n} {'-' if t is None else f'{t * 1e3:.2f}'} us"
+            for n, t in r["parts_ms"].items()) + ")")
+        print(f"[k backward bf16] at {name} {tuple(r['shape'])} over "
+              f"{r['sk']} keys, {'causal' if r['causal'] else 'non-causal'}"
+              f" ({card}): bf16 kernels "
+              + f"{r['ms'] * 1e3:.2f} us/call on the device "
+              + ("(profiler" if r["timed"] else "(not profiled: events")
+              + f"){parts}, wrapper "
+              f"{r['wrapper_ms'] * 1e3:.2f} us/call; f32 kernels "
+              f"{f32_ms[name] * 1e3:.2f} us; autograd's backward of SDPA "
+              f"(enable_gqa) in bf16 {r['library_ms'] * 1e3:.2f} us/call "
+              f"(events; device time by the profiler "
+              + ("-" if r["library_profiler_ms"] is None
+                 else f"{r['library_profiler_ms'] * 1e3:.2f}")
+              + " us); plain (f32 arithmetic)"
+              f" {r['plain_ms'] * 1e3:.2f} us/call; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {r['ops']} "
+              f"ops at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {r['bytes']} B)",
+              flush=True)
+    check(not kb["bad"], f"flash_attention_bwd in bf16 failed at "
+          f"{kb['bad'][:4]}")
 
     marks.append(("x", time.perf_counter()))
     # x. training at full width through make_train_step, then the launcher
@@ -5734,6 +6164,55 @@ def main():
     check(not second["differ"], f"{RWKV_ARCH}: launch/train.py's 4 + "
           f"resume + 2 differs from its 6 straight in "
           f"{second['differ'][:5]}")
+    # bf16: qwen2-vl-2b whole, unsharded
+    t_xb = time.perf_counter()
+    xb = phase_train_bf16(torch, FA)
+    c = xb["cfg"]
+    x_walls = [r["wall"] for r in xb["rows"]]
+    x_step_s = float(np.median(x_walls[1:]))
+    (lk, nk, gk), (lp, np_, gp), (lt, nt) = (xb["kernels"], xb["plain"],
+                                             xb["f32"])
+    print(f"[x train bf16] {c.name} whole ({c.n_layers} layers, d_model "
+          f"{c.d_model}; {xb['n_params']} parameters in {xb['dtypes']}, "
+          f"moments {xb['moments']}, init {xb['init_s']:.2f} s), batch "
+          f"{SHARD_BATCH} x seq {SHARD_SEQ}, unsharded, AdamW {TRAIN_OPT}, "
+          f"deterministic kernels, on {card}: step {x_step_s:.3f} s (median "
+          f"of steps 1-{TRAIN_STEPS - 1}: "
+          f"{', '.join(f'{x:.3f}' for x in x_walls[1:])}; step 0 "
+          f"{x_walls[0]:.3f} s) = {SHARD_BATCH * SHARD_SEQ / x_step_s:.1f} "
+          f"tokens/s, beside the same model in f32 unsharded at 8 x 512, "
+          f"{BF16_TRAIN_F32_STEP_S} s a step (PERF.md §5); peak device "
+          f"memory {xb['peak'] / 2**30:.3f} GiB; per step flash_attention "
+          f"launches {[r['fwd'] for r in xb['rows']]}, backward calls "
+          f"{[r['bwd'] for r in xb['rows']]}, launches by dtype "
+          f"{xb['tally']}; loss {[round(r['loss'], 5) for r in xb['rows']]}"
+          f", ce {[round(r['ce'], 5) for r in xb['rows']]}, grad_norm "
+          f"{[round(r['grad_norm'], 5) for r in xb['rows']]}; the first "
+          f"batch before any step, loss / grad_norm: kernels {lk:.6f} / "
+          f"{nk:.6f}, attention_plain in bf16 (the witness) {lp:.6f} / "
+          f"{np_:.6f}, the same weights in f32 (the truth) {lt:.6f} / "
+          f"{nt:.6f}: distances {abs(lk - lt):.3e} / {abs(nk - nt):.3e}, "
+          f"the witness's {abs(lp - lt):.3e} / {abs(np_ - nt):.3e}; "
+          f"gradients' worst / median leaf from the truth: kernels "
+          f"{gk[0]:.4e} / {gk[1]:.4e}, the witness {gp[0]:.4e} / "
+          f"{gp[1]:.4e} (loss and leaves limit {BF16_WITNESS}x the "
+          f"witness's); {time.perf_counter() - t_xb:.1f} s", flush=True)
+    x_calls = flash_calls(c)
+    for r in xb["rows"]:
+        check(all(np.isfinite(r[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{c.name} bf16 step {r['step']}: a metric not finite")
+        check(r["fwd"] == 2 * x_calls and r["bwd"] == x_calls,
+              f"{c.name} bf16 step {r['step']}: {r['fwd']} forward "
+              f"launches and {r['bwd']} backward calls; {x_calls} a forward")
+    x_n = len(xb["rows"])
+    check(xb["dtypes"] == ["bfloat16"] and xb["tally"] == {
+        ("fwd", "bf16"): 2 * x_calls * x_n, ("bwd", "bf16"): x_calls * x_n},
+        f"{c.name} bf16: launches by dtype {xb['tally']}")
+    check(witnessed(lk, lp, lt) and gk[0] <= BF16_WITNESS * gp[0]
+          and gk[1] <= BF16_WITNESS * gp[1],
+          f"{c.name} bf16: the kernels' first loss {lk} and worst / median "
+          f"leaf {gk} against the f32 truth ({lt}), beyond {BF16_WITNESS}x "
+          f"the witness's {lp} / {gp}")
 
     marks.append(("y", time.perf_counter()))
     # y. the reduced MoE models, jamba and whisper-base trained on the
@@ -5864,6 +6343,38 @@ def main():
     zm = phase_shard_train(torch, FA, arch=m_arch, n_layers=m_layers,
                            batch=m_batch, meshes=m_meshes, keep="cpu")
     report_shard_train(zm, card, "cuda:0")
+    # bf16: one sharded step on SHARD_SEQPAR's mesh through seqpar_attention
+    zb = phase_shard_bf16(torch, FA)
+    c, z_runs = zb["cfg"], zb["runs"]
+    z_sh, z_un, z_tr = z_runs["sharded"], z_runs["unsharded"], z_runs["f32"]
+    print(f"[z shard train bf16] {c.name} at {c.n_layers} layers, "
+          f"{zb['batch']} x {zb['seq']} tokens, from the same weights and "
+          f"batch ({card}): the f32 step unsharded (the truth) loss / "
+          f"grad_norm {z_tr['first'][0]:.6f} / {z_tr['first'][1]:.6f}; "
+          + "; ".join(
+              f"bf16 {name} {r['first'][0]:.6f} / {r['first'][1]:.6f}, "
+              f"gradients' worst / median leaf from the truth "
+              f"{r['leaves'][0]:.4e} / {r['leaves'][1]:.4e}; its step: "
+              f"wall {r['wall']:.3f} s, loss {r['loss']:.6f}, grad_norm "
+              f"{r['grad_norm']:.6f}, flash_attention launches {r['fwd']}, "
+              f"backward calls {r['bwd']}, by dtype {r['tally']}"
+              for name, r in (("on " + str(zb["mesh"]) + " (seqpar_attention"
+                               " in every layer)", z_sh), ("unsharded", z_un)))
+          + f"; the mesh's leaves limit {BF16_WITNESS}x the unsharded's",
+          flush=True)
+    for name, r, want in (("sharded", z_sh, zb["calls"]),
+                          ("unsharded", z_un, zb["calls_unsharded"])):
+        check(all(np.isfinite(r[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{c.name} bf16 {name} step: a metric not finite")
+        check(r["fwd"] == 2 * want and r["bwd"] == want and r["tally"] == {
+            ("fwd", "bf16"): 2 * want, ("bwd", "bf16"): want},
+            f"{c.name} bf16 {name} step: launches {r['fwd']} / {r['bwd']} "
+            f"by dtype {r['tally']}; {want} a forward")
+    check(z_sh["leaves"][0] <= BF16_WITNESS * z_un["leaves"][0]
+          and z_sh["leaves"][1] <= BF16_WITNESS * z_un["leaves"][1],
+          f"{c.name} bf16 on {zb['mesh']}: gradients' worst / median leaf "
+          f"{z_sh['leaves']} from the f32 truth, beyond {BF16_WITNESS}x the "
+          f"unsharded bf16 step's {z_un['leaves']}")
     print(f"[z shard train] phase z {time.perf_counter() - t_z:.1f} s",
           flush=True)
 
@@ -5894,9 +6405,9 @@ def main():
     def cost_launches(name):
         """A kernel's launches in phase u's live passes: [unsharded, on
         COST_MESH] by arch and step."""
-        return {f"{r['arch']} {r['kind']}": [r["launches"][name],
-                                            r["mesh_launches"][name]]
-                for r in ur if name in r["launches"]}
+        return {f"{r['arch']} {r['kind']} {r['dtype']}": [
+            r["launches"][name], r.get("mesh_launches", {}).get(name)]
+            for r in ur if name in r["launches"]}
 
     def shard_launches(key, *runs):
         """A kernel's launches (``key`` "fwd") or backward calls ("bwd")
@@ -5983,6 +6494,13 @@ def main():
         # the training path's (phase x, minitron-8b's widths at 2 layers):
         # the forward and the recompute of every step
         "train_launches": sum(r["fwd"] for r in train[DENSE_ARCH]["rows"]),
+        # in bf16: phase x's bf16 steps of qwen2-vl-2b whole, phase z's
+        # bf16 sharded step (every launch bf16)
+        "bf16_train_launches": {
+            f"{BF16_TRAIN_ARCH} unsharded, {len(xb['rows'])} steps": sum(
+                r["fwd"] for r in xb["rows"]),
+            f"{zb['cfg'].name} {zb['mesh']}, 1 step":
+                zb["runs"]["sharded"]["fwd"]},
         # the MoE path's (phase o): one generate of each model
         "moe_launches": {arch: r["launches"] for arch, r in moe.items()},
         # at arctic-480b's shape (phase f)
@@ -6067,6 +6585,13 @@ def main():
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:65",
         "launches": sum(r["bwd"] for r in train[DENSE_ARCH]["rows"]),
+        # the bf16 form's: phase x's bf16 steps (every launch bf16) and
+        # phase z's bf16 sharded step
+        "bf16_launches": {
+            f"{BF16_TRAIN_ARCH} unsharded, {len(xb['rows'])} steps": sum(
+                r["bwd"] for r in xb["rows"]),
+            f"{zb['cfg'].name} {zb['mesh']}, 1 step":
+                zb["runs"]["sharded"]["bwd"]},
         "whisper_train_launches": sum(
             r["bwd"] for r in train[WHISPER_ARCH]["rows"]),
         # the sharded training path's (phase z)
@@ -6087,6 +6612,17 @@ def main():
         "wrapper_ms": kr_["flash_wrapper_ms"],
         "cuda_core_bound_ms": kr_["flash_cuda_core_ms"],
         "shape": list(FLASH_FULL_SHAPE),
+        # the bf16 form (phase k): against f64 and SDPA's bf16 backward on
+        # its cases, and timed at the full shape and phase k's timed shapes
+        "bf16": {"max_abs_err": kb["err"], "worst": kb["worst"],
+                 "sdpa_worst": kb["lib_worst"], "ratio": kb["ratio"],
+                 "cases": kb["cases"],
+                 **{k: kb["timed"]["full"][k] for k in (
+                     "ms", "parts_ms", "wrapper_ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")},
+                 "timed": {n: {k: r[k] for k in (
+                     "shape", "sk", "ms", "library_ms", "bound_ms",
+                     "bound_by")} for n, r in kb["timed"].items()}},
     }]}))
     # 7. the result
     print(json.dumps({"ok": True, "device": {

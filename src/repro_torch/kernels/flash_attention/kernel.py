@@ -14,8 +14,9 @@ is asked for on CUDA, ``flash_attention`` goes through
 ``FlashAttentionFunction``: its forward is the same kernel, which also
 writes the rows' log-sum-exp, and its backward the port's own kernels
 (``csrc/flash_attention_bwd.cu``, wrapped by ``flash_attention_bwd``;
-plain version ``ref.attention_backward_plain``), f32 only: the TPU
-package has no backward kernel and trains through plain attention.
+plain version ``ref.attention_backward_plain``), f32 or bf16 like the
+forward: the TPU package has no backward kernel and trains through plain
+attention.
 Causal Sq > Sk raises ValueError on both devices (ROADMAP §3, F4);
 non-causal Sq > Sk is taken (the kernels' full path reads no Sk - Sq
 offset).
@@ -27,9 +28,9 @@ offset).
 Each launch reports its work to the running cost passes
 (``repro_torch.kernels.costs``) by ``flash_cost`` / ``flash_bwd_cost``.
 A dry run's fake tensors take the kernels' path wherever they lie: they
-are checked as the card's are (bf16 into the backward still raises),
-their outputs allocated and their work reported, and nothing is built
-or launched.
+are checked as the card's are, their outputs allocated and their work
+reported (bf16 bytes for bf16 tensors), and nothing is built or
+launched.
 """
 from __future__ import annotations
 
@@ -72,13 +73,15 @@ def flash_cost(b, sq, sk, h, kv, hd, causal, itemsize: int = 4,
     return flops, nbytes + (4 * b * h * sq if with_lse else 0)
 
 
-def flash_bwd_cost(b, sq, sk, h, kv, hd, causal) -> tuple:
-    """(flops, bytes) of one backward call (f32): q·k recomputed, do·v,
-    p·do, ds·k and ds·q over the pairs it attends, 10·hd a pair; q, k, v,
-    o, do and the log-sum-exp read once, dq, dk and dv written once (its
-    D rows are scratch)."""
+def flash_bwd_cost(b, sq, sk, h, kv, hd, causal, itemsize: int = 4) -> tuple:
+    """(flops, bytes) of one backward call: q·k recomputed, do·v, p·do,
+    ds·k and ds·q over the pairs it attends, 10·hd a pair; q, k, v, o and
+    do read once and dq, dk and dv written once at ``itemsize`` bytes an
+    element, and the log-sum-exp (f32) read once (its D rows are
+    scratch)."""
     flops = 10 * hd * b * h * causal_pairs(sq, sk, causal)
-    nbytes = 4 * (hd * (4 * b * sq * h + 4 * b * sk * kv) + b * h * sq)
+    nbytes = (itemsize * hd * (4 * b * sq * h + 4 * b * sk * kv)
+              + 4 * b * h * sq)
     return flops, nbytes
 
 
@@ -133,7 +136,7 @@ def _launcher():
 def _bwd_launcher():
     lib, info = build_library(BWD_SOURCE, "flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, info
@@ -183,16 +186,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """The gradient of ``flash_attention`` on CUDA tensors, by the backward
     kernels, from the forward's output and row log-sum-exp: (dq (B,Sq,H,hd),
     dk, dv (B,Sk,KV,hd)), dk and dv summed over each KV head's query
-    heads, all f32.  ``do`` is made contiguous here, since autograd hands
-    it over in any layout.  f32 only: bf16 raises TypeError."""
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: q has dtype {q.dtype}; the "
-                        "backward kernels take torch.float32 only")
+    heads.  q, k, v, o and do are all f32 or all bf16, lse (B,H,Sq) is
+    f32, and the gradients come back in the inputs' dtype; any other
+    dtype raises TypeError.  ``do`` is made contiguous here, since
+    autograd hands it over in any layout."""
     b, sq, sk, h, kv, hd = _check_inputs(q, k, v, causal)
     device = q.device
     do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
-        _check(name, x, torch.float32, device)
+        _check(name, x, q.dtype, device)
         if x.shape != q.shape:
             raise ValueError(f"flash_attention_bwd: {name} has shape "
                              f"{tuple(x.shape)}, expected {tuple(q.shape)}")
@@ -212,7 +214,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk,
-                     h, kv, hd, int(causal), hd ** -0.5,
+                     h, kv, hd, int(causal), _DTYPES[q.dtype], hd ** -0.5,
                      torch.cuda.current_stream(device).cuda_stream)
         if err:
             raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
@@ -220,7 +222,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         flash_attention_bwd.launches += 1
     if costs.PASSES:
         costs.report("flash_attention_bwd", device, *flash_bwd_cost(
-            b, sq, sk, h, kv, hd, causal))
+            b, sq, sk, h, kv, hd, causal, q.element_size()))
     return dq, dk, dv
 
 
@@ -252,8 +254,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     Returns (B,Sq,H,hd) in q's dtype.  On CUDA q, k and v are contiguous,
     all f32 or all bf16, and hd is 16, 32, 64 or 128; where grad mode is on
     and an input requires grad the call goes through
-    ``FlashAttentionFunction``, whose backward is a kernel too (f32
-    only)."""
+    ``FlashAttentionFunction``, whose backward is a kernel too, in the
+    same dtype."""
     device = q.device
     if device.type == "cpu" and not costs.is_fake(q):
         return attention_plain(q, k, v, causal=causal)

@@ -22,6 +22,9 @@ CUDA tensor needs the CUDA device guard (a CPU-only build has none, and
 a card's build has one only for the cards it sees).  The kernels' fake
 branch takes a fake tensor wherever it lies (``kernels/costs.py``).
 Nothing is compiled: ``compile_s`` is None and ``lower_s`` is the trace.
+Cells run in bf16 unless ``dtype=`` says otherwise, the reference's
+default: parameters, activations and the kernels' operands (K3' and its
+backward at bf16 bytes), the moments at ``_opt_config``'s dtype.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch codeqwen1.5-7b --shape train_4k
@@ -133,7 +136,7 @@ def _unsharded(cfg, shape, dtype, mode):
 
 
 def build_lowerable(arch: str, shape_name: str, *, multi_pod: bool,
-                    dtype=torch.float32, mesh_shape=None, cfg=None,
+                    dtype=torch.bfloat16, mesh_shape=None, cfg=None,
                     shape=None):
     """Returns (fn, args, meta): ``fn(*args)`` is the cell's step on fake
     tensors, to run under a cost pass.  ``mesh_shape`` replaces the
@@ -239,7 +242,7 @@ def _device_terms(costs: dict, n_chips: int, model_flops: float,
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             verbose: bool = True, dtype=torch.float32, **build) -> dict:
+             verbose: bool = True, dtype=torch.bfloat16, **build) -> dict:
     cfg = build.get("cfg") or get_config(arch)
     shape = build.get("shape") or SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name,
@@ -323,14 +326,15 @@ def save_record(rec: dict, out_dir: str = OUT_DIR):
 
 def cell_record(arch: str, shape_name: str, multi_pod: bool, **kw) -> dict:
     """``run_cell``'s record, or the reference's error record where the
-    cell raised (a kernel's limit, such as bf16 into the backward)."""
+    cell raised (a kernel's limit, such as a head size without a
+    kernel).  bf16 by default, as ``run_cell``."""
     try:
         return run_cell(arch, shape_name, multi_pod=multi_pod, **kw)
     except Exception as e:  # noqa: BLE001
         traceback.print_exc()
         return {"arch": arch, "shape": shape_name,
                 "mesh": "2x16x16" if multi_pod else "16x16",
-                "dtype": str(kw.get("dtype", torch.float32)).replace(
+                "dtype": str(kw.get("dtype", torch.bfloat16)).replace(
                     "torch.", ""),
                 "error": f"{type(e).__name__}: {e}"}
 

@@ -1031,15 +1031,52 @@ def test_wkv6_autograd_on_card(cuda):
 FLASH_BWD_SHAPES = ((2, 64, 64, 4, 1, 16), (2, 100, 100, 4, 2, 32),
                     (1, 70, 130, 4, 4, 64), (1, 128, 128, 8, 2, 128),
                     (2, 1, 9, 2, 2, 64))
+# bf16 gradients: within BF16_GRAD_TOL of each one's largest magnitude from
+# f64 (tests/test_kernels.py's bf16 tolerance), and no farther from it
+# than WITNESS times autograd's backward of SDPA in bf16 on the same inputs
+BF16_GRAD_TOL = 2e-2
+WITNESS = 2
+
+
+def sdpa_grads(q, k, v, do, causal):
+    """Autograd's backward of torch's scaled_dot_product_attention
+    (enable_gqa; the causal mask right-aligned, as the kernels') on the
+    port's layout, in the inputs' dtype: the library's own rounding, the
+    bf16 witness."""
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = None
+    if causal and sq != sk:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    return [g.transpose(1, 2) for g in torch.autograd.grad(
+        o, (qt, kt, vt), do.transpose(1, 2))]
+
+
+def assert_bf16_grads(got, truth, lib):
+    """bf16 gradients, finite, within BF16_GRAD_TOL of f64's and within
+    WITNESS times SDPA's worst distance from it."""
+    for g in got:
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+    ours = max(rel_err(g, t) for g, t in zip(got, truth))
+    theirs = max(rel_err(g, t) for g, t in zip(lib, truth))
+    assert ours <= BF16_GRAD_TOL, ours
+    assert ours <= WITNESS * theirs, (ours, theirs)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
-def test_flash_bwd_matches_plain(cuda, shape, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_plain(cuda, dtype, shape, causal):
     """The backward kernels (from the forward's log-sum-exp) against
-    attention_backward_plain in f64 and autograd of attention_plain."""
-    q, k, v = flash_inputs(sum(shape) + 1, *shape, torch.float32, cuda)
-    do = flash_inputs(sum(shape) + 2, *shape, torch.float32, cuda)[0]
+    attention_backward_plain in f64 and, in f32, autograd of
+    attention_plain; in bf16 against the witness (assert_bf16_grads)."""
+    q, k, v = flash_inputs(sum(shape) + 1, *shape, dtype, cuda)
+    do = flash_inputs(sum(shape) + 2, *shape, dtype, cuda)[0]
     o, lse = FA._flash_kernel(q, k, v, causal, with_lse=True)
     scores, _ = _scores(q, k, causal)
     torch.testing.assert_close(
@@ -1050,6 +1087,11 @@ def test_flash_bwd_matches_plain(cuda, shape, causal):
     assert FA.flash_attention_bwd.launches == before + 1
     truth = FA.attention_backward_plain(q.double(), k.double(), v.double(),
                                         do.double(), causal=causal)
+    if dtype == torch.bfloat16:
+        lib = sdpa_grads(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        assert_bf16_grads(got, truth, lib)
+        return
     ins = [x.clone().requires_grad_() for x in (q, k, v)]
     auto = torch.autograd.grad(attention_plain(*ins, causal=causal), ins, do)
     torch.cuda.synchronize()
@@ -1060,49 +1102,58 @@ def test_flash_bwd_matches_plain(cuda, shape, causal):
 
 
 @pytest.mark.parametrize("hd", [64, 128])
-def test_flash_bwd_ragged_key_block_on_the_diagonal(cuda, hd):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_ragged_key_block_on_the_diagonal(cuda, dtype, hd):
     """Sq = Sk = 100, causal: flash_bwd_dkdv's second key block (keys 64-99,
     ragged at 100) holds the diagonal, so its query tiles see it partly
     masked and its last 28 keys are padding; GQA 4 over 2."""
     shape = (1, 100, 100, 4, 2, hd)
-    q, k, v = flash_inputs(hd + 5, *shape, torch.float32, cuda)
-    do = flash_inputs(hd + 6, *shape, torch.float32, cuda)[0]
+    q, k, v = flash_inputs(hd + 5, *shape, dtype, cuda)
+    do = flash_inputs(hd + 6, *shape, dtype, cuda)[0]
     o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
     got = FA.flash_attention_bwd(q, k, v, o, lse, do)
     truth = FA.attention_backward_plain(q.double(), k.double(), v.double(),
                                         do.double())
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    if dtype == torch.bfloat16:
+        assert_bf16_grads(got, truth, sdpa_grads(q, k, v, do, True))
     torch.cuda.synchronize()
     for g, t in zip(got, truth):
-        assert rel_err(g, t) <= GRAD_TOL
+        assert rel_err(g, t) <= tol
     # the ragged block's own rows of dk and dv
     for g, t in zip(got[1:], truth[1:]):
-        assert rel_err(g[:, 64:], t[:, 64:]) <= GRAD_TOL
+        assert rel_err(g[:, 64:], t[:, 64:]) <= tol
 
 
-def test_bwd_kernels_repeat_bit_for_bit(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
     """Two calls of each backward kernel on the same inputs give the same
     bits: no atomics, every sum in a fixed order (the trainer's restarts
-    rely on it)."""
-    args = wkv_inputs(np.random.default_rng(11), 2, 100, 3, 64, cuda, False,
-                      "random")
-    gen = torch.Generator(device=cuda).manual_seed(11)
-    do = torch.randn((2, 100, 3, 64), generator=gen, device=cuda)
-    ds = torch.randn((2, 3, 64, 64), generator=gen, device=cuda)
-    first, again = (W.wkv6_bwd(*args, do, ds) for _ in range(2))
-    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    rely on it).  wkv6_bwd takes f32 only: the bf16 case holds the
+    attention backward's bf16 form."""
+    if dtype == torch.float32:
+        args = wkv_inputs(np.random.default_rng(11), 2, 100, 3, 64, cuda,
+                          False, "random")
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        do = torch.randn((2, 100, 3, 64), generator=gen, device=cuda)
+        ds = torch.randn((2, 3, 64, 64), generator=gen, device=cuda)
+        first, again = (W.wkv6_bwd(*args, do, ds) for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
     shape = (2, 130, 130, 8, 2, 128)
-    q, k, v = flash_inputs(13, *shape, torch.float32, cuda)
-    do = flash_inputs(14, *shape, torch.float32, cuda)[0]
+    q, k, v = flash_inputs(13, *shape, dtype, cuda)
+    do = flash_inputs(14, *shape, dtype, cuda)[0]
     o, lse = FA._flash_kernel(q, k, v, True, with_lse=True)
     first, again = (FA.flash_attention_bwd(q, k, v, o, lse, do)
                     for _ in range(2))
+    assert all(x.dtype == dtype for x in first)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_flash_autograd_on_card(cuda):
     """flash_attention with inputs that require grad goes through
-    FlashAttentionFunction (one forward and one backward call); bf16 raises
-    in the backward."""
+    FlashAttentionFunction (one forward and one backward call), in f32
+    and in bf16, whose gradients come back bf16 and are held against f64
+    and the witness (assert_bf16_grads)."""
     q, k, v = flash_inputs(9, 2, 64, 64, 4, 2, 64, torch.float32, cuda)
     ins = [x.clone().requires_grad_() for x in (q, k, v)]
     f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
@@ -1115,8 +1166,18 @@ def test_flash_autograd_on_card(cuda):
     for g, r in zip(ins, ref):
         assert rel_err(g.grad, r.grad) <= GRAD_TOL
     bf = [x.bfloat16().requires_grad_() for x in (q, k, v)]
-    with pytest.raises(TypeError, match="float32 only"):
-        FA.flash_attention(*bf).float().sum().backward()
+    do = flash_inputs(10, 2, 64, 64, 4, 2, 64, torch.bfloat16, cuda)[0]
+    f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    o = FA.flash_attention(*bf)
+    assert o.dtype == torch.bfloat16
+    o.backward(do)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    x64 = [x.detach().double() for x in bf]
+    truth = FA.attention_backward_plain(*x64, do.double())
+    lib = sdpa_grads(*(x.detach() for x in bf), do, True)
+    torch.cuda.synchronize()
+    assert_bf16_grads([x.grad for x in bf], truth, lib)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -21,7 +21,9 @@ package's.
   · the record: its keys, the arguments' bytes of each device equal to
     ``state_bytes`` (the batch beside them on the first), the kernels'
     calls;
-  · bf16 into a train cell: ``flash_attention_bwd``'s error, recorded.
+  · the dry run's default dtype, bf16: the reduced train cell traces
+    whole, K3' and ``flash_attention_bwd`` counted at bf16 bytes (the
+    other cells here pass ``dtype=torch.float32``).
 """
 from functools import lru_cache, partial
 
@@ -236,10 +238,33 @@ def test_record_counts_the_state_and_the_kernels():
 
 
 def test_bf16_train_cell_records_the_backward_kernels_error():
-    rec = _port_cell("qwen2-vl-2b", "train", (1, 1), dtype=torch.bfloat16)
-    assert rec["dtype"] == "bfloat16"
-    assert rec["error"].startswith("TypeError: flash_attention_bwd: q has "
-                                   "dtype torch.bfloat16")
+    """The reduced train cell at the dry run's default dtype, bf16: it
+    traces whole (no error recorded: the backward kernels take bf16), K3'
+    and its backward counted per layer at bf16 bytes by their own cost
+    formulas, the step's bound at the bf16 peak."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.launch import hlo_analysis
+    arch = "qwen2-vl-2b"
+    cfg = get_reduced(arch)
+    rec = dryrun.cell_record(arch, "cell", False, cfg=cfg,
+                             shape=ShapeSpec("cell", SEQ, BATCH, "train"),
+                             mesh_shape=(1, 1), verbose=False)
+    assert rec["dtype"] == "bfloat16" and "error" not in rec
+    assert rec["peaks"]["peak_flops"] == hlo_analysis.PEAK_FLOPS[
+        torch.bfloat16]
+    shape = (BATCH, SEQ, SEQ, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, True)
+    n = cfg.n_layers
+    k = rec["kernels"]
+    assert {name: v["calls"] for name, v in k.items()} == {
+        "flash_attention": 2 * n, "flash_attention_bwd": n}
+    # the forward and the group checkpoint's recompute, each with the
+    # rows' log-sum-exp; the backward once
+    assert (k["flash_attention"]["flops"], k["flash_attention"]["bytes"]) \
+        == tuple(2 * n * x for x in FA.flash_cost(*shape, 2, True))
+    assert (k["flash_attention_bwd"]["flops"],
+            k["flash_attention_bwd"]["bytes"]) == tuple(
+        n * x for x in FA.flash_bwd_cost(*shape, 2))
 
 
 def test_perf_probe_attributes_every_count_to_the_port_functions():
@@ -247,7 +272,8 @@ def test_perf_probe_attributes_every_count_to_the_port_functions():
     cfg = get_reduced("qwen2-vl-2b")
     fn, args, _ = dryrun.build_lowerable(
         "qwen2-vl-2b", "cell", multi_pod=False, cfg=cfg,
-        shape=ShapeSpec("cell", SEQ, BATCH, "train"), mesh_shape=(1, 2))
+        shape=ShapeSpec("cell", SEQ, BATCH, "train"), mesh_shape=(1, 2),
+        dtype=torch.float32)
     att = perf_probe.attribute(fn, args)
     cp = att["pass"]
     assert sum(att["flops"].values()) == sum(c.flops

@@ -11,12 +11,14 @@ cost formulas and fake branch (``repro_torch.kernels.costs``).
     by link (host = device index // 8);
   · the four kernel formulas at ``PERF.md``'s shapes (17.2 G for K3′,
     2.68 GFLOP and 176,168,960 B for K2, 43.0 G for the flash backward,
-    306,200,576 B for the wkv backward);
+    336,068,608 B in f32 and 168,296,448 B in bf16, 306,200,576 B for
+    the wkv backward);
   · the fake branch: fake inputs allocate the outputs (and the wkv
     backward's scratch, sized from its source) and report, launch
-    nothing and leave ``launches`` alone, and the kernels' limits hold
-    (bf16 into ``flash_attention_bwd`` raises); a real CPU tensor still
-    takes the plain version in every wrapper.
+    nothing and leave ``launches`` alone; bf16 into
+    ``flash_attention_bwd`` reports bf16 bytes; and the kernels' limits
+    hold (f16 into ``flash_attention_bwd`` raises); a real CPU tensor
+    still takes the plain version in every wrapper.
 """
 import jax
 import jax.numpy as jnp
@@ -145,6 +147,8 @@ def test_collectives_go_to_the_sender_by_tag_and_link():
      167_772_160),
     (FA.flash_bwd_cost, (8, 512, 512, 32, 8, 128, True), 43_033_559_040,
      336_068_608),
+    (FA.flash_bwd_cost, (8, 512, 512, 32, 8, 128, True, 2), 43_033_559_040,
+     168_296_448),
     (W.wkv6_cost, (8, 512, 32, 64), 2_684_354_560, 176_168_960),
     (W.wkv6_bwd_cost, (8, 512, 32, 64), 6_442_450_944, 306_200_576),
 ])
@@ -225,11 +229,29 @@ def test_wkv_backward_scratch_is_sized_from_the_kernel_source():
         b * h * hs + W.bwd_scratch_floats(b, s, h, hs))
 
 
+def test_fake_bf16_backward_reports_bf16_bytes():
+    """bf16 into flash_attention_bwd: bf16 gradients, and the call's bytes
+    at 2 an element (the log-sum-exp f32) by flash_bwd_cost."""
+    with FakeTensorMode():
+        q = torch.empty(1, 64, 4, 32, device="cpu:1", dtype=torch.bfloat16)
+        kv = torch.empty(1, 64, 2, 32, device="cpu:1", dtype=torch.bfloat16)
+        lse = torch.empty(1, 4, 64, device="cpu:1")
+        grads, cp = analyze(FA.flash_attention_bwd, q, kv, kv, q, lse, q)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    assert [tuple(g.shape) for g in grads] == [(1, 64, 4, 32),
+                                               (1, 64, 2, 32),
+                                               (1, 64, 2, 32)]
+    k = cp.kernels["flash_attention_bwd"]
+    assert (k["calls"], k["flops"], k["bytes"]) == (
+        1, *FA.flash_bwd_cost(1, 64, 64, 4, 2, 32, True, 2))
+    assert k["bytes"] == 2 * 32 * (4 * 64 * 4 + 4 * 64 * 2) + 4 * 4 * 64
+
+
 def test_fake_inputs_keep_the_kernels_limits():
     with FakeTensorMode():
-        q = torch.empty(1, 64, 2, 32, device="cpu:1", dtype=torch.bfloat16)
+        q = torch.empty(1, 64, 2, 32, device="cpu:1", dtype=torch.float16)
         lse = torch.empty(1, 2, 64, device="cpu:1")
-        with pytest.raises(TypeError, match="float32 only"):
+        with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
             FA.flash_attention_bwd(q, q, q, q, lse, q)
         with pytest.raises(ValueError, match="head size 24"):
             FA.flash_attention(*(torch.empty(1, 8, 2, 24, device="cpu:1"),)
